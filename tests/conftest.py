@@ -12,3 +12,5 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
