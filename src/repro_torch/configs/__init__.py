@@ -7,10 +7,13 @@ from __future__ import annotations
 
 import importlib
 
-# The dense configuration the serving slice runs; the reference's other
-# architectures join as their model families are ported.
+# The configurations of the ported model families (dense, RWKV6, Hymba
+# hybrid); the reference's other architectures join as their families are
+# ported.
 ARCHS = [
     "stablelm_12b",
+    "rwkv6_1_6b",
+    "hymba_1_5b",
 ]
 
 

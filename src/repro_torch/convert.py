@@ -1,12 +1,14 @@
 """Parameters of the reference JAX package → the port's layout.
 
-`params_from_jax` takes the reference dense transformer's parameter tree
-with every leaf already converted to numpy (e.g.
-`jax.tree.map(np.asarray, params)`, done by the caller: this package
-never imports JAX) and returns the port's state: the same arrays as
-torch tensors, with the reference's stacked (L, ...) layer leaves split
-into a list of per-layer dicts. Both packages then compute the same
-function from the same weights.
+`params_from_jax` takes a parameter tree of the reference's dense
+transformer, RWKV6 model or Hymba hybrid with every leaf already
+converted to numpy (e.g. `jax.tree.map(np.asarray, params)`, done by the
+caller: this package never imports JAX) and returns the port's state: the
+same arrays as torch tensors, each in its own dtype (bf16 weights, f32
+leaves such as RWKV's `w0` and `u` or Mamba's `log_a`), with the
+reference's stacked (L, ...) layer leaves, nested `attn` / `ssm` / `mlp`
+dicts included, split into a list of per-layer dicts. Both packages then
+compute the same function from the same weights.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ def _layer(tree: Mapping[str, Any], i: int, device) -> dict:
 
 
 def params_from_jax(tree: Mapping[str, Any], device="cpu") -> dict:
-    """Reference dense-transformer params (numpy leaves) → port state."""
+    """Reference params (numpy leaves) of a dense, RWKV6 or hybrid model
+    → port state."""
     stacked = tree["layers"]
     n_layers = int(np.asarray(stacked["ln1"]).shape[0])
     state = {"layers": [_layer(stacked, i, device)

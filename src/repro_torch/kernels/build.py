@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"fused_reduce": "fused_reduce.cu", "quant": "quant.cu"}
+SOURCES = {"fused_reduce": "fused_reduce.cu", "quant": "quant.cu",
+           "wkv": "wkv.cu", "ssm_scan": "ssm_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +44,8 @@ SIGNATURES = {
         "quant_reduce_int8_f32": _QR,
         "quant_reduce_int8_bf16": _QR,
     },
+    "wkv": {"wkv_f32": (_P,) * 8 + (_I,) * 5 + (_P,)},
+    "ssm_scan": {"ssm_scan_f32": (_P,) * 8 + (_I,) * 4 + (_P,)},
 }
 
 _lock = threading.Lock()

@@ -7,6 +7,10 @@ raises. There is no fallback from a failed build or launch to the plain
 version. Each wrapper counts its kernel launches in `LAUNCHES`; the plain
 path counts nothing.
 
+The recurrence kernels (`wkv`, `ssm_scan`) take f32 inputs that must be
+contiguous on every device, and return new output and final-state
+tensors.
+
 A reduce kernel has two wrappers, both counted under its name: the dense
 form (`fused_reduce`, `quant_reduce`: the TPU kernel's shape, plus a
 batch axis) and the gathered form (`fused_reduce_into`,
@@ -27,7 +31,12 @@ from . import build, ref
 from .ref import QUANT_TILE, WIRE_QMAX, wire_dtype
 
 # kernel name → launches since the last `reset_launches()`
-LAUNCHES = {"fused_reduce": 0, "quantize": 0, "quant_reduce": 0}
+LAUNCHES = {"fused_reduce": 0, "quantize": 0, "quant_reduce": 0, "wkv": 0,
+            "ssm_scan": 0}
+
+# largest head width (K, V) of the wkv kernel and state width N of the
+# ssm_scan kernel: the state lives in one thread's registers
+RECURRENCE_MAX_WIDTH = 64
 
 
 def reset_launches() -> None:
@@ -310,6 +319,93 @@ def quant_reduce_into(q: torch.Tensor, scales: torch.Tensor,
                              out.shape[1], out, table.out_rows, B)
 
 
-__all__ = ["LAUNCHES", "QUANT_TILE", "WIRE_QMAX", "RowTable",
-           "fused_reduce", "fused_reduce_into", "quant_reduce",
-           "quant_reduce_into", "quantize", "reset_launches", "row_table"]
+def _check_recurrence(what: str, tensors: dict[str, torch.Tensor],
+                      shapes: dict[str, tuple[int, ...]]) -> bool:
+    """Validate the f32 inputs of a recurrence kernel against their
+    expected shapes; returns whether they lie on a CUDA device. Every
+    input must be contiguous on every device, so the CPU tests hold
+    callers to what the kernel takes."""
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} takes f32 inputs; {name} is {t.dtype}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[name]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} needs contiguous inputs; {name} is not")
+    return _on_cuda(*tensors.values())
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 WKV recurrence (the reference's `kernels/wkv.py`): r/k/logw
+    (B, H, T, K), v (B, H, T, V), u (H, K), s0 (B, H, K, V), all f32 and
+    contiguous, T >= 1, K and V <= 64 → (out (B, H, T, V), final state
+    (B, H, K, V)), both new tensors."""
+    if r.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"wkv takes (B, H, T, K) and (B, H, T, V) inputs; "
+                         f"got {tuple(r.shape)} and {tuple(v.shape)}")
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    if T < 1 or not 1 <= K <= RECURRENCE_MAX_WIDTH \
+            or not 1 <= V <= RECURRENCE_MAX_WIDTH:
+        raise ValueError(f"wkv takes T >= 1 and 1 <= K, V <= "
+                         f"{RECURRENCE_MAX_WIDTH}; got T={T}, K={K}, V={V}")
+    cuda = _check_recurrence(
+        "wkv", dict(r=r, k=k, v=v, logw=logw, u=u, s0=s0),
+        dict(r=(B, H, T, K), k=(B, H, T, K), v=(B, H, T, V),
+             logw=(B, H, T, K), u=(H, K), s0=(B, H, K, V)))
+    if not cuda:
+        return ref.wkv_ref(r, k, v, logw, u, s0)
+    lib = build.load("wkv")
+    out = torch.empty((B, H, T, V), dtype=torch.float32, device=r.device)
+    s_fin = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        _check(lib.wkv_f32(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           logw.data_ptr(), u.data_ptr(), s0.data_ptr(),
+                           out.data_ptr(), s_fin.data_ptr(), B, H, T, K, V,
+                           _stream(r)), "wkv")
+    LAUNCHES["wkv"] += 1
+    return out, s_fin
+
+
+def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, log_a: torch.Tensor, s0: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective-SSM scan (the reference's `kernels/ssm_scan.py`): u/dt
+    (B, T, Di), b/c (B, T, N), log_a (Di, N), s0 (B, Di, N), all f32 and
+    contiguous, T >= 1, N <= 64 → (y (B, T, Di), final state (B, Di, N)),
+    both new tensors."""
+    if u.dim() != 3 or b.dim() != 3:
+        raise ValueError(f"ssm_scan takes (B, T, Di) and (B, T, N) inputs; "
+                         f"got {tuple(u.shape)} and {tuple(b.shape)}")
+    B, T, Di = u.shape
+    N = b.shape[-1]
+    if T < 1 or Di < 1 or not 1 <= N <= RECURRENCE_MAX_WIDTH:
+        raise ValueError(f"ssm_scan takes T, Di >= 1 and 1 <= N <= "
+                         f"{RECURRENCE_MAX_WIDTH}; got T={T}, Di={Di}, "
+                         f"N={N}")
+    cuda = _check_recurrence(
+        "ssm_scan", dict(u=u, dt=dt, b=b, c=c, log_a=log_a, s0=s0),
+        dict(u=(B, T, Di), dt=(B, T, Di), b=(B, T, N), c=(B, T, N),
+             log_a=(Di, N), s0=(B, Di, N)))
+    if not cuda:
+        return ref.ssm_scan_ref(u, dt, b, c, log_a, s0)
+    lib = build.load("ssm_scan")
+    y = torch.empty((B, T, Di), dtype=torch.float32, device=u.device)
+    s_fin = torch.empty((B, Di, N), dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        _check(lib.ssm_scan_f32(u.data_ptr(), dt.data_ptr(), b.data_ptr(),
+                                c.data_ptr(), log_a.data_ptr(),
+                                s0.data_ptr(), y.data_ptr(),
+                                s_fin.data_ptr(), B, T, Di, N, _stream(u)),
+               "ssm_scan")
+    LAUNCHES["ssm_scan"] += 1
+    return y, s_fin
+
+
+__all__ = ["LAUNCHES", "QUANT_TILE", "RECURRENCE_MAX_WIDTH", "WIRE_QMAX",
+           "RowTable", "fused_reduce", "fused_reduce_into", "quant_reduce",
+           "quant_reduce_into", "quantize", "reset_launches", "row_table",
+           "ssm_scan", "wkv"]

@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each function computes exactly what its CUDA kernel in `csrc/` computes,
-in the same order of float operations, so the kernel can be held against
-it bit for bit on the card; the wrappers in `ops.py` run these for CPU
-tensors. They are also held against the JAX package's oracles
-(`repro/kernels/ref.py`) on shared numpy inputs by the CPU tests.
+Each reduce and quantize function computes exactly what its CUDA kernel
+in `csrc/` computes, in the same order of float operations, so the kernel
+can be held against it bit for bit on the card; the recurrences (`wkv_ref`,
+`ssm_scan_ref`) reduce in another order than their kernels and are held
+to a tolerance. The wrappers in `ops.py` run these for CPU tensors.
+They are also held against the JAX package's Pallas kernels and oracles
+on shared numpy inputs by the CPU tests.
 """
 from __future__ import annotations
 
@@ -151,3 +153,46 @@ def quant_reduce_into_ref(q: torch.Tensor, scales: torch.Tensor,
     if own_rows is not None:
         acc = _add_rows(acc, out, own_rows)
     out[out_rows] = acc.to(out.dtype)
+
+
+def wkv_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 WKV recurrence, token by token, in f32. r/k/logw (B, H, T, K),
+    v (B, H, T, V), u (H, K), s0 (B, H, K, V) → (out (B, H, T, V), final
+    state (B, H, K, V)):
+
+        o_t = Σ_k r_t[k] · (S[k, :] + u[k] · k_t[k] · v_t)
+        S  ← exp(logw_t) ⊙ S + k_t ⊗ v_t   (decay per row k)
+
+    The same function as the reference's chunked form; the kernel sums
+    over k in another order, so the two agree to rounding."""
+    w = torch.exp(logw)
+    s = s0
+    outs = []
+    for t in range(r.shape[2]):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]        # (B, H, K, V)
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, :, t],
+                                 s + u[None, :, :, None] * kv))
+        s = w[:, :, t, :, None] * s + kv
+    return torch.stack(outs, dim=2), s
+
+
+def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, log_a: torch.Tensor, s0: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective-SSM scan, token by token, in f32. u/dt (B, T, Di), b/c
+    (B, T, N), log_a (Di, N), s0 (B, Di, N) → (y (B, T, Di), final state
+    (B, Di, N)):
+
+        s ← exp(dt_t ⊙ log_a) ⊙ s + (dt_t · u_t) ⊗ b_t,  y_t = s · c_t
+
+    The kernel sums over N in another order, so the two agree to
+    rounding."""
+    s = s0
+    ys = []
+    for t in range(u.shape[1]):
+        decay = torch.exp(dt[:, t, :, None] * log_a)           # (B, Di, N)
+        s = decay * s + (dt[:, t] * u[:, t])[:, :, None] * b[:, t, None, :]
+        ys.append((s * c[:, t, None, :]).sum(dim=-1))
+    return torch.stack(ys, dim=1), s

@@ -1,8 +1,9 @@
-"""Uniform model API (dense family).
+"""Uniform model API over the ported families.
 
 `build(cfg)` returns a ModelAPI exposing init / prefill / decode / cache
-over the dense transformer; the other families of the reference registry
-are not ported yet.
+over the dense transformer, the RWKV6 model (family "ssm") or the Hymba
+hybrid (family "hybrid"); the reference registry's other families (MoE,
+encoder-decoder) are not ported yet.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Callable
 
 import torch
 
-from . import transformer
+from . import hybrid_model, rwkv_model, transformer
 from .config import ModelConfig
 
 
@@ -38,8 +39,41 @@ def _dense_api(cfg: ModelConfig) -> ModelAPI:
     )
 
 
+def _rwkv_api(cfg: ModelConfig) -> ModelAPI:
+    return ModelAPI(
+        cfg=cfg,
+        init_params=lambda gen, dtype=torch.bfloat16, device="cpu":
+            rwkv_model.init_params(gen, cfg, dtype, device),
+        prefill=lambda params, batch, cache_len: rwkv_model.prefill(
+            params, cfg, batch["tokens"], cache_len=cache_len),
+        decode_step=lambda params, state, batch: rwkv_model.decode_step(
+            params, cfg, state, batch["tokens"]),
+        # the recurrent state does not depend on the sequence length
+        init_cache=lambda b, s, dtype=torch.bfloat16, device="cpu":
+            rwkv_model.init_state(cfg, b, dtype, device),
+    )
+
+
+def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
+    return ModelAPI(
+        cfg=cfg,
+        init_params=lambda gen, dtype=torch.bfloat16, device="cpu":
+            hybrid_model.init_params(gen, cfg, dtype, device),
+        prefill=lambda params, batch, cache_len: hybrid_model.prefill(
+            params, cfg, batch["tokens"], cache_len=cache_len),
+        decode_step=lambda params, cache, batch: hybrid_model.decode_step(
+            params, cfg, cache, batch["tokens"]),
+        init_cache=lambda b, s, dtype=torch.bfloat16, device="cpu":
+            hybrid_model.init_cache(cfg, b, s, dtype, device),
+    )
+
+
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense" or cfg.n_experts:
+    if cfg.n_experts or cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet")
+    if cfg.family == "ssm":
+        return _rwkv_api(cfg)
+    if cfg.family == "hybrid":
+        return _hybrid_api(cfg)
     return _dense_api(cfg)

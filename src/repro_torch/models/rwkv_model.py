@@ -1,0 +1,91 @@
+"""RWKV6 (Finch) language model — attention-free, with a recurrent state.
+
+Mirrors the reference `models/rwkv_model.py` (serving path: no loss, no
+rematerialisation). The state per layer is the (B, H, K, V) WKV matrix
+plus the one-token shift buffers of the time mix and the channel mix,
+stacked on a leading (L,) axis as in the reference; `params["layers"]` is
+a list of per-layer dicts run by a Python loop (`convert.params_from_jax`
+unstacks the reference's layout). Decode is a one-token forward that
+carries the state, O(1) per token whatever the context length.
+"""
+from __future__ import annotations
+
+import torch
+
+from .config import ModelConfig
+from .layers import Params, dense_init, embed, rmsnorm
+from .recurrence import init_rwkv, rwkv_channel_mix, rwkv_time_mix
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                dtype=torch.bfloat16, device="cpu") -> Params:
+    """Random weights drawn from `gen` (a generator on `device`)."""
+    d = cfg.d_model
+
+    def layer():
+        p = init_rwkv(gen, cfg, dtype, device)
+        p["ln1"] = torch.zeros((d,), dtype=dtype, device=device)
+        p["ln2"] = torch.zeros((d,), dtype=dtype, device=device)
+        return p
+
+    return {
+        "layers": [layer() for _ in range(cfg.n_layers)],
+        "ln_f": torch.zeros((d,), dtype=dtype, device=device),
+        "embed": dense_init(gen, (cfg.vocab, d), scale=0.02, dtype=dtype,
+                            device=device),
+        "lm_head": dense_init(gen, (d, cfg.vocab), dtype=dtype,
+                              device=device),
+    }
+
+
+def init_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+               device="cpu") -> dict:
+    """Zero state: WKV matrices in f32, shift buffers in the activations'
+    dtype (storing them narrower would break prefill → decode
+    consistency)."""
+    hd = cfg.head_dim
+    shift = (cfg.n_layers, batch, 1, cfg.d_model)
+    return {
+        "wkv": torch.zeros((cfg.n_layers, batch, cfg.n_heads, hd, hd),
+                           dtype=torch.float32, device=device),
+        "tm_shift": torch.zeros(shift, dtype=dtype, device=device),
+        "cm_shift": torch.zeros(shift, dtype=dtype, device=device),
+    }
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            state: dict | None = None) -> tuple[torch.Tensor, dict]:
+    """Logits (B, T, V) over tokens (B, T), and the state after the last
+    token: `state` updated in place, or a new one from zeros."""
+    x = embed(params["embed"], tokens)
+    st = state if state is not None else init_state(
+        cfg, x.shape[0], x.dtype, x.device)
+    for i, lp in enumerate(params["layers"]):
+        z = rmsnorm(x, lp["ln1"])
+        h, s_new = rwkv_time_mix(lp, z, cfg, state=st["wkv"][i],
+                                 shift_prev=st["tm_shift"][i].to(z.dtype))
+        x = x + h
+        z2 = rmsnorm(x, lp["ln2"])
+        x = x + rwkv_channel_mix(lp, z2,
+                                 shift_prev=st["cm_shift"][i].to(z2.dtype))
+        st["wkv"][i] = s_new
+        st["tm_shift"][i] = z[:, -1:]
+        st["cm_shift"][i] = z2[:, -1:]
+    x = rmsnorm(x, params["ln_f"])
+    return x @ params["lm_head"], st
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            cache_len: int = 0) -> tuple[torch.Tensor, dict]:
+    """Forward over the prompt from a zero state; returns (last-token
+    logits (B, 1, V), state). The state does not grow with the sequence,
+    so `cache_len` is ignored."""
+    logits, state = forward(params, cfg, tokens)
+    return logits[:, -1:], state
+
+
+def decode_step(params: Params, cfg: ModelConfig, state: dict,
+                tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """One token (B, 1): a T=1 forward threading the recurrent state.
+    Returns (logits (B, 1, V), the state, updated in place)."""
+    return forward(params, cfg, tokens, state=state)

@@ -161,3 +161,65 @@ def test_run_local_on_card(dev, topo, wire, dtype):
     # the same schedule on the CPU runs the plain versions: the same
     # float operations in the same order
     assert torch.equal(got.cpu(), cs.run_local(X.cpu()))
+
+
+# The recurrence kernels reduce in another order than their plain
+# versions: output and final state within 1e-5 of the largest |value|.
+RECURRENCE_RTOL = 1e-5
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+def _wkv_args(B, H, T, K, V, seed, dev):
+    return (_rand((B, H, T, K), seed, dev), _rand((B, H, T, K), seed + 1, dev),
+            _rand((B, H, T, V), seed + 2, dev),
+            -torch.exp(_rand((B, H, T, K), seed + 3, dev)),
+            _rand((H, K), seed + 4, dev, 0.1),
+            _rand((B, H, K, V), seed + 5, dev, 0.1))
+
+
+def _ssm_args(B, T, Di, N, seed, dev):
+    return (_rand((B, T, Di), seed, dev),
+            torch.nn.functional.softplus(_rand((B, T, Di), seed + 1, dev)),
+            _rand((B, T, N), seed + 2, dev), _rand((B, T, N), seed + 3, dev),
+            -torch.exp(_rand((Di, N), seed + 4, dev, 0.5)),
+            _rand((B, Di, N), seed + 5, dev, 0.1))
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("wkv", (4, 32, 32, 64, 64)), ("wkv", (4, 32, 1, 64, 64)),
+    ("wkv", (2, 3, 40, 16, 16)), ("wkv", (1, 2, 5, 33, 20)),
+    ("ssm_scan", (4, 32, 3200, 16)), ("ssm_scan", (4, 1, 3200, 16)),
+    ("ssm_scan", (2, 40, 200, 8)), ("ssm_scan", (1, 3, 130, 64))])
+def test_recurrence_kernel_matches_plain(dev, kernel, shape):
+    args = (_wkv_args if kernel == "wkv" else _ssm_args)(*shape, 11, dev)
+    before = ops.LAUNCHES[kernel]
+    out, state = getattr(ops, kernel)(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == before + 1
+    want, s_want = getattr(ref, f"{kernel}_ref")(*args)
+    assert out.shape == want.shape and state.shape == s_want.shape
+    assert _rel(out, want) <= RECURRENCE_RTOL
+    assert _rel(state, s_want) <= RECURRENCE_RTOL
+
+
+@pytest.mark.parametrize("kernel", ["wkv", "ssm_scan"])
+def test_recurrence_kernel_state_handoff(dev, kernel):
+    """Two launches over the halves of the sequence, the state handed
+    over, equal one launch over the whole."""
+    if kernel == "wkv":
+        *seq, fixed, s0 = _wkv_args(2, 4, 40, 64, 64, 12, dev)
+        dim = 2
+    else:
+        *seq, fixed, s0 = _ssm_args(2, 40, 200, 16, 12, dev)
+        dim = 1
+    fn = getattr(ops, kernel)
+    whole, s_whole = fn(*seq, fixed, s0)
+    a, s1 = fn(*(x.narrow(dim, 0, 17).contiguous() for x in seq), fixed, s0)
+    b, s2 = fn(*(x.narrow(dim, 17, 23).contiguous() for x in seq), fixed, s1)
+    torch.cuda.synchronize()
+    assert _rel(torch.cat([a, b], dim=dim), whole) <= RECURRENCE_RTOL
+    assert _rel(s2, s_whole) <= RECURRENCE_RTOL

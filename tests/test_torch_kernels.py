@@ -218,8 +218,15 @@ def test_cpu_path_counts_no_launch():
     table = ops.row_table([[0, 1]], [2], [2])
     ops.fused_reduce_into(x, table, x)
     ops.quant_reduce_into(q, s, table, x)
-    assert ops.LAUNCHES == {"fused_reduce": 0, "quantize": 0,
-                            "quant_reduce": 0}
+    r = torch.from_numpy(_np((1, 2, 3, 8), 61))
+    ops.wkv(r, r, r, -r.exp(), torch.zeros(2, 8), torch.zeros(1, 2, 8, 8))
+    u = torch.from_numpy(_np((1, 3, 6), 62))
+    b = torch.from_numpy(_np((1, 3, 4), 63))
+    ops.ssm_scan(u, u.exp(), b, b, -torch.ones(6, 4), torch.zeros(1, 6, 4))
+    # every kernel of the port has a count, and the CPU path adds to none
+    assert {"fused_reduce", "quantize", "quant_reduce", "wkv",
+            "ssm_scan"} <= set(ops.LAUNCHES)
+    assert all(n == 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
 
 
 @pytest.mark.parametrize("call", [
