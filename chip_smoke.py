@@ -12,14 +12,25 @@ any error:
                 over a grid of shapes, in the dense form (the TPU
                 kernel's shape) and the gathered form the executor folds
                 with, with its time (CUDA events), its bound (bytes over
-                the memory rate or operations over the f32 rate, the
-                larger) and one PyTorch yardstick call where one computes
-                the same function. The reduce and quantize kernels must
-                agree bit for bit; the recurrences (wkv, ssm_scan) within
-                1e-5 of the largest |value| of each output (output and
-                final state), since their plain versions reduce in
-                another order; two calls over the halves of a sequence,
-                the state handed over, must equal one call;
+                the memory rate or operations over the peak rate of
+                their type, the larger) and one PyTorch yardstick call
+                where one computes the same function. The reduce and
+                quantize kernels must agree bit for bit; the others
+                (wkv, ssm_scan, rmsnorm, flash_attention), whose plain
+                versions reduce in another order, within TOLERANCE of
+                the largest |value| of each output (of each query row's
+                output for attention): 1e-5 for an f32 output, 2^-8 (one
+                bf16 rounding) for a bf16 one, held against the plain
+                version on the same inputs widened to f32; two
+                recurrence calls over the halves of a sequence, the
+                state handed over, must equal one call. Attention runs
+                at the four models' prefill and decode shapes (ragged
+                per-row key counts at decode), the smoke widths in f32,
+                and gemma2-27b's long request (prefill of 4,352 tokens,
+                decode against 4,360 of 4,416 cache slots, the 4096
+                window masking); rmsnorm at 4·32 rows of every model's
+                width, both offsets, every dtype pair, and over the long
+                prefill's 4,352 rows;
   3. executor — GenTree plans from the planner, lowered and run with
                 `run_local` on an 8-rank local mesh (a single switch and
                 the two-level tree), decode-sized and gradient-sized, in
@@ -29,21 +40,28 @@ any error:
                 synchronize) and two bounds: the schedule's (every
                 round's and fold's rows crossing memory once) and the
                 function's (input read and output written once);
-  4. serve    — `repro_torch.launch.serve` on stablelm-12b, rwkv6-1.6b
-                and hymba-1.5b in turn, each at full size (random bf16
-                weights), batch 4, prompt 32, 32 new tokens, cache 128,
-                8 local ranks; after each, a few decode steps of the same
-                model under torch.profiler (device busy share, kernels per
-                step, weight-read bound); then each family's smoke-size
-                model in f32 on the card against the same code on the CPU.
+  4. serve    — `repro_torch.launch.serve` on stablelm-12b, rwkv6-1.6b,
+                hymba-1.5b and gemma2-27b in turn, each at full size
+                (random bf16 weights), batch 4, prompt 32, 32 new tokens,
+                cache 128, 8 local ranks; after each, a few decode steps
+                of the same model under torch.profiler (device busy
+                share, kernels per step, weight-read bound); then one
+                long gemma2-27b request (batch 1, prompt 4,352, 8 new
+                tokens, cache 4,416), so the local layers' 4096 window
+                masks in prefill and decode; each model is freed before
+                the next; then each model's smoke-size version in f32 on
+                the card against the same code on the CPU (gemma2-27b on
+                a 48-token prompt, longer than its smoke window).
 
 The main path is phases 3 and 4: every launch count is zeroed just
-before the executor and before each served model, and read just after.
+before the executor and before each served run, and read just after.
 The executor must launch fused_reduce, quantize and quant_reduce (it runs
-the compressed wires); every served model must launch fused_reduce (the
-decode AllReduce folds through it), rwkv6-1.6b the wkv kernel and
-hymba-1.5b the ssm_scan kernel exactly once per layer per forward
-(prefill and 31 decode steps: 768 and 1,024 launches), with no guard
+the compressed wires); every served run must launch fused_reduce (the
+decode AllReduce folds through it) and exactly the model kernels its
+forwards (prefill and each decode step) run: rmsnorm once per norm (2 a
+dense layer, 3 an RWKV6 layer, 4 a Hymba layer, and the final norm),
+flash_attention once per attention layer, wkv once per RWKV6 layer and
+ssm_scan once per Hymba layer (`expected_launches`), with no guard
 demotion or failure anywhere (the guard raises rather than demote, so a
 failure ends the run). The last lines are the per-kernel JSON (launches
 on the main path; time, plain time, bound and yardstick of the wrapper
@@ -64,21 +82,36 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 SPIN_HZ = 1.98e9                 # H100 SXM boost clock: spin cycles per s
 KERNEL_LANES = (1000, 20480, 1 << 26)                 # phase 2 grid
 INTO_LANES = (2560, 1 << 23)                # phase 2, gathered forms
 EXEC_SIZES = ((4 * 5120, "decode 4x5120"), (1 << 26, "gradient 2^26"))
 SERVE = dict(batch=4, prompt_len=32, max_new=32, cache_len=128,
              local_ranks=8)
-SERVE_ARCHS = ("stablelm-12b", "rwkv6-1.6b", "hymba-1.5b")
-# the recurrence kernel a served family must launch once per layer per
-# forward (prefill and every decode step)
+SERVE_ARCHS = ("stablelm-12b", "rwkv6-1.6b", "hymba-1.5b", "gemma2-27b")
+# one long request after the batch: its prompt is longer than gemma2-27b's
+# 4096 window, so the local layers mask in prefill and decode
+LONG = dict(arch="gemma2-27b", batch=1, prompt_len=4352, max_new=8,
+            cache_len=4416, local_ranks=8)
+# per family, what one forward launches per layer: its norms (ln1 and
+# ln2; RWKV6 adds ln_x, Hymba ln_attn and ln_ssm), its attention and its
+# recurrence kernel; the final norm comes on top
+NORMS_PER_LAYER = {"dense": 2, "ssm": 3, "hybrid": 4}
+ATTENTION_PER_LAYER = {"dense": 1, "ssm": 0, "hybrid": 1}
 RECURRENCE = {"ssm": "wkv", "hybrid": "ssm_scan"}
 PROFILE_STEPS = 4                # decode steps traced after serving
+# (batch, prompt, cache) of the smoke-size model held card against CPU
+REFERENCE_RUN = {"gemma2-27b": (2, 48, 64)}
 # largest disagreement a kernel may show with its plain version: 0 = bit
-# for bit; otherwise a share of the largest |value| of each output
+# for bit; otherwise a share of the largest |value| of each output (for
+# flash_attention, of each query row's output), by output dtype where the
+# kernel writes f32 or bf16 (a bf16 output is one rounding of the f32
+# result: 2^-8 of the largest |value|)
 TOLERANCE = {"fused_reduce": 0.0, "quantize": 0.0, "quant_reduce": 0.0,
-             "wkv": 1e-5, "ssm_scan": 1e-5}
+             "wkv": 1e-5, "ssm_scan": 1e-5,
+             "rmsnorm": {"float32": 1e-5, "bfloat16": 2.0 ** -8},
+             "flash_attention": {"float32": 1e-5, "bfloat16": 2.0 ** -8}}
 
 
 def fail(msg: str) -> None:
@@ -153,13 +186,32 @@ def rel_cmp(got, want) -> tuple[float, float]:
             max(e / (m + 1e-30) for e, m in errs))
 
 
+def tolerance(name: str, r: dict) -> float:
+    tol = TOLERANCE[name]
+    return tol[r["out_dtype"]] if isinstance(tol, dict) else tol
+
+
 def within(name: str, r: dict) -> bool:
     """Whether measured result `r` of kernel `name` is within its
     TOLERANCE of the plain version."""
-    tol = TOLERANCE[name]
+    tol = tolerance(name, r)
     if tol == 0.0:
         return r["max_abs_err"] == 0.0
     return r["max_rel_err"] <= tol
+
+
+def rel_cmp1(got, want) -> tuple[float, float]:
+    return rel_cmp((got,), (want,))
+
+
+def rel_rows(got, want) -> tuple[float, float]:
+    """(largest |difference|, largest |difference| over the largest |value|
+    of its row (last dim)): an attention output's rows differ in scale by
+    the number of keys they average, so a fault in the small late rows
+    of a long sequence must not hide under the first rows' scale."""
+    diff = (got.double() - want.double()).abs()
+    row = want.double().abs().amax(dim=-1, keepdim=True)
+    return float(diff.max()), float((diff / (row + 1e-30)).max())
 
 
 # ---------------------------------------------------------------------------
@@ -334,19 +386,127 @@ def ssm_scan_case(B, T, Di, N, dev, seed=0):
                 nbytes=nbytes, flops=flops, cmp=rel_cmp, args=args)
 
 
+def rmsnorm_case(shape, x_dtype, w_dtype, offset, dev, seed=0,
+                 last_token=False):
+    """The rmsnorm kernel on x `shape` ~ N(0, 3²) and w ~ N(0, 0.5²), or
+    with `last_token` on the strided rows x[:, -1:] of such an x (B, T,
+    D), as the models' final norm after prefill; the yardstick is
+    `F.rms_norm` with (offset + w) formed beforehand."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 3.0).to(x_dtype)
+    if last_token:
+        x = x[:, -1:]
+    D = shape[-1]
+    w = (torch.randn((D,), generator=g, device=dev) * 0.5).to(w_dtype)
+    w_lib = (offset + w.float()).to(x_dtype)
+    # x read and y written once, w read once; 4 flops an element
+    nbytes = 2 * x.numel() * x.element_size() + D * w.element_size()
+    return dict(kernel=lambda: ops.rmsnorm(x, w, offset=offset),
+                plain=lambda: ref.rmsnorm(x, w, offset=offset),
+                want=lambda: ref.rmsnorm(x.float(), w, offset=offset),
+                library=lambda: F.rms_norm(x, (D,), w_lib, eps=1e-6),
+                nbytes=nbytes, flops=4 * x.numel(), cmp=rel_cmp1,
+                out_dtype=x_dtype)
+
+
+def visible_keys(B, Tq, Tk, kv_len, causal, window):
+    """(Σ over batch rows and queries of the keys each query sees, Σ over
+    batch rows of the key rows some query of the row sees): what the
+    attention of this run's data must compute and read."""
+    pairs = rows = 0
+    for n in kv_len if kv_len is not None else [Tk] * B:
+        n = min(max(int(n), 0), Tk)
+        lo_all, hi_all = n, 0
+        for i in range(Tq):
+            p = n - Tq + i
+            hi = min(n, p + 1) if causal else n
+            lo = max(0, p - window + 1) if window > 0 else 0
+            if hi > lo:
+                pairs += hi - lo
+                lo_all, hi_all = min(lo_all, lo), max(hi_all, hi)
+        rows += max(0, hi_all - lo_all)
+    return pairs, rows
+
+
+def flash_case(B, Hq, Hkv, Tq, Tk, D, dtype, dev, *, window=0, softcap=0.0,
+               kv_len=None, causal=True, seed=0):
+    """The flash_attention kernel on q, k, v ~ N(0, 1): q a head transpose
+    of a (B, Tq, Hq, D) tensor (the models' projection layout), k/v
+    (B, Hkv, Tk, D) (the cache layout), kv_len a list of per-row key
+    counts or None; held per query row (`rel_rows`). Bound: bytes (q,
+    the visible K/V rows, out and kv_len once) against operations (4·D
+    per visible score, on the bf16 tensor cores for bf16 inputs, the f32
+    units for f32). The yardstick is `F.scaled_dot_product_attention`
+    with `enable_gqa` wherever it computes the same function: no softcap
+    and every query row sees a key. It takes `is_causal` where nothing
+    else masks (no per-row counts, a window of at least Tk, Tq == Tk) or
+    no mask where nothing masks at all; otherwise a boolean mask built
+    before timing."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Tq, Hq, D), generator=g, device=dev).to(
+        dtype).transpose(1, 2)
+    k = torch.randn((B, Hkv, Tk, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Hkv, Tk, D), generator=g, device=dev).to(dtype)
+    n = (None if kv_len is None
+         else torch.tensor(kv_len, dtype=torch.long, device=dev))
+    kw = dict(causal=causal, window=window, softcap=softcap, kv_len=n)
+    pairs, rows = visible_keys(B, Tq, Tk, kv_len, causal, window)
+    elem = q.element_size()
+    nbytes = (elem * (2 * B * Hq * Tq * D + 2 * rows * Hkv * D)
+              + (0 if n is None else 8 * B))
+    nk = torch.full((B,), Tk, device=dev) if n is None else n.clamp(0, Tk)
+    qpos = nk[:, None] - Tq + torch.arange(Tq, device=dev)   # (B, Tq)
+    kpos = torch.arange(Tk, device=dev)
+    mask = (kpos < nk[:, None, None]).expand(B, Tq, Tk)
+    if causal:
+        mask = mask & (kpos <= qpos[..., None])
+    if window > 0:
+        mask = mask & (kpos > qpos[..., None] - window)
+    mask = mask[:, None].contiguous()                        # (B, 1, Tq, Tk)
+    library = None
+    if softcap == 0 and bool(mask.any(dim=-1).all()):
+        if n is None and (window == 0 or window >= Tk) \
+                and (not causal or Tq == 1):
+            attn = dict()
+        elif n is None and (window == 0 or window >= Tk) and Tq == Tk:
+            attn = dict(is_causal=True)
+        else:
+            attn = dict(attn_mask=mask)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, enable_gqa=True, **attn)
+    return dict(kernel=lambda: ops.flash_attention(q, k, v, **kw),
+                plain=lambda: ref.flash_attention(q, k, v, **kw),
+                want=lambda: ref.flash_attention(q.float(), k.float(),
+                                                 v.float(), **kw),
+                library=library, nbytes=nbytes, flops=4 * Hq * D * pairs,
+                rate=BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS,
+                cmp=rel_rows, out_dtype=dtype)
+
+
 def measure(case) -> dict:
-    """Agreement with the plain version, device times of kernel, plain
-    version and yardstick, and the bound: the larger of the bytes over
-    the memory rate and (where the case counts them) the operations over
-    the f32 rate."""
+    """Agreement with the plain version (or with `want`, the plain
+    version on the inputs widened to f32, where the case gives one),
+    device times of kernel, plain version and yardstick, and the bound:
+    the larger of the bytes over the memory rate and (where the case
+    counts them) the operations over the peak rate of their type (f32
+    unless the case names another)."""
     import torch
     got = case["kernel"]()
-    want = case["plain"]()
+    want = case.get("want", case["plain"])()
     torch.cuda.synchronize()
     err = (case["cmp"] if "cmp" in case else max_abs_err)(got, want)
+    lib_err = None
+    if case.get("cmp") is rel_rows and case["library"] is not None:
+        lib_err = rel_rows(case["library"](), want)[1]
     del got, want
     t_bytes = bound_ms(case["nbytes"])
-    t_ops = case.get("flops", 0) / F32_FLOPS * 1e3
+    t_ops = case.get("flops", 0) / case.get("rate", F32_FLOPS) * 1e3
     out = {"max_abs_err": err[0] if isinstance(err, tuple) else err,
            "ms": device_ms(case["kernel"]),
            "plain_ms": device_ms(case["plain"]),
@@ -356,6 +516,10 @@ def measure(case) -> dict:
                           if case["library"] is not None else None)}
     if isinstance(err, tuple):
         out["max_rel_err"] = err[1]
+    if lib_err is not None:
+        out["library_rel_err"] = lib_err
+    if "out_dtype" in case:
+        out["out_dtype"] = str(case["out_dtype"]).removeprefix("torch.")
     torch.cuda.synchronize()
     return out
 
@@ -477,14 +641,101 @@ def phase_kernels(dev) -> None:
         if not err <= TOLERANCE[name]:
             fail(f"{name}: the state handoff disagrees with one call by "
                  f"{err:.2e}")
+    rows += model_kernel_grid(dev)
     for name, what, r in rows:
         lib = (f" library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
         rel = (f" (rel {r['max_rel_err']:.1e})" if "max_rel_err" in r
                else "")
-        log(f"kernel {name:12s} {what:38s} err {r['max_abs_err']:.1e}{rel} "
+        if "library_rel_err" in r:
+            lib += f" (rel {r['library_rel_err']:.1e})"
+        log(f"kernel {name:15s} {what:38s} err {r['max_abs_err']:.1e}{rel} "
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
+
+
+RAGGED = [33, 47, 60, 128]        # decode key counts of 4 batch rows
+# attention grid: what, (B, Hq, Hkv, Tq, Tk, D), dtype, window, softcap,
+# per-row key counts
+FLASH_GRID = [
+    ("stablelm-12b prefill", (4, 32, 8, 32, 32, 160), "bf16", 0, 0.0, None),
+    ("stablelm-12b decode", (4, 32, 8, 1, 128, 160), "bf16", 0, 0.0,
+     RAGGED),
+    ("hymba-1.5b prefill", (4, 25, 5, 32, 32, 64), "bf16", 1024, 0.0, None),
+    ("hymba-1.5b prefill w24", (4, 25, 5, 32, 32, 64), "bf16", 24, 0.0,
+     None),
+    ("hymba-1.5b decode", (4, 25, 5, 1, 128, 64), "bf16", 1024, 0.0, RAGGED),
+    ("hymba-1.5b decode w24", (4, 25, 5, 1, 128, 64), "bf16", 24, 0.0,
+     RAGGED),
+    ("gemma2-27b prefill local", (4, 32, 16, 32, 32, 128), "bf16", 4096,
+     50.0, None),
+    ("gemma2-27b prefill global", (4, 32, 16, 32, 32, 128), "bf16", 0,
+     50.0, None),
+    ("gemma2-27b decode local", (4, 32, 16, 1, 128, 128), "bf16", 4096,
+     50.0, RAGGED),
+    ("gemma2-27b decode w24", (4, 32, 16, 1, 128, 128), "bf16", 24, 50.0,
+     RAGGED),
+    ("smoke f32 Tq 32 Tk 128", (2, 4, 2, 32, 128, 16), "f32", 24, 50.0,
+     None),
+    ("smoke f32 decode, a row sees none", (2, 4, 2, 1, 32, 16), "f32", 24,
+     50.0, [0, 32]),
+    ("smoke f32 group 1", (2, 4, 4, 32, 32, 16), "f32", 0, 0.0, None),
+    ("D 160 f32 ragged", (2, 8, 2, 32, 128, 160), "f32", 0, 0.0, [100, 40]),
+    ("gemma2-27b long local", (1, 32, 16, 4352, 4352, 128), "bf16", 4096,
+     50.0, None),
+    ("gemma2-27b long global", (1, 32, 16, 4352, 4352, 128), "bf16", 0,
+     50.0, None),
+    ("gemma2-27b long decode local", (1, 32, 16, 1, 4416, 128), "bf16",
+     4096, 50.0, [4360]),
+    ("gemma2-27b long decode global", (1, 32, 16, 1, 4416, 128), "bf16", 0,
+     50.0, [4360]),
+    ("decode Tq 3", (2, 8, 2, 3, 200, 128), "f32", 50, 0.0, [180, 2]),
+]
+# rmsnorm widths: stablelm-12b, rwkv6-1.6b (d and ln_x), hymba-1.5b,
+# gemma2-27b, the smoke models
+RMSNORM_WIDTHS = (5120, 2048, 1600, 4608, 64)
+
+
+def model_kernel_grid(dev) -> list:
+    """The model kernels (flash_attention, rmsnorm) against their plain
+    versions over FLASH_GRID and 4·32 rows of each of RMSNORM_WIDTHS
+    (both offsets, every dtype pair), plus the decode rows and the
+    strided last-token rows of the widest model; fails on the first
+    disagreement beyond TOLERANCE."""
+    import torch
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rows = []
+
+    def check(name, what, case):
+        r = measure(case)
+        rows.append((name, what, r))
+        if not within(name, r):
+            fail(f"{name} {what} differs from its plain version by "
+                 f"{r['max_rel_err']:.2e} of the largest |value| "
+                 f"(tolerance {tolerance(name, r):.2e})")
+
+    for what, (B, Hq, Hkv, Tq, Tk, D), dt, window, softcap, n in FLASH_GRID:
+        check("flash_attention",
+              f"{what} {(B, Hq, Hkv, Tq, Tk, D)} w={window} cap={softcap:g}",
+              flash_case(B, Hq, Hkv, Tq, Tk, D, dtypes[dt], dev,
+                         window=window, softcap=softcap, kv_len=n))
+        torch.cuda.empty_cache()
+    for D in RMSNORM_WIDTHS:
+        for offset in (0.0, 1.0):
+            for xn, xd in dtypes.items():
+                for wn, wd in dtypes.items():
+                    check("rmsnorm", f"(4, 32, {D}) {xn} x {wn} w "
+                          f"offset {offset:g}",
+                          rmsnorm_case((4, 32, D), xd, wd, offset, dev))
+    for what, shape, last in (("decode (4, 1, 5120)", (4, 1, 5120), False),
+                              ("last token of (4, 32, 5120)", (4, 32, 5120),
+                               True),
+                              ("gemma2-27b long prefill (1, 4352, 4608)",
+                               (1, 4352, 4608), False)):
+        check("rmsnorm", f"{what} bf16 x bf16 w offset 1",
+              rmsnorm_case(shape, torch.bfloat16, torch.bfloat16, 1.0, dev,
+                           last_token=last))
+    return rows
 
 
 # wrapper → the kernel it launches (the name its launches count under)
@@ -494,7 +745,9 @@ WRAPPERS = {"fused_reduce": "fused_reduce",
             "quant_reduce": "quant_reduce",
             "quant_reduce_into": "quant_reduce",
             "wkv": "wkv",
-            "ssm_scan": "ssm_scan"}
+            "ssm_scan": "ssm_scan",
+            "rmsnorm": "rmsnorm",
+            "flash_attention": "flash_attention"}
 # the kernels the executor folds and quantizes with
 EXECUTOR_KERNELS = ("fused_reduce", "quantize", "quant_reduce")
 
@@ -625,25 +878,42 @@ def phase_executor(dev, recorder) -> dict:
     return counts
 
 
-def phase_serve(dev, recorder, arch: str) -> dict:
-    """Serve `arch` at full size; returns the kernel launches of the run."""
+def expected_launches(cfg, forwards: int) -> dict:
+    """Launches of each model kernel in `forwards` forwards of `cfg`:
+    rmsnorm per norm, flash_attention per attention layer, the family's
+    recurrence kernel per layer, and the other recurrence never."""
+    fam = cfg.family
+    want = {"rmsnorm": forwards * (NORMS_PER_LAYER[fam] * cfg.n_layers + 1),
+            "flash_attention":
+                forwards * ATTENTION_PER_LAYER[fam] * cfg.n_layers}
+    for family, kernel in RECURRENCE.items():
+        want[kernel] = forwards * cfg.n_layers if fam == family else 0
+    return want
+
+
+def phase_serve(dev, recorder, sc: dict) -> dict:
+    """Serve `sc["arch"]` at full size with the ServeConfig fields `sc`;
+    returns the kernel launches of the run."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import ServeConfig, serve
 
+    arch = sc["arch"]
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     t0 = time.perf_counter()
     with recorder:
-        res = serve(ServeConfig(arch=arch, **SERVE, device=str(dev)),
-                    smoke=False, on_log=log)
+        res = serve(ServeConfig(**sc, device=str(dev)), smoke=False,
+                    on_log=log)
     wall = time.perf_counter() - t0
     counts = dict(ops.LAUNCHES)
     cfg = res["config"]
     tm = res["timings"]
     log(f"serve: {cfg.name} family={cfg.family} layers={cfg.n_layers} "
         f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab}; launches {json.dumps(counts)}; "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab}; batch {sc['batch']} prompt "
+        f"{sc['prompt_len']} new {sc['max_new']} cache {sc['cache_len']}; "
+        f"launches {json.dumps(counts)}; "
         f"demotions {res['tp_schedule'].demotions}; self-check rel err "
         f"{res['self_check_err']:.2e}; prefill {tm['prefill_s'] * 1e3:.1f} "
         f"ms, decode first {tm['decode_first_s'] * 1e3:.1f} ms, median "
@@ -652,10 +922,9 @@ def phase_serve(dev, recorder, arch: str) -> dict:
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
     if counts["fused_reduce"] <= 0:
         fail(f"serving {arch} launched no fused_reduce kernel")
-    # the family's recurrence kernel once per layer per forward (prefill
-    # and max_new − 1 decode steps), the other family's never
-    for family, kernel in RECURRENCE.items():
-        want = cfg.n_layers * SERVE["max_new"] if cfg.family == family else 0
+    # each model kernel exactly as often as the forwards run it: the
+    # prefill and max_new − 1 decode steps
+    for kernel, want in expected_launches(cfg, sc["max_new"]).items():
         if counts[kernel] != want:
             fail(f"serving {arch} launched {kernel} {counts[kernel]} "
                  f"time(s), expected {want}")
@@ -665,7 +934,7 @@ def phase_serve(dev, recorder, arch: str) -> dict:
     if not res["self_check_err"] < 1e-5:
         fail(f"serving {arch}: self-check rel err {res['self_check_err']}")
     toks = res["tokens"]
-    want = (SERVE["batch"], SERVE["max_new"])
+    want = (sc["batch"], sc["max_new"])
     if toks.shape != want or toks.min() < 0 or toks.max() >= cfg.vocab:
         fail(f"serving {arch} produced tokens of shape {toks.shape} in "
              f"[{toks.min()}, {toks.max()}]")
@@ -784,7 +1053,8 @@ def _to(tree, where):
 
 def phase_model_reference(dev, arch: str) -> None:
     """The smoke-size model of `arch` in f32 on the card (its kernels)
-    against the same code on the CPU (their plain versions): prefill + 4
+    against the same code on the CPU (their plain versions): prefill of
+    a (batch, prompt) of REFERENCE_RUN (default 2 × 8, cache 16) + 4
     greedy decode steps, logits within 1e-4 of the largest |logit|,
     identical tokens."""
     import torch
@@ -795,13 +1065,15 @@ def phase_model_reference(dev, arch: str) -> None:
     api = build(smoke_config(get_config(arch)))
     params = api.init_params(torch.Generator().manual_seed(0), torch.float32,
                              "cpu")
-    tokens = torch.randint(0, api.cfg.vocab, (2, 8),
+    B, T, cache_len = REFERENCE_RUN.get(arch, (2, 8, 16))
+    tokens = torch.randint(0, api.cfg.vocab, (B, T),
                            generator=torch.Generator().manual_seed(1))
     runs = {}
     for where in ("cpu", dev):
         p = _to(params, where)
         with torch.inference_mode():
-            logits, cache = api.prefill(p, {"tokens": tokens.to(where)}, 16)
+            logits, cache = api.prefill(p, {"tokens": tokens.to(where)},
+                                        cache_len)
             outs, toks = [logits.cpu()], []
             for _ in range(4):
                 tok = logits[:, -1].argmax(dim=-1)
@@ -812,7 +1084,8 @@ def phase_model_reference(dev, arch: str) -> None:
         runs[str(where)] = (torch.stack(outs), torch.stack(toks))
     (lc, tc), (lg, tg) = runs["cpu"], runs[str(dev)]
     err = float((lg - lc).abs().max() / lc.abs().max())
-    log(f"model: {arch} smoke-size f32 logits card vs CPU rel err "
+    log(f"model: {arch} smoke-size f32, prompt {T}, logits card vs CPU "
+        f"rel err "
         f"{err:.2e}, tokens equal {bool(torch.equal(tc, tg))}")
     if not (torch.isfinite(lg).all() and err <= 1e-4
             and torch.equal(tc, tg)):
@@ -846,6 +1119,18 @@ def _case_at(wrapper, args, kw, dev):
     if wrapper == "ssm_scan":
         (_, (B, T, Di), _), (_, b_shape, _) = args[0], args[2]
         return ssm_scan_case(B, T, Di, b_shape[-1], dev)
+    if wrapper == "rmsnorm":
+        (_, shape, x_dtype), (_, _, w_dtype) = args[0], args[1]
+        return rmsnorm_case(shape, x_dtype, w_dtype, arg(3, "offset") or 0.0,
+                            dev)
+    if wrapper == "flash_attention":
+        (_, (B, Hq, Tq, D), dtype), (_, (_, Hkv, Tk, _), _) = args[:2]
+        n = kw.get("kv_len")
+        return flash_case(B, Hq, Hkv, Tq, Tk, D, dtype, dev,
+                          window=kw.get("window", 0),
+                          softcap=kw.get("softcap", 0.0),
+                          kv_len=None if n is None else RAGGED[:B],
+                          causal=kw.get("causal", True))
     (_, q_shape, q_dtype), _, table, (_, out_shape, out_dtype) = args[:4]
     return quant_reduce_into_case(q_shape, wires[q_dtype], table, out_shape,
                                   out_dtype, dev)
@@ -864,6 +1149,10 @@ def kernels_line(dev, first, executor, served) -> dict:
                 "src/repro/kernels/wkv.py:91"),
         "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan.py:71"),
+        "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:32"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:95"),
     }
     out = []
     for name, (source, replaces) in info.items():
@@ -875,7 +1164,7 @@ def kernels_line(dev, first, executor, served) -> dict:
         if not within(name, r):
             fail(f"{name} ({wrapper}) at main-path shapes {shapes} differs "
                  f"from its plain version by {r['max_abs_err']} (tolerance "
-                 f"{TOLERANCE[name]})")
+                 f"{tolerance(name, r)})")
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces,
                     "launches": executor[name] + served[name],
@@ -912,10 +1201,15 @@ def main() -> int:
     log(f"phase executor done at {time.perf_counter() - t0:.1f} s")
     served = dict.fromkeys(TOLERANCE, 0)
     for arch in SERVE_ARCHS:
-        for name, n in phase_serve(dev, rec_serve, arch).items():
+        for name, n in phase_serve(dev, rec_serve,
+                                   {**SERVE, "arch": arch}).items():
             served[name] += n
         phase_decode_profile(dev, arch)
         log(f"phase serve {arch} done at {time.perf_counter() - t0:.1f} s")
+    for name, n in phase_serve(dev, rec_serve, LONG).items():
+        served[name] += n
+    log(f"phase serve long {LONG['arch']} done at "
+        f"{time.perf_counter() - t0:.1f} s")
     for arch in SERVE_ARCHS:
         phase_model_reference(dev, arch)
     log(f"phase serve done at {time.perf_counter() - t0:.1f} s")

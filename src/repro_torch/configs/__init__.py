@@ -14,6 +14,7 @@ ARCHS = [
     "stablelm_12b",
     "rwkv6_1_6b",
     "hymba_1_5b",
+    "gemma2_27b",
 ]
 
 

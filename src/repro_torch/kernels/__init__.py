@@ -3,8 +3,9 @@
 fused_reduce — the paper's δ-optimal N-ary reduction; quantize and
 quant_reduce — the fp8/int8 wire format of compressed collectives; wkv
 and ssm_scan — the RWKV6 and Mamba recurrences of the recurrent model
-families. The CUDA sources live in `csrc/`, `build.py` compiles and loads
-them, `ops.py` holds the wrappers (plain version on CPU tensors, kernel on
-CUDA ones) and `ref.py` the plain versions.
+families; rmsnorm and flash_attention — every norm and attention of the
+served models. The CUDA sources live in `csrc/`, `build.py` compiles and
+loads them, `ops.py` holds the wrappers (plain version on CPU tensors,
+kernel on CUDA ones) and `ref.py` the plain versions.
 """
 from . import ops, ref  # noqa: F401

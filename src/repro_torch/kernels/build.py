@@ -22,14 +22,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"fused_reduce": "fused_reduce.cu", "quant": "quant.cu",
-           "wkv": "wkv.cu", "ssm_scan": "ssm_scan.cu"}
+           "wkv": "wkv.cu", "ssm_scan": "ssm_scan.cu",
+           "rmsnorm": "rmsnorm.cu", "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C signature of every exported launcher (all return a cudaError_t).
 _FR = (_P, _P, _I, _P, _P, _P, _P, _L, _L, _P)
 _QR = (_P, _P, _P, _I, _P, _P, _L, _P, _P, _L, _L, _L, _P)
+_RN = (_P, _P, _P) + (_L,) * 6 + (_I, _F, _F, _P)
+_FA = (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_F, _F, _I, _I, _P)
 SIGNATURES = {
     "fused_reduce": {
         "fused_reduce_f32": _FR,
@@ -46,6 +50,10 @@ SIGNATURES = {
     },
     "wkv": {"wkv_f32": (_P,) * 8 + (_I,) * 5 + (_P,)},
     "ssm_scan": {"ssm_scan_f32": (_P,) * 8 + (_I,) * 4 + (_P,)},
+    "rmsnorm": {f"rmsnorm_{x}_{w}": _RN for x in ("f32", "bf16")
+                for w in ("f32", "bf16")},
+    "flash_attention": {"flash_attention_f32": _FA,
+                        "flash_attention_bf16": _FA},
 }
 
 _lock = threading.Lock()

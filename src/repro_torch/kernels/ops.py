@@ -9,7 +9,11 @@ path counts nothing.
 
 The recurrence kernels (`wkv`, `ssm_scan`) take f32 inputs that must be
 contiguous on every device, and return new output and final-state
-tensors.
+tensors. The model kernels (`rmsnorm`, `flash_attention`) take f32 or
+bf16 inputs whose last dim is contiguous, read their leading dims
+through strides (so head transposes need no copy), and write new
+tensors in the input's dtype; their layout limits are checked on every
+device, so the CPU tests hold the models to what the kernels take.
 
 A reduce kernel has two wrappers, both counted under its name: the dense
 form (`fused_reduce`, `quant_reduce`: the TPU kernel's shape, plus a
@@ -32,11 +36,16 @@ from .ref import QUANT_TILE, WIRE_QMAX, wire_dtype
 
 # kernel name → launches since the last `reset_launches()`
 LAUNCHES = {"fused_reduce": 0, "quantize": 0, "quant_reduce": 0, "wkv": 0,
-            "ssm_scan": 0}
+            "ssm_scan": 0, "rmsnorm": 0, "flash_attention": 0}
 
 # largest head width (K, V) of the wkv kernel and state width N of the
 # ssm_scan kernel: the state lives in one thread's registers
 RECURRENCE_MAX_WIDTH = 64
+# largest row of the rmsnorm kernel (held in registers, 32 values a
+# thread) and head dim of the flash_attention kernel (its template bound)
+RMSNORM_MAX_WIDTH = 8192
+ATTENTION_MAX_HEAD_DIM = 256
+_FLOATS = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
@@ -405,7 +414,122 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     return y, s_fin
 
 
-__all__ = ["LAUNCHES", "QUANT_TILE", "RECURRENCE_MAX_WIDTH", "WIRE_QMAX",
-           "RowTable", "fused_reduce", "fused_reduce_into", "quant_reduce",
-           "quant_reduce_into", "quantize", "reset_launches", "row_table",
-           "ssm_scan", "wkv"]
+def _row_layout(x: torch.Tensor) -> list[tuple[int, int]]:
+    """The rows of x (..., D) as three (count, stride) leading dims, outer
+    first: dims of size 1 dropped, a dim merged into the one before it
+    where that one strides exactly over it, padded with (1, 0). Raises if
+    the last dim is not contiguous or more than three dims remain."""
+    if x.shape[-1] > 1 and x.stride(-1) != 1:
+        raise ValueError(f"the last dim must be contiguous; strides "
+                         f"{x.stride()}")
+    dims: list[tuple[int, int]] = []
+    for n, st in zip(x.shape[:-1], x.stride()[:-1]):
+        if n == 1:
+            continue
+        if dims and dims[-1][1] == st * n:
+            dims[-1] = (dims[-1][0] * n, st)
+        else:
+            dims.append((n, st))
+    if len(dims) > 3:
+        raise ValueError(f"rows must be strided in at most three leading "
+                         f"dims; got shape {tuple(x.shape)} strides "
+                         f"{x.stride()}")
+    return [(1, 0)] * (3 - len(dims)) + dims
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            offset: float = 0.0) -> torch.Tensor:
+    """x (..., D) · rsqrt(mean x² + eps) · (offset + w), in f32, as a new
+    contiguous tensor of x's shape and dtype: offset 0 is the reference
+    kernel (scale by w), offset 1 the models' norm (scale by 1 + w). x
+    and w f32 or bf16, w (D,), D <= RMSNORM_MAX_WIDTH."""
+    if x.dtype not in _FLOATS or w.dtype not in _FLOATS:
+        raise TypeError(f"rmsnorm takes f32 or bf16 x and w; got {x.dtype} "
+                        f"and {w.dtype}")
+    D = x.shape[-1] if x.dim() else 0
+    if w.shape != (D,) or not 1 <= D <= RMSNORM_MAX_WIDTH:
+        raise ValueError(f"rmsnorm takes x (..., D) and w (D,) with 1 <= D "
+                         f"<= {RMSNORM_MAX_WIDTH}; got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    (n0, s0), (n1, s1), (n2, s2) = _row_layout(x)
+    if not _on_cuda(x, w):
+        return ref.rmsnorm(x, w, eps, offset)
+    if not w.is_contiguous():
+        raise ValueError("rmsnorm needs a contiguous w")
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if y.numel():
+        lib = build.load("rmsnorm")
+        kind = {torch.float32: "f32", torch.bfloat16: "bf16"}
+        fn = getattr(lib, f"rmsnorm_{kind[x.dtype]}_{kind[w.dtype]}")
+        with torch.cuda.device(x.device):
+            _check(fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), n0, n1, n2,
+                      s0, s1, s2, D, eps, offset, _stream(x)), "rmsnorm")
+        LAUNCHES["rmsnorm"] += 1
+    return y
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: float | None = None,
+                    kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """GQA attention (the reference's `kernels/flash_attention.py`, see
+    `ref.flash_attention` for the function): q (B, Hq, Tq, D), k/v
+    (B, Hkv, Tk, D), one dtype (f32 or bf16), each with a contiguous last
+    dim and any strides in the others; Hq % Hkv == 0, 1 <= Tq <= Tk,
+    D <= ATTENTION_MAX_HEAD_DIM; kv_len None or (B,) int64 visible-key
+    counts on the inputs' device (read by the kernel, so no host sync).
+    Returns (B, Hq, Tq, D) in q's dtype, a view of a new (B, Tq, Hq, D)
+    tensor."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.dtype not in _FLOATS:
+            raise TypeError(f"flash_attention takes f32 or bf16 q, k, v of "
+                            f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+        if t.dim() != 4 or (t.shape[-1] > 1 and t.stride(-1) != 1):
+            raise ValueError(f"flash_attention: {name} must be 4-D with a "
+                             f"contiguous last dim; got {tuple(t.shape)} "
+                             f"strides {t.stride()}")
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    if v.shape != k.shape or k.shape[0] != B or k.shape[3] != D \
+            or Hkv < 1 or Hq % Hkv or not 1 <= Tq <= Tk \
+            or not 1 <= D <= ATTENTION_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes q (B, Hq, Tq, D), k/v "
+                         f"(B, Hkv, Tk, D) with Hq % Hkv == 0, 1 <= Tq <= "
+                         f"Tk and D <= {ATTENTION_MAX_HEAD_DIM}; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if window < 0 or softcap < 0:
+        raise ValueError(f"window and softcap must be >= 0; got {window}, "
+                         f"{softcap}")
+    if kv_len is not None and (kv_len.dtype != torch.int64
+                               or kv_len.shape != (B,)
+                               or not kv_len.is_contiguous()):
+        raise ValueError(f"kv_len must be a contiguous (B,) int64 tensor; "
+                         f"got {kv_len.dtype} {tuple(kv_len.shape)}")
+    scale = D ** -0.5 if scale is None else float(scale)
+    if not _on_cuda(q, k, v, kv_len):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale,
+                                   kv_len=kv_len)
+    if B > 65535 or Hq > 65535:
+        raise ValueError(f"the flash_attention kernel's grid takes B and Hq "
+                         f"<= 65535; got {B} and {Hq}")
+    out = torch.empty((B, Tq, Hq, D), dtype=q.dtype, device=q.device)
+    lib = build.load("flash_attention")
+    fn = (lib.flash_attention_f32 if q.dtype == torch.float32
+          else lib.flash_attention_bf16)
+    with torch.cuda.device(q.device):
+        _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  _ptr(kv_len), B, Hq, Hkv, Tq, Tk, D, *q.stride()[:3],
+                  *k.stride()[:3], *v.stride()[:3], scale, float(softcap),
+                  int(causal), int(window), _stream(q)), "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out.transpose(1, 2)
+
+
+__all__ = ["ATTENTION_MAX_HEAD_DIM", "LAUNCHES", "QUANT_TILE",
+           "RECURRENCE_MAX_WIDTH", "RMSNORM_MAX_WIDTH", "WIRE_QMAX",
+           "RowTable", "flash_attention", "fused_reduce",
+           "fused_reduce_into", "quant_reduce", "quant_reduce_into",
+           "quantize", "reset_launches", "rmsnorm", "row_table", "ssm_scan",
+           "wkv"]

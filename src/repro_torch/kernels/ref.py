@@ -4,7 +4,9 @@ Each reduce and quantize function computes exactly what its CUDA kernel
 in `csrc/` computes, in the same order of float operations, so the kernel
 can be held against it bit for bit on the card; the recurrences (`wkv_ref`,
 `ssm_scan_ref`) reduce in another order than their kernels and are held
-to a tolerance. The wrappers in `ops.py` run these for CPU tensors.
+to a tolerance, as are `rmsnorm` and `flash_attention`, whose kernels
+also reduce in another order. The wrappers in `ops.py` run these for CPU
+tensors.
 They are also held against the JAX package's Pallas kernels and oracles
 on shared numpy inputs by the CPU tests.
 """
@@ -196,3 +198,66 @@ def ssm_scan_ref(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         s = decay * s + (dt[:, t] * u[:, t])[:, :, None] * b[:, t, None, :]
         ys.append((s * c[:, t, None, :]).sum(dim=-1))
     return torch.stack(ys, dim=1), s
+
+
+NEG_INF = -1e30   # the masked score; finite, so exp(NEG_INF − NEG_INF) = 1
+FLASH_BLOCK_Q = 256   # queries a score tile of the plain attention
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            offset: float = 0.0) -> torch.Tensor:
+    """x (..., D) · rsqrt(mean x² + eps) · (offset + w), in f32, written in
+    x's dtype. offset 0 is the reference's Pallas kernel (scale by w),
+    offset 1 the models' norm (scale by 1 + w, formed in f32)."""
+    xf = x.float()
+    rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * rms * (offset + w.float())).to(x.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: float | None = None,
+                    kv_len: torch.Tensor | None = None) -> torch.Tensor:
+    """GQA attention, the reference kernel's function: q (B, Hq, Tq, D),
+    k/v (B, Hkv, Tk, D), query head h reading key head h // (Hq / Hkv).
+
+    Row b sees keys [0, kv_len[b]) (default Tk; clamped to [0, Tk]) with
+    its queries right-aligned to them: query i sits at position
+    kv_len[b] − Tq + i. Scores are q·k·scale (default D^-1/2), then
+    softcap·tanh(s / softcap) when softcap > 0, then masked (causal: key
+    position <= query position; window w > 0: key position > query
+    position − w). The softmax weights of masked keys are 0 and the sum
+    is divided by (Σ weights + 1e-30), so a row that sees no key gives 0.
+    Math in f32, output in q's dtype, as a (B, Hq, Tq, D) view of a
+    (B, Tq, Hq, D) tensor (the kernel's layout); queries go
+    FLASH_BLOCK_Q at a time, which bounds the score tile."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    n = torch.full((B,), Tk, dtype=torch.long, device=q.device) \
+        if kv_len is None else kv_len.long().clamp(0, Tk)
+    kf = k.float()[:, :, None]                          # (B, Hkv, 1, Tk, D)
+    vf = v.float()[:, :, None]
+    kpos = torch.arange(Tk, device=q.device)
+    out = torch.empty((B, Tq, Hq, D), dtype=q.dtype, device=q.device)
+    for q0 in range(0, Tq, FLASH_BLOCK_Q):
+        t = min(FLASH_BLOCK_Q, Tq - q0)
+        qb = q[:, :, q0:q0 + t].float().reshape(B, Hkv, G, t, D)
+        s = (qb @ kf.transpose(-1, -2)) * scale
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        qpos = (n[:, None] - Tq + q0
+                + torch.arange(t, device=q.device))[:, :, None]  # (B, t, 1)
+        mask = kpos < n[:, None, None]                          # (B, t, Tk)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window > 0:
+            mask = mask & (kpos > qpos - window)
+        mask = mask[:, None, None]                      # (B, 1, 1, t, Tk)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, p, 0.0)
+        o = (p @ vf) / (p.sum(dim=-1, keepdim=True) + 1e-30)
+        out[:, q0:q0 + t] = o.reshape(B, Hq, t, D).transpose(1, 2).to(q.dtype)
+    return out.transpose(1, 2)

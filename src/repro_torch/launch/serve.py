@@ -12,7 +12,8 @@ local-mesh observation, which is monitored and never refits. A failed
 launch raises: the guard gives way to no plain sum. The
 decode loop itself is single-device (`decode_step`), as in the reference
 server. Every ported family serves the same way: the dense transformer
-(stablelm-12b), RWKV6 (rwkv6-1.6b, whose decode state is its recurrent
+(stablelm-12b; gemma2-27b with alternating local and global layers and
+soft-capped logits), RWKV6 (rwkv6-1.6b, whose decode state is its recurrent
 state) and the Hymba hybrid (hymba-1.5b, a KV cache plus SSM states).
 
     python -m repro_torch.launch.serve --arch rwkv6-1.6b
@@ -165,7 +166,8 @@ def main():
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-12b",
-                    help="stablelm-12b, rwkv6-1.6b or hymba-1.5b")
+                    help="stablelm-12b, gemma2-27b, rwkv6-1.6b or "
+                    "hymba-1.5b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--local-ranks", type=int, default=8)

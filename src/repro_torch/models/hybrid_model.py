@@ -98,14 +98,16 @@ def decode_step(params: Params, cfg: ModelConfig, cache: dict,
     cache, updated in place)."""
     x = embed(params["embed"], tokens)
     pos = cache["pos"]
+    kv_len = pos + 1
     for i, lp in enumerate(params["layers"]):
         z = rmsnorm(x, lp["ln1"])
         a = attention_decode(lp["attn"], z, cache["k"][i], cache["v"][i],
-                             pos, cfg, window=cfg.window_for_layer(i))
+                             pos, cfg, window=cfg.window_for_layer(i),
+                             kv_len=kv_len)
         s, cache["ssm"][i] = mamba_ssm(lp["ssm"], z, cfg,
                                        state=cache["ssm"][i])
         x = x + _combine(lp, a, s)
         x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"]))
-    cache["pos"] = pos + 1
+    cache["pos"] = kv_len
     x = rmsnorm(x, params["ln_f"])
     return x @ params["lm_head"], cache

@@ -4,13 +4,16 @@ decode against a KV cache), SwiGLU MLP, and the initializer.
 
 These mirror the reference `models/layers.py` op for op, with its
 layouts: activations (B, T, D), heads (B, H, T, hd), weights (in, out).
-Attention never materializes more than one (block_q × Tk) score tile per
-head: the full-sequence path loops over query blocks, each against the
-whole K with a causal (and optional sliding-window) mask — the reference's
-q-block scan. Sliding windows take that masked path; the reference's
-banded KV slicing and KV-block scan compute the same function with fewer
-reads and are not ported yet. Everything here is plain PyTorch: no fused
-attention or normalization operator is called.
+Every norm goes through the `rmsnorm` kernel wrapper (offset 1) and
+every attention through the `flash_attention` kernel wrapper
+(`kernels.ops`): on a CUDA tensor each launches its hand-written kernel,
+on a CPU tensor it runs its plain version. The kernel reads the head
+layouts through strides and maps query heads to key heads itself, so no
+head transpose or GQA repeat of K/V is copied; it writes the output in
+the (B, T, H·hd) layout the output projection takes. Decode reads the
+cache only up to each row's position (`kv_len`). The reference's banded
+and KV-block attention scans compute the same function as the kernel,
+whose skipped KV tiles stand in for the banded slice.
 """
 from __future__ import annotations
 
@@ -19,10 +22,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from .config import ModelConfig
 
 Params = dict[str, Any]
-NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -45,9 +48,7 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...],
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
     """x·rsqrt(mean x² + eps)·(1 + w), in f32, written in x's dtype."""
-    xf = x.float()
-    rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (xf * rms * (1.0 + w.float())).to(x.dtype)
+    return ops.rmsnorm(x, w, eps, offset=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -114,55 +115,14 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
-def _sdpa_block(q, k, v, mask, scale: float, softcap: float,
-                remask: bool = True):
-    """One (bq × Tk) attention rectangle; returns (out, m, l) in f32.
-
-    remask=False skips the post-exp re-mask; only safe when every query
-    row has at least one valid key (causal self-attention rows always see
-    themselves)."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    if softcap > 0:
-        s = torch.tanh(s / softcap) * softcap
-    s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    if remask:
-        p = torch.where(mask, p, 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
-    return o, m, l
-
-
 def _attend(q, k, v, cfg: ModelConfig, *, window: int = 0,
-            causal: bool = True, block_q: int = 512) -> torch.Tensor:
+            causal: bool = True) -> torch.Tensor:
     """Full-sequence attention of (B, H, T, hd) queries against the
-    (B, Hkv, Tk, hd) keys/values, q-block by q-block; returns
-    (B, T, H·hd) in q's dtype."""
+    (B, Hkv, Tk, hd) keys/values, queries right-aligned to the keys;
+    returns (B, T, H·hd) in q's dtype."""
     B, _, T, hd = q.shape
-    rep = cfg.n_heads // cfg.n_kv_heads
-    if rep > 1:
-        k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
-    Tk = k.shape[2]
-    bq = min(block_q, T)
-    if T % bq:
-        bq = T  # single block
-    kpos = torch.arange(Tk, device=q.device)[None, :]
-    outs = []
-    for q0 in range(0, T, bq):
-        qpos = (q0 + torch.arange(bq, device=q.device)[:, None]
-                + (Tk - T))
-        mask = torch.ones((bq, Tk), dtype=torch.bool, device=q.device)
-        if causal:
-            mask &= kpos <= qpos
-        if window > 0:
-            mask &= kpos > qpos - window
-        o, _m, l = _sdpa_block(q[:, :, q0:q0 + bq], k, v, mask[None, None],
-                               hd ** -0.5, cfg.attn_softcap,
-                               remask=not causal)
-        outs.append((o / (l + 1e-30)).to(q.dtype))
-    out = torch.cat(outs, dim=2)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cfg.attn_softcap)
     return out.transpose(1, 2).reshape(B, T, cfg.n_heads * hd)
 
 
@@ -170,22 +130,25 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               window: int = 0, causal: bool = True,
               positions: torch.Tensor | None = None,
               block_q: int = 512) -> torch.Tensor:
-    """Full-sequence attention (prefill), q-block by q-block."""
+    """Full-sequence attention (prefill). `block_q` is accepted for the
+    reference's signature; the kernel and its plain version tile the
+    queries themselves."""
     _check_supported(cfg)
     T = x.shape[1]
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg, positions)
-    out = _attend(q, k, v, cfg, window=window, causal=causal,
-                  block_q=block_q)
+    out = _attend(q, k, v, cfg, window=window, causal=causal)
     return out @ p["wo"]
 
 
 def attention_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: torch.Tensor,
-                     cfg: ModelConfig, *, window: int = 0) -> torch.Tensor:
+                     cfg: ModelConfig, *, window: int = 0,
+                     kv_len: torch.Tensor | None = None) -> torch.Tensor:
     """One-token decode. x: (B, 1, D); cache_{k,v}: (B, Hkv, S, hd);
-    pos: (B,) current write position. Writes the new K/V into the cache
+    pos: (B,) current write position; kv_len: pos + 1, where the caller
+    has formed it once for all layers. Writes the new K/V into the cache
     at `pos` IN PLACE (the cache is the caller's decode state) and
     returns the attention output (B, 1, D)."""
     _check_supported(cfg)
@@ -195,18 +158,11 @@ def attention_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     rows = torch.arange(B, device=x.device)
     cache_k[rows, :, pos] = k_new[:, :, 0]
     cache_v[rows, :, pos] = v_new[:, :, 0]
-
-    rep = cfg.n_heads // cfg.n_kv_heads
-    k = cache_k.repeat_interleave(rep, dim=1) if rep > 1 else cache_k
-    v = cache_v.repeat_interleave(rep, dim=1) if rep > 1 else cache_v
-    S = k.shape[2]
-    kpos = torch.arange(S, device=x.device)[None, :]          # (1, S)
-    valid = kpos <= pos[:, None]
-    if window > 0:
-        valid &= kpos > pos[:, None] - window
-    mask = valid[:, None, None, :]                              # (B,1,1,S)
-    o, _m, l = _sdpa_block(q, k, v, mask, hd ** -0.5, cfg.attn_softcap)
-    out = (o / (l + 1e-30)).to(x.dtype)
+    # row b's query sits at pos[b] and sees the cache up to it
+    if kv_len is None:
+        kv_len = pos + 1
+    out = ops.flash_attention(q, cache_k, cache_v, window=window,
+                              softcap=cfg.attn_softcap, kv_len=kv_len)
     out = out.transpose(1, 2).reshape(B, 1, cfg.n_heads * hd)
     return out @ p["wo"]
 

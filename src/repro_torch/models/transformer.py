@@ -107,11 +107,13 @@ def decode_step(params: Params, cfg: ModelConfig, cache: dict,
     cache, updated in place)."""
     x = embed(params["embed"], tokens)
     pos = cache["pos"]
+    kv_len = pos + 1
     for i, lp in enumerate(params["layers"]):
         z = rmsnorm(x, lp["ln1"])
         x = x + attention_decode(lp["attn"], z, cache["k"][i],
                                  cache["v"][i], pos, cfg,
-                                 window=cfg.window_for_layer(i))
+                                 window=cfg.window_for_layer(i),
+                                 kv_len=kv_len)
         x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"]))
-    cache["pos"] = pos + 1
+    cache["pos"] = kv_len
     return _logits(params, cfg, x), cache

@@ -223,3 +223,70 @@ def test_recurrence_kernel_state_handoff(dev, kernel):
     torch.cuda.synchronize()
     assert _rel(torch.cat([a, b], dim=dim), whole) <= RECURRENCE_RTOL
     assert _rel(s2, s_whole) <= RECURRENCE_RTOL
+
+
+# The model kernels also reduce in another order than their plain
+# versions. An f32 output is held within 1e-5 of the largest |value|; a
+# bf16 output is the f32 result rounded once, so it is held within 2^-8
+# of the largest |value| of the plain version on the same inputs
+# widened to f32.
+MODEL_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0.0, 1.0])
+@pytest.mark.parametrize("shape", [(4, 32, 5120), (4, 1, 1600), (3, 64),
+                                   (5, 2, 4608)])
+def test_rmsnorm_kernel_matches_plain(dev, shape, offset, x_dtype, w_dtype):
+    x = _rand(shape, 13, dev, 3.0).to(x_dtype)
+    w = _rand(shape[-1:], 14, dev, 0.5).to(w_dtype)
+    before = ops.LAUNCHES["rmsnorm"]
+    got = ops.rmsnorm(x, w, offset=offset)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == before + 1
+    assert got.dtype == x_dtype and got.shape == x.shape
+    want = ref.rmsnorm(x.float(), w, offset=offset)
+    assert _rel(got, want) <= MODEL_RTOL[x_dtype]
+
+
+def test_rmsnorm_kernel_strided_rows(dev):
+    x = _rand((2, 5, 3, 2048), 15, dev)
+    w = _rand((2048,), 16, dev)
+    for view in (x[:, -1:], x.transpose(1, 2), x[:, ::2, 1]):
+        got = ops.rmsnorm(view, w, offset=1.0)
+        torch.cuda.synchronize()
+        assert _rel(got, ref.rmsnorm(view, w, offset=1.0)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,window,softcap,kv_len", [
+    (4, 32, 8, 32, 32, 160, 0, 0.0, None),
+    (4, 32, 8, 1, 128, 160, 0, 0.0, [33, 47, 60, 128]),
+    (4, 25, 5, 32, 32, 64, 24, 0.0, None),
+    (4, 25, 5, 1, 128, 64, 24, 0.0, [33, 47, 60, 128]),
+    (2, 32, 16, 32, 128, 128, 40, 50.0, None),
+    (2, 32, 16, 1, 128, 128, 4096, 50.0, [0, 77]),
+    (2, 4, 4, 37, 50, 16, 0, 0.0, None),
+    (1, 6, 2, 5, 300, 200, 100, 1.0, [150]),
+    (2, 8, 2, 3, 200, 128, 50, 30.0, [180, 2]),
+    (1, 32, 16, 1, 4416, 128, 4096, 50.0, [4360]),
+    (1, 4, 2, 4, 4416, 16, 4096, 0.0, [4360]),
+    (2, 4, 2, 1, 70, 18, 0, 0.0, [70, 9])])
+def test_flash_attention_kernel_matches_plain(dev, dtype, B, Hq, Hkv, Tq, Tk,
+                                              D, window, softcap, kv_len):
+    q = _rand((B, Tq, Hq, D), 17, dev).to(dtype).transpose(1, 2)
+    k = _rand((B, Hkv, Tk, D), 18, dev).to(dtype)
+    v = _rand((B, Hkv, Tk, D), 19, dev).to(dtype)
+    n = None if kv_len is None else torch.tensor(kv_len, device=dev)
+    kw = dict(window=window, softcap=softcap, kv_len=n)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, Hq, Tq, D)
+    want = ref.flash_attention(q.float(), k.float(), v.float(), **kw)
+    assert torch.isfinite(got.float()).all()
+    assert _rel(got, want) <= MODEL_RTOL[dtype]
+    if kv_len is not None and 0 in kv_len:
+        assert (got[kv_len.index(0)] == 0).all()
