@@ -14,8 +14,13 @@ any error:
                 with, with its time (CUDA events), its bound (bytes over
                 the memory rate or operations over the peak rate of
                 their type, the larger) and one PyTorch yardstick call
-                where one computes the same function. The reduce and
-                quantize kernels must agree bit for bit; the others
+                where one computes the same function. The reduce,
+                quantize and dequantize kernels (fused_reduce and
+                grouped_reduce — the tree of fan_in-ary adds — over
+                KERNEL_LANES; quantize, dequantize, quant_reduce and
+                quant_reduce_requant over KERNEL_LANES; the gathered
+                fused_reduce, quant_reduce and dequantize over
+                INTO_LANES) must agree bit for bit; the others
                 (wkv, ssm_scan, rmsnorm, flash_attention), whose plain
                 versions reduce in another order, within TOLERANCE of
                 the largest |value| of each output (of each query row's
@@ -39,7 +44,20 @@ any error:
                 device time (CUDA events), wall time (host clock to a
                 synchronize) and two bounds: the schedule's (every
                 round's and fold's rows crossing memory once) and the
-                function's (input read and output written once);
+                function's (input read and output written once); folds
+                launch fused_reduce (f32, bf16 wire) or quant_reduce
+                (fp8/int8), the AllGather half's landings on fp8/int8
+                dequantize, the rounds quantize;
+  3b. families — the planner's reduce-scatter, all-gather, all-to-all and
+                p2p schedules (`get_family_executable` on the same two
+                topologies, the same sizes a rank) through `with_wire`,
+                `guard_schedule` and the `run_local_*` entry points, in
+                f32 and every wire, checked against the exact answer
+                (the shard of the column sum at 1e-6, the concatenation,
+                the chunk transpose and the edges exactly in f32; wires
+                within their budget), with device time, wall time and
+                the schedule's byte bound; every landing on fp8/int8
+                launches dequantize;
   4. serve    — `repro_torch.launch.serve` on stablelm-12b, rwkv6-1.6b,
                 hymba-1.5b and gemma2-27b in turn, each at full size
                 (random bf16 weights), batch 4, prompt 32, 32 new tokens,
@@ -53,10 +71,13 @@ any error:
                 the card against the same code on the CPU (gemma2-27b on
                 a 48-token prompt, longer than its smoke window).
 
-The main path is phases 3 and 4: every launch count is zeroed just
-before the executor and before each served run, and read just after.
-The executor must launch fused_reduce, quantize and quant_reduce (it runs
-the compressed wires); every served run must launch fused_reduce (the
+The main path is phases 3, 3b and 4: every launch count is zeroed just
+before the executor, the families and each served run, and read just
+after. The executor must launch fused_reduce, quantize, quant_reduce and
+dequantize (it runs the compressed wires), the families dequantize;
+grouped_reduce and quant_reduce_requant have no caller on the main path
+(nor in the JAX package) and show 0 launches, timed in phase 2 at their
+2^26 shape; every served run must launch fused_reduce (the
 decode AllReduce folds through it) and exactly the model kernels its
 forwards (prefill and each decode step) run: rmsnorm once per norm (2 a
 dense layer, 3 an RWKV6 layer, 4 a Hymba layer, and the final norm),
@@ -65,8 +86,9 @@ ssm_scan once per Hymba layer (`expected_launches`), with no guard
 demotion or failure anywhere (the guard raises rather than demote, so a
 failure ends the run). The last lines are the per-kernel JSON (launches
 on the main path; time, plain time, bound and yardstick of the wrapper
-call of the kernel's first launch in phase 4, or in phase 3 for a kernel
-phase 4 does not launch), the card's name and power limit, and
+call of the kernel's first launch in phase 4, or in phase 3 or 3b for a
+kernel phase 4 does not launch, or phase 2's 2^26 case for one the main
+path never launches), the card's name and power limit, and
 `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -87,6 +109,7 @@ SPIN_HZ = 1.98e9                 # H100 SXM boost clock: spin cycles per s
 KERNEL_LANES = (1000, 20480, 1 << 26)                 # phase 2 grid
 INTO_LANES = (2560, 1 << 23)                # phase 2, gathered forms
 EXEC_SIZES = ((4 * 5120, "decode 4x5120"), (1 << 26, "gradient 2^26"))
+FAMILIES = ("reduce_scatter", "allgather", "all_to_all", "p2p")
 SERVE = dict(batch=4, prompt_len=32, max_new=32, cache_len=128,
              local_ranks=8)
 SERVE_ARCHS = ("stablelm-12b", "rwkv6-1.6b", "hymba-1.5b", "gemma2-27b")
@@ -108,8 +131,9 @@ REFERENCE_RUN = {"gemma2-27b": (2, 48, 64)}
 # flash_attention, of each query row's output), by output dtype where the
 # kernel writes f32 or bf16 (a bf16 output is one rounding of the f32
 # result: 2^-8 of the largest |value|)
-TOLERANCE = {"fused_reduce": 0.0, "quantize": 0.0, "quant_reduce": 0.0,
-             "wkv": 1e-5, "ssm_scan": 1e-5,
+TOLERANCE = {"fused_reduce": 0.0, "grouped_reduce": 0.0, "quantize": 0.0,
+             "dequantize": 0.0, "quant_reduce": 0.0,
+             "quant_reduce_requant": 0.0, "wkv": 1e-5, "ssm_scan": 1e-5,
              "rmsnorm": {"float32": 1e-5, "bfloat16": 2.0 ** -8},
              "flash_attention": {"float32": 1e-5, "bfloat16": 2.0 ** -8}}
 
@@ -230,6 +254,28 @@ def fused_reduce_case(shape, dtype, dev, seed=0):
                 library=lambda: parts.sum(dim=-2), nbytes=nbytes)
 
 
+def grouped_reduce_case(shape, fan_in, dtype, dev, seed=0):
+    """The tree of fan_in-ary adds over (x, L); the yardstick is one f32
+    sum over the operand axis."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    parts = torch.randn(shape, generator=g, device=dev).to(dtype)
+    x, L = shape
+    return dict(kernel=lambda: ops.grouped_reduce(parts, fan_in),
+                plain=lambda: ref.grouped_reduce_ref(parts, fan_in),
+                library=lambda: parts.float().sum(0),
+                nbytes=(x + 1) * L * parts.element_size())
+
+
+def wire_cmp(a, b):
+    """Largest difference of payload bytes and of scales."""
+    import torch
+    return max(max_abs_err(a[0].view(torch.uint8).int(),
+                           b[0].view(torch.uint8).int()),
+               max_abs_err(a[1], b[1]))
+
+
 def quantize_case(shape, wire, dev, seed=0):
     import torch
     from repro_torch.kernels import ops, ref
@@ -238,14 +284,39 @@ def quantize_case(shape, wire, dev, seed=0):
     R, L = shape
     nt = -(-L // ref.QUANT_TILE)
     nbytes = R * (4 * L + nt * ref.QUANT_TILE + 4 * nt)
-
-    def cmp(a, b):   # payload bytes and scales
-        return max(max_abs_err(a[0].view(torch.uint8).int(),
-                               b[0].view(torch.uint8).int()),
-                   max_abs_err(a[1], b[1]))
     return dict(kernel=lambda: ops.quantize(x, wire),
                 plain=lambda: ref.quantize_ref(x, wire),
-                library=None, nbytes=nbytes, cmp=cmp)
+                library=None, nbytes=nbytes, cmp=wire_cmp)
+
+
+def dequantize_case(shape, wire, dev, seed=0):
+    """The dense dequantize of a quantized (W, L) tensor to (W, L) f32:
+    the payload and scales read once, the result written once."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    W, L = shape
+    q, s = ops.quantize(torch.randn(shape, generator=g, device=dev), wire)
+    nt = s.shape[1]
+    nbytes = W * (nt * ref.QUANT_TILE + 4 * nt + 4 * L)
+    return dict(kernel=lambda: ops.dequantize(q, s, out_len=L),
+                plain=lambda: ref.dequantize_ref(q, s, out_len=L),
+                library=None, nbytes=nbytes)
+
+
+def quant_reduce_requant_case(q_shape, wire, dev, seed=0):
+    """K wire rows (K, Lp) summed and requantized to (Lp,) of the same
+    wire: the operands and their scales read once, one row written."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    K, Lp = q_shape
+    q, s = ops.quantize(torch.randn(q_shape, generator=g, device=dev), wire)
+    nt = Lp // ref.QUANT_TILE
+    nbytes = (K + 1) * (Lp + 4 * nt)
+    return dict(kernel=lambda: ops.quant_reduce_requant(q, s),
+                plain=lambda: ref.quant_reduce_requant_ref(q, s, wire),
+                library=None, nbytes=nbytes, cmp=wire_cmp)
 
 
 def quant_reduce_case(q_shape, wire, own_len, dev, seed=0):
@@ -344,6 +415,46 @@ def quant_reduce_into_case(q_shape, wire, table, out_shape, out_dtype, dev,
     def plain():
         ref.quant_reduce_into_ref(q, s, table.rows, outs["plain"],
                                   table.out_rows, table.own_rows)
+        return outs["plain"]
+    return dict(kernel=kernel, plain=plain, library=None, nbytes=nbytes)
+
+
+def landing_table(B, R, n_out, dev, seed=0):
+    """Row table of a gathered dequantize: one staged row of 0..R-1 a
+    batch row, distinct out rows, no partial — a landing phase."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(seed)
+    return ops.row_table(rng.permutation(R)[:B, None],
+                         rng.permutation(n_out)[:B], device=dev)
+
+
+def dequantize_into_case(q_shape, wire, table, out_shape, out_dtype, dev,
+                         seed=0):
+    """The gathered dequantize at a main-path launch: a fresh quantized
+    payload and out of the recorded shapes, the recorded row table."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    R, Lp = q_shape
+    q, s = ops.quantize(torch.randn((R, Lp), generator=g, device=dev), wire)
+    out0 = torch.randn(out_shape, generator=g, device=dev).to(out_dtype)
+    outs = {"kernel": out0.clone(), "plain": out0.clone()}
+    L = out_shape[-1]
+    B = table.rows.shape[0]
+    # each live staged row read up to L lanes with its scales, each out
+    # row written, the two tables read
+    nbytes = (_live_rows(table.rows) * (L + 4 * -(-L // ref.QUANT_TILE))
+              + B * L * out0.element_size()
+              + 8 * (table.rows.numel() + B))
+
+    def kernel():
+        ops.dequantize_into(q, s, table, outs["kernel"])
+        return outs["kernel"]
+
+    def plain():
+        ref.dequantize_into_ref(q, s, table.rows, outs["plain"],
+                                table.out_rows)
         return outs["plain"]
     return dict(kernel=kernel, plain=plain, library=None, nbytes=nbytes)
 
@@ -558,9 +669,12 @@ def phase_build() -> None:
         log(f"build: {name} ptxas: {'; '.join(regs)}")
 
 
-def phase_kernels(dev) -> None:
+def phase_kernels(dev) -> dict:
+    """Returns, for each kernel the main path never launches, its result
+    at the largest grid shape: {name: (wrapper, shapes, result)}."""
     import torch
     rows = []
+    unlaunched = {}
     for L in KERNEL_LANES:
         for dtype in (torch.float32, torch.bfloat16):
             for x in (2, 3, 8, 9):
@@ -569,13 +683,39 @@ def phase_kernels(dev) -> None:
                 if r["max_abs_err"] != 0.0:
                     fail(f"fused_reduce x={x} L={L} {dtype} differs from "
                          f"its plain version by {r['max_abs_err']}")
+        # the tree: 4 levels (fan_in 2) and 2 (fan_in 3) over 9 operands
+        for dtype, fan_in in ((torch.float32, 2), (torch.float32, 3),
+                              (torch.bfloat16, 2)):
+            r = measure(grouped_reduce_case((9, L), fan_in, dtype, dev))
+            what = f"x=9 fan_in={fan_in} L={L} {dtype}"
+            rows.append(("grouped_reduce", what, r))
+            if r["max_abs_err"] != 0.0:
+                fail(f"grouped_reduce {what} differs from its plain "
+                     f"version by {r['max_abs_err']}")
+            if L == KERNEL_LANES[-1] and "grouped_reduce" not in unlaunched:
+                unlaunched["grouped_reduce"] = ("grouped_reduce",
+                                                [(9, L)], r)
         for wire in ("float8_e4m3fn", "int8"):
             r = measure(quantize_case((8, L), wire, dev))
             rows.append(("quantize", f"R=8 L={L} {wire}", r))
             if r["max_abs_err"] != 0.0:
                 fail(f"quantize L={L} {wire} differs from its plain "
                      f"version by {r['max_abs_err']}")
+            r = measure(dequantize_case((8, L), wire, dev))
+            rows.append(("dequantize", f"W=8 L={L} {wire}", r))
+            if r["max_abs_err"] != 0.0:
+                fail(f"dequantize L={L} {wire} differs from its plain "
+                     f"version by {r['max_abs_err']}")
             Lp = -(-L // 128) * 128
+            r = measure(quant_reduce_requant_case((8, Lp), wire, dev))
+            rows.append(("quant_reduce_requant", f"K=8 Lp={Lp} {wire}", r))
+            if r["max_abs_err"] != 0.0:
+                fail(f"quant_reduce_requant Lp={Lp} {wire} differs from "
+                     f"its plain version by {r['max_abs_err']}")
+            if L == KERNEL_LANES[-1] and \
+                    "quant_reduce_requant" not in unlaunched:
+                unlaunched["quant_reduce_requant"] = (
+                    "quant_reduce_requant", [(8, Lp)], r)
             for own_len in (0, L):
                 r = measure(quant_reduce_case((8, Lp), wire, own_len, dev))
                 tag = "own" if own_len else "no own"
@@ -608,6 +748,16 @@ def phase_kernels(dev) -> None:
             if r["max_abs_err"] != 0.0:
                 fail(f"quant_reduce {what} differs from its plain version "
                      f"by {r['max_abs_err']}")
+            # a landing phase: 8 ranks, one staged row each
+            for out_dtype in (torch.float32, torch.bfloat16):
+                r = measure(dequantize_into_case(
+                    (72, Lp), wire, landing_table(8, 72, 64, dev), (64, L),
+                    out_dtype, dev))
+                what = f"into B=8 L={L} {wire}->{out_dtype}"
+                rows.append(("dequantize", what, r))
+                if r["max_abs_err"] != 0.0:
+                    fail(f"dequantize {what} differs from its plain "
+                         f"version by {r['max_abs_err']}")
         torch.cuda.empty_cache()
     # the recurrences: the serve shapes of rwkv6-1.6b (B 4, H 32, K = V
     # = 64) and hymba-1.5b (B 4, Di 3200, N 16) at prefill and at T = 1,
@@ -652,6 +802,7 @@ def phase_kernels(dev) -> None:
         log(f"kernel {name:15s} {what:38s} err {r['max_abs_err']:.1e}{rel} "
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
+    return unlaunched
 
 
 RAGGED = [33, 47, 60, 128]        # decode key counts of 4 batch rows
@@ -741,15 +892,19 @@ def model_kernel_grid(dev) -> list:
 # wrapper → the kernel it launches (the name its launches count under)
 WRAPPERS = {"fused_reduce": "fused_reduce",
             "fused_reduce_into": "fused_reduce",
+            "grouped_reduce": "grouped_reduce",
             "quantize": "quantize",
+            "dequantize": "dequantize",
+            "dequantize_into": "dequantize",
+            "quant_reduce_requant": "quant_reduce_requant",
             "quant_reduce": "quant_reduce",
             "quant_reduce_into": "quant_reduce",
             "wkv": "wkv",
             "ssm_scan": "ssm_scan",
             "rmsnorm": "rmsnorm",
             "flash_attention": "flash_attention"}
-# the kernels the executor folds and quantizes with
-EXECUTOR_KERNELS = ("fused_reduce", "quantize", "quant_reduce")
+# the kernels the executor folds, quantizes and lands copies with
+EXECUTOR_KERNELS = ("fused_reduce", "quantize", "quant_reduce", "dequantize")
 
 
 class ShapeRecorder:
@@ -787,13 +942,14 @@ class ShapeRecorder:
             setattr(self.ops, wrapper, fn)
 
 
-def schedule_bytes(cs, size: int, dtype) -> int:
-    """Bytes one `run_local` of schedule `cs` on (n, size) rows of `dtype`
-    must move if every step's data crosses device memory once: the input
-    copied into the working buffer; per round each live payload row read
-    and written to staging at wire width (fp8/int8: the quantized row and
-    its f32 scales); per fold each live operand and resident partial read
-    and the result row written."""
+def schedule_bytes(cs, size: int, dtype, steps=None) -> int:
+    """Bytes one run of schedule `cs` (its `steps`, default the AllReduce's
+    two halves) on a working buffer of (n, size) rows of `dtype` must move
+    if every step's data crosses device memory once: the input copied
+    into the working buffer; per round each live payload row read and
+    written to staging at wire width (fp8/int8: the quantized row and its
+    f32 scales); per fold or landing each live operand and resident
+    partial read and the result row written."""
     import torch
     elem = torch.empty((), dtype=dtype).element_size()
     chunk = -(-size // cs.num_blocks)
@@ -806,7 +962,7 @@ def schedule_bytes(cs, size: int, dtype) -> int:
     else:
         stage_row = chunk * 2                  # bf16
     total = 2 * cs.n * cs.num_blocks * chunk * elem
-    for st in cs.rs + cs.ag:
+    for st in (cs.rs + cs.ag if steps is None else steps):
         for rd in st.rounds:
             live = sum(int((rd.send_blks[s] >= 0).sum()) for s, _ in rd.perm)
             total += live * (chunk * elem + stage_row)
@@ -875,6 +1031,108 @@ def phase_executor(dev, recorder) -> dict:
     for name in EXECUTOR_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was never launched by the executor")
+    return counts
+
+
+def family_steps(cs, family: str) -> list:
+    """The steps a family entry point runs: the ReduceScatter half and the
+    shard reorder, the unorder and the AllGather half, or the movement
+    steps of all-to-all and p2p."""
+    if family == "reduce_scatter":
+        return cs.rs + ([cs.reorder] if cs.reorder is not None else [])
+    if family == "allgather":
+        return ([cs.unorder] if cs.unorder is not None else []) + cs.ag
+    return cs.ag
+
+
+def family_case(cs, family: str, size: int, dev, seed: int):
+    """(entry point name, input, exact answer, f32 tolerance) of a family
+    schedule at `size` elements a rank: the all-gather gathers shards of
+    size / n into size; the others take (n, size)."""
+    import torch
+    n = cs.n
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if family == "allgather":
+        S = torch.randn((n, size // n), generator=g, device=dev)
+        return ("run_local_all_gather", S,
+                S.reshape(1, -1).expand(n, -1), 0.0)
+    X = torch.randn((n, size), generator=g, device=dev)
+    if family == "reduce_scatter":
+        return ("run_local_reduce_scatter", X,
+                X.double().sum(dim=0).reshape(n, -1), 1e-6)
+    if family == "all_to_all":
+        return ("run_local_all_to_all", X,
+                X.reshape(n, n, -1).transpose(0, 1).reshape(n, -1), 0.0)
+    want = X.clone()
+    for s_, d in cs.perm_pairs:
+        want[d] = X[s_]
+    return "run_local_p2p", X, want, 0.0
+
+
+def phase_families(dev, recorder) -> dict:
+    """The planner's family schedules on the 8-rank local mesh, through
+    the guard, in f32 and every wire; returns the kernel launches."""
+    import torch
+    from repro_torch.core.cost_model import PRECISIONS
+    from repro_torch.core.lower import guard_schedule
+    from repro_torch.core.topology import single_switch, symmetric_tree
+    from repro_torch.kernels import ops
+    from repro_torch.planner.service import default_service
+
+    svc = default_service()
+    ops.reset_launches()
+    seen = set()
+    with recorder:
+        for size, label in EXEC_SIZES:
+            big = size >= 1 << 24       # fewer repeats at gradient size
+            for tname, topo in (("single_switch(8)", single_switch(8)),
+                                ("symmetric_tree(2,4)", symmetric_tree(2, 4))):
+                for family in FAMILIES:
+                    resp = svc.get_family_executable(
+                        family, "x", topo.num_servers(), size, topo=topo)
+                    if (id(resp.schedule), size) in seen:
+                        # all-to-all and p2p plans are flat: the tree's
+                        # schedule is the switch's, already run
+                        continue
+                    seen.add((id(resp.schedule), size))
+                    entry, X, want, f32_tol = family_case(
+                        resp.schedule, family, size, dev, size % 997)
+                    scale = float(want.abs().max())
+                    for wire in (None, "bf16", "fp8", "int8"):
+                        cs = resp.schedule.with_wire(
+                            None if wire is None else PRECISIONS[wire])
+                        sched = guard_schedule(cs)
+                        got = getattr(sched, entry)(X)
+                        torch.cuda.synchronize()
+                        err = float((got.double() - want.double()).abs()
+                                    .max()) / scale
+                        del got
+                        budget = (f32_tol if wire is None
+                                  else PRECISIONS[wire].error_budget)
+                        what = (f"families {family} {tname} {label} "
+                                f"wire={wire or 'f32'}")
+                        if not err <= budget:
+                            fail(f"{what}: rel err {err:.3e} over {budget}")
+                        run = lambda: getattr(sched, entry)(X)  # noqa: E731
+                        dev_ms = (device_ms(run, launches=2, blocks=2) if big
+                                  else device_ms(run, launches=3, blocks=3))
+                        wall_ms = host_ms(run, calls=2 if big else 3)
+                        if sched.demotions or sched.stats["failures"]:
+                            fail(f"{what}: guard demoted {sched.demotions} "
+                                 f"time(s), {sched.stats['failures']} "
+                                 f"failure(s)")
+                        sched_bound = bound_ms(schedule_bytes(
+                            cs, size, X.dtype, family_steps(cs, family)))
+                        log(f"{what} {cs.describe()} rel err {err:.2e} "
+                            f"(budget {budget:g}) device {dev_ms:.4f} ms "
+                            f"wall {wall_ms:.4f} ms schedule bound "
+                            f"{sched_bound:.4f} ms")
+                    del X, want
+                    torch.cuda.empty_cache()
+    counts = dict(ops.LAUNCHES)
+    log(f"families: launches {json.dumps(counts)}")
+    if counts["dequantize"] <= 0:
+        fail("kernel dequantize was never launched by the families")
     return counts
 
 
@@ -1108,6 +1366,14 @@ def _case_at(wrapper, args, kw, dev):
     if wrapper == "quantize":
         _, shape, _ = args[0]
         return quantize_case(shape, arg(1, "wire") or "float8_e4m3fn", dev)
+    if wrapper == "dequantize_into":
+        (_, q_shape, q_dtype), _, table, (_, out_shape, out_dtype) = args[:4]
+        return dequantize_into_case(q_shape, wires[q_dtype], table,
+                                    out_shape, out_dtype, dev)
+    if wrapper == "dequantize":
+        _, (W, Lp), q_dtype = args[0]
+        return dequantize_case((W, arg(3, "out_len") or Lp), wires[q_dtype],
+                               dev)
     if wrapper == "quant_reduce":
         _, q_shape, q_dtype = args[0]
         own = arg(2, "own")
@@ -1136,15 +1402,25 @@ def _case_at(wrapper, args, kw, dev):
                                   out_dtype, dev)
 
 
-def kernels_line(dev, first, executor, served) -> dict:
+def kernels_line(dev, first, main_path, unlaunched) -> dict:
+    """Per kernel: its launches on the main path (`main_path`, summed over
+    its phases) and its measures at its first main-path launch (`first`),
+    or, for a kernel the main path never launches, phase 2's result at
+    its largest shape (`unlaunched`)."""
     from repro_torch.kernels import ops
     info = {
         "fused_reduce": ("src/repro_torch/kernels/csrc/fused_reduce.cu",
                          "src/repro/kernels/fused_reduce.py:58"),
+        "grouped_reduce": ("src/repro_torch/kernels/csrc/fused_reduce.cu",
+                           "src/repro/kernels/fused_reduce.py:95"),
         "quantize": ("src/repro_torch/kernels/csrc/quant.cu",
                      "src/repro/kernels/quant.py:81"),
+        "dequantize": ("src/repro_torch/kernels/csrc/quant.cu",
+                       "src/repro/kernels/quant.py:103"),
         "quant_reduce": ("src/repro_torch/kernels/csrc/quant.cu",
                          "src/repro/kernels/quant.py:147"),
+        "quant_reduce_requant": ("src/repro_torch/kernels/csrc/quant.cu",
+                                 "src/repro/kernels/quant.py:176"),
         "wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                 "src/repro/kernels/wkv.py:91"),
         "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -1156,18 +1432,23 @@ def kernels_line(dev, first, executor, served) -> dict:
     }
     out = []
     for name, (source, replaces) in info.items():
-        wrapper, args, kw = first[name]
-        case = _case_at(wrapper, args, kw, dev)
-        shapes = [a[1] if isinstance(a, tuple) else tuple(a.rows.shape)
-                  for a in args if isinstance(a, (tuple, ops.RowTable))]
-        r = measure(case)
+        if name in first:
+            wrapper, args, kw = first[name]
+            case = _case_at(wrapper, args, kw, dev)
+            shapes = [a[1] if isinstance(a, tuple) else tuple(a.rows.shape)
+                      for a in args if isinstance(a, (tuple, ops.RowTable))]
+            r = measure(case)
+        elif main_path[name] == 0 and name in unlaunched:
+            wrapper, shapes, r = unlaunched[name]
+        else:
+            fail(f"{name}: launched {main_path[name]} time(s) on the main "
+                 f"path but no shape was recorded")
         if not within(name, r):
-            fail(f"{name} ({wrapper}) at main-path shapes {shapes} differs "
-                 f"from its plain version by {r['max_abs_err']} (tolerance "
+            fail(f"{name} ({wrapper}) at shapes {shapes} differs from its "
+                 f"plain version by {r['max_abs_err']} (tolerance "
                  f"{tolerance(name, r)})")
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces,
-                    "launches": executor[name] + served[name],
+                    "replaces": replaces, "launches": main_path[name],
                     **r, "wrapper": wrapper, "shapes": shapes})
     return {"kernels": out}
 
@@ -1194,11 +1475,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     log(f"phase build done at {time.perf_counter() - t0:.1f} s")
-    phase_kernels(dev)
+    unlaunched = phase_kernels(dev)
     log(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
-    rec_exec, rec_serve = ShapeRecorder(), ShapeRecorder()
+    rec_exec, rec_fam, rec_serve = (ShapeRecorder(), ShapeRecorder(),
+                                    ShapeRecorder())
     executor = phase_executor(dev, rec_exec)
     log(f"phase executor done at {time.perf_counter() - t0:.1f} s")
+    families = phase_families(dev, rec_fam)
+    log(f"phase families done at {time.perf_counter() - t0:.1f} s")
     served = dict.fromkeys(TOLERANCE, 0)
     for arch in SERVE_ARCHS:
         for name, n in phase_serve(dev, rec_serve,
@@ -1214,9 +1498,11 @@ def main() -> int:
         phase_model_reference(dev, arch)
     log(f"phase serve done at {time.perf_counter() - t0:.1f} s")
     # each kernel is timed at its first launch on the main path: the
-    # server's shapes where it launched the kernel, else the executor's
-    line = kernels_line(dev, {**rec_exec.first, **rec_serve.first},
-                        executor, served)
+    # server's shapes where it launched the kernel, else the executor's,
+    # else the families'
+    main_path = {k: executor[k] + families[k] + served[k] for k in served}
+    line = kernels_line(dev, {**rec_fam.first, **rec_exec.first,
+                              **rec_serve.first}, main_path, unlaunched)
     log(f"phase kernels line done at {time.perf_counter() - t0:.1f} s")
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -23,12 +23,20 @@ as `n·blocks` rows of `chunk` lanes. Per synchronized step:
 A schedule bound to a compressed wire (`with_wire`) quantizes each
 round's payload with the `quantize` kernel (fp8/int8, per-tile f32 scales
 riding beside it) or casts it (bf16), and folds with the fused
-dequant-reduce kernel (`quant_reduce_into`). Masked fold operands are
-row −1 in the table and never read, so staging buffers need no zeroing.
+dequant-reduce kernel (`quant_reduce_into`). A fold phase that only lands
+copies (one operand a rank, no resident partial: every step of a
+movement family, the AllGather half, the shard reorder) is one
+`dequantize_into` launch on a scaled wire instead. Masked fold operands
+are row −1 in the table and never read, so staging buffers need no
+zeroing.
 
-The reference package's `run_numpy` is the interpreter the equivalence
-tests hold `run_local` against. A collective over `torch.distributed`
-process groups (one card per rank) belongs to the trainer slice.
+Entry points, each with the reference's family check and canonical-shard
+rules: `run_local` (AllReduce), `run_local_reduce_scatter`,
+`run_local_all_gather`, `run_local_all_to_all` and `run_local_p2p`. The
+reference package's `run_numpy` and its shard_map entry points are what
+the equivalence tests hold them against. A collective over
+`torch.distributed` process groups (one card per rank) belongs to the
+trainer slice.
 """
 from __future__ import annotations
 
@@ -84,10 +92,10 @@ class ExecStep:
 # Rank m's block row b is working-buffer row m·nb + b; its staging row j
 # is staging row m·slots + j.
 # ---------------------------------------------------------------------------
-def _device_tables(obj, device: torch.device, build):
-    """`build(device)`, made once per device and cached on `obj`."""
+def _device_tables(obj, device: torch.device, build, kind: str = ""):
+    """`build(device)`, made once per (kind, device) and cached on `obj`."""
     cache = obj.__dict__.setdefault("_device_tables", {})
-    key = str(device)
+    key = (kind, str(device))
     t = cache.get(key)
     if t is None:
         t = cache[key] = build(device)
@@ -127,6 +135,24 @@ def _fold_table(fd: FoldPhase, nb: int, slots: int, device: torch.device):
     return _device_tables(fd, device, build)
 
 
+def _landing_table(fd: FoldPhase, nb: int, slots: int,
+                   device: torch.device):
+    """The fold phase as one gathered dequantize (`kernels.ops.RowTable`
+    of one operand a row), or None where it is not a pure landing: some
+    folding rank adds a resident partial or has other than one live
+    operand."""
+    from repro_torch.kernels import ops as kops
+
+    def build(dev):
+        act = np.nonzero(fd.blk >= 0)[0].astype(np.int64)
+        ops = fd.ops[act]
+        if fd.include_self[act].any() or ((ops >= 0).sum(axis=1) != 1).any():
+            return None
+        return kops.row_table(act[:, None] * slots + ops.max(axis=1)[:, None],
+                              act * nb + fd.blk[act], device=dev)
+    return _device_tables(fd, device, build, kind="landing")
+
+
 @dataclass(eq=False)
 class CompiledSchedule:
     """An executable AllReduce over a local mesh of `n` ranks."""
@@ -146,8 +172,10 @@ class CompiledSchedule:
     # move quantized payloads + per-tile f32 scales and folds run the
     # fused dequant-reduce. None = full precision.
     wire: object | None = None
-    # Collective family this schedule computes (plans.FAMILIES); the
-    # local-mesh entry points run allreduce-family schedules only.
+    # Collective family this schedule computes (plans.FAMILIES). The
+    # entry points enforce it: an allgather-family schedule only answers
+    # run_local_all_gather(), an all_to_all-family one only
+    # run_local_all_to_all(), etc.
     family: str = "allreduce"
     # p2p family only: the (src_mesh, dst_mesh) edges, for introspection.
     perm_pairs: tuple[tuple[int, int], ...] | None = None
@@ -192,6 +220,29 @@ class CompiledSchedule:
                 f"{'/'.join(allowed)} schedules")
 
     # ---- local-mesh execution ---------------------------------------------
+    def _check_rows(self, entry: str, X: torch.Tensor) -> None:
+        if X.dim() != 2 or X.shape[0] != self.n:
+            raise LoweringError(f"expected a ({self.n}, size) tensor of "
+                                f"per-rank rows; got {tuple(X.shape)}")
+        if X.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{entry} takes f32 or bf16; got {X.dtype}")
+
+    def _check_shards(self, entry: str) -> int:
+        if self.blocks_per_shard is None:
+            raise LoweringError(
+                f"plan {self.plan_name!r} shards {self.num_blocks} blocks "
+                f"over {self.n} devices — no canonical per-device shard; "
+                f"{entry}() needs one")
+        return self.blocks_per_shard
+
+    def _padded_buffer(self, X: torch.Tensor) -> torch.Tensor:
+        """A private (n·num_blocks, chunk) working copy of X, each rank's
+        row zero-padded to a multiple of num_blocks."""
+        pad = (-X.shape[1]) % self.num_blocks
+        buf = (torch.nn.functional.pad(X, (0, pad)) if pad
+               else X.clone(memory_format=torch.contiguous_format))
+        return buf.reshape(self.n * self.num_blocks, -1)
+
     def run_local(self, X: torch.Tensor) -> torch.Tensor:
         """AllReduce on a local mesh: X is the (n, size) tensor of the n
         ranks' contributions (f32 or bf16, on any device); returns the
@@ -203,22 +254,87 @@ class CompiledSchedule:
         width, fan); on a CUDA device their durations measure the host's
         enqueue, not the device's execution."""
         self._check_family("run_local", ("allreduce",))
-        if X.dim() != 2 or X.shape[0] != self.n:
-            raise LoweringError(f"expected a ({self.n}, size) tensor of "
-                                f"per-rank rows; got {tuple(X.shape)}")
-        if X.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"run_local takes f32 or bf16; got {X.dtype}")
+        self._check_rows("run_local", X)
         size = X.shape[1]
-        pad = (-size) % self.num_blocks
-        buf = (torch.nn.functional.pad(X, (0, pad)) if pad
-               else X.clone(memory_format=torch.contiguous_format))
-        buf = buf.reshape(self.n * self.num_blocks, -1)
+        buf = self._padded_buffer(X)
         with default_tracer().span("exec/run_local", plan=self.plan_name,
                                    n=self.n, blocks=self.num_blocks):
             self._run_steps_local(self.rs, buf, phase="rs")
             self._run_steps_local(self.ag, buf, phase="ag")
         out = buf.reshape(self.n, -1)
-        return out[:, :size] if pad else out
+        return out[:, :size] if out.shape[1] != size else out
+
+    def run_local_reduce_scatter(self, X: torch.Tensor) -> torch.Tensor:
+        """ReduceScatter on a local mesh: X (n, size) as for `run_local`;
+        returns (n, size_padded / n), row i rank i's canonical shard —
+        blocks [i·k, (i+1)·k) of the column sum of the rows zero-padded to
+        a multiple of num_blocks (k = blocks_per_shard)."""
+        self._check_family("run_local_reduce_scatter",
+                           ("allreduce", "reduce_scatter"))
+        k = self._check_shards("run_local_reduce_scatter")
+        self._check_rows("run_local_reduce_scatter", X)
+        buf = self._padded_buffer(X)
+        with default_tracer().span("exec/reduce_scatter",
+                                   plan=self.plan_name, n=self.n):
+            self._run_steps_local(self.rs, buf, phase="rs")
+            if self.reorder is not None:
+                self._run_steps_local([self.reorder], buf, phase="reorder")
+        n = self.n
+        # rank i's rows i·k .. (i+1)·k − 1 of its own num_blocks rows
+        return (buf.view(n, n, k, -1).diagonal(dim1=0, dim2=1)
+                .permute(2, 0, 1).reshape(n, -1))
+
+    def run_local_all_gather(self, S: torch.Tensor) -> torch.Tensor:
+        """AllGather on a local mesh: S (n, shard), row i rank i's
+        canonical shard (shard a multiple of blocks_per_shard); returns
+        (n, n·shard), every row the concatenation of the shards."""
+        self._check_family("run_local_all_gather", ("allreduce", "allgather"))
+        k = self._check_shards("run_local_all_gather")
+        self._check_rows("run_local_all_gather", S)
+        if S.shape[1] % k:
+            raise LoweringError(f"a shard of {S.shape[1]} elements does not "
+                                f"split into {k} blocks")
+        n, chunk = self.n, S.shape[1] // k
+        buf = torch.zeros((n * self.num_blocks, chunk), dtype=S.dtype,
+                          device=S.device)
+        buf.view(n, n, k, chunk).diagonal(dim1=0, dim2=1).copy_(
+            S.reshape(n, k, chunk).permute(1, 2, 0))
+        with default_tracer().span("exec/all_gather", plan=self.plan_name,
+                                   n=self.n):
+            if self.unorder is not None:
+                self._run_steps_local([self.unorder], buf, phase="unorder")
+            self._run_steps_local(self.ag, buf, phase="ag")
+        return buf.reshape(n, -1)
+
+    def run_local_all_to_all(self, X: torch.Tensor) -> torch.Tensor:
+        """AllToAll on a local mesh: X (n, size), size a multiple of
+        num_blocks; returns (n, size) where, with k = num_blocks / n, rank
+        d's rows [s·k, (s+1)·k) of chunks are rank s's input chunks
+        [d·k, (d+1)·k) — the reference's split-0/concat-0 exchange.
+        Diagonal chunks never move."""
+        self._check_family("run_local_all_to_all", ("all_to_all",))
+        self._check_rows("run_local_all_to_all", X)
+        if X.shape[1] % self.num_blocks:
+            raise LoweringError(
+                f"all_to_all operand of {X.shape[1]} elements does not "
+                f"split into {self.num_blocks} equal chunks")
+        buf = self._padded_buffer(X)
+        with default_tracer().span("exec/all_to_all", plan=self.plan_name,
+                                   n=self.n, blocks=self.num_blocks):
+            self._run_steps_local(self.ag, buf, phase="a2a")
+        return buf.reshape(self.n, -1)
+
+    def run_local_p2p(self, X: torch.Tensor) -> torch.Tensor:
+        """Point-to-point exchange on a local mesh: X (n, size); each
+        compiled (src, dst) edge replaces row dst with row src, rows with
+        no incoming edge keep theirs."""
+        self._check_family("run_local_p2p", ("p2p",))
+        self._check_rows("run_local_p2p", X)
+        buf = self._padded_buffer(X)
+        with default_tracer().span("exec/p2p", plan=self.plan_name,
+                                   n=self.n):
+            self._run_steps_local(self.ag, buf, phase="p2p")
+        return buf.reshape(self.n, -1)
 
     def _run_steps_local(self, steps: Sequence[ExecStep], buf: torch.Tensor,
                          phase: str = "steps") -> None:
@@ -262,7 +378,10 @@ class CompiledSchedule:
         buffers hold wire bytes, and each fold runs the fused
         dequant-reduce over every folding rank in one `quant_reduce_into`
         launch — operands decode in registers and accumulate in f32 with
-        the resident partial. bf16 (scale-free) wires skip the scale
+        the resident partial. A fold phase that only lands copies (one
+        operand a rank, no partial) decodes them in one `dequantize_into`
+        launch instead: the reference computes the same q·scale as a
+        one-operand quant_reduce. bf16 (scale-free) wires skip the scale
         plumbing: plain casts, folded by `fused_reduce_into` in f32."""
         from repro_torch.kernels import ops as kops
         from repro_torch.kernels.ref import wire_dtype
@@ -311,12 +430,18 @@ class CompiledSchedule:
                     with tracer.span("exec/fold", fold=fi,
                                      fan=int(fd.ops.shape[1]),
                                      wire=wire.name):
-                        table = _fold_table(fd, nb, slots, dev)
-                        if scaled:
-                            kops.quant_reduce_into(stage_q.view(qdtype),
-                                                   stage_s, table, buf, tile)
+                        if not scaled:
+                            kops.fused_reduce_into(
+                                stage_q, _fold_table(fd, nb, slots, dev), buf)
+                            continue
+                        landing = _landing_table(fd, nb, slots, dev)
+                        if landing is not None:
+                            kops.dequantize_into(stage_q.view(qdtype),
+                                                 stage_s, landing, buf, tile)
                         else:
-                            kops.fused_reduce_into(stage_q, table, buf)
+                            kops.quant_reduce_into(
+                                stage_q.view(qdtype), stage_s,
+                                _fold_table(fd, nb, slots, dev), buf, tile)
 
 
 # ---------------------------------------------------------------------------
@@ -809,8 +934,9 @@ def _lower_movement_family(plan: Plan, mesh_of: Mapping[int, int],
 # Guarded execution (DESIGN.md §12)
 # ---------------------------------------------------------------------------
 class GuardedSchedule:
-    """Launch guard around a CompiledSchedule, for the local-mesh entry
-    point `run_local`.
+    """Launch guard around a CompiledSchedule, for its local-mesh entry
+    points (`run_local`, `run_local_reduce_scatter`,
+    `run_local_all_gather`, `run_local_all_to_all`, `run_local_p2p`).
 
     The guard counts launches (`stats`, `guarded_launches_total`). A
     failed launch is recorded (`stats["failures"]`,
@@ -855,7 +981,7 @@ class GuardedSchedule:
         if tele is not None:
             tele.remeasure("guard_failure", info)
 
-    def run_local(self, X: torch.Tensor) -> torch.Tensor:
+    def _guarded(self, what: str, X: torch.Tensor) -> torch.Tensor:
         from repro_torch.runtime.metrics import default_metrics
 
         self.stats["launches"] += 1
@@ -863,10 +989,25 @@ class GuardedSchedule:
             "guarded_launches_total",
             "collective launches through the schedule guard").inc()
         try:
-            return self.inner.run_local(X)
+            return getattr(self.inner, what)(X)
         except Exception as e:
-            self._note_failure("run_local", e)
+            self._note_failure(what, e)
             raise
+
+    def run_local(self, X: torch.Tensor) -> torch.Tensor:
+        return self._guarded("run_local", X)
+
+    def run_local_reduce_scatter(self, X: torch.Tensor) -> torch.Tensor:
+        return self._guarded("run_local_reduce_scatter", X)
+
+    def run_local_all_gather(self, S: torch.Tensor) -> torch.Tensor:
+        return self._guarded("run_local_all_gather", S)
+
+    def run_local_all_to_all(self, X: torch.Tensor) -> torch.Tensor:
+        return self._guarded("run_local_all_to_all", X)
+
+    def run_local_p2p(self, X: torch.Tensor) -> torch.Tensor:
+        return self._guarded("run_local_p2p", X)
 
 
 def guard_schedule(schedule, *, telemetry=None):

@@ -32,6 +32,9 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C signature of every exported launcher (all return a cudaError_t).
 _FR = (_P, _P, _I, _P, _P, _P, _P, _L, _L, _P)
 _QR = (_P, _P, _P, _I, _P, _P, _L, _P, _P, _L, _L, _L, _P)
+_GR = (_P, _P, _I, _I, _L, _P)
+_DQ = (_P, _P, _P, _P, _P, _L, _L, _L, _P)
+_RQ = (_P, _P, _I, _P, _P, _L, _P)
 _RN = (_P, _P, _P) + (_L,) * 6 + (_I, _F, _F, _P)
 _FA = (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_F, _F, _I, _I, _P)
 SIGNATURES = {
@@ -39,6 +42,8 @@ SIGNATURES = {
         "fused_reduce_f32": _FR,
         "fused_reduce_bf16": _FR,
         "fused_reduce_bf16_f32": _FR,
+        "grouped_reduce_f32": _GR,
+        "grouped_reduce_bf16": _GR,
     },
     "quant": {
         "quantize_fp8": (_P, _P, _P, _L, _L, _L, _P),
@@ -47,6 +52,10 @@ SIGNATURES = {
         "quant_reduce_fp8_bf16": _QR,
         "quant_reduce_int8_f32": _QR,
         "quant_reduce_int8_bf16": _QR,
+        **{f"dequantize_{w}_{t}": _DQ for w in ("fp8", "int8")
+           for t in ("f32", "bf16")},
+        **{f"quant_reduce_requant_{a}_{b}": _RQ for a in ("fp8", "int8")
+           for b in ("fp8", "int8")},
     },
     "wkv": {"wkv_f32": (_P,) * 8 + (_I,) * 5 + (_P,)},
     "ssm_scan": {"ssm_scan_f32": (_P,) * 8 + (_I,) * 4 + (_P,)},

@@ -32,6 +32,21 @@
 // padding copy is ever made. Sums start at 0 and run in operand order with
 // the partial last, so the result equals the plain version
 // (repro_torch/kernels/ref.py) bit for bit.
+//
+// The same file replaces the Pallas TPU kernel `grouped_reduce`
+// (src/repro/kernels/fused_reduce.py, pallas_call at line 95): the same
+// (x, L) -> (L,) sum folded as a tree of fan_in-ary adds, level k summing
+// groups of fan_in consecutive level-(k-1) values left to right, the last
+// group of a level zero-padded. The TPU kernel holds all x operands of a
+// tile in VMEM and folds level by level; here each operand is streamed
+// once (the same coalesced 16-byte vectors as fused_reduce) into one f32
+// accumulator per tree level, driven by a base-fan_in digit counter: when
+// a level holds fan_in values it adds its sum into the level above, and at
+// the end every part-filled level is carried up in order. The pad zeros
+// are never added: a sum that starts at +0 is never -0, so adding +0
+// changes nothing. Bound: memory, (x + 1) * L elements, as fused_reduce;
+// the depth (accumulators a thread) is a template bound, at most
+// kMaxDepth.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -133,6 +148,99 @@ int launch(const void* src_, const void* rows, int x, const void* own_,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Deepest tree the kernel folds: one accumulator a level and the result.
+constexpr int kMaxDepth = 7;
+
+// T: operand and result type. VEC lanes per thread, L % VEC == 0 for VEC
+// > 1. DEPTH: levels of the tree (a template bound, so every loop over
+// levels unrolls to constant indices and acc stays in registers). Level
+// k's accumulator acc[k] collects cnt[k] values; acc[DEPTH] is the result.
+template <typename T, int VEC, int DEPTH>
+__global__ void __launch_bounds__(256)
+grouped_reduce_kernel(const T* __restrict__ parts, T* __restrict__ out,
+                      int x, int fan, long long L) {
+  const long long l0 =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
+  if (l0 >= L) return;
+  float acc[DEPTH + 1][VEC];
+  int cnt[DEPTH + 1];
+#pragma unroll
+  for (int k = 0; k <= DEPTH; ++k) {
+    cnt[k] = 0;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[k][i] = 0.0f;
+  }
+  for (int j = 0; j < x; ++j) {
+    const Vec<T, VEC> in =
+        *reinterpret_cast<const Vec<T, VEC>*>(parts + j * L + l0);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      acc[0][i] = __fadd_rn(acc[0][i], to_f32(in.v[i]));
+    ++cnt[0];
+    // a full level hands its sum to the level above and starts a new group
+#pragma unroll
+    for (int k = 0; k < DEPTH; ++k) {
+      if (cnt[k] == fan) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          acc[k + 1][i] = __fadd_rn(acc[k + 1][i], acc[k][i]);
+          acc[k][i] = 0.0f;
+        }
+        cnt[k] = 0;
+        ++cnt[k + 1];
+      }
+    }
+  }
+  // the part-filled groups, bottom up
+#pragma unroll
+  for (int k = 0; k < DEPTH; ++k) {
+    if (cnt[k] > 0) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        acc[k + 1][i] = __fadd_rn(acc[k + 1][i], acc[k][i]);
+      ++cnt[k + 1];
+    }
+  }
+  Vec<T, VEC> res;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) res.v[i] = from_f32<T>(acc[DEPTH][i]);
+  *reinterpret_cast<Vec<T, VEC>*>(out + l0) = res;
+}
+
+// The kernel instance of the run's depth (0..kMaxDepth).
+template <typename T, int VEC, int DEPTH = 0>
+void launch_grouped_depth(int depth, long long lanes, cudaStream_t s,
+                          const T* parts, T* out, int x, int fan,
+                          long long L) {
+  if constexpr (DEPTH < kMaxDepth) {
+    if (depth != DEPTH)
+      return launch_grouped_depth<T, VEC, DEPTH + 1>(depth, lanes, s, parts,
+                                                     out, x, fan, L);
+  }
+  constexpr int kThreads = 256;
+  grouped_reduce_kernel<T, VEC, DEPTH>
+      <<<static_cast<unsigned>((lanes + kThreads - 1) / kThreads), kThreads,
+         0, s>>>(parts, out, x, fan, L);
+}
+
+template <typename T>
+int launch_grouped(const void* parts_, void* out_, int x, int fan,
+                   long long L, void* stream) {
+  if (x <= 0 || fan < 2 || L <= 0) return cudaErrorInvalidValue;
+  int depth = 0;
+  for (long long n = x; n > 1; n = (n + fan - 1) / fan) ++depth;
+  if (depth > kMaxDepth) return cudaErrorInvalidValue;
+  const T* parts = static_cast<const T*>(parts_);
+  T* out = static_cast<T*>(out_);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int kVec = 16 / sizeof(T);
+  if (L % kVec == 0 && vec_ok<kVec>(parts) && vec_ok<kVec>(out))
+    launch_grouped_depth<T, kVec>(depth, L / kVec, s, parts, out, x, fan, L);
+  else
+    launch_grouped_depth<T, 1>(depth, L, s, parts, out, x, fan, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Every entry: (src, rows, x, own, own_rows, out, out_rows, B, L, stream);
@@ -160,4 +268,15 @@ extern "C" int fused_reduce_bf16_f32(const void* src, const void* rows, int x,
                                      long long B, long long L, void* stream) {
   return launch<__nv_bfloat16, float>(src, rows, x, own, own_rows, out,
                                       out_rows, B, L, stream);
+}
+
+// grouped_reduce entries: (parts (x, L), out (L,), x, fan_in, L, stream).
+extern "C" int grouped_reduce_f32(const void* parts, void* out, int x,
+                                  int fan, long long L, void* stream) {
+  return launch_grouped<float>(parts, out, x, fan, L, stream);
+}
+
+extern "C" int grouped_reduce_bf16(const void* parts, void* out, int x,
+                                   int fan, long long L, void* stream) {
+  return launch_grouped<__nv_bfloat16>(parts, out, x, fan, L, stream);
 }

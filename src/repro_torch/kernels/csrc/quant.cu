@@ -1,9 +1,17 @@
 // Wire-format quantization kernels for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/quant.py:
+// Replaces four Pallas TPU kernels of src/repro/kernels/quant.py:
 //  * `quantize` (pallas_call at line 81): (R, L) f32 -> per-128-lane-tile
 //    symmetric fp8-e4m3 / int8 payload (R, Lp) + one f32 abs-max scale per
 //    tile (R, nt), Lp = nt * 128;
+//  * `dequantize` (pallas_call at line 103): payload rows times their tile
+//    scales, (W, Lp) -> (W, out_len) f32. Like quant_reduce it also takes
+//    row tables: result row out_rows[b] of `out` (f32 or bf16) is payload
+//    row rows[b] decoded (-1 = zeros), so the executor lands a whole
+//    movement phase in one launch;
+//  * `quant_reduce_requant` (pallas_call at line 176): quant_reduce of K
+//    operand rows with no partial, then the `quantize` encoding of the
+//    sum, (K, Lp) -> (Lp,) wire + (nt,) f32, never leaving registers;
 //  * `quant_reduce` (pallas_call at lines 147/151): K wire rows decoded
 //    (q * scale) and summed in f32, plus an optional resident partial
 //    `own`, batched here as (B, K, Lp) -> (B, Lp) so that one fold phase of
@@ -14,7 +22,7 @@
 //    (f32 or bf16), so the executor folds straight from its staging
 //    buffers into its working buffer with no copy around the launch.
 //
-// Bound: memory, for both. quantize must read 4 * L bytes and write
+// Bound: memory, for all four. quantize must read 4 * L bytes and write
 // Lp + 4 * nt bytes per row; quant_reduce must read K operand rows at wire
 // width (K * Lp bytes + 4 * K * nt of scales) plus the `own` partial and
 // write the result, about (K + 1) * Lp bytes at wire width plus the
@@ -35,6 +43,18 @@
 //    ever decompressed to device memory. A masked operand (row -1) is never
 //    read, and an operand tile whose scale is 0 (an all-zero tile) is
 //    skipped, so neither's payload bits, whatever they are, reach the sum.
+//  * dequantize: 4 lanes a thread, a warp a tile, so a warp reads 128
+//    contiguous payload bytes and writes 128 contiguous results; bound by
+//    its f32 writes (4 bytes out per byte in). A zero-scale tile writes
+//    exact zeros without reading its payload (a NaN pattern times 0 would
+//    be NaN).
+//  * quant_reduce_requant: one warp per 128-lane tile, 4 lanes a thread
+//    (one 32-bit payload word per operand, a warp reads 128 contiguous
+//    bytes; eight operands' loads in flight together), the operands
+//    summed in quant_reduce's order, the tile's abs-max by warp shuffles
+//    and the encoding of quantize_kernel, so its bytes equal
+//    quantize(quant_reduce(q, s)) bit for bit. Bound: reading K payload
+//    rows; it writes a wire row, 1/K of what it reads.
 // Products and sums use the _rn intrinsics (no fused multiply-add), so the
 // results equal the plain versions (repro_torch/kernels/ref.py) bit for
 // bit.
@@ -50,6 +70,7 @@ namespace {
 constexpr int kTile = 128;
 constexpr int kFp8 = 0;
 constexpr int kInt8 = 1;
+constexpr int kBatch = 8;  // operands quant_reduce_requant loads together
 
 template <int WIRE>
 __device__ __forceinline__ std::uint32_t encode(float y, float qmax) {
@@ -68,6 +89,29 @@ __device__ __forceinline__ float decode(std::uint8_t b) {
   if (WIRE == kInt8) return static_cast<float>(static_cast<std::int8_t>(b));
   __half_raw h = __nv_cvt_fp8_to_halfraw(b, __NV_E4M3);
   return __half2float(__half(h));
+}
+
+// The encoding of one 128-lane tile held by a whole warp, 4 lanes a
+// thread: returns this thread's 4 payload bytes packed in one word and
+// sets *scale to the tile's stored scale (0 for an all-zero tile). The
+// tile is divided by the safe scale with a true IEEE divide.
+template <int WIRE>
+__device__ __forceinline__ std::uint32_t encode_tile(const float (&v)[4],
+                                                     float* scale) {
+  float amax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])),
+                     fmaxf(fabsf(v[2]), fabsf(v[3])));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float qmax = WIRE == kInt8 ? 127.0f : 448.0f;
+  const float s = __fdiv_rn(amax, qmax);
+  const float safe = s > 0.0f ? s : 1.0f;
+  std::uint32_t packed = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    packed |= encode<WIRE>(__fdiv_rn(v[i], safe), qmax) << (8 * i);
+  *scale = amax > 0.0f ? s : 0.0f;
+  return packed;
 }
 
 // grid: ceil(R * nt / warps per block) blocks; one warp per (row, tile).
@@ -93,21 +137,59 @@ quantize_kernel(const float* __restrict__ x, std::uint8_t* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[i] = l0 + i < L ? row[l0 + i] : 0.0f;
   }
-  float amax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])),
-                     fmaxf(fabsf(v[2]), fabsf(v[3])));
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float qmax = WIRE == kInt8 ? 127.0f : 448.0f;
-  const float scale = __fdiv_rn(amax, qmax);
-  const float safe = scale > 0.0f ? scale : 1.0f;
-  std::uint32_t packed = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    packed |= encode<WIRE>(__fdiv_rn(v[i], safe), qmax) << (8 * i);
+  float scale;
+  const std::uint32_t packed = encode_tile<WIRE>(v, &scale);
   const long long Lp = nt * kTile;
   *reinterpret_cast<std::uint32_t*>(q + r * Lp + l0) = packed;
-  if (lane == 0) scales[r * nt + t] = amax > 0.0f ? scale : 0.0f;
+  if (lane == 0) scales[r * nt + t] = scale;
+}
+
+// grid: ceil(nt / warps per block) blocks; one warp per 128-lane tile of
+// the K operand rows (K, Lp), 4 lanes a thread. IN: operand wire; OUT:
+// result wire.
+template <int IN, int OUT>
+__global__ void __launch_bounds__(256)
+quant_reduce_requant_kernel(const std::uint8_t* __restrict__ q,
+                            const float* __restrict__ scales, int K,
+                            std::uint8_t* __restrict__ qout,
+                            float* __restrict__ sout, long long nt) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (t >= nt) return;  // the whole warp leaves together
+  const long long Lp = nt * kTile;
+  const long long l0 = t * kTile + lane * 4;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // kBatch operands at a time: their scales, then their payload words
+  // (a zero-scale tile's never read), are loaded together so the loads
+  // overlap; the adds still run in operand order
+  for (int k0 = 0; k0 < K; k0 += kBatch) {
+    float sc[kBatch];
+    std::uint32_t w[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      sc[u] = k0 + u < K ? scales[(k0 + u) * nt + t] : 0.0f;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      w[u] = sc[u] != 0.0f ? *reinterpret_cast<const std::uint32_t*>(
+                                 q + (k0 + u) * Lp + l0)
+                           : 0u;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (sc[u] == 0.0f) continue;  // all-zero tile or past K
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[i] = __fadd_rn(acc[i],
+                           __fmul_rn(decode<IN>(static_cast<std::uint8_t>(
+                                         w[u] >> (8 * i))),
+                                     sc[u]));
+    }
+  }
+  float scale;
+  const std::uint32_t packed = encode_tile<OUT>(acc, &scale);
+  *reinterpret_cast<std::uint32_t*>(qout + l0) = packed;
+  if (lane == 0) sout[t] = scale;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -203,8 +285,52 @@ quant_reduce_kernel(const std::uint8_t* __restrict__ q,
   }
 }
 
+// grid: (ceil(out_len / (4 * threads)), B); 4 lanes per thread, so a
+// warp covers one 128-lane tile: it reads 128 contiguous payload bytes and
+// writes 128 contiguous results. T: result type. Null tables mean the
+// dense form: result row b is payload row b. Result rows are out_len
+// elements long (<= Lp); lanes past them are not read or written.
+template <int WIRE, typename T>
+__global__ void __launch_bounds__(256)
+dequantize_kernel(const std::uint8_t* __restrict__ q,
+                  const float* __restrict__ scales,
+                  const long long* __restrict__ rows, T* __restrict__ out,
+                  const long long* __restrict__ out_rows, long long out_len,
+                  long long Lp, int out_vec) {
+  const long long b = blockIdx.y;
+  const long long l0 =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (l0 >= out_len) return;
+  const long long r = rows != nullptr ? rows[b] : b;
+  const float sc = r >= 0 ? scales[r * (Lp / kTile) + l0 / kTile] : 0.0f;
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (sc != 0.0f) {  // no row, or an all-zero tile: exact zeros, unread
+    const std::uint32_t w =
+        *reinterpret_cast<const std::uint32_t*>(q + r * Lp + l0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = __fmul_rn(decode<WIRE>(static_cast<std::uint8_t>(w >> (8 * i))),
+                       sc);
+  }
+  T* wb = out + (out_rows != nullptr ? out_rows[b] : b) * out_len + l0;
+  if (out_vec && l0 + 4 <= out_len) {
+    Vec4<T> o;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o.v[i] = from_f32<T>(v[i]);
+    *reinterpret_cast<Vec4<T>*>(wb) = o;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (l0 + i < out_len) wb[i] = from_f32<T>(v[i]);
+  }
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
+bool aligned4(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 4 == 0;
 }
 
 template <int WIRE>
@@ -212,8 +338,7 @@ int launch_quantize(const void* x, void* q, void* scales, long long R,
                     long long L, long long nt, void* stream) {
   if (R <= 0 || L <= 0 || nt != (L + kTile - 1) / kTile)
     return cudaErrorInvalidValue;
-  if (reinterpret_cast<std::uintptr_t>(q) % 4 != 0)
-    return cudaErrorMisalignedAddress;
+  if (!aligned4(q)) return cudaErrorMisalignedAddress;
   constexpr int kThreads = 256;
   constexpr int kWarps = kThreads / 32;
   const int vec = aligned16(x) && L % 4 == 0;
@@ -256,6 +381,47 @@ int launch_quant_reduce(const void* q, const void* scales, const void* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int WIRE, typename T>
+int launch_dequantize(const void* q, const void* scales, const void* rows,
+                      void* out, const void* out_rows, long long out_len,
+                      long long B, long long Lp, void* stream) {
+  if (B <= 0 || Lp <= 0 || B > 65535 || Lp % kTile != 0 || out_len <= 0 ||
+      out_len > Lp)
+    return cudaErrorInvalidValue;
+  if (!aligned4(q)) return cudaErrorMisalignedAddress;
+  constexpr int kThreads = 256;
+  const int out_vec =
+      reinterpret_cast<std::uintptr_t>(out) % (4 * sizeof(T)) == 0 &&
+      out_len % 4 == 0;
+  const long long spans = (out_len + 3) / 4;
+  dim3 grid(static_cast<unsigned>((spans + kThreads - 1) / kThreads),
+            static_cast<unsigned>(B));
+  dequantize_kernel<WIRE, T><<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const std::uint8_t*>(q), static_cast<const float*>(scales),
+      static_cast<const long long*>(rows), static_cast<T*>(out),
+      static_cast<const long long*>(out_rows), out_len, Lp, out_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int IN, int OUT>
+int launch_quant_reduce_requant(const void* q, const void* scales, int K,
+                                void* qout, void* sout, long long Lp,
+                                void* stream) {
+  if (K <= 0 || Lp <= 0 || Lp % kTile != 0) return cudaErrorInvalidValue;
+  if (!aligned4(q) || !aligned4(qout)) return cudaErrorMisalignedAddress;
+  constexpr int kThreads = 256;
+  constexpr int kWarps = kThreads / 32;
+  const long long nt = Lp / kTile;
+  const long long blocks = (nt + kWarps - 1) / kWarps;
+  quant_reduce_requant_kernel<IN, OUT><<<static_cast<unsigned>(blocks),
+                                         kThreads, 0,
+                                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const std::uint8_t*>(q), static_cast<const float*>(scales),
+      K, static_cast<std::uint8_t*>(qout), static_cast<float*>(sout), nt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int quantize_fp8(const void* x, void* q, void* scales, long long R,
@@ -287,3 +453,32 @@ QUANT_REDUCE_ENTRY(quant_reduce_fp8_f32, kFp8, float)
 QUANT_REDUCE_ENTRY(quant_reduce_fp8_bf16, kFp8, __nv_bfloat16)
 QUANT_REDUCE_ENTRY(quant_reduce_int8_f32, kInt8, float)
 QUANT_REDUCE_ENTRY(quant_reduce_int8_bf16, kInt8, __nv_bfloat16)
+
+// dequantize entries: (q, scales, rows, out, out_rows, out_len, B, Lp,
+// stream), by wire and result type; null tables for the dense form.
+#define DEQUANTIZE_ENTRY(NAME, WIRE, T)                                       \
+  extern "C" int NAME(const void* q, const void* scales, const void* rows,   \
+                      void* out, const void* out_rows, long long out_len,    \
+                      long long B, long long Lp, void* stream) {             \
+    return launch_dequantize<WIRE, T>(q, scales, rows, out, out_rows,        \
+                                      out_len, B, Lp, stream);               \
+  }
+
+DEQUANTIZE_ENTRY(dequantize_fp8_f32, kFp8, float)
+DEQUANTIZE_ENTRY(dequantize_fp8_bf16, kFp8, __nv_bfloat16)
+DEQUANTIZE_ENTRY(dequantize_int8_f32, kInt8, float)
+DEQUANTIZE_ENTRY(dequantize_int8_bf16, kInt8, __nv_bfloat16)
+
+// quant_reduce_requant entries: (q, scales, K, qout, sout, Lp, stream), by
+// operand wire and result wire.
+#define REQUANT_ENTRY(NAME, IN, OUT)                                          \
+  extern "C" int NAME(const void* q, const void* scales, int K, void* qout,  \
+                      void* sout, long long Lp, void* stream) {              \
+    return launch_quant_reduce_requant<IN, OUT>(q, scales, K, qout, sout,    \
+                                                Lp, stream);                 \
+  }
+
+REQUANT_ENTRY(quant_reduce_requant_fp8_fp8, kFp8, kFp8)
+REQUANT_ENTRY(quant_reduce_requant_fp8_int8, kFp8, kInt8)
+REQUANT_ENTRY(quant_reduce_requant_int8_fp8, kInt8, kFp8)
+REQUANT_ENTRY(quant_reduce_requant_int8_int8, kInt8, kInt8)

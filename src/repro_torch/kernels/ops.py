@@ -15,14 +15,16 @@ through strides (so head transposes need no copy), and write new
 tensors in the input's dtype; their layout limits are checked on every
 device, so the CPU tests hold the models to what the kernels take.
 
-A reduce kernel has two wrappers, both counted under its name: the dense
-form (`fused_reduce`, `quant_reduce`: the TPU kernel's shape, plus a
-batch axis) and the gathered form (`fused_reduce_into`,
-`quant_reduce_into`), which reads its operands through a `RowTable` and
+A reduce kernel, and the dequantize kernel, has two wrappers, both
+counted under its name: the dense form (`fused_reduce`, `quant_reduce`,
+`dequantize`: the TPU kernel's shape, the reduces plus a batch axis) and
+the gathered form (`fused_reduce_into`, `quant_reduce_into`,
+`dequantize_into`), which reads its operands through a `RowTable` and
 writes its results into rows of an existing buffer — how the executor
-folds a whole phase with no copy around the launch. A `RowTable` is
-checked on the host once, when built, so a launch need not wait for the
-device to trust its indices.
+folds or lands a whole phase with no copy around the launch. A
+`RowTable` is checked on the host once, when built, so a launch need not
+wait for the device to trust its indices. `grouped_reduce` and
+`quant_reduce_requant` have the dense form only, the TPU kernels' shape.
 """
 from __future__ import annotations
 
@@ -35,8 +37,9 @@ from . import build, ref
 from .ref import QUANT_TILE, WIRE_QMAX, wire_dtype
 
 # kernel name → launches since the last `reset_launches()`
-LAUNCHES = {"fused_reduce": 0, "quantize": 0, "quant_reduce": 0, "wkv": 0,
-            "ssm_scan": 0, "rmsnorm": 0, "flash_attention": 0}
+LAUNCHES = {"fused_reduce": 0, "grouped_reduce": 0, "quantize": 0,
+            "dequantize": 0, "quant_reduce": 0, "quant_reduce_requant": 0,
+            "wkv": 0, "ssm_scan": 0, "rmsnorm": 0, "flash_attention": 0}
 
 # largest head width (K, V) of the wkv kernel and state width N of the
 # ssm_scan kernel: the state lives in one thread's registers
@@ -45,6 +48,11 @@ RECURRENCE_MAX_WIDTH = 64
 # thread) and head dim of the flash_attention kernel (its template bound)
 RMSNORM_MAX_WIDTH = 8192
 ATTENTION_MAX_HEAD_DIM = 256
+# deepest tree of the grouped_reduce kernel: one f32 accumulator a level
+# and the result, per lane, in registers
+GROUPED_REDUCE_MAX_DEPTH = 7
+# largest row count (grid y) of the dense dequantize kernel
+DEQUANTIZE_MAX_ROWS = 65535
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
@@ -99,6 +107,49 @@ def fused_reduce(parts: torch.Tensor) -> torch.Tensor:
     return out if parts.dim() == 3 else out[0]
 
 
+def _grouped_reduce_depth(x: int, fan_in: int) -> int:
+    """Levels of the fan_in-ary tree that folds x operands to one."""
+    depth = 0
+    while x > 1:
+        x = -(-x // fan_in)
+        depth += 1
+    return depth
+
+
+def grouped_reduce(parts: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """(x, L) → (L,): the x operand rows summed in f32 as a tree of
+    fan_in-ary adds (see `ref.grouped_reduce_ref`), written in the input
+    dtype (f32 or bf16); fan_in >= 2, tree depth <=
+    GROUPED_REDUCE_MAX_DEPTH on every device."""
+    if parts.dtype not in _FLOATS:
+        raise TypeError(f"grouped_reduce takes f32 or bf16, got "
+                        f"{parts.dtype}")
+    if parts.dim() != 2 or parts.shape[0] < 1 or fan_in < 2:
+        raise ValueError(f"grouped_reduce takes (x, L) with x >= 1 and "
+                         f"fan_in >= 2; got {tuple(parts.shape)}, fan_in "
+                         f"{fan_in}")
+    x, L = parts.shape
+    depth = _grouped_reduce_depth(x, fan_in)
+    if depth > GROUPED_REDUCE_MAX_DEPTH:
+        raise ValueError(f"grouped_reduce folds at most "
+                         f"{GROUPED_REDUCE_MAX_DEPTH} levels; x={x} at "
+                         f"fan_in {fan_in} needs {depth}")
+    if not _on_cuda(parts):
+        return ref.grouped_reduce_ref(parts, fan_in)
+    if not parts.is_contiguous():
+        raise ValueError("grouped_reduce needs a contiguous operand tensor")
+    out = torch.empty((L,), dtype=parts.dtype, device=parts.device)
+    if L:
+        lib = build.load("fused_reduce")
+        fn = (lib.grouped_reduce_f32 if parts.dtype == torch.float32
+              else lib.grouped_reduce_bf16)
+        with torch.cuda.device(parts.device):
+            _check(fn(parts.data_ptr(), out.data_ptr(), x, int(fan_in), L,
+                      _stream(parts)), "grouped_reduce")
+        LAUNCHES["grouped_reduce"] += 1
+    return out
+
+
 def _launch_fused_reduce(src, rows, x, own_rows, out, out_rows, B, L):
     lib = build.load("fused_reduce")
     fn = {(torch.float32, torch.float32): lib.fused_reduce_f32,
@@ -126,6 +177,7 @@ class RowTable:
     own_rows: torch.Tensor       # (B,) int64
     src_extent: int
     out_extent: int
+    has_own: bool = False        # some batch row folds a partial
 
 
 def row_table(rows, out_rows, own_rows=None, device=None) -> RowTable:
@@ -153,7 +205,8 @@ def row_table(rows, out_rows, own_rows=None, device=None) -> RowTable:
         *(torch.from_numpy(a).to(dev) for a in (rows, out_rows, own_rows)),
         src_extent=int(rows.max(initial=-1)) + 1,
         out_extent=int(max(out_rows.max(initial=-1),
-                           own_rows.max(initial=-1))) + 1)
+                           own_rows.max(initial=-1))) + 1,
+        has_own=bool((own_rows >= 0).any()))
 
 
 def _check_table(table: RowTable, src: torch.Tensor, out: torch.Tensor,
@@ -228,6 +281,132 @@ def quantize(x: torch.Tensor, wire: str = "float8_e4m3fn",
     return q, s
 
 
+def _check_wire(what: str, q: torch.Tensor, scales: torch.Tensor,
+                tile: int) -> None:
+    """q (R, Lp) fp8-e4m3/int8 tiled by `tile` lanes, scales (R, nt) f32."""
+    if q.dtype not in (torch.float8_e4m3fn, torch.int8) \
+            or scales.dtype != torch.float32:
+        raise TypeError(f"{what} takes an fp8-e4m3 or int8 payload and f32 "
+                        f"scales; got {q.dtype} and {scales.dtype}")
+    if q.dim() != 2 or scales.dim() != 2 or q.shape[1] % tile \
+            or scales.shape != (q.shape[0], q.shape[1] // tile):
+        raise ValueError(f"{what} takes q (R, Lp) and scales (R, Lp/{tile}); "
+                         f"got {tuple(q.shape)} and {tuple(scales.shape)}")
+
+
+def _wire_name(dtype: torch.dtype) -> str:
+    return "fp8" if dtype == torch.float8_e4m3fn else "int8"
+
+
+def _kind(dtype: torch.dtype) -> str:
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor,
+               tile: int = QUANT_TILE,
+               out_len: int | None = None) -> torch.Tensor:
+    """(W, Lp) wire + (W, nt) scales → (W, out_len or Lp) f32, a new
+    tensor: each tile q·scale, a zero-scale tile exactly 0 whatever its
+    payload bits."""
+    _check_wire("dequantize", q, scales, tile)
+    W, Lp = q.shape
+    out_len = Lp if out_len is None else int(out_len)
+    if not 0 < out_len <= Lp:
+        raise ValueError(f"dequantize takes 0 < out_len <= {Lp}; got "
+                         f"{out_len}")
+    if not _on_cuda(q, scales):
+        return ref.dequantize_ref(q, scales, tile, out_len)
+    if tile != QUANT_TILE or W > DEQUANTIZE_MAX_ROWS:
+        raise ValueError(f"the CUDA dequantize kernel tiles by {QUANT_TILE} "
+                         f"lanes and takes at most {DEQUANTIZE_MAX_ROWS} "
+                         f"rows; got tile={tile}, {W} rows")
+    if not (q.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("dequantize needs contiguous q and scales")
+    out = torch.empty((W, out_len), dtype=torch.float32, device=q.device)
+    if W:
+        _launch_dequantize(q, scales, None, out, None, W)
+    return out
+
+
+def _launch_dequantize(q, scales, rows, out, out_rows, B):
+    lib = build.load("quant")
+    fn = getattr(lib, f"dequantize_{_wire_name(q.dtype)}_{_kind(out.dtype)}")
+    with torch.cuda.device(q.device):
+        _check(fn(q.data_ptr(), scales.data_ptr(), _ptr(rows),
+                  out.data_ptr(), _ptr(out_rows), out.shape[1], B,
+                  q.shape[1], _stream(q)), "dequantize")
+    LAUNCHES["dequantize"] += 1
+
+
+def dequantize_into(q: torch.Tensor, scales: torch.Tensor, table: RowTable,
+                    out: torch.Tensor, tile: int = QUANT_TILE) -> None:
+    """Gathered dequantize, in place, in one launch: for every batch row
+    b, out[out_rows[b]] = decode(q, scales)[rows[b, 0]] (−1 = zeros) cut to
+    out's row length L <= Lp, written in out's dtype (f32 or bf16). The
+    table has one operand a row and no partial. q (R, Lp) fp8-e4m3/int8,
+    scales (R, nt) f32."""
+    _check_wire("dequantize_into", q, scales, tile)
+    if out.dtype not in _FLOATS:
+        raise TypeError(f"dequantize_into writes f32 or bf16; got "
+                        f"{out.dtype}")
+    if out.dim() != 2 or not 0 < out.shape[1] <= q.shape[1]:
+        raise ValueError(f"dequantize_into takes out (R', L <= "
+                         f"{q.shape[1]}); got {tuple(out.shape)}")
+    _check_table(table, q, out, "dequantize_into")
+    if table.rows.shape[1] != 1 or table.has_own:
+        raise ValueError(f"dequantize_into takes one operand a row and no "
+                         f"partial; got rows {tuple(table.rows.shape)}, "
+                         f"partial {table.has_own}")
+    if not _on_cuda(q, scales, out):
+        return ref.dequantize_into_ref(q, scales, table.rows, out,
+                                       table.out_rows, tile)
+    if tile != QUANT_TILE:
+        raise ValueError(f"the CUDA dequantize kernel tiles by {QUANT_TILE} "
+                         f"lanes; got tile={tile}")
+    if not (q.is_contiguous() and scales.is_contiguous()
+            and out.is_contiguous()):
+        raise ValueError("dequantize_into needs contiguous q, scales and "
+                         "out")
+    B = table.rows.shape[0]
+    if B:
+        _launch_dequantize(q, scales, table.rows, out, table.out_rows, B)
+
+
+def quant_reduce_requant(q: torch.Tensor, scales: torch.Tensor,
+                         wire: str | None = None, tile: int = QUANT_TILE
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compressed reduce that stays on the wire: (K, Lp) wire + (K, nt)
+    scales → (q (Lp,) `wire`, default the operands' wire; scales (nt,)
+    f32), equal byte for byte to `quantize(quant_reduce(q, scales))`."""
+    _check_wire("quant_reduce_requant", q, scales, tile)
+    K, Lp = q.shape
+    if wire is None:
+        wire = {v: k for k, v in ref.WIRE_DTYPES.items()}[q.dtype]
+    wdt = wire_dtype(wire)
+    if K < 1:
+        raise ValueError("quant_reduce_requant takes K >= 1 operand rows")
+    if not _on_cuda(q, scales):
+        return ref.quant_reduce_requant_ref(q, scales, wire, tile)
+    if tile != QUANT_TILE:
+        raise ValueError(f"the CUDA quant_reduce_requant kernel tiles by "
+                         f"{QUANT_TILE} lanes; got tile={tile}")
+    if not (q.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("quant_reduce_requant needs contiguous inputs")
+    nt = Lp // tile
+    q_out = torch.empty((Lp,), dtype=wdt, device=q.device)
+    s_out = torch.empty((nt,), dtype=torch.float32, device=q.device)
+    if Lp:
+        lib = build.load("quant")
+        fn = getattr(lib, f"quant_reduce_requant_{_wire_name(q.dtype)}_"
+                          f"{_wire_name(wdt)}")
+        with torch.cuda.device(q.device):
+            _check(fn(q.data_ptr(), scales.data_ptr(), K, q_out.data_ptr(),
+                      s_out.data_ptr(), Lp, _stream(q)),
+                   "quant_reduce_requant")
+        LAUNCHES["quant_reduce_requant"] += 1
+    return q_out, s_out
+
+
 def quant_reduce(q: torch.Tensor, scales: torch.Tensor,
                  own: torch.Tensor | None = None, tile: int = QUANT_TILE,
                  out_len: int | None = None) -> torch.Tensor:
@@ -277,9 +456,7 @@ def quant_reduce(q: torch.Tensor, scales: torch.Tensor,
 def _launch_quant_reduce(q, scales, rows, K, own, own_rows, own_len, out,
                          out_rows, B):
     lib = build.load("quant")
-    wire = "fp8" if q.dtype == torch.float8_e4m3fn else "int8"
-    kind = "f32" if out.dtype == torch.float32 else "bf16"
-    fn = getattr(lib, f"quant_reduce_{wire}_{kind}")
+    fn = getattr(lib, f"quant_reduce_{_wire_name(q.dtype)}_{_kind(out.dtype)}")
     with torch.cuda.device(q.device):
         _check(fn(q.data_ptr(), scales.data_ptr(), _ptr(rows), K, _ptr(own),
                   _ptr(own_rows), own_len, out.data_ptr(), _ptr(out_rows),
@@ -527,9 +704,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2)
 
 
-__all__ = ["ATTENTION_MAX_HEAD_DIM", "LAUNCHES", "QUANT_TILE",
+__all__ = ["ATTENTION_MAX_HEAD_DIM", "DEQUANTIZE_MAX_ROWS",
+           "GROUPED_REDUCE_MAX_DEPTH", "LAUNCHES", "QUANT_TILE",
            "RECURRENCE_MAX_WIDTH", "RMSNORM_MAX_WIDTH", "WIRE_QMAX",
-           "RowTable", "flash_attention", "fused_reduce",
-           "fused_reduce_into", "quant_reduce", "quant_reduce_into",
-           "quantize", "reset_launches", "rmsnorm", "row_table", "ssm_scan",
-           "wkv"]
+           "RowTable", "dequantize", "dequantize_into", "flash_attention",
+           "fused_reduce", "fused_reduce_into", "grouped_reduce",
+           "quant_reduce", "quant_reduce_into",
+           "quant_reduce_requant", "quantize", "reset_launches", "rmsnorm",
+           "row_table", "ssm_scan", "wkv"]

@@ -1,12 +1,12 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each reduce and quantize function computes exactly what its CUDA kernel
-in `csrc/` computes, in the same order of float operations, so the kernel
-can be held against it bit for bit on the card; the recurrences (`wkv_ref`,
-`ssm_scan_ref`) reduce in another order than their kernels and are held
-to a tolerance, as are `rmsnorm` and `flash_attention`, whose kernels
-also reduce in another order. The wrappers in `ops.py` run these for CPU
-tensors.
+Each reduce, quantize and dequantize function computes exactly what its
+CUDA kernel in `csrc/` computes, in the same order of float operations,
+so the kernel can be held against it bit for bit on the card; the
+recurrences (`wkv_ref`, `ssm_scan_ref`) reduce in another order than
+their kernels and are held to a tolerance, as are `rmsnorm` and
+`flash_attention`, whose kernels also reduce in another order. The
+wrappers in `ops.py` run these for CPU tensors.
 They are also held against the JAX package's Pallas kernels and oracles
 on shared numpy inputs by the CPU tests.
 """
@@ -44,6 +44,29 @@ def fused_reduce_ref(parts: torch.Tensor) -> torch.Tensor:
     for j in range(parts.shape[-2]):
         acc = acc + parts[..., j, :].float()
     return acc.to(parts.dtype)
+
+
+def _sum_from_zero(vals: list[torch.Tensor]) -> torch.Tensor:
+    """0 + vals[0] + vals[1] + ..., left to right, in f32."""
+    acc = torch.zeros_like(vals[0], dtype=torch.float32)
+    for v in vals:
+        acc = acc + v
+    return acc
+
+
+def grouped_reduce_ref(parts: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """(x, L) → (L,): the x operand rows summed in f32 as a tree of
+    fan_in-ary adds, written in the input dtype. Each level sums groups
+    of fan_in consecutive values of the level below, left to right from
+    0, until one value is left (one level for x = 1). The reference pads
+    a level's last group with zeros; adding +0 to a sum that starts at +0
+    changes nothing, so the pad is left out."""
+    vals = [parts[j].float() for j in range(parts.shape[0])]
+    while True:
+        vals = [_sum_from_zero(vals[g:g + fan_in])
+                for g in range(0, len(vals), fan_in)]
+        if len(vals) == 1:
+            return vals[0].to(parts.dtype)
 
 
 def _add_rows(acc: torch.Tensor, src: torch.Tensor, r: torch.Tensor
@@ -110,6 +133,31 @@ def _dequant(q: torch.Tensor, scales: torch.Tensor, tile: int
     return torch.where(live, deq, torch.zeros_like(deq))
 
 
+def dequantize_ref(q: torch.Tensor, scales: torch.Tensor,
+                   tile: int = QUANT_TILE,
+                   out_len: int | None = None) -> torch.Tensor:
+    """(..., Lp) wire + (..., nt) scales → (..., out_len or Lp) f32: each
+    tile q·scale, a zero-scale tile exactly 0."""
+    deq = _dequant(q, scales, tile)
+    if out_len is None or out_len == q.shape[-1]:
+        return deq
+    return deq[..., :out_len].contiguous()
+
+
+def dequantize_into_ref(q: torch.Tensor, scales: torch.Tensor,
+                        rows: torch.Tensor, out: torch.Tensor,
+                        out_rows: torch.Tensor,
+                        tile: int = QUANT_TILE) -> None:
+    """Gathered dequantize, in place: for every batch row b, wire row
+    rows[b, 0] of (q, scales) decoded (−1 = zeros) and cut to out's row
+    length L <= Lp, written to out row out_rows[b] in out's dtype."""
+    r = rows[:, 0]
+    safe = r.clamp(min=0)
+    deq = _dequant(q[safe], scales[safe], tile)[:, :out.shape[-1]]
+    deq = torch.where((r >= 0)[:, None], deq, torch.zeros_like(deq))
+    out[out_rows] = deq.to(out.dtype)
+
+
 def quant_reduce_ref(q: torch.Tensor, scales: torch.Tensor,
                      own: torch.Tensor | None = None,
                      tile: int = QUANT_TILE,
@@ -132,6 +180,17 @@ def quant_reduce_ref(q: torch.Tensor, scales: torch.Tensor,
     if out_len is None or out_len == Lp:
         return acc
     return acc[..., :out_len]
+
+
+def quant_reduce_requant_ref(q: torch.Tensor, scales: torch.Tensor,
+                             wire: str = "float8_e4m3fn",
+                             tile: int = QUANT_TILE
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(K, Lp) wire + (K, nt) scales → (q (Lp,) `wire`, scales (nt,) f32):
+    the sum of `quant_reduce_ref`, encoded as `quantize_ref` encodes."""
+    q_out, s_out = quantize_ref(quant_reduce_ref(q, scales, tile=tile)[None],
+                                wire, tile)
+    return q_out[0], s_out[0]
 
 
 def quant_reduce_into_ref(q: torch.Tensor, scales: torch.Tensor,

@@ -7,13 +7,20 @@ The serving slice of the reference `planner/service.py` (DESIGN.md §5):
   * `get_executable(topo, nbytes, dtype)` / `get_axis_executable(axis, n,
     size_floats)` — the same plan plus its lowered schedule (core.lower,
     DESIGN.md §8), cached alongside the plan entry;
+  * `get_family_executable(family, axis, n, size_floats)` — the lowered
+    schedule of one collective family on one mesh axis (DESIGN.md §14):
+    reduce-scatter and all-gather as the halves of the axis's GenTree
+    AllReduce plan, all-to-all and p2p from their flat builders;
   * `get_axis_plans(axes, size_floats)` — per-mesh-axis plan labels;
   * `observe(...)` — the online loop: residuals, drift, and the refit
-    that hot-swaps the pricing basis (DESIGN.md §10).
+    that hot-swaps the pricing basis (DESIGN.md §10);
+  * `mark_degraded` / `clear_degraded` — degraded-link repricing
+    (DESIGN.md §12): a level at bandwidth factor f pays β/f on every
+    pricing and execution path.
 
-Arrival-skew re-ranking, degraded-link repricing, bucket plans and
-whole-step plans are not ported yet. Uncalibrated mesh-axis pricing
-defaults to the paper's GPU testbed (`cost_model.GPU_TESTBED`).
+Arrival-skew re-ranking, bucket plans and whole-step plans are not
+ported yet. Uncalibrated mesh-axis pricing defaults to the paper's GPU
+testbed (`cost_model.GPU_TESTBED`).
 
 Plan generation (GenTree + candidate simulation) costs hundreds of
 milliseconds at cluster scale; a warm lookup is a fingerprint hash plus an
@@ -66,6 +73,17 @@ class PlanResponse:
     # alongside the plan entry under "_exec" (derived artifact — never
     # persisted; recompiled once per placement after a disk-warm restart)
     schedule: object | None = None
+
+
+# Family spellings accepted by `get_family_executable`: HLO op names and
+# plan-IR names (core.plans.FAMILIES) both map onto the IR spelling.
+FAMILY_ALIASES = {
+    "all-reduce": "allreduce", "all_reduce": "allreduce",
+    "reduce-scatter": "reduce_scatter",
+    "all-gather": "allgather", "all_gather": "allgather",
+    "all-to-all": "all_to_all", "alltoall": "all_to_all",
+    "collective-permute": "p2p",
+}
 
 
 @dataclass(frozen=True)
@@ -154,16 +172,96 @@ class PlannerService:
         # feeding the cost ledger — same versioning contract as above
         self._shares_cache: dict[tuple, tuple[int, object]] = {}
         self._obs_handles: dict[str, tuple] = {}
+        # degraded-level health map (DESIGN.md §12): level class →
+        # bandwidth multiplier in (0, 1). Applied to every pricing basis
+        # via _apply_health, so a degraded link reprices (β/factor) and
+        # refingerprints (the synthesized switch topology's uplink_bw
+        # realizes β) without touching the stored params.
+        self._degraded: dict[str, float] = {}
+        # all_to_all / p2p schedules, memoized per (family, n)
+        self._family_scheds: dict[tuple[str, int], object] = {}
         self._lock = threading.RLock()
+
+    # ---- degraded-mode health (DESIGN.md §12) ------------------------------
+    def _apply_health(self, eff: Mapping[str, GenModelParams]
+                      ) -> dict[str, GenModelParams]:
+        """The pricing basis with degraded levels repriced: a level at
+        bandwidth multiplier f pays β/f per unit. Every axis pricing and
+        execution path flows through this, and β determines the
+        synthesized switch topology's uplink bandwidth — so a degrade
+        changes both the params fingerprint and the topo fingerprint,
+        making every plan priced for the healthy link unreachable."""
+        if not self._degraded:
+            return dict(eff)
+        out = dict(eff)
+        for lvl, f in self._degraded.items():
+            p = out.get(lvl)
+            if p is not None and 0.0 < f < 1.0:
+                out[lvl] = dataclasses.replace(p, beta=p.beta / f)
+        return out
+
+    def mark_degraded(self, level: str, factor: float) -> int:
+        """Declare `level`'s links degraded to `factor` × nominal
+        bandwidth (0 < factor < 1; ≥ 1 clears). Bumps the params version,
+        clears the pricing caches, drops every derived executable and
+        opens a telemetry re-measure window — the planner replans around
+        the degraded link on the next lookup, under a new fingerprint.
+        Returns the number of derived artifacts dropped.
+
+        Unlike the reference service, a restore re-arms no guards: the
+        port's schedule guard never demotes (`core.lower.GuardedSchedule`),
+        so no guard is pinned to a fallback a restore could release."""
+        factor = float(factor)
+        if factor <= 0.0:
+            raise ValueError(f"degrade factor must be > 0: {factor}")
+        with self._lock:
+            if factor >= 1.0:
+                self._degraded.pop(level, None)
+            else:
+                self._degraded[level] = factor
+            self._params_version += 1
+            self._merged_cache.clear()
+            self._pred_cache.clear()
+            self._shares_cache.clear()
+        dropped = self.invalidate_executables()
+        m = default_metrics()
+        m.counter("planner_degrade_events_total",
+                  "level health transitions (degrade/restore)").inc()
+        m.gauge("planner_degraded_levels",
+                "level classes currently marked degraded"
+                ).set(float(len(self._degraded)))
+        default_tracer().instant("planner/degrade", level=level,
+                                 factor=factor, dropped=dropped)
+        # measurements of the healthy link must not steer a refit of the
+        # degraded one (and vice versa on restore)
+        self.telemetry.remeasure("degrade", {"level": level,
+                                             "factor": factor,
+                                             "dropped": dropped})
+        return dropped
+
+    def clear_degraded(self, level: str | None = None) -> None:
+        """Restore `level` (or every level) to nominal health; reprices
+        and invalidates exactly like `mark_degraded`."""
+        with self._lock:
+            levels = [level] if level is not None \
+                else list(self._degraded)
+        for lvl in levels:
+            self.mark_degraded(lvl, 1.0)
+
+    def degraded(self) -> dict[str, float]:
+        with self._lock:
+            return dict(self._degraded)
 
     # ---- the online loop: observe -> drift -> refit -> invalidate ----------
     def _effective_axis_params(self) -> dict[str, GenModelParams]:
         """Pricing basis for mesh-axis requests: the axis paths
-        (`get_axis_executable`, `get_axis_plans`) default to GPU_TESTBED
-        when the service is uncalibrated, and observation/refit must
-        price against the same basis those paths quoted."""
-        return dict(self.params if self.params is not None
-                    else GPU_TESTBED)
+        (`get_axis_executable`, `get_family_executable`,
+        `get_axis_plans`) default to GPU_TESTBED when the service is
+        uncalibrated, and observation/refit must price against the same
+        basis those paths quoted. Health-adjusted (`_apply_health`): a
+        degraded level prices at its sagged β."""
+        return self._apply_health(self.params if self.params is not None
+                                  else GPU_TESTBED)
 
     def _merged_level_params(self, level: str,
                              eff: Mapping[str, GenModelParams]
@@ -323,7 +421,12 @@ class PlannerService:
         refit_now = False
         if pol.enabled and out["drift"] > pol.drift_threshold \
                 and tracker.count >= pol.min_samples \
-                and self._sample_diversity(level) >= 2:
+                and self._sample_diversity(level) >= 2 \
+                and level not in self._degraded:
+            # a degraded level is known, repriced state (DESIGN.md §12):
+            # its drift reflects the sag the health map already models,
+            # so fitting telemetry from it would bake a transient fault
+            # into the calibrated params
             # claim the refit under the lock: concurrent observers must
             # not both fit (the second would find the samples consumed)
             with self._lock:
@@ -414,7 +517,10 @@ class PlannerService:
                         "bound").inc(len(clamped))
                 result.params[level] = fitted
             with self._lock:
-                base = self._effective_axis_params()
+                # the raw basis: a degraded level's sag stays in the
+                # health map, never in the stored params
+                base = dict(self.params if self.params is not None
+                            else GPU_TESTBED)
                 base[level] = fitted
                 self.params = base
                 self.calibration = result
@@ -585,14 +691,95 @@ class PlannerService:
         (default: `GPU_TESTBED` until calibrated): the synthesized switch's uplink
         bandwidth realizes that level's β, exactly as
         `plan_axes_gentree` prices the same axis, so the executed plan is
-        the one the model actually argues for."""
-        eff = dict(params) if params else self._effective_axis_params()
+        the one the model actually argues for. A degraded level prices
+        (and replans) at its sagged β, per-request overrides included: a
+        degraded link is a property of the fleet, not of the request."""
+        eff = (self._apply_health(params) if params
+               else self._effective_axis_params())
         if topo is None:
             from repro_torch.core.sync import level_switch_topo
             topo = level_switch_topo(int(n), eff, level)
         dsize = DTYPE_BYTES.get(dtype, 4)
         return self.get_executable(topo, max(size_floats, 1.0) * dsize,
                                    dtype, params=eff)
+
+    def get_family_executable(self, family: str, axis_name: str, n: int,
+                              size_floats: float, dtype: str = "float32",
+                              *, topo: TopoNode | None = None,
+                              level: str = "root_sw",
+                              params: Mapping[str, GenModelParams] | None
+                              = None) -> PlanResponse:
+        """Executable schedule for ONE collective family on one mesh axis
+        (DESIGN.md §14). The axis is a single switch of `n` servers unless
+        `topo` gives the physical tree, as for `get_axis_executable`.
+
+        allreduce delegates to `get_axis_executable`. reduce_scatter /
+        allgather lower the matching half of the SAME GenTree AllReduce
+        plan the axis would run (`plans.family_halves`) — co-planned with
+        allreduce by construction, cached on that plan's entry under a
+        family-keyed `_exec` slot (same lifetime/invalidation as every
+        derived schedule). all_to_all / p2p schedules are structurally
+        size-independent (one full-mesh / one shift round whatever the
+        payload), so they memoize per (family, n) on the service and are
+        dropped by `invalidate_executables` like any executable."""
+        from repro_torch.core import plans as plans_mod
+        from repro_torch.core.cost_model import evaluate_plan
+        from repro_torch.core.lower import lower_plan
+        from repro_torch.core.sync import level_switch_topo
+
+        family = FAMILY_ALIASES.get(family, family)
+        if family == "allreduce":
+            return self.get_axis_executable(axis_name, int(n), size_floats,
+                                            dtype, topo=topo, level=level,
+                                            params=params)
+        eff = (self._apply_health(params) if params
+               else self._effective_axis_params())
+        merged = self._merged_level_params(level, eff)
+        size_floats = max(float(size_floats), 1.0)
+        n = int(n)
+
+        if family in ("reduce_scatter", "allgather"):
+            if topo is None:
+                topo = level_switch_topo(n, eff, level)
+            dsize = DTYPE_BYTES.get(dtype, 4)
+            resp = self.get_plan(topo, size_floats * dsize, dtype,
+                                 params=eff)
+            rs_half, ag_half = plans_mod.family_halves(resp.plan)
+            half = rs_half if family == "reduce_scatter" else ag_half
+            fkey = ("family", family)
+            with self._lock:
+                entry = self.cache.get(resp.key)
+                execs = (None if entry is None
+                         else entry.setdefault("_exec", {}))
+                sched = None if execs is None else execs.get(fkey)
+                if sched is None:
+                    sched = lower_plan(half)
+                    if execs is not None:
+                        execs[fkey] = sched
+            out = dataclasses.replace(
+                resp, plan=half, algo=f"{resp.algo}:{family}",
+                predicted_time=evaluate_plan(half, merged))
+            out.schedule = sched
+            return out
+
+        if family in ("all_to_all", "p2p"):
+            build = (plans_mod.alltoall_plan if family == "all_to_all"
+                     else plans_mod.p2p_plan)
+            plan = build(n, size_floats)
+            skey = (family, n)
+            with self._lock:
+                sched = self._family_scheds.get(skey)
+                if sched is None:
+                    sched = lower_plan(plan)
+                    self._family_scheds[skey] = sched
+            return PlanResponse(
+                plan=plan, algo=family,
+                predicted_time=evaluate_plan(plan, merged),
+                key=f"family:{family}:{n}", size_floats=size_floats,
+                schedule=sched)
+
+        raise ValueError(f"unknown collective family {family!r} "
+                         f"(expected one of {plans_mod.FAMILIES})")
 
     # ---- exact-size pricing (observe's default prediction) -----------------
     @staticmethod
@@ -677,7 +864,7 @@ class PlannerService:
                        params: Mapping[str, GenModelParams] | None = None
                        ) -> list[AxisPlan]:
         axes = [(str(a), int(n)) for a, n in axes]
-        eff = (dict(params) if params is not None
+        eff = (self._apply_health(params) if params is not None
                else self._effective_axis_params())
         bucket = self.cache.bucket(max(size_floats, 1.0) * 4)
         key = axis_key(axes, eff, bucket, extra=self._config_extra())
@@ -714,11 +901,14 @@ class PlannerService:
     # ---- housekeeping ------------------------------------------------------
     def invalidate_executables(self) -> int:
         """Drop every derived executable artifact — the lowered
-        `CompiledSchedule`s on the plan entries (`_exec` maps) — while
-        keeping the priced plans. The next `get_executable` re-lowers
-        under the current params. Called by a refit's hot swap."""
+        `CompiledSchedule`s on the plan entries (`_exec` maps) and the
+        memoized all_to_all / p2p schedules — while keeping the priced
+        plans. The next `get_executable` / `get_family_executable`
+        re-lowers under the current params. Called by a refit's hot swap
+        and by `mark_degraded`."""
         with self._lock:
-            dropped = self.cache.drop_derived()
+            dropped = self.cache.drop_derived() + len(self._family_scheds)
+            self._family_scheds.clear()
         m = default_metrics()
         m.counter("planner_schedule_invalidations_total",
                   "invalidate_executables calls (remesh/resume/refit)"
@@ -738,6 +928,7 @@ class PlannerService:
                "entries": len(self.cache),
                "calibrated": self.calibration is not None,
                "refits": list(self.refits),
+               "degraded": dict(self._degraded),
                "telemetry": self.telemetry.stats()}
         if self.params:
             out["params"] = {lvl: dataclasses.asdict(p)

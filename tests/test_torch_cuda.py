@@ -163,6 +163,119 @@ def test_run_local_on_card(dev, topo, wire, dtype):
     assert torch.equal(got.cpu(), cs.run_local(X.cpu()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x,fan_in", [(2, 2), (3, 2), (7, 3), (9, 2),
+                                      (9, 4), (16, 16), (1, 2), (100, 2)])
+@pytest.mark.parametrize("L", [20480, 1001])
+def test_grouped_reduce_kernel_matches_plain(dev, dtype, x, fan_in, L):
+    parts = _rand((x, L), 10 + x, dev).to(dtype)
+    before = ops.LAUNCHES["grouped_reduce"]
+    got = ops.grouped_reduce(parts, fan_in)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["grouped_reduce"] == before + 1
+    want = ref.grouped_reduce_ref(parts, fan_in)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("wire", ["float8_e4m3fn", "int8"])
+@pytest.mark.parametrize("shape,out_len", [((8, 20480), None),
+                                           ((3, 1024), 1000),
+                                           ((2, 256), 131)])
+def test_dequantize_kernel_matches_plain(dev, wire, shape, out_len):
+    q, s = ops.quantize(_rand(shape, 11, dev, scale=3.0), wire)
+    q.view(torch.uint8)[0, :128] = 0x7F     # NaN bits under a zero scale
+    s[0, 0] = 0.0
+    before = ops.LAUNCHES["dequantize"]
+    got = ops.dequantize(q, s, out_len=out_len)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dequantize"] == before + 1
+    want = ref.dequantize_ref(q, s, out_len=out_len)
+    assert torch.isfinite(got).all() and not got[0, :128].any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("wire", ["float8_e4m3fn", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L", [(8, 2560), (3, 1003)])
+def test_dequantize_into_kernel_matches_plain(dev, wire, dtype, B, L):
+    R, n_out = 20, 10
+    q, s = ops.quantize(_rand((R + 1, L), 12, dev), wire)
+    q.view(torch.uint8)[R] = 0x7F           # NaN bits in a row no table names
+    s[3, 0] = 0.0
+    rng = np.random.default_rng(B)
+    rows = rng.integers(0, R, (B, 1))
+    rows[0, 0] = -1                         # a row that lands zeros
+    t = ops.row_table(rows, rng.permutation(n_out)[:B], device=dev)
+    out = _rand((n_out, L), 13, dev).to(dtype)
+    got, want = out.clone(), out.clone()
+    before = ops.LAUNCHES["dequantize"]
+    ops.dequantize_into(q, s, t, got)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["dequantize"] == before + 1
+    ref.dequantize_into_ref(q, s, t.rows, want, t.out_rows)
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out_wire", ["float8_e4m3fn", "int8"])
+@pytest.mark.parametrize("wire", ["float8_e4m3fn", "int8"])
+@pytest.mark.parametrize("K,L", [(1, 1024), (3, 20480), (8, 4096)])
+def test_quant_reduce_requant_kernel_matches_plain(dev, wire, out_wire, K,
+                                                   L):
+    q, s = ops.quantize(_rand((K, L), 14, dev, scale=4.0), wire)
+    q.view(torch.uint8)[0, 128:256] = 0x7F  # NaN bits under a zero scale
+    s[0, 1] = 0.0
+    before = ops.LAUNCHES["quant_reduce_requant"]
+    gq, gs = ops.quant_reduce_requant(q, s, out_wire)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["quant_reduce_requant"] == before + 1
+    wq, ws = ref.quant_reduce_requant_ref(q, s, out_wire)
+    assert torch.equal(gq.view(torch.uint8), wq.view(torch.uint8))
+    assert torch.equal(gs, ws)
+    # and byte for byte the quantize kernel applied to quant_reduce's sum
+    kq, ks = ops.quantize(ops.quant_reduce(q, s)[None], out_wire)
+    assert torch.equal(gq.view(torch.uint8), kq[0].view(torch.uint8))
+    assert torch.equal(gs, ks[0])
+
+
+@pytest.mark.parametrize("topo", ["flat8", "two_level", "flat6"])
+@pytest.mark.parametrize("wire", [None, "bf16", "fp8", "int8"])
+@pytest.mark.parametrize("family", ["reduce_scatter", "allgather",
+                                    "all_to_all", "p2p"])
+def test_families_on_card(dev, topo, wire, family):
+    """Each family's schedule from the planner runs on the card exactly
+    as the same code runs on the CPU (the kernels equal their plain
+    versions), and a movement family on a scaled wire lands its copies
+    through dequantize."""
+    from repro_torch.planner.service import PlannerService
+    n = {"flat8": 8, "two_level": 8, "flat6": 6}[topo]
+    t = {"flat8": single_switch(8), "two_level": symmetric_tree(2, 4),
+         "flat6": single_switch(6)}[topo]
+    svc = PlannerService(params=PAPER_TABLE5)
+    if family in ("reduce_scatter", "allgather"):
+        from repro_torch.core.plans import family_halves
+        rs, ag = family_halves(gentree(t, 1e6, params=PAPER_TABLE5).plan)
+        cs = lower_plan(rs if family == "reduce_scatter" else ag)
+    else:
+        cs = svc.get_family_executable(family, "x", n, 1e6).schedule
+    if wire is not None:
+        cs = cs.with_wire(PRECISIONS[wire])
+    size = {"reduce_scatter": 4 * 5120 + 3, "allgather": 4 * 5120,
+            "all_to_all": 24 * 1000, "p2p": 4 * 5120}[family]
+    X = _rand((n, size), 15, dev)
+    entry = {"reduce_scatter": "run_local_reduce_scatter",
+             "allgather": "run_local_all_gather",
+             "all_to_all": "run_local_all_to_all",
+             "p2p": "run_local_p2p"}[family]
+    before = ops.LAUNCHES["dequantize"]
+    got = getattr(cs, entry)(X)
+    torch.cuda.synchronize()
+    if wire in ("fp8", "int8") and family != "reduce_scatter":
+        # every movement step lands its copies through dequantize
+        assert ops.LAUNCHES["dequantize"] > before
+    assert torch.equal(got.cpu(), getattr(cs, entry)(X.cpu()))
+
+
 # The recurrence kernels reduce in another order than their plain
 # versions: output and final state within 1e-5 of the largest |value|.
 RECURRENCE_RTOL = 1e-5

@@ -236,9 +236,11 @@ def test_guard_raises_when_a_kernel_fails(monkeypatch, wire):
 
 
 def _spy_folds(monkeypatch):
-    """Records the batch shape (A, K) of every gathered fold launch."""
+    """Records the batch shape (A, K) of every gathered fold launch (a
+    landing phase on a scaled wire is a gathered dequantize)."""
     calls = []
-    for name in ("fused_reduce_into", "quant_reduce_into"):
+    for name in ("fused_reduce_into", "quant_reduce_into",
+                 "dequantize_into"):
         real = getattr(ops, name)
 
         def spy(*args, _real=real, **kw):
@@ -252,7 +254,8 @@ def _spy_folds(monkeypatch):
 
 @pytest.mark.parametrize("wire", [None, "bf16", "int8"])
 def test_fold_phase_is_one_launch_per_fold(monkeypatch, wire):
-    """Every fold phase of the schedule is exactly one gathered reduce,
+    """Every fold phase of the schedule is exactly one gathered reduce
+    (or, landing copies on a scaled wire, one gathered dequantize),
     batched over all folding ranks."""
     _, ts = _plans("two_level")
     cs = ts if wire is None else ts.with_wire(PRECISIONS[wire])
