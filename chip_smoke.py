@@ -33,9 +33,13 @@ any error:
                 per-row key counts at decode), the smoke widths in f32,
                 and gemma2-27b's long request (prefill of 4,352 tokens,
                 decode against 4,360 of 4,416 cache slots, the 4096
-                window masking); rmsnorm at 4·32 rows of every model's
-                width, both offsets, every dtype pair, and over the long
-                prefill's 4,352 rows;
+                window masking), and the bf16 prefill kernel's edges (Tq
+                5, 17, 33, 129, 130; head dims 64 to 256; groups 1, 4, 5;
+                a row that sees no key; windows narrower than a key
+                tile); rmsnorm at 4·32 rows of every model's width, both
+                offsets, every dtype pair, over the long prefill's 4,352
+                rows, at widths on and off its 16-byte path (1000, 1001)
+                and on misaligned last-token rows;
   3. executor — GenTree plans from the planner, lowered and run with
                 `run_local` on an 8-rank local mesh (a single switch and
                 the two-level tree), decode-sized and gradient-sized, in
@@ -501,13 +505,17 @@ def rmsnorm_case(shape, x_dtype, w_dtype, offset, dev, seed=0,
                  last_token=False):
     """The rmsnorm kernel on x `shape` ~ N(0, 3²) and w ~ N(0, 0.5²), or
     with `last_token` on the strided rows x[:, -1:] of such an x (B, T,
-    D), as the models' final norm after prefill; the yardstick is
-    `F.rms_norm` with (offset + w) formed beforehand."""
+    D), as the models' final norm after prefill (`last_token ==
+    "misaligned"`: of such an x laid one element past a 16-byte
+    boundary); the yardstick is `F.rms_norm` with (offset + w) formed
+    beforehand."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = (torch.randn(shape, generator=g, device=dev) * 3.0).to(x_dtype)
+    n = math.prod(shape) + (last_token == "misaligned")
+    x = (torch.randn((n,), generator=g, device=dev) * 3.0).to(x_dtype)
+    x = x[n - math.prod(shape):].view(shape)
     if last_token:
         x = x[:, -1:]
     D = shape[-1]
@@ -841,6 +849,20 @@ FLASH_GRID = [
     ("gemma2-27b long decode global", (1, 32, 16, 1, 4416, 128), "bf16", 0,
      50.0, [4360]),
     ("decode Tq 3", (2, 8, 2, 3, 200, 128), "f32", 50, 0.0, [180, 2]),
+    # the bf16 prefill kernel's edges: Tq 5, 17, 33 and past its 128-row
+    # tile, head dims 64/72/80/128/160/256, groups 1/4/5, ragged key
+    # counts with a row that sees none, windows narrower than a key tile
+    ("prefill Tq 5 group 1", (2, 4, 4, 5, 5, 64), "bf16", 0, 0.0, None),
+    ("prefill Tq 17 D 72 ragged", (2, 8, 2, 17, 40, 72), "bf16", 0, 50.0,
+     [40, 17]),
+    ("prefill Tq 33 D 80 group 5 w24", (2, 10, 2, 33, 33, 80), "bf16", 24,
+     0.0, None),
+    ("prefill Tq 130 D 256", (1, 8, 4, 130, 130, 256), "bf16", 0, 50.0,
+     None),
+    ("prefill Tq 129 group 1", (1, 5, 5, 129, 129, 128), "bf16", 0, 0.0,
+     None),
+    ("prefill ragged, a row sees none, w16", (3, 4, 4, 40, 100, 160), "bf16",
+     16, 0.0, [100, 0, 45]),
 ]
 # rmsnorm widths: stablelm-12b, rwkv6-1.6b (d and ln_x), hymba-1.5b,
 # gemma2-27b, the smoke models
@@ -850,9 +872,10 @@ RMSNORM_WIDTHS = (5120, 2048, 1600, 4608, 64)
 def model_kernel_grid(dev) -> list:
     """The model kernels (flash_attention, rmsnorm) against their plain
     versions over FLASH_GRID and 4·32 rows of each of RMSNORM_WIDTHS
-    (both offsets, every dtype pair), plus the decode rows and the
-    strided last-token rows of the widest model; fails on the first
-    disagreement beyond TOLERANCE."""
+    (both offsets, every dtype pair), plus the decode rows, the strided
+    last-token rows of the widest model (aligned and not), two widths on
+    and off the 16-byte path, and the long prefill's rows; fails on the
+    first disagreement beyond TOLERANCE."""
     import torch
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     rows = []
@@ -881,6 +904,12 @@ def model_kernel_grid(dev) -> list:
     for what, shape, last in (("decode (4, 1, 5120)", (4, 1, 5120), False),
                               ("last token of (4, 32, 5120)", (4, 32, 5120),
                                True),
+                              ("misaligned last token of (4, 32, 5120)",
+                               (4, 32, 5120), "misaligned"),
+                              ("(4, 32, 1000), 16-byte vectors",
+                               (4, 32, 1000), False),
+                              ("(4, 32, 1001), element path", (4, 32, 1001),
+                               False),
                               ("gemma2-27b long prefill (1, 4352, 4608)",
                                (1, 4352, 4608), False)):
         check("rmsnorm", f"{what} bf16 x bf16 w offset 1",

@@ -162,6 +162,13 @@ GPU_TESTBED = {
                                delta=0.0, epsilon=6.0e-13, w_t=9),
 }
 
+# The uncalibrated pricing basis of mesh axes. The leaf axis is priced
+# at class "root_sw" (`core.sync.AXIS_LEVELS`), which in GPU_TESTBED is
+# the RoCE spine between machines; the leaf axis rides NVLink inside a
+# machine, the testbed's "middle_sw" row, so that row prices it here.
+# Outer ("cross_dc") axes keep the between-machine row.
+GPU_AXIS_BASIS = {**GPU_TESTBED, "root_sw": GPU_TESTBED["middle_sw"]}
+
 
 def chi(n: int) -> int:
     """χ(N) = 0 if N is a power of two, else 1 (Table 1/2)."""

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-from .cost_model import GPU_TESTBED, GenModelParams, best_flat_plan
+from .cost_model import GPU_AXIS_BASIS, GenModelParams, best_flat_plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +31,8 @@ class AxisPlan:
 
 # Table-5 class per mesh-axis position: the leaf axis rides the fast
 # in-machine fabric ("root_sw" pricing), every outer axis the slower
-# between-machine fabric ("cross_dc").
+# between-machine fabric ("cross_dc"). Uncalibrated, "root_sw" prices
+# at the GPU testbed's NVLink row (`cost_model.GPU_AXIS_BASIS`).
 AXIS_LEVELS = ("root_sw",) + ("cross_dc",) * 8
 
 
@@ -69,7 +70,7 @@ def plan_axes_gentree(axes: Sequence[tuple[str, int]], size_floats: float,
     the axis is priced by running GenTree itself on the equivalent
     single-switch topology with exactly that engine and those kwargs.
     """
-    params = params or GPU_TESTBED
+    params = params or GPU_AXIS_BASIS
     gkw = dict(gentree_kwargs or {})
     use_gentree = engine is not None or bool(gkw)
     out: list[AxisPlan] = []

@@ -9,27 +9,36 @@
 //
 // Replaces the Pallas TPU kernel `rmsnorm` in src/repro/kernels/rmsnorm.py
 // (pallas_call at line 32), which tiles (256, D) row blocks into VMEM and
-// does the same f32 math with the `w` factor. Here a row is read once
-// into registers (each thread keeps its share of the row), its sum of
-// squares is reduced in f32 by a warp shuffle tree (and, for wide rows,
-// a second tree over the block's warps through shared memory), and the
-// row is written once from the registers.
+// does the same f32 math with the `w` factor.
 //
-// Bound: memory. Each row is read once and written once, and w is read
-// once per row from L2 (counted once): (elem_x * 2 * R * D + elem_w * D)
-// bytes. At the stablelm-12b prefill shape (128 rows of 5120, bf16)
-// that is 2.6 MB, 0.78 us at 3.35 TB/s; at decode (4 rows) 0.05 us, so
-// a decode launch is bound by its latency. The arithmetic (4 flops an
-// element) is far below the f32 rate. Design: one block of 256 threads
-// per row for D > 1024, one warp per row (4 rows a block of 128
-// threads) for D <= 1024; each thread holds VPT = D / threads (rounded
-// up) values, with neighbouring threads on neighbouring addresses, so
-// every load and store is coalesced. No fast-math: rsqrtf, and products
-// and sums in IEEE f32.
+// Bound: memory. Each row is read once and written once, w read once:
+// (elem_x * 2 * R * D + elem_w * D) bytes. At gemma2-27b's long prefill
+// (4,352 rows of 4608, bf16) that is 80.2 MB, 23.9 us at 3.35 TB/s; at
+// decode (4 rows) a launch is bound by its latency. The arithmetic (4
+// flops an element) is far below the f32 rate.
+//
+// Design. A row is cut into vectors of 16 bytes (8 bf16 or 4 f32 values)
+// where its base, the row strides and D allow it (the host's choice;
+// otherwise a vector is one element, the scalar path). A segment of TPR
+// threads normalises a row, each thread holding VPT vectors of it in
+// registers, thread t taking vectors t, t + TPR, ... so neighbouring
+// threads touch neighbouring 16 bytes. The host sizes VPT (a template
+// bound) and TPR from D so that TPR * VPT covers the row's vectors with
+// as few dead slots as it can (4608 bf16: 576 vectors, 96 threads x 6,
+// none dead). A block holds max(1, 256 / TPR) segments and walks over
+// row groups, grid-strided, with as many blocks as fit on the card at
+// once: each thread reads and widens its share of w once, into
+// registers, and keeps it for every row it normalises. The sum of
+// squares is reduced in f32 by a shuffle tree within the segment (and,
+// for segments of several warps, over the warps through shared memory).
+// No fast-math: rsqrtf, and products and sums in IEEE f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kBlockThreads = 256;  // threads a block aims at
+constexpr int kMaxThreads = 1024;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -44,71 +53,241 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// N values of T at p as floats: one aligned access of N * sizeof(T)
+// bytes (a multiple of 4 and at most 32) when VEC, else N scalar loads
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void load(const T* __restrict__ p, float* f) {
+  if constexpr (VEC) {
+    constexpr int kBytes = N * static_cast<int>(sizeof(T));
+    static_assert(kBytes % 8 == 0 && kBytes <= 32, "vector width");
+    if constexpr (kBytes >= 16) {
+      uint4 u[kBytes / 16];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+      for (int i = 0; i < kBytes / 16; ++i)
+        u[i] = reinterpret_cast<const uint4*>(p)[i];
+      const T* e = reinterpret_cast<const T*>(u);
+#pragma unroll
+      for (int i = 0; i < N; ++i) f[i] = to_f(e[i]);
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int i = 0; i < N; ++i) f[i] = to_f(e[i]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = to_f(p[i]);
+  }
+}
+
+// N values stored at p from floats (16 bytes, aligned, when VEC)
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void store(T* __restrict__ p, const float* f) {
+  if constexpr (VEC) {
+    static_assert(N * sizeof(T) == 16, "one 16-byte store");
+    uint4 u;
+    T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int i = 0; i < N; ++i) e[i] = from_f<T>(f[i]);
+    *reinterpret_cast<uint4*>(p) = u;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = from_f<T>(f[i]);
+  }
 }
 
 // The leading dims of x, at most three after merging: row r sits at
-// (r / (n1 * n2)) * s0 + ((r / n2) % n1) * s1 + (r % n2) * s2 elements.
+// (r / (n1 * n2)) * s0 + ((r / n2) % n1) * s1 + (r % n2) * s2 elements
+// (32-bit division: the host keeps the row count below 2^31; one
+// strided dim, the common case, needs none).
 struct Rows {
-  long long n1, n2, s0, s1, s2;
+  unsigned n1, n2;
+  long long s0, s1, s2;
   __device__ __forceinline__ long long offset(long long r) const {
-    return (r / (n1 * n2)) * s0 + ((r / n2) % n1) * s1 + (r % n2) * s2;
+    if (n1 == 1 && n2 == 1) return r * s0;
+    const unsigned u = static_cast<unsigned>(r);
+    return static_cast<long long>(u / (n1 * n2)) * s0 +
+           static_cast<long long>((u / n2) % n1) * s1 +
+           static_cast<long long>(u % n2) * s2;
   }
 };
 
-// THREADS threads normalise one row together (32: a warp; 256: a block);
-// VPT values of the row per thread.
-template <typename TX, typename TW, int THREADS, int VPT>
-__global__ void __launch_bounds__(THREADS == 32 ? 128 : THREADS)
-rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-               TX* __restrict__ y, Rows rows, long long R, int D, float eps,
-               float offset) {
-  constexpr int kPerBlock = THREADS == 32 ? 4 : 1;  // rows per block
-  __shared__ float partial[THREADS == 32 ? 1 : THREADS / 32];
-  const int t = THREADS == 32 ? (threadIdx.x & 31) : threadIdx.x;
-  const long long r =
-      static_cast<long long>(blockIdx.x) * kPerBlock +
-      (THREADS == 32 ? (threadIdx.x >> 5) : 0);
-  const bool live = r < R;
-  const TX* xr = x + (live ? rows.offset(r) : 0);
+// How a launch cuts rows: nv vectors a row, tpr threads a segment (a
+// power of two up to 32, else a multiple of 32), segs segments a block.
+struct Cut {
+  int nv, tpr, segs;
+};
 
-  float v[VPT];
-  float ss = 0.0f;
+template <typename TX, bool VEC>
+__host__ __device__ constexpr int vec_elems() {
+  return VEC ? 16 / static_cast<int>(sizeof(TX)) : 1;
+}
+
+// Threads a block of a thread holding n values of x (and n of w) in
+// registers may have: 64 registers a thread at 1024, 128 at 512, 255 at
+// 256.
+__host__ __device__ constexpr int max_threads(int n) {
+  return n <= 8 ? 1024 : (n <= 24 ? 512 : 256);
+}
+
+// E values of TX a vector (16 bytes when VEC, else 1), VPT vectors a
+// thread.
+template <typename TX, typename TW, bool VEC, int VPT>
+__global__ void __launch_bounds__(max_threads(VPT * vec_elems<TX, VEC>()))
+rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+               TX* __restrict__ y, Rows rows, long long R, int D, Cut cut,
+               float eps, float offset) {
+  constexpr int E = vec_elems<TX, VEC>();
+  __shared__ float partial[kMaxThreads / 32];
+  const int tpr = cut.tpr;
+  const int seg = threadIdx.x / tpr;
+  const int t = threadIdx.x % tpr;
+  const int warp = threadIdx.x >> 5;
+
+  // (offset + w) for this thread's vectors, formed once in f32
+  float wv[VPT][E];
 #pragma unroll
   for (int i = 0; i < VPT; ++i) {
-    const int d = t + i * THREADS;
-    v[i] = (live && d < D) ? to_f(xr[d]) : 0.0f;
-    ss = __fmaf_rn(v[i], v[i], ss);
-  }
-  ss = warp_sum(ss);
-  if constexpr (THREADS > 32) {
-    if ((t & 31) == 0) partial[t >> 5] = ss;
-    __syncthreads();
-    ss = 0.0f;
+    load<TW, E, VEC>(w + min(t + i * tpr, cut.nv - 1) * E, wv[i]);
 #pragma unroll
-    for (int i = 0; i < THREADS / 32; ++i) ss += partial[i];
+    for (int e = 0; e < E; ++e) wv[i][e] = offset + wv[i][e];
   }
-  if (!live) return;
-  const float rms = rsqrtf(ss / static_cast<float>(D) + eps);
-  TX* yr = y + r * D;
+
+  const long long groups = (R + cut.segs - 1) / cut.segs;
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const long long r = g * cut.segs + seg;
+    const bool live = r < R;
+    const TX* xr = x + (live ? rows.offset(r) : 0);
+    // every load unconditional (a dead slot reads the row's last vector,
+    // a dead row row 0), so all VPT are in flight at once; dead values
+    // are then zeroed
+    float v[VPT][E];
 #pragma unroll
-  for (int i = 0; i < VPT; ++i) {
-    const int d = t + i * THREADS;
-    if (d < D) yr[d] = from_f<TX>(v[i] * rms * (offset + to_f(w[d])));
+    for (int i = 0; i < VPT; ++i)
+      load<TX, E, VEC>(xr + min(t + i * tpr, cut.nv - 1) * E, v[i]);
+    float ss = 0.0f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const bool in = live && t + i * tpr < cut.nv;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        v[i][e] = in ? v[i][e] : 0.0f;
+        ss = __fmaf_rn(v[i][e], v[i][e], ss);
+      }
+    }
+    // the segment's sum: shuffles within it (a segment of <= 32 threads
+    // is an aligned run of one warp), then over its warps
+    const int width = tpr < 32 ? tpr : 32;
+    for (int o = width >> 1; o > 0; o >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (tpr > 32) {
+      if ((threadIdx.x & 31) == 0) partial[warp] = ss;
+      __syncthreads();
+      const int w0 = seg * (tpr >> 5);
+      ss = 0.0f;
+      for (int i = 0; i < (tpr >> 5); ++i) ss += partial[w0 + i];
+      __syncthreads();  // partial is rewritten by the next group
+    }
+    const float rms = rsqrtf(ss / static_cast<float>(D) + eps);
+    TX* yr = y + r * D;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int c = t + i * tpr;
+      if (live && c < cut.nv) {
+        float o[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) o[e] = v[i][e] * rms * wv[i][e];
+        store<TX, E, VEC>(yr + c * E, o);
+      }
+    }
   }
 }
 
-template <typename TX, typename TW, int THREADS, int VPT>
-void launch(const void* x, const void* w, void* y, Rows rows, long long R,
-            int D, float eps, float offset, cudaStream_t s) {
-  const long long blocks = THREADS == 32 ? (R + 3) / 4 : R;
-  rmsnorm_kernel<TX, TW, THREADS, VPT>
-      <<<static_cast<unsigned>(blocks), THREADS == 32 ? 128 : THREADS, 0,
-         s>>>(static_cast<const TX*>(x), static_cast<const TW*>(w),
-              static_cast<TX*>(y), rows, R, D, eps, offset);
+constexpr int kVpts[] = {1, 2, 3, 4, 6, 8};
+
+// The cut of a row of nv vectors of e values with the fewest dead
+// slots (then a segment nearest 128 threads) that a block can launch;
+// returns the chosen VPT (0 if none).
+int choose(int nv, int e, Cut* cut) {
+  int best_vpt = 0;
+  long long best_dead = 0;
+  double best_dist = 0.0;
+  for (int vpt : kVpts) {
+    int tpr = (nv + vpt - 1) / vpt;
+    if (tpr <= 32) {
+      int p = 1;
+      while (p < tpr) p <<= 1;
+      tpr = p;
+    } else {
+      tpr = (tpr + 31) / 32 * 32;
+    }
+    const int segs = tpr >= kBlockThreads ? 1 : kBlockThreads / tpr;
+    if (tpr * segs > max_threads(vpt * e)) continue;
+    const long long dead = static_cast<long long>(tpr) * vpt - nv;
+    const double dist = tpr > 128 ? tpr / 128.0 : 128.0 / tpr;
+    if (best_vpt == 0 || dead < best_dead ||
+        (dead == best_dead && dist < best_dist)) {
+      best_vpt = vpt;
+      best_dead = dead;
+      best_dist = dist;
+      cut->tpr = tpr;
+    }
+  }
+  cut->nv = nv;
+  cut->segs = cut->tpr >= kBlockThreads ? 1 : kBlockThreads / cut->tpr;
+  return best_vpt;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+template <typename TX, typename TW, bool VEC, int VPT>
+int launch(const void* x, const void* w, void* y, Rows rows, long long R,
+           int D, Cut cut, float eps, float offset, cudaStream_t s) {
+  auto* kernel = rmsnorm_kernel<TX, TW, VEC, VPT>;
+  const int threads = cut.tpr * cut.segs;
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, threads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long groups = (R + cut.segs - 1) / cut.segs;
+  long long blocks = static_cast<long long>(per_sm > 0 ? per_sm : 1) *
+                     sm_count();
+  if (blocks > groups) blocks = groups;
+  kernel<<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w),
+      static_cast<TX*>(y), rows, R, D, cut, eps, offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX, typename TW, bool VEC>
+int by_vpt(int vpt, const void* x, const void* w, void* y, Rows rows,
+           long long R, int D, Cut cut, float eps, float offset,
+           cudaStream_t s) {
+  switch (vpt) {
+    case 1: return launch<TX, TW, VEC, 1>(x, w, y, rows, R, D, cut, eps,
+                                          offset, s);
+    case 2: return launch<TX, TW, VEC, 2>(x, w, y, rows, R, D, cut, eps,
+                                          offset, s);
+    case 3: return launch<TX, TW, VEC, 3>(x, w, y, rows, R, D, cut, eps,
+                                          offset, s);
+    case 4: return launch<TX, TW, VEC, 4>(x, w, y, rows, R, D, cut, eps,
+                                          offset, s);
+    case 6: return launch<TX, TW, VEC, 6>(x, w, y, rows, R, D, cut, eps,
+                                          offset, s);
+    case 8: return launch<TX, TW, VEC, 8>(x, w, y, rows, R, D, cut, eps,
+                                          offset, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename TX, typename TW>
@@ -119,23 +298,27 @@ int dispatch(const void* x, const void* w, void* y, long long n0,
     return cudaErrorInvalidValue;
   const long long R = n0 * n1 * n2;
   if (R == 0) return cudaSuccess;
-  if ((D <= 1024 ? (R + 3) / 4 : R) > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  const Rows rows{n1, n2, s0, s1, s2};
+  if (R > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const Rows rows{static_cast<unsigned>(n1), static_cast<unsigned>(n2), s0,
+                  s1, s2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 256)
-    launch<TX, TW, 32, 8>(x, w, y, rows, R, D, eps, offset, s);
-  else if (D <= 512)
-    launch<TX, TW, 32, 16>(x, w, y, rows, R, D, eps, offset, s);
-  else if (D <= 1024)
-    launch<TX, TW, 32, 32>(x, w, y, rows, R, D, eps, offset, s);
-  else if (D <= 2048)
-    launch<TX, TW, 256, 8>(x, w, y, rows, R, D, eps, offset, s);
-  else if (D <= 4096)
-    launch<TX, TW, 256, 16>(x, w, y, rows, R, D, eps, offset, s);
-  else
-    launch<TX, TW, 256, 32>(x, w, y, rows, R, D, eps, offset, s);
-  return static_cast<int>(cudaGetLastError());
+  // 16-byte vectors need D whole vectors, and every x row and w at a
+  // 16-byte boundary (y is a new contiguous array)
+  constexpr long long kE = 16 / static_cast<long long>(sizeof(TX));
+  const auto addr = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p);
+  };
+  const bool vec = D % kE == 0 && addr(x) % 16 == 0 && addr(w) % 16 == 0 &&
+                   s0 % kE == 0 && s1 % kE == 0 && s2 % kE == 0;
+  Cut cut;
+  const int vpt = vec ? choose(static_cast<int>(D / kE),
+                                static_cast<int>(kE), &cut)
+                       : choose(D, 1, &cut);
+  if (vpt == 0) return cudaErrorInvalidValue;
+  return vec ? by_vpt<TX, TW, true>(vpt, x, w, y, rows, R, D, cut, eps,
+                                    offset, s)
+             : by_vpt<TX, TW, false>(vpt, x, w, y, rows, R, D, cut, eps,
+                                     offset, s);
 }
 
 }  // namespace

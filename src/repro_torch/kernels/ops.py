@@ -5,7 +5,9 @@ tensor goes to the plain version in `ref.py`; a CUDA tensor launches the
 kernel (built on first use by `build.py`) on PyTorch's current stream, or
 raises. There is no fallback from a failed build or launch to the plain
 version. Each wrapper counts its kernel launches in `LAUNCHES`; the plain
-path counts nothing.
+path counts nothing. The kernels have no backward yet: on the card a
+wrapper raises when grad mode is on and an input requires grad (the
+CPU path stays differentiable), rather than cut the gradients.
 
 The recurrence kernels (`wkv`, `ssm_scan`) take f32 inputs that must be
 contiguous on every device, and return new output and final-state
@@ -44,8 +46,9 @@ LAUNCHES = {"fused_reduce": 0, "grouped_reduce": 0, "quantize": 0,
 # largest head width (K, V) of the wkv kernel and state width N of the
 # ssm_scan kernel: the state lives in one thread's registers
 RECURRENCE_MAX_WIDTH = 64
-# largest row of the rmsnorm kernel (held in registers, 32 values a
-# thread) and head dim of the flash_attention kernel (its template bound)
+# largest row of the rmsnorm kernel (held in registers, at most 64
+# values a thread) and head dim of the flash_attention kernels (their
+# template bound)
 RMSNORM_MAX_WIDTH = 8192
 ATTENTION_MAX_HEAD_DIM = 256
 # deepest tree of the grouped_reduce kernel: one f32 accumulator a level
@@ -73,6 +76,22 @@ def _on_cuda(*tensors: torch.Tensor | None) -> bool:
                      f"device; got {sorted(kinds)}")
 
 
+def _kernel_path(what: str, *tensors: torch.Tensor | None) -> bool:
+    """`_on_cuda`, and on the card a refusal of inputs that need a
+    gradient: the kernels write their outputs through raw pointers, so
+    autograd would see no graph and silently cut the gradients that the
+    plain version on the CPU carries."""
+    if not _on_cuda(*tensors):
+        return False
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {what} kernel has no backward yet: call it under "
+            f"torch.no_grad() or torch.inference_mode(), or on inputs "
+            f"that do not require grad")
+    return True
+
+
 def _check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed with cudaError "
@@ -95,7 +114,7 @@ def fused_reduce(parts: torch.Tensor) -> torch.Tensor:
     if parts.dim() not in (2, 3) or parts.shape[-2] < 1:
         raise ValueError(f"fused_reduce takes (x, L) or (B, x, L) with "
                          f"x >= 1; got {tuple(parts.shape)}")
-    if not _on_cuda(parts):
+    if not _kernel_path("fused_reduce", parts):
         return ref.fused_reduce_ref(parts)
     if not parts.is_contiguous():
         raise ValueError("fused_reduce needs a contiguous operand tensor")
@@ -134,7 +153,7 @@ def grouped_reduce(parts: torch.Tensor, fan_in: int) -> torch.Tensor:
         raise ValueError(f"grouped_reduce folds at most "
                          f"{GROUPED_REDUCE_MAX_DEPTH} levels; x={x} at "
                          f"fan_in {fan_in} needs {depth}")
-    if not _on_cuda(parts):
+    if not _kernel_path("grouped_reduce", parts):
         return ref.grouped_reduce_ref(parts, fan_in)
     if not parts.is_contiguous():
         raise ValueError("grouped_reduce needs a contiguous operand tensor")
@@ -241,7 +260,7 @@ def fused_reduce_into(src: torch.Tensor, table: RowTable,
         raise ValueError(f"src and out must be (rows, L) with one L; got "
                          f"{tuple(src.shape)} and {tuple(out.shape)}")
     _check_table(table, src, out, "fused_reduce_into")
-    if not _on_cuda(src, out):
+    if not _kernel_path("fused_reduce", src, out):
         return ref.fused_reduce_into_ref(src, table.rows, out,
                                          table.out_rows, table.own_rows)
     if not (src.is_contiguous() and out.is_contiguous()):
@@ -260,7 +279,7 @@ def quantize(x: torch.Tensor, wire: str = "float8_e4m3fn",
     if x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError(f"quantize takes a 2-D f32 tensor; got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if not _on_cuda(x):
+    if not _kernel_path("quantize", x):
         return ref.quantize_ref(x, wire, tile)
     if tile != QUANT_TILE:
         raise ValueError(f"the CUDA quantize kernel tiles by {QUANT_TILE} "
@@ -314,7 +333,7 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor,
     if not 0 < out_len <= Lp:
         raise ValueError(f"dequantize takes 0 < out_len <= {Lp}; got "
                          f"{out_len}")
-    if not _on_cuda(q, scales):
+    if not _kernel_path("dequantize", q, scales):
         return ref.dequantize_ref(q, scales, tile, out_len)
     if tile != QUANT_TILE or W > DEQUANTIZE_MAX_ROWS:
         raise ValueError(f"the CUDA dequantize kernel tiles by {QUANT_TILE} "
@@ -357,7 +376,7 @@ def dequantize_into(q: torch.Tensor, scales: torch.Tensor, table: RowTable,
         raise ValueError(f"dequantize_into takes one operand a row and no "
                          f"partial; got rows {tuple(table.rows.shape)}, "
                          f"partial {table.has_own}")
-    if not _on_cuda(q, scales, out):
+    if not _kernel_path("dequantize", q, scales, out):
         return ref.dequantize_into_ref(q, scales, table.rows, out,
                                        table.out_rows, tile)
     if tile != QUANT_TILE:
@@ -385,7 +404,7 @@ def quant_reduce_requant(q: torch.Tensor, scales: torch.Tensor,
     wdt = wire_dtype(wire)
     if K < 1:
         raise ValueError("quant_reduce_requant takes K >= 1 operand rows")
-    if not _on_cuda(q, scales):
+    if not _kernel_path("quant_reduce_requant", q, scales):
         return ref.quant_reduce_requant_ref(q, scales, wire, tile)
     if tile != QUANT_TILE:
         raise ValueError(f"the CUDA quant_reduce_requant kernel tiles by "
@@ -432,7 +451,7 @@ def quant_reduce(q: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"own must be f32 of shape (..., <= Lp) matching "
                          f"the payload batch; got {own.dtype} "
                          f"{tuple(own.shape)}")
-    if not _on_cuda(q, scales, own):
+    if not _kernel_path("quant_reduce", q, scales, own):
         return ref.quant_reduce_ref(q, scales, own, tile, out_len)
     if tile != QUANT_TILE:
         raise ValueError(f"the CUDA quant_reduce kernel tiles by "
@@ -488,7 +507,7 @@ def quant_reduce_into(q: torch.Tensor, scales: torch.Tensor,
                          f"{tuple(q.shape)}, {tuple(scales.shape)}, "
                          f"{tuple(out.shape)}")
     _check_table(table, q, out, "quant_reduce_into")
-    if not _on_cuda(q, scales, out):
+    if not _kernel_path("quant_reduce", q, scales, out):
         return ref.quant_reduce_into_ref(q, scales, table.rows, out,
                                          table.out_rows, table.own_rows,
                                          tile)
@@ -508,7 +527,8 @@ def quant_reduce_into(q: torch.Tensor, scales: torch.Tensor,
 def _check_recurrence(what: str, tensors: dict[str, torch.Tensor],
                       shapes: dict[str, tuple[int, ...]]) -> bool:
     """Validate the f32 inputs of a recurrence kernel against their
-    expected shapes; returns whether they lie on a CUDA device. Every
+    expected shapes; returns whether they lie on a CUDA device (raising
+    there for inputs that need a gradient, `_kernel_path`). Every
     input must be contiguous on every device, so the CPU tests hold
     callers to what the kernel takes."""
     for name, t in tensors.items():
@@ -519,7 +539,7 @@ def _check_recurrence(what: str, tensors: dict[str, torch.Tensor],
                              f"expected {shapes[name]}")
         if not t.is_contiguous():
             raise ValueError(f"{what} needs contiguous inputs; {name} is not")
-    return _on_cuda(*tensors.values())
+    return _kernel_path(what, *tensors.values())
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -629,7 +649,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
                          f"<= {RMSNORM_MAX_WIDTH}; got {tuple(x.shape)} and "
                          f"{tuple(w.shape)}")
     (n0, s0), (n1, s1), (n2, s2) = _row_layout(x)
-    if not _on_cuda(x, w):
+    if not _kernel_path("rmsnorm", x, w):
         return ref.rmsnorm(x, w, eps, offset)
     if not w.is_contiguous():
         raise ValueError("rmsnorm needs a contiguous w")
@@ -684,7 +704,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"kv_len must be a contiguous (B,) int64 tensor; "
                          f"got {kv_len.dtype} {tuple(kv_len.shape)}")
     scale = D ** -0.5 if scale is None else float(scale)
-    if not _on_cuda(q, k, v, kv_len):
+    if not _kernel_path("flash_attention", q, k, v, kv_len):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale,
                                    kv_len=kv_len)

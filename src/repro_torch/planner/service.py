@@ -20,7 +20,8 @@ The serving slice of the reference `planner/service.py` (DESIGN.md §5):
 
 Arrival-skew re-ranking, bucket plans and whole-step plans are not
 ported yet. Uncalibrated mesh-axis pricing defaults to the paper's GPU
-testbed (`cost_model.GPU_TESTBED`).
+testbed with its NVLink row for the leaf class
+(`cost_model.GPU_AXIS_BASIS`).
 
 Plan generation (GenTree + candidate simulation) costs hundreds of
 milliseconds at cluster scale; a warm lookup is a fingerprint hash plus an
@@ -37,7 +38,7 @@ from dataclasses import dataclass, field
 from typing import Mapping, Sequence
 
 from repro_torch.core import gentree as gentree_mod
-from repro_torch.core.cost_model import (GPU_TESTBED, GenModelParams,
+from repro_torch.core.cost_model import (GPU_AXIS_BASIS, GenModelParams,
                                         PAPER_TABLE5)
 from repro_torch.core.plans import Plan
 from repro_torch.core.simulator import Simulator
@@ -256,12 +257,13 @@ class PlannerService:
     def _effective_axis_params(self) -> dict[str, GenModelParams]:
         """Pricing basis for mesh-axis requests: the axis paths
         (`get_axis_executable`, `get_family_executable`,
-        `get_axis_plans`) default to GPU_TESTBED when the service is
+        `get_axis_plans`) default to GPU_AXIS_BASIS (the GPU testbed,
+        its NVLink row for the leaf class) when the service is
         uncalibrated, and observation/refit must price against the same
         basis those paths quoted. Health-adjusted (`_apply_health`): a
         degraded level prices at its sagged β."""
         return self._apply_health(self.params if self.params is not None
-                                  else GPU_TESTBED)
+                                  else GPU_AXIS_BASIS)
 
     def _merged_level_params(self, level: str,
                              eff: Mapping[str, GenModelParams]
@@ -520,7 +522,7 @@ class PlannerService:
                 # the raw basis: a degraded level's sag stays in the
                 # health map, never in the stored params
                 base = dict(self.params if self.params is not None
-                            else GPU_TESTBED)
+                            else GPU_AXIS_BASIS)
                 base[level] = fitted
                 self.params = base
                 self.calibration = result
@@ -688,8 +690,8 @@ class PlannerService:
         `level` is the axis's Table-5 class (leaf axis → "root_sw", outer
         axes → "cross_dc" — `core.sync.axis_level` maps mesh positions),
         and `params` optionally overrides the service's pricing basis
-        (default: `GPU_TESTBED` until calibrated): the synthesized switch's uplink
-        bandwidth realizes that level's β, exactly as
+        (default: `GPU_AXIS_BASIS` until calibrated): the synthesized
+        switch's uplink bandwidth realizes that level's β, exactly as
         `plan_axes_gentree` prices the same axis, so the executed plan is
         the one the model actually argues for. A degraded level prices
         (and replans) at its sagged β, per-request overrides included: a

@@ -403,3 +403,89 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, B, Hq, Hkv, Tq, Tk,
     assert _rel(got, want) <= MODEL_RTOL[dtype]
     if kv_len is not None and 0 in kv_len:
         assert (got[kv_len.index(0)] == 0).all()
+
+
+def _row_rel(got, want):
+    """Largest |difference| over the largest |value| of its row (last
+    dim), as chip_smoke.py holds attention."""
+    diff = (got.double() - want.double()).abs()
+    row = want.double().abs().amax(dim=-1, keepdim=True)
+    return float((diff / (row + 1e-30)).max())
+
+
+# bf16 prefill (Tq > 4) runs the tensor-core kernel: query counts that
+# are and are not multiples of its 128-row tile, head dims on every
+# template bound and between them (72: a multiple of 8, not of 16), GQA
+# groups 1, 4 and 5, ragged key counts with a row that sees none,
+# windows narrower than a key tile, softcap on and off, no causal mask,
+# and K/V rows whose stride is no multiple of 16 bytes (element staging)
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,window,softcap,kv_len,causal,pad", [
+    (2, 4, 4, 5, 5, 64, 0, 0.0, None, True, 0),
+    (2, 8, 2, 17, 40, 72, 0, 50.0, [40, 17], True, 0),
+    (2, 10, 2, 33, 33, 80, 24, 0.0, None, True, 0),
+    (1, 4, 1, 130, 300, 128, 0, 30.0, None, True, 0),
+    (3, 4, 4, 40, 100, 160, 16, 0.0, [100, 0, 45], True, 0),
+    (2, 4, 2, 70, 70, 256, 0, 50.0, None, True, 0),
+    (1, 5, 5, 129, 129, 128, 0, 0.0, None, True, 0),
+    (2, 32, 16, 64, 64, 128, 4096, 50.0, [64, 20], True, 0),
+    (1, 25, 5, 33, 200, 64, 24, 0.0, [180], True, 0),
+    (1, 4, 2, 20, 50, 64, 0, 0.0, None, False, 0),
+    (2, 8, 2, 33, 60, 72, 8, 0.0, [60, 33], True, 4),
+    (1, 4, 4, 9, 30, 18, 0, 0.0, None, True, 0)])
+def test_flash_attention_prefill_edges(dev, B, Hq, Hkv, Tq, Tk, D, window,
+                                       softcap, kv_len, causal, pad):
+    q = _rand((B, Tq, Hq, D), 21, dev).to(torch.bfloat16).transpose(1, 2)
+    k = _rand((B, Hkv, Tk, D + pad), 22, dev).to(torch.bfloat16)[..., :D]
+    v = _rand((B, Hkv, Tk, D + pad), 23, dev).to(torch.bfloat16)[..., :D]
+    n = None if kv_len is None else torch.tensor(kv_len, device=dev)
+    kw = dict(window=window, softcap=softcap, kv_len=n, causal=causal)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Hq, Tq, D)
+    want = ref.flash_attention(q.float(), k.float(), v.float(), **kw)
+    assert torch.isfinite(got.float()).all()
+    assert _row_rel(got, want) <= MODEL_RTOL[torch.bfloat16]
+    if kv_len is not None and 0 in kv_len:
+        assert (got[kv_len.index(0)] == 0).all()
+
+
+# rmsnorm: widths on the 16-byte vector path (1000, 4608) and off it
+# (1001, 18), the long prefill's 4,352 rows, and last-token rows whose
+# base is not 16-byte aligned (element path)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 7, 1000), (2, 5, 1001), (4, 18),
+                                   (1, 4352, 4608)])
+def test_rmsnorm_kernel_widths(dev, dtype, shape):
+    x = _rand(shape, 24, dev, 3.0).to(dtype)
+    w = _rand(shape[-1:], 25, dev, 0.5).to(torch.bfloat16)
+    got = ops.rmsnorm(x, w, offset=1.0)
+    torch.cuda.synchronize()
+    want = ref.rmsnorm(x.float(), w, offset=1.0)
+    assert _rel(got, want) <= MODEL_RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_misaligned_last_token_rows(dev, dtype):
+    B, T, D = 4, 32, 5120
+    flat = _rand((B * T * D + 1,), 26, dev, 3.0).to(dtype)
+    x = flat[1:].view(B, T, D)[:, -1:]
+    assert x.data_ptr() % 16
+    w = _rand((D,), 27, dev, 0.5).to(dtype)
+    got = ops.rmsnorm(x, w, offset=1.0)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 1, D)
+    assert _rel(got, ref.rmsnorm(x.float(), w, offset=1.0)) \
+        <= MODEL_RTOL[dtype]
+
+
+def test_wrappers_refuse_grad_on_card(dev):
+    """A CUDA input that requires grad raises under grad mode and
+    launches under inference mode."""
+    x = _rand((2, 3, 64), 28, dev).requires_grad_()
+    w = torch.ones(64, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.rmsnorm(x, w)
+    with torch.inference_mode():
+        assert ops.rmsnorm(x, w).shape == x.shape

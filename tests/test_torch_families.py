@@ -420,11 +420,16 @@ def test_family_schedules_are_memoized_and_invalidated():
 
 
 def test_uncalibrated_default_is_the_gpu_testbed():
-    from repro_torch.core.cost_model import GPU_TESTBED
+    """Uncalibrated, an axis prices on the GPU testbed's rows, the leaf
+    class on its NVLink ("middle_sw") row."""
+    from repro_torch.core.cost_model import GPU_AXIS_BASIS, GPU_TESTBED
+    assert GPU_AXIS_BASIS["root_sw"] == GPU_TESTBED["middle_sw"]
+    assert {k: v for k, v in GPU_AXIS_BASIS.items() if k != "root_sw"} \
+        == {k: v for k, v in GPU_TESTBED.items() if k != "root_sw"}
     t = PlannerService()
     a = t.get_family_executable("reduce_scatter", "x", 8, 1e6)
     b = PlannerService().get_family_executable("reduce_scatter", "x", 8,
-                                               1e6, params=GPU_TESTBED)
+                                               1e6, params=GPU_AXIS_BASIS)
     assert a.key == b.key and a.predicted_time == b.predicted_time
 
 
