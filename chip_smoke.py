@@ -2,8 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --attention [--src OTHER/src]
 
-Phases, each of which fails the run (non-zero exit, no result line) on
+The second form builds the kernels and runs the attention rows of phase
+2 alone (of another source tree with --src: two commits timed on one
+card in turn), and prints no result line. Phases, each of which fails the run (non-zero exit, no result line) on
 any error:
 
   1. build    — compile every CUDA kernel from `src/repro_torch/kernels/
@@ -33,10 +36,15 @@ any error:
                 per-row key counts at decode), the smoke widths in f32,
                 and gemma2-27b's long request (prefill of 4,352 tokens,
                 decode against 4,360 of 4,416 cache slots, the 4096
-                window masking), and the bf16 prefill kernel's edges (Tq
-                5, 17, 33, 129, 130; head dims 64 to 256; groups 1, 4, 5;
-                a row that sees no key; windows narrower than a key
-                tile); rmsnorm at 4·32 rows of every model's width, both
+                window masking), the decode kernel at long context
+                (stablelm-12b's heads without a softcap, so SDPA times
+                the same function; a batch of four rows of 4,360, 0,
+                300 and 4,416 keys; four queries a head in f32 and
+                bf16), the f32 prefill kernel past one block of query
+                rows, and the bf16 prefill kernel's edges (Tq 5, 17, 33,
+                129, 130; head dims 64 to 256; groups 1, 4, 5; a row
+                that sees no key; windows narrower than a key tile);
+                rmsnorm at 4·32 rows of every model's width, both
                 offsets, every dtype pair, over the long prefill's 4,352
                 rows, at widths on and off its 16-byte path (1000, 1001)
                 and on misaligned last-token rows;
@@ -86,7 +94,10 @@ decode AllReduce folds through it) and exactly the model kernels its
 forwards (prefill and each decode step) run: rmsnorm once per norm (2 a
 dense layer, 3 an RWKV6 layer, 4 a Hymba layer, and the final norm),
 flash_attention once per attention layer, wkv once per RWKV6 layer and
-ssm_scan once per Hymba layer (`expected_launches`), with no guard
+ssm_scan once per Hymba layer (`expected_launches`), and each
+flash_attention launch on the CUDA kernel its shape selects (the
+prompt's on the bf16 prefill kernel, each decode step's on the decode
+kernel, `ops.ATTENTION_LAUNCHES`), with no guard
 demotion or failure anywhere (the guard raises rather than demote, so a
 failure ends the run). The last lines are the per-kernel JSON (launches
 on the main path; time, plain time, bound and yardstick of the wrapper
@@ -800,6 +811,11 @@ def phase_kernels(dev) -> dict:
             fail(f"{name}: the state handoff disagrees with one call by "
                  f"{err:.2e}")
     rows += model_kernel_grid(dev)
+    log_rows(rows)
+    return unlaunched
+
+
+def log_rows(rows) -> None:
     for name, what, r in rows:
         lib = (f" library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
@@ -810,7 +826,6 @@ def phase_kernels(dev) -> dict:
         log(f"kernel {name:15s} {what:38s} err {r['max_abs_err']:.1e}{rel} "
             f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
-    return unlaunched
 
 
 RAGGED = [33, 47, 60, 128]        # decode key counts of 4 batch rows
@@ -849,6 +864,20 @@ FLASH_GRID = [
     ("gemma2-27b long decode global", (1, 32, 16, 1, 4416, 128), "bf16", 0,
      50.0, [4360]),
     ("decode Tq 3", (2, 8, 2, 3, 200, 128), "f32", 50, 0.0, [180, 2]),
+    # the decode kernel at long context: no softcap, so SDPA is a
+    # yardstick; a ragged batch with a row that sees none, one shorter
+    # than a split and one at full length; four queries a head
+    ("stablelm-12b long decode", (1, 32, 8, 1, 4416, 160), "bf16", 0, 0.0,
+     [4360]),
+    ("gemma2-27b ragged long decode", (4, 32, 16, 1, 4416, 128), "bf16",
+     4096, 50.0, [4360, 0, 300, 4416]),
+    ("long decode Tq 4 f32", (1, 32, 16, 4, 4416, 128), "f32", 4096, 50.0,
+     [4360]),
+    ("long decode Tq 4 bf16", (1, 32, 16, 4, 4416, 128), "bf16", 4096, 50.0,
+     [4360]),
+    # the f32 prefill kernel past one block of query rows
+    ("f32 prefill Tq 130 D 160", (1, 8, 2, 130, 130, 160), "f32", 0, 0.0,
+     None),
     # the bf16 prefill kernel's edges: Tq 5, 17, 33 and past its 128-row
     # tile, head dims 64/72/80/128/160/256, groups 1/4/5, ragged key
     # counts with a row that sees none, windows narrower than a key tile
@@ -869,13 +898,14 @@ FLASH_GRID = [
 RMSNORM_WIDTHS = (5120, 2048, 1600, 4608, 64)
 
 
-def model_kernel_grid(dev) -> list:
+def model_kernel_grid(dev, *, attention_only: bool = False) -> list:
     """The model kernels (flash_attention, rmsnorm) against their plain
     versions over FLASH_GRID and 4·32 rows of each of RMSNORM_WIDTHS
     (both offsets, every dtype pair), plus the decode rows, the strided
     last-token rows of the widest model (aligned and not), two widths on
     and off the 16-byte path, and the long prefill's rows; fails on the
-    first disagreement beyond TOLERANCE."""
+    first disagreement beyond TOLERANCE. `attention_only`: FLASH_GRID
+    alone."""
     import torch
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     rows = []
@@ -894,6 +924,8 @@ def model_kernel_grid(dev) -> list:
               flash_case(B, Hq, Hkv, Tq, Tk, D, dtypes[dt], dev,
                          window=window, softcap=softcap, kv_len=n))
         torch.cuda.empty_cache()
+    if attention_only:
+        return rows
     for D in RMSNORM_WIDTHS:
         for offset in (0.0, 1.0):
             for xn, xd in dtypes.items():
@@ -1194,13 +1226,15 @@ def phase_serve(dev, recorder, sc: dict) -> dict:
                     on_log=log)
     wall = time.perf_counter() - t0
     counts = dict(ops.LAUNCHES)
+    by_kernel = dict(ops.ATTENTION_LAUNCHES)
     cfg = res["config"]
     tm = res["timings"]
     log(f"serve: {cfg.name} family={cfg.family} layers={cfg.n_layers} "
         f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
         f"d_ff={cfg.d_ff} vocab={cfg.vocab}; batch {sc['batch']} prompt "
         f"{sc['prompt_len']} new {sc['max_new']} cache {sc['cache_len']}; "
-        f"launches {json.dumps(counts)}; "
+        f"launches {json.dumps(counts)}; attention kernels "
+        f"{json.dumps(by_kernel)}; "
         f"demotions {res['tp_schedule'].demotions}; self-check rel err "
         f"{res['self_check_err']:.2e}; prefill {tm['prefill_s'] * 1e3:.1f} "
         f"ms, decode first {tm['decode_first_s'] * 1e3:.1f} ms, median "
@@ -1215,6 +1249,14 @@ def phase_serve(dev, recorder, sc: dict) -> dict:
         if counts[kernel] != want:
             fail(f"serving {arch} launched {kernel} {counts[kernel]} "
                  f"time(s), expected {want}")
+    # the prompt's forward on the bf16 prefill kernel, each decode step's
+    # on the decode kernel: one launch an attention layer each
+    layers = ATTENTION_PER_LAYER[cfg.family] * cfg.n_layers
+    want = {"flash_decode_kernel": layers * (sc["max_new"] - 1),
+            "flash_tc_kernel": layers, "flash_tf32_kernel": 0}
+    if by_kernel != want:
+        fail(f"serving {arch} ran attention kernels {by_kernel}, expected "
+             f"{want}")
     if res["tp_schedule"].demotions or res["tp_schedule"].stats["failures"]:
         fail(f"serving {arch}: the decode schedule was demoted "
              f"{res['tp_schedule'].demotions} time(s) or failed")
@@ -1227,7 +1269,7 @@ def phase_serve(dev, recorder, sc: dict) -> dict:
              f"[{toks.min()}, {toks.max()}]")
     del res
     torch.cuda.empty_cache()
-    return counts
+    return {**counts, **by_kernel}
 
 
 def _busy_us(intervals) -> float:
@@ -1483,13 +1525,23 @@ def kernels_line(dev, first, main_path, unlaunched) -> dict:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--attention", action="store_true",
+                    help="build the kernels and run FLASH_GRID alone (the "
+                    "attention rows of phase 2), then stop: no result line")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the port's source tree (default: this checkout's "
+                    "src), e.g. another commit's unpacked beside it, to "
+                    "time two versions on one card")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
-    src = ROOT / "src"
+    src = args.src.resolve()
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{src / 'repro_torch'} is missing: run from a checkout of "
              "the repository")
@@ -1504,15 +1556,21 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     log(f"phase build done at {time.perf_counter() - t0:.1f} s")
+    if args.attention:
+        log(f"attention grid of {src}")
+        log_rows(model_kernel_grid(dev, attention_only=True))
+        log(f"attention grid done at {time.perf_counter() - t0:.1f} s")
+        return 0
     unlaunched = phase_kernels(dev)
     log(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
+    from repro_torch.kernels import ops
     rec_exec, rec_fam, rec_serve = (ShapeRecorder(), ShapeRecorder(),
                                     ShapeRecorder())
     executor = phase_executor(dev, rec_exec)
     log(f"phase executor done at {time.perf_counter() - t0:.1f} s")
     families = phase_families(dev, rec_fam)
     log(f"phase families done at {time.perf_counter() - t0:.1f} s")
-    served = dict.fromkeys(TOLERANCE, 0)
+    served = dict.fromkeys([*TOLERANCE, *ops.ATTENTION_LAUNCHES], 0)
     for arch in SERVE_ARCHS:
         for name, n in phase_serve(dev, rec_serve,
                                    {**SERVE, "arch": arch}).items():
@@ -1529,7 +1587,9 @@ def main() -> int:
     # each kernel is timed at its first launch on the main path: the
     # server's shapes where it launched the kernel, else the executor's,
     # else the families'
-    main_path = {k: executor[k] + families[k] + served[k] for k in served}
+    main_path = {k: executor[k] + families[k] + served[k] for k in TOLERANCE}
+    log(f"main path: flash_attention launches by CUDA kernel "
+        f"{json.dumps({k: served[k] for k in ops.ATTENTION_LAUNCHES})}")
     line = kernels_line(dev, {**rec_fam.first, **rec_exec.first,
                               **rec_serve.first}, main_path, unlaunched)
     log(f"phase kernels line done at {time.perf_counter() - t0:.1f} s")

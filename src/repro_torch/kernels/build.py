@@ -36,7 +36,7 @@ _GR = (_P, _P, _I, _I, _L, _P)
 _DQ = (_P, _P, _P, _P, _P, _L, _L, _L, _P)
 _RQ = (_P, _P, _I, _P, _P, _L, _P)
 _RN = (_P, _P, _P) + (_L,) * 6 + (_I, _F, _F, _P)
-_FA = (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_F, _F, _I, _I, _P)
+_FA = (_P,) * 5 + (_I,) * 6 + (_L,) * 9 + (_F, _F, _I, _I, _I, _P)
 SIGNATURES = {
     "fused_reduce": {
         "fused_reduce_f32": _FR,

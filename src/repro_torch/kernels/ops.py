@@ -42,6 +42,10 @@ from .ref import QUANT_TILE, WIRE_QMAX, wire_dtype
 LAUNCHES = {"fused_reduce": 0, "grouped_reduce": 0, "quantize": 0,
             "dequantize": 0, "quant_reduce": 0, "quant_reduce_requant": 0,
             "wkv": 0, "ssm_scan": 0, "rmsnorm": 0, "flash_attention": 0}
+# the flash_attention launches again, by the CUDA kernel the call ran:
+# decode (Tq <= DECODE_MAX_TQ), bf16 prefill, f32 prefill
+ATTENTION_LAUNCHES = {"flash_decode_kernel": 0, "flash_tc_kernel": 0,
+                      "flash_tf32_kernel": 0}
 
 # largest head width (K, V) of the wkv kernel and state width N of the
 # ssm_scan kernel: the state lives in one thread's registers
@@ -51,6 +55,15 @@ RECURRENCE_MAX_WIDTH = 64
 # template bound)
 RMSNORM_MAX_WIDTH = 8192
 ATTENTION_MAX_HEAD_DIM = 256
+# decode attention (Tq <= DECODE_MAX_TQ) deals each (key head, batch row)'s
+# keys in tiles (16 keys in bf16, 32 in f32) to `decode_splits` blocks of
+# one thread-block cluster, each split at least DECODE_SPLIT_KEYS keys (a
+# bf16 tile for each of a block's eight warps); DECODE_SMS is the card's
+# SM count (H100 SXM) and DECODE_MAX_SPLITS the largest portable cluster
+DECODE_MAX_TQ = 4
+DECODE_SPLIT_KEYS = 128
+DECODE_SMS = 132
+DECODE_MAX_SPLITS = 8
 # deepest tree of the grouped_reduce kernel: one f32 accumulator a level
 # and the result, per lane, in registers
 GROUPED_REDUCE_MAX_DEPTH = 7
@@ -60,8 +73,9 @@ _FLOATS = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ATTENTION_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _on_cuda(*tensors: torch.Tensor | None) -> bool:
@@ -665,6 +679,17 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     return y
 
 
+def decode_splits(B: int, Hkv: int, Tk: int) -> int:
+    """Blocks that share a (key head, batch row)'s keys at decode: the
+    most whose splits × Hkv × B blocks still fit the DECODE_SMS SMs at
+    one a block (all run at once: a second wave would double the time),
+    no more than give each split DECODE_SPLIT_KEYS of the Tk keys (a key
+    tile for every warp), at most DECODE_MAX_SPLITS, at least 1. From
+    the shapes alone, so the host never waits on the device's kv_len."""
+    fit = DECODE_SMS // (B * Hkv)
+    return max(1, min(fit, Tk // DECODE_SPLIT_KEYS, DECODE_MAX_SPLITS))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: float | None = None,
@@ -711,6 +736,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B > 65535 or Hq > 65535:
         raise ValueError(f"the flash_attention kernel's grid takes B and Hq "
                          f"<= 65535; got {B} and {Hq}")
+    splits = decode_splits(B, Hkv, Tk) if Tq <= DECODE_MAX_TQ else 1
     out = torch.empty((B, Tq, Hq, D), dtype=q.dtype, device=q.device)
     lib = build.load("flash_attention")
     fn = (lib.flash_attention_f32 if q.dtype == torch.float32
@@ -719,16 +745,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   _ptr(kv_len), B, Hq, Hkv, Tq, Tk, D, *q.stride()[:3],
                   *k.stride()[:3], *v.stride()[:3], scale, float(softcap),
-                  int(causal), int(window), _stream(q)), "flash_attention")
+                  int(causal), int(window), splits, _stream(q)),
+               "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    ATTENTION_LAUNCHES["flash_decode_kernel" if Tq <= DECODE_MAX_TQ
+                       else "flash_tc_kernel" if q.dtype == torch.bfloat16
+                       else "flash_tf32_kernel"] += 1
     return out.transpose(1, 2)
 
 
-__all__ = ["ATTENTION_MAX_HEAD_DIM", "DEQUANTIZE_MAX_ROWS",
-           "GROUPED_REDUCE_MAX_DEPTH", "LAUNCHES", "QUANT_TILE",
-           "RECURRENCE_MAX_WIDTH", "RMSNORM_MAX_WIDTH", "WIRE_QMAX",
-           "RowTable", "dequantize", "dequantize_into", "flash_attention",
-           "fused_reduce", "fused_reduce_into", "grouped_reduce",
-           "quant_reduce", "quant_reduce_into",
-           "quant_reduce_requant", "quantize", "reset_launches", "rmsnorm",
-           "row_table", "ssm_scan", "wkv"]
+__all__ = ["ATTENTION_LAUNCHES", "ATTENTION_MAX_HEAD_DIM", "DECODE_MAX_SPLITS",
+           "DECODE_MAX_TQ", "DECODE_SMS", "DECODE_SPLIT_KEYS",
+           "DEQUANTIZE_MAX_ROWS", "GROUPED_REDUCE_MAX_DEPTH", "LAUNCHES",
+           "QUANT_TILE", "RECURRENCE_MAX_WIDTH", "RMSNORM_MAX_WIDTH",
+           "WIRE_QMAX", "RowTable", "decode_splits", "dequantize",
+           "dequantize_into", "flash_attention", "fused_reduce",
+           "fused_reduce_into", "grouped_reduce", "quant_reduce",
+           "quant_reduce_into", "quant_reduce_requant", "quantize",
+           "reset_launches", "rmsnorm", "row_table", "ssm_scan", "wkv"]

@@ -385,7 +385,12 @@ def test_rmsnorm_kernel_strided_rows(dev):
     (2, 8, 2, 3, 200, 128, 50, 30.0, [180, 2]),
     (1, 32, 16, 1, 4416, 128, 4096, 50.0, [4360]),
     (1, 4, 2, 4, 4416, 16, 4096, 0.0, [4360]),
-    (2, 4, 2, 1, 70, 18, 0, 0.0, [70, 9])])
+    (2, 4, 2, 1, 70, 18, 0, 0.0, [70, 9]),
+    (1, 32, 8, 1, 4416, 160, 0, 0.0, [4360]),
+    (4, 32, 16, 1, 4416, 128, 4096, 50.0, [4360, 0, 300, 4416]),
+    (1, 32, 16, 4, 4416, 128, 4096, 50.0, [4360]),
+    (1, 8, 2, 130, 130, 160, 0, 0.0, None),
+    (2, 8, 2, 1, 300, 72, 0, 0.0, [300, 129])])
 def test_flash_attention_kernel_matches_plain(dev, dtype, B, Hq, Hkv, Tq, Tk,
                                               D, window, softcap, kv_len):
     q = _rand((B, Tq, Hq, D), 17, dev).to(dtype).transpose(1, 2)
@@ -447,6 +452,40 @@ def test_flash_attention_prefill_edges(dev, B, Hq, Hkv, Tq, Tk, D, window,
     want = ref.flash_attention(q.float(), k.float(), v.float(), **kw)
     assert torch.isfinite(got.float()).all()
     assert _row_rel(got, want) <= MODEL_RTOL[torch.bfloat16]
+    if kv_len is not None and 0 in kv_len:
+        assert (got[kv_len.index(0)] == 0).all()
+
+
+# f32 prefill (Tq > 4) runs the 3xTF32 tensor-core kernel: head dims 16,
+# 72, 128, 160, 256 and 18 (no whole 16 bytes: element staging), groups
+# 1 and 4, ragged key counts with a row that sees none, a window, no
+# causal mask, and K/V rows strided by a multiple of 16 bytes and by
+# none (element staging); within 1e-5 of each row's largest |value|
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,window,softcap,kv_len,causal,pad", [
+    (2, 4, 4, 5, 5, 16, 0, 0.0, None, True, 0),
+    (2, 8, 2, 17, 40, 72, 0, 50.0, [40, 17], True, 0),
+    (3, 4, 1, 40, 100, 160, 16, 0.0, [100, 0, 45], True, 0),
+    (2, 4, 4, 70, 70, 256, 0, 50.0, None, True, 0),
+    (1, 4, 1, 130, 300, 128, 0, 30.0, None, True, 0),
+    (1, 4, 2, 20, 50, 64, 0, 0.0, None, False, 0),
+    (2, 8, 2, 33, 60, 72, 8, 0.0, [60, 33], True, 4),
+    (2, 8, 2, 33, 60, 72, 8, 0.0, [60, 33], True, 1),
+    (1, 4, 4, 9, 30, 18, 0, 0.0, None, True, 0)])
+def test_flash_attention_f32_prefill_edges(dev, B, Hq, Hkv, Tq, Tk, D, window,
+                                           softcap, kv_len, causal, pad):
+    q = _rand((B, Tq, Hq, D), 31, dev).transpose(1, 2)
+    k = _rand((B, Hkv, Tk, D + pad), 32, dev)[..., :D]
+    v = _rand((B, Hkv, Tk, D + pad), 33, dev)[..., :D]
+    n = None if kv_len is None else torch.tensor(kv_len, device=dev)
+    kw = dict(window=window, softcap=softcap, kv_len=n, causal=causal)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, Hq, Tq, D)
+    want = ref.flash_attention(q, k, v, **kw)
+    assert torch.isfinite(got).all()
+    assert _row_rel(got, want) <= MODEL_RTOL[torch.float32]
     if kv_len is not None and 0 in kv_len:
         assert (got[kv_len.index(0)] == 0).all()
 
