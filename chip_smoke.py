@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --attention [--src OTHER/src]
+    python3 chip_smoke.py --recurrence [--src OTHER/src]
 
-The second form builds the kernels and runs the attention rows of phase
-2 alone (of another source tree with --src: two commits timed on one
-card in turn), and prints no result line. Phases, each of which fails the run (non-zero exit, no result line) on
+The second and third forms build the kernels and run the attention rows
+or the recurrence rows of phase 2 alone (of another source tree with
+--src: two commits timed on one card in turn), and print no result line.
+Phases, each of which fails the run (non-zero exit, no result line) on
 any error:
 
   1. build    — compile every CUDA kernel from `src/repro_torch/kernels/
@@ -30,8 +32,13 @@ any error:
                 output for attention): 1e-5 for an f32 output, 2^-8 (one
                 bf16 rounding) for a bf16 one, held against the plain
                 version on the same inputs widened to f32; two
-                recurrence calls over the halves of a sequence, the
-                state handed over, must equal one call. Attention runs
+                recurrence calls over a sequence cut in two (halves of
+                32 tokens; 17 and 23), the state handed over, must equal
+                one call. The recurrences run at the served prefill and
+                decode shapes and at their kernels' edges (batch 1; T
+                1, 7, 33, 40, 65; V off a warp's column slice; K 32,
+                33; Di off the channel block; N 1, 3, 32, 64; widths off
+                the 16-byte path). Attention runs
                 at the four models' prefill and decode shapes (ragged
                 per-row key counts at decode), the smoke widths in f32,
                 and gemma2-27b's long request (prefill of 4,352 tokens,
@@ -654,18 +661,18 @@ def measure(case) -> dict:
     return out
 
 
-def handoff_err(kernel, args, time_dim: int) -> float:
-    """Recurrence `kernel` over the two halves of a sequence, the first
-    call's final state handed to the second, against one call over the
-    whole: the largest relative disagreement of output and final state.
-    args: the sequence inputs (time on axis `time_dim`), then the one
-    fixed input and the initial state."""
+def handoff_err(kernel, args, time_dim: int, split: int) -> float:
+    """Recurrence `kernel` over a sequence cut after `split` tokens, the
+    first call's final state handed to the second, against one call over
+    the whole: the largest relative disagreement of output and final
+    state. args: the sequence inputs (time on axis `time_dim`), then the
+    one fixed input and the initial state."""
     import torch
     *seq, fixed, s0 = args
     T = seq[0].shape[time_dim]
     whole, s_whole = kernel(*seq, fixed, s0)
     parts, s = [], s0
-    for start, length in ((0, T // 2), (T // 2, T - T // 2)):
+    for start, length in ((0, split), (split, T - split)):
         out, s = kernel(*(x.narrow(time_dim, start, length).contiguous()
                           for x in seq), fixed, s)
         parts.append(out)
@@ -778,41 +785,67 @@ def phase_kernels(dev) -> dict:
                     fail(f"dequantize {what} differs from its plain "
                          f"version by {r['max_abs_err']}")
         torch.cuda.empty_cache()
-    # the recurrences: the serve shapes of rwkv6-1.6b (B 4, H 32, K = V
-    # = 64) and hymba-1.5b (B 4, Di 3200, N 16) at prefill and at T = 1,
-    # a T the reference's chunk of 32 does not divide, the smoke widths,
-    # and a Di that is not a multiple of the kernel's block of 128
-    for what, (B, H, T, K, V) in (
-            ("prefill", (4, 32, 32, 64, 64)), ("decode", (4, 32, 1, 64, 64)),
-            ("T=40", (4, 32, 40, 64, 64)), ("smoke", (2, 4, 8, 16, 16))):
-        case = wkv_case(B, H, T, K, V, dev)
-        r = measure(case)
-        rows.append(("wkv", f"{what} B={B} H={H} T={T} K={K} V={V}", r))
-        if not within("wkv", r):
-            fail(f"wkv {what} differs from its plain version by "
-                 f"{r['max_rel_err']:.2e} of the largest |value|")
-    for what, (B, T, Di, N) in (
-            ("prefill", (4, 32, 3200, 16)), ("decode", (4, 1, 3200, 16)),
-            ("T=40", (4, 40, 3200, 16)), ("smoke", (2, 8, 128, 8)),
-            ("Di=200", (2, 32, 200, 16))):
-        r = measure(ssm_scan_case(B, T, Di, N, dev))
-        rows.append(("ssm_scan", f"{what} B={B} T={T} Di={Di} N={N}", r))
-        if not within("ssm_scan", r):
-            fail(f"ssm_scan {what} differs from its plain version by "
-                 f"{r['max_rel_err']:.2e} of the largest |value|")
-    from repro_torch.kernels import ops
-    for name, case, dim in (("wkv", wkv_case(4, 32, 32, 64, 64, dev), 2),
-                            ("ssm_scan", ssm_scan_case(4, 32, 3200, 16, dev),
-                             1)):
-        err = handoff_err(getattr(ops, name), case["args"], dim)
-        log(f"kernel {name}: two calls over halves of T=32, state handed "
-            f"over, against one call: rel err {err:.2e}")
-        if not err <= TOLERANCE[name]:
-            fail(f"{name}: the state handoff disagrees with one call by "
-                 f"{err:.2e}")
+    rows += recurrence_grid(dev)
     rows += model_kernel_grid(dev)
     log_rows(rows)
     return unlaunched
+
+
+# the recurrence grid: what, (B, H, T, K, V) of wkv and (B, T, Di, N) of
+# ssm_scan. The serve shapes of rwkv6-1.6b (B 4, H 32, K = V = 64) and
+# hymba-1.5b (B 4, Di 3200, N 16) at prefill and at T = 1, then the
+# kernels' edges: batch 1 (a (b, h)'s columns, or a batch row's
+# channels, over more blocks), T off the 16-token tile (1, 7, 33, 40 —
+# which the reference's chunk of 32 does not divide — and 65), the smoke
+# widths, V off a warp's column slice (20 at K 64; 36 at K 16; 18, off
+# the 16-byte path), K 32 and 33 (off the 16-byte path), Di off the
+# channel block (200; 130, off the 16-byte path), N 1, 3, 32 and 64
+WKV_GRID = [
+    ("prefill", (4, 32, 32, 64, 64)), ("decode", (4, 32, 1, 64, 64)),
+    ("decode B=1", (1, 32, 1, 64, 64)), ("T=33", (4, 32, 33, 64, 64)),
+    ("T=40", (4, 32, 40, 64, 64)), ("T=65", (2, 32, 65, 64, 64)),
+    ("smoke", (2, 4, 8, 16, 16)), ("V=20", (2, 3, 40, 64, 20)),
+    ("K=16 V=36", (2, 3, 33, 16, 36)), ("K=33 V=18", (1, 2, 65, 33, 18)),
+    ("K=32 T=7", (3, 5, 7, 32, 64)),
+]
+SSM_GRID = [
+    ("prefill", (4, 32, 3200, 16)), ("decode", (4, 1, 3200, 16)),
+    ("decode B=1", (1, 1, 3200, 16)), ("T=33", (4, 33, 3200, 16)),
+    ("T=40", (4, 40, 3200, 16)), ("T=65", (2, 65, 3200, 16)),
+    ("smoke", (2, 8, 128, 8)), ("Di=200", (2, 32, 200, 16)),
+    ("N=1", (2, 40, 200, 1)), ("N=3", (2, 33, 200, 3)),
+    ("N=32 T=7", (2, 7, 200, 32)), ("N=64 Di=130", (1, 65, 130, 64)),
+]
+# (T, where the first call ends) of the state hand-off checks: halves of
+# the serve prompt, and a first call of a tile and one token
+HANDOFFS = ((32, 16), (40, 17))
+
+
+def recurrence_grid(dev) -> list:
+    """wkv and ssm_scan against their plain versions over WKV_GRID and
+    SSM_GRID, then the state hand-off at HANDOFFS; fails on the first
+    disagreement beyond TOLERANCE."""
+    from repro_torch.kernels import ops
+    rows = []
+    for name, grid, make in (("wkv", WKV_GRID, wkv_case),
+                             ("ssm_scan", SSM_GRID, ssm_scan_case)):
+        for what, shape in grid:
+            r = measure(make(*shape, dev))
+            rows.append((name, f"{what} {shape}", r))
+            if not within(name, r):
+                fail(f"{name} {what} {shape} differs from its plain version "
+                     f"by {r['max_rel_err']:.2e} of the largest |value|")
+    for T, split in HANDOFFS:
+        for name, case, dim in (
+                ("wkv", wkv_case(4, 32, T, 64, 64, dev), 2),
+                ("ssm_scan", ssm_scan_case(4, T, 3200, 16, dev), 1)):
+            err = handoff_err(getattr(ops, name), case["args"], dim, split)
+            log(f"kernel {name}: two calls over T={T} split at {split}, "
+                f"state handed over, against one call: rel err {err:.2e}")
+            if not err <= TOLERANCE[name]:
+                fail(f"{name}: the state handoff at T={T} split at {split} "
+                     f"disagrees with one call by {err:.2e}")
+    return rows
 
 
 def log_rows(rows) -> None:
@@ -1530,6 +1563,10 @@ def main() -> int:
     ap.add_argument("--attention", action="store_true",
                     help="build the kernels and run FLASH_GRID alone (the "
                     "attention rows of phase 2), then stop: no result line")
+    ap.add_argument("--recurrence", action="store_true",
+                    help="build the kernels and run the recurrence rows of "
+                    "phase 2 alone (WKV_GRID, SSM_GRID and the state "
+                    "hand-offs), then stop: no result line")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree (default: this checkout's "
                     "src), e.g. another commit's unpacked beside it, to "
@@ -1560,6 +1597,11 @@ def main() -> int:
         log(f"attention grid of {src}")
         log_rows(model_kernel_grid(dev, attention_only=True))
         log(f"attention grid done at {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.recurrence:
+        log(f"recurrence grid of {src}")
+        log_rows(recurrence_grid(dev))
+        log(f"recurrence grid done at {time.perf_counter() - t0:.1f} s")
         return 0
     unlaunched = phase_kernels(dev)
     log(f"phase kernels done at {time.perf_counter() - t0:.1f} s")

@@ -57,8 +57,8 @@ SIGNATURES = {
         **{f"quant_reduce_requant_{a}_{b}": _RQ for a in ("fp8", "int8")
            for b in ("fp8", "int8")},
     },
-    "wkv": {"wkv_f32": (_P,) * 8 + (_I,) * 5 + (_P,)},
-    "ssm_scan": {"ssm_scan_f32": (_P,) * 8 + (_I,) * 4 + (_P,)},
+    "wkv": {"wkv_f32": (_P,) * 8 + (_I,) * 7 + (_P,)},
+    "ssm_scan": {"ssm_scan_f32": (_P,) * 8 + (_I,) * 6 + (_P,)},
     "rmsnorm": {f"rmsnorm_{x}_{w}": _RN for x in ("f32", "bf16")
                 for w in ("f32", "bf16")},
     "flash_attention": {"flash_attention_f32": _FA,

@@ -48,7 +48,8 @@ ATTENTION_LAUNCHES = {"flash_decode_kernel": 0, "flash_tc_kernel": 0,
                       "flash_tf32_kernel": 0}
 
 # largest head width (K, V) of the wkv kernel and state width N of the
-# ssm_scan kernel: the state lives in one thread's registers
+# ssm_scan kernel: the state lives in registers, at most 64 values a warp
+# row (`wkv_layout`, `ssm_scan_layout`)
 RECURRENCE_MAX_WIDTH = 64
 # largest row of the rmsnorm kernel (held in registers, at most 64
 # values a thread) and head dim of the flash_attention kernels (their
@@ -556,6 +557,36 @@ def _check_recurrence(what: str, tensors: dict[str, torch.Tensor],
     return _kernel_path(what, *tensors.values())
 
 
+def wkv_layout(B: int, H: int, K: int, V: int) -> tuple[int, int]:
+    """(lanes, warps) of the wkv kernel. `lanes` lanes of a warp split a
+    (b, h)'s K rows, 4 a lane: the fewest of 4, 8, 16 that cover K. A
+    warp holds 128 / lanes of its V columns, 4 a lane, and a block
+    `warps` of its warps, so a (b, h)'s columns span ceil(V / (warps ·
+    128 / lanes)) blocks: the most whose B·H·splits blocks still fit the
+    DECODE_SMS SMs at one a block (a (b, h) in one block where they do
+    not: each block stages the whole of its r, k and logw), at most one
+    a warp. From the shapes alone."""
+    lanes = 4 if K <= 16 else 8 if K <= 32 else 16
+    need = -(-V // (128 // lanes))                 # warps a (b, h)
+    splits = max(1, min(need, DECODE_SMS // (B * H)))
+    return lanes, -(-need // splits)
+
+
+def ssm_scan_layout(B: int, Di: int, N: int) -> tuple[int, int]:
+    """(lanes, channels) of the ssm_scan kernel. `lanes` neighbouring
+    lanes share a channel's N states, 4 a lane: the fewest of 1, 2, 4, 8,
+    16 that cover N. A block holds `channels` channels of one batch row:
+    128 / lanes (128 threads), halved while its B·ceil(Di / channels)
+    blocks are fewer than two an SM (DECODE_SMS), down to 8 channels or
+    a warp. From the shapes alone."""
+    lanes = next(n for n in (1, 2, 4, 8, 16) if 4 * n >= N)
+    channels = 128 // lanes
+    while (channels > max(8, 32 // lanes)
+           and B * -(-Di // channels) < 2 * DECODE_SMS):
+        channels //= 2
+    return lanes, channels
+
+
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
         ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -581,11 +612,12 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = build.load("wkv")
     out = torch.empty((B, H, T, V), dtype=torch.float32, device=r.device)
     s_fin = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    lanes, warps = wkv_layout(B, H, K, V)
     with torch.cuda.device(r.device):
         _check(lib.wkv_f32(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                            logw.data_ptr(), u.data_ptr(), s0.data_ptr(),
                            out.data_ptr(), s_fin.data_ptr(), B, H, T, K, V,
-                           _stream(r)), "wkv")
+                           lanes, warps, _stream(r)), "wkv")
     LAUNCHES["wkv"] += 1
     return out, s_fin
 
@@ -615,12 +647,13 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     lib = build.load("ssm_scan")
     y = torch.empty((B, T, Di), dtype=torch.float32, device=u.device)
     s_fin = torch.empty((B, Di, N), dtype=torch.float32, device=u.device)
+    lanes, channels = ssm_scan_layout(B, Di, N)
     with torch.cuda.device(u.device):
         _check(lib.ssm_scan_f32(u.data_ptr(), dt.data_ptr(), b.data_ptr(),
                                 c.data_ptr(), log_a.data_ptr(),
                                 s0.data_ptr(), y.data_ptr(),
-                                s_fin.data_ptr(), B, T, Di, N, _stream(u)),
-               "ssm_scan")
+                                s_fin.data_ptr(), B, T, Di, N, lanes,
+                                channels, _stream(u)), "ssm_scan")
     LAUNCHES["ssm_scan"] += 1
     return y, s_fin
 

@@ -338,6 +338,74 @@ def test_recurrence_kernel_state_handoff(dev, kernel):
     assert _rel(s2, s_whole) <= RECURRENCE_RTOL
 
 
+# The kernels' edges: batch 1 (a (b, h)'s columns, or a batch row's
+# channels, over more blocks); T off the 16-token tile and the 8- and
+# 4-token groups (1, 7, 33, 65); V off a warp's column slice (20 at K 64,
+# 36 at K 16); K 33 and V 18 (off the 16-byte path); Di off the channel
+# block (200; 130, off the 16-byte path); N 1 and 3 (one lane a channel),
+# 8, 32 and 64 (sixteen lanes).
+@pytest.mark.parametrize("kernel,shape", [
+    ("wkv", (1, 32, 1, 64, 64)), ("wkv", (4, 32, 33, 64, 64)),
+    ("wkv", (2, 32, 65, 64, 64)), ("wkv", (2, 3, 40, 64, 20)),
+    ("wkv", (2, 3, 33, 16, 36)), ("wkv", (1, 2, 65, 33, 18)),
+    ("wkv", (1, 2, 1, 33, 18)), ("wkv", (3, 5, 7, 32, 64)),
+    ("ssm_scan", (1, 1, 3200, 16)), ("ssm_scan", (4, 33, 3200, 16)),
+    ("ssm_scan", (2, 65, 3200, 16)), ("ssm_scan", (2, 40, 200, 1)),
+    ("ssm_scan", (2, 33, 200, 3)), ("ssm_scan", (1, 65, 130, 64)),
+    ("ssm_scan", (2, 7, 200, 32)), ("ssm_scan", (2, 1, 130, 8))])
+def test_recurrence_kernel_edges(dev, kernel, shape):
+    args = (_wkv_args if kernel == "wkv" else _ssm_args)(*shape, 13, dev)
+    before = ops.LAUNCHES[kernel]
+    out, state = getattr(ops, kernel)(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == before + 1
+    want, s_want = getattr(ref, f"{kernel}_ref")(*args)
+    assert _rel(out, want) <= RECURRENCE_RTOL
+    assert _rel(state, s_want) <= RECURRENCE_RTOL
+
+
+@pytest.mark.parametrize("kernel", ["wkv", "ssm_scan"])
+def test_recurrence_kernel_off_16_byte_bases(dev, kernel):
+    """Contiguous inputs that start 4 bytes past a 16-byte boundary (the
+    kernels then copy element by element) give the plain result."""
+    args = (_wkv_args(2, 4, 33, 64, 64, 14, dev) if kernel == "wkv"
+            else _ssm_args(2, 33, 320, 16, 14, dev))
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, device=dev)[1:]
+        return buf.copy_(a.reshape(-1)).view(a.shape)
+
+    moved = [shifted(a) for a in args]
+    assert all(a.data_ptr() % 16 == 4 and a.is_contiguous() for a in moved)
+    out, state = getattr(ops, kernel)(*moved)
+    torch.cuda.synchronize()
+    want, s_want = getattr(ref, f"{kernel}_ref")(*args)
+    assert _rel(out, want) <= RECURRENCE_RTOL
+    assert _rel(state, s_want) <= RECURRENCE_RTOL
+
+
+@pytest.mark.parametrize("T,split", [(40, 17), (33, 16), (20, 1)])
+@pytest.mark.parametrize("kernel", ["wkv", "ssm_scan"])
+def test_recurrence_kernel_handoff_off_the_tile(dev, kernel, T, split):
+    """A sequence cut after a tile and one token, after a tile, after one
+    token: two launches, the state handed over, equal one launch."""
+    if kernel == "wkv":
+        *seq, fixed, s0 = _wkv_args(4, 32, T, 64, 64, 15, dev)
+        dim = 2
+    else:
+        *seq, fixed, s0 = _ssm_args(4, T, 3200, 16, 15, dev)
+        dim = 1
+    fn = getattr(ops, kernel)
+    whole, s_whole = fn(*seq, fixed, s0)
+    a, s1 = fn(*(x.narrow(dim, 0, split).contiguous() for x in seq), fixed,
+               s0)
+    b, s2 = fn(*(x.narrow(dim, split, T - split).contiguous() for x in seq),
+               fixed, s1)
+    torch.cuda.synchronize()
+    assert _rel(torch.cat([a, b], dim=dim), whole) <= RECURRENCE_RTOL
+    assert _rel(s2, s_whole) <= RECURRENCE_RTOL
+
+
 # The model kernels also reduce in another order than their plain
 # versions. An f32 output is held within 1e-5 of the largest |value|; a
 # bf16 output is the f32 result rounded once, so it is held within 2^-8
