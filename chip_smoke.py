@@ -88,11 +88,31 @@ any error:
                 masks in prefill and decode; each model is freed before
                 the next; then each model's smoke-size version in f32 on
                 the card against the same code on the CPU (gemma2-27b on
-                a 48-token prompt, longer than its smoke window).
+                a 48-token prompt, longer than its smoke window);
+  5. train    — the ZeRO-3 trainer (`repro_torch.launch.train.
+                make_manual_train_step`, `SyncConfig(strategy="plan",
+                bucket_bytes=0)`, 8 local ranks) on stablelm-12b at full
+                width, its depth cut to 2 layers (TRAIN), random bf16
+                weights, seq 128, global batch 8, 3 steps at the
+                reference's lr 1e-3 and again at each of TRAIN_FALL_LRS:
+                finite losses and gnorms, falling at TRAIN_FALL_LRS, the
+                gathered rows of every leaf equal on every step, the
+                exact fused_reduce launches (one per fold phase of each
+                leaf's all-gather and reduce-scatter) and no other
+                kernel, no guard failure, the step time (host clock),
+                its split over gather, forward and backward,
+                reduce-scatter and AdamW (CUDA events) beside their
+                bounds, the collectives against the schedule's byte
+                bound, the peak memory; then fused_reduce at the
+                trainer's gradient shapes against its plain version and
+                torch.sum, and the trainer at smoke size in f32 on the
+                card against the same code on the CPU (per-step loss and
+                gnorm within 1e-4, the final shards as `shard_drift`
+                says).
 
-The main path is phases 3, 3b and 4: every launch count is zeroed just
-before the executor, the families and each served run, and read just
-after. The executor must launch fused_reduce, quantize, quant_reduce and
+The main path is phases 3, 3b, 4 and 5: every launch count is zeroed
+just before the executor, the families, each served run and each
+training run, and read just after. The executor must launch fused_reduce, quantize, quant_reduce and
 dequantize (it runs the compressed wires), the families dequantize;
 grouped_reduce and quant_reduce_requant have no caller on the main path
 (nor in the JAX package) and show 0 launches, timed in phase 2 at their
@@ -104,8 +124,10 @@ flash_attention once per attention layer, wkv once per RWKV6 layer and
 ssm_scan once per Hymba layer (`expected_launches`), and each
 flash_attention launch on the CUDA kernel its shape selects (the
 prompt's on the bf16 prefill kernel, each decode step's on the decode
-kernel, `ops.ATTENTION_LAUNCHES`), with no guard
-demotion or failure anywhere (the guard raises rather than demote, so a
+kernel, `ops.ATTENTION_LAUNCHES`); each training run must launch
+fused_reduce exactly steps × 12 leaves × the schedule's fold phases and
+no other kernel (the training forward runs torch ops, as the
+reference's runs XLA ops), with no guard demotion or failure anywhere (the guard raises rather than demote, so a
 failure ends the run). The last lines are the per-kernel JSON (launches
 on the main path; time, plain time, bound and yardstick of the wrapper
 call of the kernel's first launch in phase 4, or in phase 3 or 3b for a
@@ -148,6 +170,14 @@ RECURRENCE = {"ssm": "wkv", "hybrid": "ssm_scan"}
 PROFILE_STEPS = 4                # decode steps traced after serving
 # (batch, prompt, cache) of the smoke-size model held card against CPU
 REFERENCE_RUN = {"gemma2-27b": (2, 48, 64)}
+# the trainer: stablelm-12b at full width with its depth cut from 40 to 2
+# layers (the one cut), 8 local ranks, the reference TrainConfig's
+# sequence, global batch and lr; then the same run at each lr of
+# TRAIN_FALL_LRS, over which the loss must fall
+TRAIN = dict(arch="stablelm-12b", layers=2, steps=3, seq_len=128,
+             global_batch=8, lr=1e-3, local_ranks=8)
+TRAIN_FALL_LRS = (1e-4,)
+TRAIN_SMOKE_STEPS = 3            # smoke-size f32 steps, card against CPU
 # largest disagreement a kernel may show with its plain version: 0 = bit
 # for bit; otherwise a share of the largest |value| of each output (for
 # flash_attention, of each query row's output), by output dtype where the
@@ -220,7 +250,14 @@ def bound_ms(nbytes: float) -> float:
 
 
 def max_abs_err(a, b) -> float:
-    return float((a.double() - b.double()).abs().max())
+    """Largest |a − b|, in f64, 2^26 elements at a time (the trainer's
+    fold outputs hold billions; a NaN anywhere is the result)."""
+    import torch
+    a, b = a.reshape(-1), b.reshape(-1)
+    step = 1 << 26
+    return float(torch.stack([
+        (a[i:i + step].double() - b[i:i + step].double()).abs().max()
+        for i in range(0, a.numel(), step)]).max())
 
 
 def rel_cmp(got, want) -> tuple[float, float]:
@@ -1454,6 +1491,307 @@ def phase_model_reference(dev, arch: str) -> None:
         fail(f"the card's smoke-size {arch} disagrees with the CPU run")
 
 
+# ---------------------------------------------------------------------------
+# the trainer
+# ---------------------------------------------------------------------------
+class FoldRecorder:
+    """Records the arguments of every distinct `fused_reduce_into` launch
+    (shapes, dtypes and the row table, kept as it is), in order: the
+    shapes the trainer's gathers and reduce-scatters fold at."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.real = ops.fused_reduce_into
+        self.calls: dict[tuple, tuple] = {}
+
+    def __enter__(self):
+        def spy(src, table, out):
+            key = (tuple(src.shape), src.dtype, id(table), tuple(out.shape))
+            if key not in self.calls:
+                self.calls[key] = (tuple(src.shape), src.dtype, table,
+                                   tuple(out.shape), out.dtype)
+            return self.real(src, table, out)
+        self.ops.fused_reduce_into = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.fused_reduce_into = self.real
+
+
+def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int) -> dict:
+    """The least time of each part of one step (ms), from this run's
+    shapes: the gather and the reduce-scatter at their schedule's bytes
+    (`schedule_bytes` of each leaf's padded rows: every round's and
+    fold's rows crossing memory once); each rank's forward and backward
+    at the larger of its bytes (every weight read once, every gradient
+    written once, bf16) and its products (2 operations a weight a token
+    forward, 4 backward, plus attention's QK and PV, over the bf16 tensor
+    core rate); AdamW at 22 bytes a parameter (bf16 weight and gradient
+    read, f32 m and v read, all four written back but the gradient)."""
+    P = sum(int(t.numel()) for t in shards)       # padded, all ranks
+    elem = shards[0].element_size()
+    gather = sum(schedule_bytes(cs, int(t.numel()), t.dtype,
+                                family_steps(cs, "allgather"))
+                 for t in shards)
+    scatter = sum(schedule_bytes(cs, int(t.numel()), t.dtype,
+                                 family_steps(cs, "reduce_scatter"))
+                  for t in shards)
+    matmul = P - cfg.vocab * cfg.d_model - (2 * cfg.n_layers + 1) \
+        * cfg.d_model                            # no embed, no norms
+    tokens = seq_len * batch // n
+    attn = (4 * tokens * seq_len * cfg.n_heads * cfg.head_dim
+            * cfg.n_layers)                      # QK and PV, forward
+    flops = 6 * tokens * matmul + 3 * attn
+    fb_bytes = 2 * P * elem
+    rank = max(bound_ms(fb_bytes), flops / BF16_FLOPS * 1e3)
+    return {"gather": bound_ms(gather), "forward_backward": n * rank,
+            "reduce_scatter": bound_ms(scatter), "adamw": bound_ms(22 * P),
+            "rank_bytes_ms": bound_ms(fb_bytes),
+            "rank_flops_ms": flops / BF16_FLOPS * 1e3}
+
+
+def train_run(api, params, n: int, lr: float, steps: int, seq_len: int,
+              global_batch: int, seed: int = 0):
+    """`steps` steps of `make_manual_train_step` on `api` from `params`
+    (the port's per-layer tree, on the device the run takes): the state,
+    per-step losses, gnorms, host-clock step times (each ending in the
+    loss's copy to the host) and device times of the step's parts."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import (make_manual_train_step, phase_ms,
+                                          shard_params_zero3)
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    where = params["embed"].device
+    shards = shard_params_zero3(params, n)
+    del params
+    state = {"params": shards, "opt": adamw_init(shards)}
+    step = make_manual_train_step(api, n, AdamWConfig(lr=lr), device=where)
+    data = SyntheticLM(DataConfig(vocab=api.cfg.vocab, seq_len=seq_len,
+                                  global_batch=global_batch, seed=seed))
+    out = {"losses": [], "gnorms": [], "step_s": [], "phase_ms": []}
+    for s in range(steps):
+        t0 = time.perf_counter()
+        batch = {k: torch.as_tensor(np.asarray(v), device=where).long()
+                 for k, v in data.batch_at(s).items()}
+        state, m = step(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["gnorm"])
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(loss)
+        out["gnorms"].append(gnorm)
+        out["phase_ms"].append(phase_ms(m))
+    out.update(state=state, plans=step.plans)
+    return out
+
+
+def phase_train(dev, lr: float, must_fall: bool, recorder=None) -> dict:
+    """The ZeRO-3 trainer on TRAIN (stablelm-12b at full width, its depth
+    cut to 2 layers, random bf16 weights, 8 local ranks, seq 128, global
+    batch 8) for TRAIN["steps"] steps at learning rate `lr`, every launch
+    count zeroed just before and read just after. Checks: finite losses
+    and gnorms (falling losses where `must_fall`), the gathered rows of
+    every leaf equal on every step (the trainer compares them with
+    torch.equal and raises), fused_reduce launched exactly steps × 12
+    leaves × the schedule's fold phases and no other kernel, no guard
+    failure. Prints the step time (host clock; median after the first),
+    its parts (CUDA events) beside their bounds and the peak memory.
+    Returns the launch counts."""
+    import contextlib
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import PHASES
+    from repro_torch.models.registry import build
+
+    tr = TRAIN
+    cfg = dataclasses.replace(get_config(tr["arch"]), n_layers=tr["layers"])
+    n, steps = tr["local_ranks"], tr["steps"]
+    torch.empty(1, device=dev)       # the allocator's peak needs a context
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    api = build(cfg)
+    with recorder or contextlib.nullcontext():
+        res = train_run(api, api.init_params(
+            torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev),
+            n, lr, steps, tr["seq_len"], tr["global_batch"])
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    by_kernel = dict(ops.ATTENTION_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    shards = res["state"]["params"]
+    (plan,) = res["plans"]
+    sched = plan.schedule
+    cs = sched.inner
+    losses, gnorms = res["losses"], res["gnorms"]
+    log(f"train: {cfg.name} layers={cfg.n_layers} (cut from "
+        f"{get_config(tr['arch']).n_layers}) d={cfg.d_model} heads="
+        f"{cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab};"
+        f" {sum(t.numel() for t in shards) / 1e6:.1f} M parameters (padded)"
+        f" in {len(shards)} leaves; {n} local ranks, seq {tr['seq_len']}, "
+        f"global batch {tr['global_batch']}, lr {lr}; plan {cs.describe()} "
+        f"(predicted {plan.predicted * 1e3:.3f} ms); losses {losses}; "
+        f"gnorms {gnorms}; gathered rows equal on every step; wall "
+        f"{wall:.1f} s; peak memory {peak / 2**30:.2f} GiB")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"train: non-finite loss or gnorm: {losses} {gnorms}")
+    if must_fall and not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall at lr {lr}: {losses}")
+    rs_steps = family_steps(cs, "reduce_scatter")
+    ag_steps = family_steps(cs, "allgather")
+    rs_folds = sum(len(st.folds) for st in rs_steps)
+    folds = rs_folds + sum(len(st.folds) for st in ag_steps)
+    want = steps * len(shards) * folds
+    log(f"train: fused_reduce launches {counts['fused_reduce']} = {steps} "
+        f"steps x {len(shards)} leaves x {folds} fold phases "
+        f"({rs_folds} reduce-scatter, {folds - rs_folds} all-gather "
+        f"landings) -> expected {want}; launches {json.dumps(counts)}; "
+        f"attention kernels {json.dumps(by_kernel)}; guard "
+        f"{json.dumps(sched.stats)}")
+    if counts["fused_reduce"] != want:
+        fail(f"train launched fused_reduce {counts['fused_reduce']} "
+             f"time(s), expected {want}")
+    for name, count in counts.items():
+        if name != "fused_reduce" and count:
+            fail(f"train launched {name} {count} time(s)")
+    if any(by_kernel.values()):
+        fail(f"train ran attention kernels {by_kernel}")
+    if sched.demotions or sched.stats["failures"]:
+        fail(f"train: guard {sched.stats}, {sched.demotions} demotion(s)")
+    step_ms = statistics.median(res["step_s"][1:]) * 1e3
+    parts = {k: statistics.median(p[k] for p in res["phase_ms"][1:])
+             for k in PHASES}
+    bounds = train_bounds(cfg, cs, shards, n, tr["seq_len"],
+                          tr["global_batch"])
+    coll = parts["gather"] + parts["reduce_scatter"]
+    coll_bound = bounds["gather"] + bounds["reduce_scatter"]
+    log(f"train: step time median of steps 2-{steps} {step_ms:.1f} ms "
+        f"(first {res['step_s'][0] * 1e3:.1f} ms; steps "
+        f"{[round(x * 1e3, 1) for x in res['step_s']]}); device parts "
+        + ", ".join(f"{k} {parts[k]:.2f} ms (bound {bounds[k]:.2f})"
+                    for k in PHASES)
+        + f"; sum {sum(parts.values()):.2f} ms; collectives (gather + "
+        f"reduce-scatter) {coll:.2f} ms against the schedule's byte bound "
+        f"{coll_bound:.2f} ms; one rank's forward and backward bound: bytes "
+        f"{bounds['rank_bytes_ms']:.3f} ms, products "
+        f"{bounds['rank_flops_ms']:.3f} ms")
+    return counts
+
+
+def trainer_rows(dev, recorder) -> list:
+    """fused_reduce at the trainer's gradient shapes: the largest leaf's
+    reduce-scatter fold and its all-gather landing, and the smallest
+    matrix leaf's fold, as the step launched them (gathered form,
+    recorded tables), and the dense form of each fold (n ranks × n
+    operands of the chunk) beside one torch.sum over the operands."""
+    import torch
+    calls = list(recorder.calls.values())
+    folds = [c for c in calls if c[2].has_own]
+    lands = [c for c in calls if not c[2].has_own]
+    picks = [("rs fold, largest leaf", max(folds, key=lambda c: c[0][1])),
+             ("ag landing, largest leaf", max(lands, key=lambda c: c[0][1])),
+             ("rs fold, smallest matrix leaf",
+              min((c for c in folds if c[0][1] >= 1 << 20),
+                  key=lambda c: c[0][1]))]
+    rows = []
+    for what, (src_shape, src_dtype, table, out_shape, out_dtype) in picks:
+        cases = [(f"trainer {what}: into B={table.rows.shape[0]} "
+                  f"K={table.rows.shape[1]} L={src_shape[1]} "
+                  f"{src_dtype}->{out_dtype}",
+                  lambda: fused_reduce_into_case(src_shape, src_dtype, table,
+                                                 out_shape, out_dtype, dev))]
+        if what.startswith("rs fold"):
+            n = table.rows.shape[0]
+            cases.append((f"trainer {what}: dense ({n}, {n}, {src_shape[1]})",
+                          lambda: fused_reduce_case((n, n, src_shape[1]),
+                                                    src_dtype, dev)))
+        for label, case in cases:
+            r = measure(case())
+            rows.append(("fused_reduce", label, r))
+            if r["max_abs_err"] != 0.0:
+                fail(f"fused_reduce {label} differs from its plain version "
+                     f"by {r['max_abs_err']}")
+            torch.cuda.empty_cache()
+    return rows
+
+
+def shard_drift(got, want, lr: float, steps: int) -> tuple[int, int, float]:
+    """Final shards of two runs of the trainer from one state: (elements
+    farther apart than 1e-4 of their leaf's largest |value|, elements in
+    all, the largest distance over 2·lr·steps). AdamW's first update is
+    about lr·sign(g), so an element whose gradient two runs round to
+    opposite signs (|g| near the f32 noise of its sum) moves up to 2·lr a
+    step apart; every other element follows its gradient's rounding."""
+    far, total, worst = 0, 0, 0.0
+    for a, b in zip(got, want, strict=True):
+        d = (a.double() - b.double()).abs()
+        far += int((d > 1e-4 * b.abs().max()).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()) / (2 * lr * steps))
+    return far, total, worst
+
+
+def phase_train_reference(dev) -> None:
+    """The trainer at smoke size in f32 on the card (fused_reduce on the
+    card, the model in torch ops) against the same code on the CPU, from
+    one state and the same batches: TRAIN_SMOKE_STEPS steps, per-step
+    loss and gnorm within 1e-4 relative, as the served smoke models are
+    held; the final shards within 1e-4 of each leaf's largest |value|
+    but for at most 1e-4 of their elements, those within 2·lr a step
+    (`shard_drift`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+
+    api = build(smoke_config(get_config(TRAIN["arch"])))
+    params = api.init_params(torch.Generator().manual_seed(0), torch.float32,
+                             "cpu")
+    lr, steps = TRAIN["lr"], TRAIN_SMOKE_STEPS
+    runs = {str(where): train_run(api, _to(params, where),
+                                  TRAIN["local_ranks"], lr, steps, 32,
+                                  TRAIN["global_batch"])
+            for where in ("cpu", dev)}
+    card, cpu = runs[str(dev)], runs["cpu"]
+    metric_err = max(abs(g - c) / abs(c) for k in ("losses", "gnorms")
+                     for g, c in zip(card[k], cpu[k]))
+    far, total, worst = shard_drift([t.cpu() for t in card["state"]["params"]],
+                                    cpu["state"]["params"], lr, steps)
+    log(f"train: smoke-size f32 {steps} steps card vs CPU: losses "
+        f"{card['losses']} / {cpu['losses']}, gnorms {card['gnorms']} / "
+        f"{cpu['gnorms']}; rel err {metric_err:.2e}; final shards: {far} "
+        f"of {total} elements past 1e-4 of their leaf's largest |value|, "
+        f"the farthest {worst:.3f} of 2·lr·steps")
+    if not (metric_err <= 1e-4 and far <= 1e-4 * total and worst <= 1.0):
+        fail(f"the card's smoke-size trainer disagrees with the CPU run: "
+             f"{metric_err:.2e}, {far} of {total} shard elements, "
+             f"{worst:.3f}")
+
+
+def phase_train_all(dev) -> dict:
+    """Phase 5: the trainer at TRAIN's lr, then at each of TRAIN_FALL_LRS
+    (the loss must fall), fused_reduce at the trainer's shapes, and the
+    smoke-size trainer on the card against the CPU. Returns the launch
+    counts of the full-width runs, summed."""
+    import torch
+    recorder = FoldRecorder()
+    counts = phase_train(dev, TRAIN["lr"], False, recorder)
+    for lr in TRAIN_FALL_LRS:
+        for name, n in phase_train(dev, lr, True).items():
+            counts[name] += n
+    torch.cuda.empty_cache()
+    log_rows(trainer_rows(dev, recorder))
+    del recorder
+    torch.cuda.empty_cache()
+    phase_train_reference(dev)
+    return counts
+
+
 def _case_at(wrapper, args, kw, dev):
     """The measuring case of the kernel behind `wrapper` at its recorded
     first launch: ("tensor", shape, dtype) for each data argument."""
@@ -1626,10 +1964,13 @@ def main() -> int:
     for arch in SERVE_ARCHS:
         phase_model_reference(dev, arch)
     log(f"phase serve done at {time.perf_counter() - t0:.1f} s")
+    trained = phase_train_all(dev)
+    log(f"phase train done at {time.perf_counter() - t0:.1f} s")
     # each kernel is timed at its first launch on the main path: the
     # server's shapes where it launched the kernel, else the executor's,
     # else the families'
-    main_path = {k: executor[k] + families[k] + served[k] for k in TOLERANCE}
+    main_path = {k: executor[k] + families[k] + served[k] + trained[k]
+                 for k in TOLERANCE}
     log(f"main path: flash_attention launches by CUDA kernel "
         f"{json.dumps({k: served[k] for k in ops.ATTENTION_LAUNCHES})}")
     line = kernels_line(dev, {**rec_fam.first, **rec_exec.first,

@@ -1,11 +1,13 @@
 """Mesh-axis level classes and per-axis plan selection.
 
-The serving slice needs only the JAX-free part of the reference
-`core/sync.py`: which Table-5 level class prices each mesh-axis position,
-the single-switch stand-in topology an axis is planned on, and the
-per-axis plan labels `PlannerService.get_axis_plans` returns. Gradient
-synchronization (`SyncConfig`, `sync_gradients`, …) belongs to the
-trainer slice.
+From the reference `core/sync.py`: which Table-5 level class prices each
+mesh-axis position, the single-switch stand-in topology an axis is
+planned on, the per-axis plan labels `PlannerService.get_axis_plans`
+returns, the trainer's `SyncConfig`, and `resolve_axis_plans` for
+`strategy="plan"`, the GenTree plan lowered to a schedule the local mesh
+runs. The flat strategies (`psum`, `ring`, `rhd`, `cps`, `hcps`,
+`gentree`) and `sync_gradients` need the multi-process executor (ROADMAP
+§1 item 4); wire precisions are chosen by the bucket plans (item 2).
 """
 from __future__ import annotations
 
@@ -27,6 +29,34 @@ class AxisPlan:
     # what the runtime pairs with measured timings when it feeds the
     # online loop (PlannerService.observe, DESIGN.md §10)
     predicted: float | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SyncConfig:
+    """strategy: auto|psum|ring|rhd|cps|hcps|gentree|plan per DP axis.
+    "gentree" picks a flat plan-type label per axis; "plan" lowers the
+    GenTree Plan IR itself and executes its compiled schedule — bucketed
+    and pipelined by default: bucket_bytes=None lets GenModel pick the
+    bucket size, an explicit value pins it, and 0 disables bucketing
+    (per-leaf execution). pipeline=False runs buckets back-to-back.
+    The reference's fields and defaults; the port runs `strategy="plan"`
+    with `bucket_bytes=0` at full precision (see `resolve_axis_plans`).
+    """
+    strategy: str = "auto"
+    factors: tuple[int, ...] | None = None   # for explicit hcps
+    compress: str | None = None              # None | "int8"
+    params: dict[str, GenModelParams] | None = None
+    bucket_bytes: int | None = None          # None=auto | 0=off | fixed
+    pipeline: bool = True                    # double-buffer RS/AG halves
+    # buckets go in reverse-layer readiness order (bucketed path only)
+    backward_overlap: bool = True
+    # wrap executed schedules in core.lower.GuardedSchedule (counts
+    # launches, records and re-raises failures)
+    guard: bool = True
+    # wire precision name ("f32"|"bf16"|"fp8"|"int8") and the relative
+    # gradient error the caller accepts
+    precision: str | None = None
+    tolerance: float | None = None
 
 
 # Table-5 class per mesh-axis position: the leaf axis rides the fast
@@ -96,4 +126,43 @@ def plan_axes_gentree(axes: Sequence[tuple[str, int]], size_floats: float,
             kind, fac, cost = best_flat_plan(n, size_floats, p)
         out.append(AxisPlan(name, kind, tuple(fac) if fac else None,
                             predicted=float(cost)))
+    return out
+
+
+def resolve_axis_plans(axes: Sequence[tuple[str, int]], cfg: SyncConfig,
+                       size_floats: float) -> list[AxisPlan]:
+    """Per-axis plans of `strategy="plan"`: for each axis of size > 1 the
+    planner's executable (`get_axis_executable` at the axis's Table-5
+    class, `cfg.params` honoured), wrapped in the schedule guard unless
+    `cfg.guard` is off. The level index counts the original axis position
+    (size-1 axes are skipped but keep their level), as the reference's.
+    Lookups go through the process-wide planner service."""
+    if cfg.strategy != "plan":
+        raise NotImplementedError(
+            f"sync strategy {cfg.strategy!r} needs the multi-process "
+            "executor (ROADMAP §1 item 4); the port runs strategy='plan'")
+    if cfg.compress is not None:
+        raise NotImplementedError(
+            f"compress={cfg.compress!r} (allreduce_int8_cps) needs the "
+            "multi-process executor (ROADMAP §1 item 4)")
+    if cfg.precision is not None:
+        raise NotImplementedError(
+            f"precision={cfg.precision!r}: compressed gradient sync comes "
+            "with the bucket plans (ROADMAP §1 item 2)")
+    from repro_torch.core.lower import guard_schedule
+    from repro_torch.planner.service import default_service
+    svc = default_service()
+    out = []
+    for i, (a, n) in enumerate(axes):
+        if n <= 1:
+            continue
+        resp = svc.get_axis_executable(a, n, size_floats,
+                                       level=axis_level(i),
+                                       params=cfg.params)
+        sched = resp.schedule
+        if cfg.guard:
+            sched = guard_schedule(sched,
+                                   telemetry=getattr(svc, "telemetry", None))
+        out.append(AxisPlan(a, "plan", schedule=sched,
+                            predicted=resp.predicted_time))
     return out

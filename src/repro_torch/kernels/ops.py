@@ -80,15 +80,16 @@ def reset_launches() -> None:
 
 
 def _on_cuda(*tensors: torch.Tensor | None) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on a mix or on
-    any other device."""
-    kinds = {t.device.type for t in tensors if t is not None}
+    """True for CUDA tensors on one card, False for CPU ones; raises on a
+    mix of devices (two cards included) or on any other device."""
+    devices = {t.device for t in tensors if t is not None}
+    kinds = {d.type for d in devices}
     if kinds == {"cpu"}:
         return False
-    if kinds == {"cuda"}:
+    if kinds == {"cuda"} and len(devices) == 1:
         return True
     raise ValueError(f"tensors must all lie on the CPU or all on one CUDA "
-                     f"device; got {sorted(kinds)}")
+                     f"device; got {sorted(map(str, devices))}")
 
 
 def _kernel_path(what: str, *tensors: torch.Tensor | None) -> bool:

@@ -14,6 +14,13 @@ the (B, T, H·hd) layout the output projection takes. Decode reads the
 cache only up to each row's position (`kv_len`). The reference's banded
 and KV-block attention scans compute the same function as the kernel,
 whose skipped KV tiles stand in for the banded slice.
+
+Training takes other layers: no kernel has a backward (the reference's
+Pallas kernels have none, and its training forward never calls them), so
+`train_rmsnorm` and `train_attention` are the reference's XLA-op
+`rmsnorm` and q-block `attention` written op for op in differentiable
+torch ops, f32 where the reference is f32. `transformer.forward` and
+`loss_fn` take them; prefill and decode keep the kernel wrappers.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from ..kernels import ops
 from .config import ModelConfig
 
 Params = dict[str, Any]
+NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -49,6 +57,15 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
     """x·rsqrt(mean x² + eps)·(1 + w), in f32, written in x's dtype."""
     return ops.rmsnorm(x, w, eps, offset=1.0)
+
+
+def train_rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """The reference's `rmsnorm` in differentiable torch ops, in its
+    order (training)."""
+    xf = x.float()
+    rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * rms * (1.0 + w.float())).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -100,15 +117,15 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
-         positions: torch.Tensor | None):
+         positions: torch.Tensor | None, norm=rmsnorm):
     B, T, _ = x.shape
     hd = cfg.head_dim
     q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, hd).transpose(1, 2)
     k = (x @ p["wk"]).reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
     v = (x @ p["wv"]).reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"])
-        k = rmsnorm(k, p["k_norm"])
+        q = norm(q, p["q_norm"])
+        k = norm(k, p["k_norm"])
     if positions is not None:
         q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
         k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
@@ -139,6 +156,71 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         positions = torch.arange(T, device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg, positions)
     out = _attend(q, k, v, cfg, window=window, causal=causal)
+    return out @ p["wo"]
+
+
+def _sdpa_block(q, k, v, mask, scale: float, softcap: float,
+                remask: bool = True):
+    """One (bq × Tk) attention rectangle in f32; returns (out, m, l), as
+    the reference's. remask=False skips the re-mask after the exp, which
+    is exact where every query row sees at least one key."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    w = torch.exp(s - m)
+    if remask:
+        w = torch.where(mask, w, 0.0)
+    l = w.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", w, v.float())
+    return o, m, l
+
+
+def train_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                    window: int = 0, causal: bool = True,
+                    positions: torch.Tensor | None = None,
+                    block_q: int = 512) -> torch.Tensor:
+    """Full-sequence attention for training, differentiable: the
+    reference's q-block `attention` (its banded path for a window
+    narrower than the sequence, else every block against all keys),
+    each block one `_sdpa_block`."""
+    _check_supported(cfg)
+    B, T, _ = x.shape
+    if positions is None:
+        positions = torch.arange(T, device=x.device)[None, :]
+    q, k, v = _qkv(p, x, cfg, positions, norm=train_rmsnorm)
+    hd = cfg.head_dim
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    Tk = k.shape[2]
+    bq = min(block_q, T)
+    if T % bq:
+        bq = T
+    banded = window > 0 and causal and Tk == T and window < T
+    span = min(bq + (window // bq + 1) * bq, Tk) if banded else Tk
+    ar = torch.arange(max(bq, span), device=x.device)
+    outs = []
+    for qi in range(T // bq):
+        start = min(max(qi * bq - (span - bq), 0), Tk - span) if banded \
+            else 0
+        qpos = qi * bq + ar[:bq, None] + (Tk - T)
+        kpos = start + ar[None, :span]
+        mask = torch.ones((bq, span), dtype=torch.bool, device=x.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        o, _, l = _sdpa_block(q[:, :, qi * bq:(qi + 1) * bq],
+                              k[:, :, start:start + span],
+                              v[:, :, start:start + span], mask,
+                              hd ** -0.5, cfg.attn_softcap,
+                              remask=not causal)
+        outs.append((o / (l + 1e-30)).to(x.dtype))
+    out = torch.cat(outs, dim=2)
+    out = out.transpose(1, 2).reshape(B, T, cfg.n_heads * hd)
     return out @ p["wo"]
 
 

@@ -2,7 +2,9 @@
 
 `build(cfg)` returns a ModelAPI exposing init / prefill / decode / cache
 over the dense transformer, the RWKV6 model (family "ssm") or the Hymba
-hybrid (family "hybrid"); the reference registry's other families (MoE,
+hybrid (family "hybrid"), and the training `forward` / `loss_fn` of the
+dense transformer. The recurrent families' training forward (ROADMAP §1
+item 6) and the reference registry's other families (MoE,
 encoder-decoder) are not ported yet.
 """
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from . import hybrid_model, rwkv_model, transformer
 from .config import ModelConfig
+from .tree import stack_layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +26,25 @@ class ModelAPI:
     prefill: Callable            # (params, batch, cache_len) -> (logits, cache)
     decode_step: Callable        # (params, cache, batch) -> (logits, cache)
     init_cache: Callable         # (batch, seq, dtype, device) -> cache
+    loss_fn: Callable            # (params, batch, remat=) -> scalar
+    forward: Callable            # (params, batch, remat=) -> logits
+
+    def params_spec(self, dtype=torch.bfloat16) -> dict:
+        """The reference's parameter tree as meta tensors (shapes and
+        dtypes, nothing allocated): its layout, the layer leaves stacked
+        (L, ...), bf16 by default as the reference's `params_spec`.
+        `models.tree.tree_items` visits it in the reference's order."""
+        return stack_layers(self.init_params(torch.Generator(), dtype,
+                                             "meta"))
+
+
+def _no_training(cfg: ModelConfig) -> Callable:
+    def refuse(*args, **kw):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family's training forward is "
+            "not ported yet (ROADMAP §1 item 6); only the dense family "
+            "trains")
+    return refuse
 
 
 def _dense_api(cfg: ModelConfig) -> ModelAPI:
@@ -36,6 +58,10 @@ def _dense_api(cfg: ModelConfig) -> ModelAPI:
             params, cfg, cache, batch["tokens"]),
         init_cache=lambda b, s, dtype=torch.bfloat16, device="cpu":
             transformer.init_cache(cfg, b, s, dtype, device),
+        loss_fn=lambda params, batch, **kw: transformer.loss_fn(
+            params, cfg, batch, **kw),
+        forward=lambda params, batch, **kw: transformer.forward(
+            params, cfg, batch["tokens"], **kw),
     )
 
 
@@ -51,6 +77,8 @@ def _rwkv_api(cfg: ModelConfig) -> ModelAPI:
         # the recurrent state does not depend on the sequence length
         init_cache=lambda b, s, dtype=torch.bfloat16, device="cpu":
             rwkv_model.init_state(cfg, b, dtype, device),
+        loss_fn=_no_training(cfg),
+        forward=_no_training(cfg),
     )
 
 
@@ -65,6 +93,8 @@ def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
             params, cfg, cache, batch["tokens"]),
         init_cache=lambda b, s, dtype=torch.bfloat16, device="cpu":
             hybrid_model.init_cache(cfg, b, s, dtype, device),
+        loss_fn=_no_training(cfg),
+        forward=_no_training(cfg),
     )
 
 

@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer: init, KV cache, prefill, decode.
+"""Dense decoder-only transformer: init, training forward and loss, KV
+cache, prefill, decode.
 
 Mirrors the dense family of the reference `models/transformer.py`. The
 reference stacks every layer's parameters on a leading (L,) axis and
@@ -6,15 +7,21 @@ scans; here `params["layers"]` is a list of per-layer dicts run by a
 Python loop (`convert.params_from_jax` unstacks the reference's layout).
 The KV cache keeps the reference's (L, B, Hkv, S, hd) layout and is
 updated in place by `decode_step`.
+
+`forward` and `loss_fn` are the training path: differentiable torch ops
+throughout (`layers.train_rmsnorm`, `layers.train_attention`), each layer
+under activation checkpointing when `remat` is set, as the reference's
+`jax.checkpoint` body. Prefill and decode serve through the kernels.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (Params, _attend, _check_supported, _qkv,
                      attention_decode, dense_init, embed, init_attention,
-                     init_mlp, mlp, rmsnorm)
+                     init_mlp, mlp, rmsnorm, train_attention, train_rmsnorm)
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -53,15 +60,59 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
-            ) -> torch.Tensor:
-    x = rmsnorm(x, params["ln_f"])
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            norm=rmsnorm) -> torch.Tensor:
+    x = norm(x, params["ln_f"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
     if cfg.final_softcap > 0:
         logits = (torch.tanh(logits.float() / cfg.final_softcap)
                   * cfg.final_softcap).to(logits.dtype)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# forward (training)
+# ---------------------------------------------------------------------------
+def _train_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int,
+                 positions: torch.Tensor) -> torch.Tensor:
+    x = x + train_attention(lp["attn"], train_rmsnorm(x, lp["ln1"]), cfg,
+                            window=window, positions=positions)
+    return x + mlp(lp["mlp"], train_rmsnorm(x, lp["ln2"]))
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            remat: bool = True) -> torch.Tensor:
+    """tokens (B, T) → logits (B, T, V), differentiable. A tied embedding
+    is scaled by √d_model here, as the reference's `forward` does (its
+    `prefill` and `decode_step` do not)."""
+    _check_dense(cfg)
+    x = embed(params["embed"], tokens)
+    if cfg.tie_embeddings:
+        x = x * (cfg.d_model ** 0.5)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for i, lp in enumerate(params["layers"]):
+        w = cfg.window_for_layer(i)
+        if remat:
+            x = checkpoint(_train_block, cfg, lp, x, w, positions,
+                           use_reentrant=False)
+        else:
+            x = _train_block(cfg, lp, x, w, positions)
+    return _logits(params, cfg, x, norm=train_rmsnorm)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token NLL of the f32 log-softmax of batch["tokens"]'s
+    logits at batch["labels"], weighted by batch["mask"] where given."""
+    logits = forward(params, cfg, batch["tokens"], remat=remat)
+    labels = batch["labels"].long()
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

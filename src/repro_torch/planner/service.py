@@ -923,7 +923,7 @@ class PlannerService:
         """Derived executable artifacts currently cached — what
         `invalidate_executables` would drop."""
         with self._lock:
-            return self.cache.derived_count()
+            return self.cache.derived_count() + len(self._family_scheds)
 
     def stats(self) -> dict:
         out = {"cache": self.cache.stats.as_dict(),

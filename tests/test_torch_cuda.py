@@ -596,3 +596,79 @@ def test_wrappers_refuse_grad_on_card(dev):
         ops.rmsnorm(x, w)
     with torch.inference_mode():
         assert ops.rmsnorm(x, w).shape == x.shape
+
+
+def test_bf16_reduce_scatter_past_2_31_buffer_elements(dev):
+    """The trainer's bf16 reduce-scatter of one leaf whose working buffer
+    holds more than 2^31 elements (8 ranks × 2^28 + 8, as stablelm-12b's
+    embedding, 8 × 513,802,240, does): every rank's shard of the sum, the
+    rows past 2^31 included, within one bf16 rounding (2^-8) of the
+    largest |value| of torch.sum of the rows in f32, and one fused_reduce
+    launch per fold phase."""
+    from repro_torch.core.sync import SyncConfig, resolve_axis_plans
+    from repro_torch.launch import train
+
+    n, numel = 8, (1 << 28) + 8
+    plans = resolve_axis_plans(
+        [("data", n)], SyncConfig(strategy="plan", bucket_bytes=0),
+        float(numel))
+    g = torch.Generator(device=dev).manual_seed(30)
+    X = torch.randn((n, numel), generator=g, device=dev).to(torch.bfloat16)
+    assert X.numel() > 1 << 31
+    before = ops.LAUNCHES["fused_reduce"]
+    got = train._scatter_leaf(X, plans)
+    torch.cuda.synchronize()
+    cs = plans[0].schedule
+    folds = sum(len(st.folds) for st in cs.rs
+                + ([cs.reorder] if cs.reorder is not None else []))
+    assert ops.LAUNCHES["fused_reduce"] == before + folds
+    want = torch.sum(X.float(), dim=0).reshape(n, -1)
+    del X
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert (got.float() - want).abs().max() <= 2.0 ** -8 * want.abs().max()
+
+
+def test_smoke_trainer_on_card_matches_cpu(dev):
+    """The ZeRO-3 trainer at smoke size in f32, 3 steps from one state:
+    per-step loss and gnorm on the card (fused_reduce folds) within 1e-4
+    of the same code on the CPU; the final shards within 1e-4 of each
+    leaf's largest |value| but for at most 1e-4 of their elements, and
+    those within 2·lr a step: AdamW's first update is about lr·sign(g),
+    so an element whose gradient the two devices round to opposite signs
+    moves up to 2·lr a step apart."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    api = build(smoke_config(get_config("stablelm-12b")))
+    shards = train.shard_params_zero3(api.init_params(
+        torch.Generator().manual_seed(0), torch.float32, "cpu"), 8)
+    data = SyntheticLM(DataConfig(vocab=api.cfg.vocab, seq_len=32,
+                                  global_batch=8, seed=0))
+    runs = {}
+    for where in ("cpu", dev):
+        params = [s.to(where, copy=True) for s in shards]
+        state = {"params": params, "opt": adamw_init(params)}
+        step = train.make_manual_train_step(api, 8, AdamWConfig(lr=1e-3),
+                                            device=where)
+        metrics = []
+        for s in range(3):
+            batch = {k: torch.as_tensor(v, device=where).long()
+                     for k, v in data.batch_at(s).items()}
+            state, m = step(state, batch)
+            metrics.append([float(m["loss"]), float(m["gnorm"])])
+        runs[str(where)] = (np.array(metrics),
+                            [p.cpu() for p in state["params"]])
+    (card, card_p), (cpu, cpu_p) = runs[str(dev)], runs["cpu"]
+    assert np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, rtol=1e-4)
+    far = total = 0
+    for a, b in zip(card_p, cpu_p, strict=True):
+        d = (a - b).abs()
+        far += int((d > 1e-4 * b.abs().max()).sum())
+        total += d.numel()
+        assert d.max() <= 2 * 1e-3 * 3
+    assert far <= 1e-4 * total
