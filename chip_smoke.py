@@ -90,29 +90,44 @@ any error:
                 the card against the same code on the CPU (gemma2-27b on
                 a 48-token prompt, longer than its smoke window);
   5. train    — the ZeRO-3 trainer (`repro_torch.launch.train.
-                make_manual_train_step`, `SyncConfig(strategy="plan",
-                bucket_bytes=0)`, 8 local ranks) on stablelm-12b at full
-                width, its depth cut to 2 layers (TRAIN), random bf16
-                weights, seq 128, global batch 8, 3 steps at the
-                reference's lr 1e-3 and again at each of TRAIN_FALL_LRS:
+                make_manual_train_step`, 8 local ranks) on stablelm-12b
+                at full width, its depth cut to 2 layers (TRAIN), random
+                bf16 weights, seq 128, global batch 8, 3 steps: per leaf
+                (`SyncConfig(strategy="plan", bucket_bytes=0)`) at the
+                reference's lr 1e-3 and again at each of TRAIN_FALL_LRS;
+                then bucketed at the first of TRAIN_FALL_LRS, (a) at the
+                reference's default plan (`SyncConfig(strategy="plan")`:
+                GenModel picks the bucket, which must be one bucket a
+                half) and (b) with bucket_bytes pinned to
+                TRAIN_BUCKET_BYTES (10 buckets, reduced last first on
+                every step, read from the tracer's spans). Each run:
                 finite losses and gnorms, falling at TRAIN_FALL_LRS, the
-                gathered rows of every leaf equal on every step, the
-                exact fused_reduce launches (one per fold phase of each
-                leaf's all-gather and reduce-scatter) and no other
-                kernel, no guard failure, the step time (host clock),
-                its split over gather, forward and backward,
-                reduce-scatter and AdamW (CUDA events) beside their
-                bounds, the collectives against the schedule's byte
-                bound, the peak memory; then fused_reduce at the
+                gathered rows equal on every step, the exact fused_reduce
+                launches (one per fold phase of each all-gather and
+                reduce-scatter: a leaf each per leaf, a bucket each
+                bucketed) and no other kernel, no guard failure, the plan
+                (the bucket plan and its sweep's cheapest rows), the step
+                time (host clock), its split over gather, forward and
+                backward, reduce-scatter and AdamW (CUDA events) beside
+                their bounds, the collectives against the schedule's byte
+                bound, the peak memory. Then fused_reduce at the
                 trainer's gradient shapes against its plain version and
-                torch.sum, and the trainer at smoke size in f32 on the
-                card against the same code on the CPU (per-step loss and
-                gnorm within 1e-4, the final shards as `shard_drift`
-                says).
+                torch.sum; (c) `sync_bucketed` on the card over the smoke
+                trainer's leaves and 2^26 f32 a rank in 8 leaves, f32 and
+                the bf16, fp8 and int8 wires, default and pinned buckets,
+                pipeline on and off, and a `MergedSchedule` run directly,
+                against the column sum (f32 within 1e-6, wires within
+                their budget) with the exact launches of fused_reduce,
+                quantize, quant_reduce and dequantize; and (d) the
+                trainer at smoke size in f32 on the card against the same
+                code on the CPU, per leaf and bucketed at
+                TRAIN_SMOKE_BUCKET_BYTES (per-step loss and gnorm within
+                1e-4, the final shards as `shard_drift` says).
 
 The main path is phases 3, 3b, 4 and 5: every launch count is zeroed
-just before the executor, the families, each served run and each
-training run, and read just after. The executor must launch fused_reduce, quantize, quant_reduce and
+just before the executor, the families, each served run, each
+full-width training run and the `sync_bucketed` runs, and read just
+after. The executor must launch fused_reduce, quantize, quant_reduce and
 dequantize (it runs the compressed wires), the families dequantize;
 grouped_reduce and quant_reduce_requant have no caller on the main path
 (nor in the JAX package) and show 0 launches, timed in phase 2 at their
@@ -125,8 +140,9 @@ ssm_scan once per Hymba layer (`expected_launches`), and each
 flash_attention launch on the CUDA kernel its shape selects (the
 prompt's on the bf16 prefill kernel, each decode step's on the decode
 kernel, `ops.ATTENTION_LAUNCHES`); each training run must launch
-fused_reduce exactly steps × 12 leaves × the schedule's fold phases and
-no other kernel (the training forward runs torch ops, as the
+fused_reduce exactly steps × (its all-gathers × the all-gather's fold
+phases + its reduce-scatters × the reduce-scatter's) and no other
+kernel (the training forward runs torch ops, as the
 reference's runs XLA ops), with no guard demotion or failure anywhere (the guard raises rather than demote, so a
 failure ends the run). The last lines are the per-kernel JSON (launches
 on the main path; time, plain time, bound and yardstick of the wrapper
@@ -178,6 +194,13 @@ TRAIN = dict(arch="stablelm-12b", layers=2, steps=3, seq_len=128,
              global_batch=8, lr=1e-3, local_ranks=8)
 TRAIN_FALL_LRS = (1e-4,)
 TRAIN_SMOKE_STEPS = 3            # smoke-size f32 steps, card against CPU
+# the bucketed trainer's pinned bucket: 10 buckets of the full-width leaves
+TRAIN_BUCKET_BYTES = 64 << 20
+TRAIN_SMOKE_BUCKET_BYTES = 32768  # 10 buckets of the smoke-size leaves
+# sync_bucketed's leaves beside the trainer's smoke-size ones: 2^26 f32
+# a rank in 8 leaves; and the pinned bucket bytes of its merged runs
+SYNC_BIG = ("2^26 f32 a rank in 8 leaves", [(1 << 23,)] * 8)
+SYNC_MERGED = {"trainer smoke leaves": 4096, SYNC_BIG[0]: 64 << 20}
 # largest disagreement a kernel may show with its plain version: 0 = bit
 # for bit; otherwise a share of the largest |value| of each output (for
 # flash_attention, of each query row's output), by output dtype where the
@@ -1073,11 +1096,13 @@ class ShapeRecorder:
             setattr(self.ops, wrapper, fn)
 
 
-def schedule_bytes(cs, size: int, dtype, steps=None) -> int:
+def schedule_bytes(cs, size: int, dtype, steps=None,
+                   copy_in: bool = True) -> int:
     """Bytes one run of schedule `cs` (its `steps`, default the AllReduce's
     two halves) on a working buffer of (n, size) rows of `dtype` must move
     if every step's data crosses device memory once: the input copied
-    into the working buffer; per round each live payload row read and
+    into the working buffer (unless `copy_in` is off: the operand is the
+    working buffer); per round each live payload row read and
     written to staging at wire width (fp8/int8: the quantized row and its
     f32 scales); per fold or landing each live operand and resident
     partial read and the result row written."""
@@ -1092,7 +1117,7 @@ def schedule_bytes(cs, size: int, dtype, steps=None) -> int:
         stage_row = nt * wire.scale_block + 4 * nt
     else:
         stage_row = chunk * 2                  # bf16
-    total = 2 * cs.n * cs.num_blocks * chunk * elem
+    total = 2 * cs.n * cs.num_blocks * chunk * elem if copy_in else 0
     for st in (cs.rs + cs.ag if steps is None else steps):
         for rd in st.rounds:
             live = sum(int((rd.send_blks[s] >= 0).sum()) for s, _ in rd.perm)
@@ -1519,24 +1544,37 @@ class FoldRecorder:
         self.ops.fused_reduce_into = self.real
 
 
-def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int) -> dict:
+def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
+                 step=None) -> dict:
     """The least time of each part of one step (ms), from this run's
     shapes: the gather and the reduce-scatter at their schedule's bytes
-    (`schedule_bytes` of each leaf's padded rows: every round's and
-    fold's rows crossing memory once); each rank's forward and backward
-    at the larger of its bytes (every weight read once, every gradient
-    written once, bf16) and its products (2 operations a weight a token
-    forward, 4 backward, plus attention's QK and PV, over the bf16 tensor
-    core rate); AdamW at 22 bytes a parameter (bf16 weight and gradient
-    read, f32 m and v read, all four written back but the gradient)."""
+    (`schedule_bytes` of each launch's per-rank rows: each leaf's padded
+    rows on the per-leaf path, each bucket's n·width on the bucketed one,
+    whose in-place reduce-scatter copies nothing in); each rank's forward
+    and backward at the larger of its bytes (every weight read once,
+    every gradient written once, bf16) and its products (2 operations a
+    weight a token forward, 4 backward, plus attention's QK and PV, over
+    the bf16 tensor core rate); AdamW at 22 bytes a parameter (bf16
+    weight and gradient read, f32 m and v read, all four written back but
+    the gradient)."""
     P = sum(int(t.numel()) for t in shards)       # padded, all ranks
     elem = shards[0].element_size()
-    gather = sum(schedule_bytes(cs, int(t.numel()), t.dtype,
-                                family_steps(cs, "allgather"))
-                 for t in shards)
-    scatter = sum(schedule_bytes(cs, int(t.numel()), t.dtype,
-                                 family_steps(cs, "reduce_scatter"))
-                  for t in shards)
+    dtype = shards[0].dtype
+    if step is not None and step.bucket_plan is not None:
+        gather = sum(schedule_bytes(cs, n * bk.width, dtype,
+                                    family_steps(cs, "allgather"))
+                     for bk in step.gather_buckets)
+        scatter = sum(schedule_bytes(cs, n * bk.width, dtype,
+                                     family_steps(cs, "reduce_scatter"),
+                                     copy_in=False)
+                      for bk in step.scatter_buckets)
+    else:
+        gather = sum(schedule_bytes(cs, int(t.numel()), dtype,
+                                    family_steps(cs, "allgather"))
+                     for t in shards)
+        scatter = sum(schedule_bytes(cs, int(t.numel()), dtype,
+                                     family_steps(cs, "reduce_scatter"))
+                      for t in shards)
     matmul = P - cfg.vocab * cfg.d_model - (2 * cfg.n_layers + 1) \
         * cfg.d_model                            # no embed, no norms
     tokens = seq_len * batch // n
@@ -1552,11 +1590,13 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int) -> dict:
 
 
 def train_run(api, params, n: int, lr: float, steps: int, seq_len: int,
-              global_batch: int, seed: int = 0):
+              global_batch: int, seed: int = 0, sync=None, param_dtype=None):
     """`steps` steps of `make_manual_train_step` on `api` from `params`
-    (the port's per-layer tree, on the device the run takes): the state,
-    per-step losses, gnorms, host-clock step times (each ending in the
-    loss's copy to the host) and device times of the step's parts."""
+    (the port's per-layer tree, on the device the run takes), with `sync`
+    (default: the step's own, the per-leaf path) and shards of
+    `param_dtype` (default bf16): the state, per-step losses, gnorms,
+    host-clock step times (each ending in the loss's copy to the host),
+    device times of the step's parts, and the step."""
     import numpy as np
     import torch
     from repro_torch.data import DataConfig, SyntheticLM
@@ -1568,7 +1608,10 @@ def train_run(api, params, n: int, lr: float, steps: int, seq_len: int,
     shards = shard_params_zero3(params, n)
     del params
     state = {"params": shards, "opt": adamw_init(shards)}
-    step = make_manual_train_step(api, n, AdamWConfig(lr=lr), device=where)
+    kw = {} if sync is None else {"sync": sync}
+    step = make_manual_train_step(api, n, AdamWConfig(lr=lr), device=where,
+                                  param_dtype=param_dtype or torch.bfloat16,
+                                  **kw)
     data = SyntheticLM(DataConfig(vocab=api.cfg.vocab, seq_len=seq_len,
                                   global_batch=global_batch, seed=seed))
     out = {"losses": [], "gnorms": [], "step_s": [], "phase_ms": []}
@@ -1582,22 +1625,27 @@ def train_run(api, params, n: int, lr: float, steps: int, seq_len: int,
         out["losses"].append(loss)
         out["gnorms"].append(gnorm)
         out["phase_ms"].append(phase_ms(m))
-    out.update(state=state, plans=step.plans)
+    out.update(state=state, plans=step.plans, step=step)
     return out
 
 
-def phase_train(dev, lr: float, must_fall: bool, recorder=None) -> dict:
+def phase_train(dev, lr: float, must_fall: bool, recorder=None, *,
+                sync=None, label: str = "per-leaf", tracer=None) -> dict:
     """The ZeRO-3 trainer on TRAIN (stablelm-12b at full width, its depth
     cut to 2 layers, random bf16 weights, 8 local ranks, seq 128, global
-    batch 8) for TRAIN["steps"] steps at learning rate `lr`, every launch
-    count zeroed just before and read just after. Checks: finite losses
-    and gnorms (falling losses where `must_fall`), the gathered rows of
-    every leaf equal on every step (the trainer compares them with
-    torch.equal and raises), fused_reduce launched exactly steps × 12
-    leaves × the schedule's fold phases and no other kernel, no guard
-    failure. Prints the step time (host clock; median after the first),
+    batch 8) for TRAIN["steps"] steps at learning rate `lr` with `sync`
+    (default: the per-leaf path), every launch count zeroed just before
+    and read just after; `tracer`, when given, records the run's spans.
+    Checks: finite losses and gnorms (falling losses where `must_fall`),
+    the gathered rows equal on every step (the trainer compares them with
+    torch.equal and raises), fused_reduce launched exactly steps × (the
+    gather's launches × the all-gather's fold phases + the scatter's
+    launches × the reduce-scatter's), a launch a leaf per leaf or a
+    bucket bucketed, and no other kernel, no guard failure. Prints the
+    plan (on the bucketed path the bucket plan and its sweep's three
+    cheapest rows), the step time (host clock; median after the first),
     its parts (CUDA events) beside their bounds and the peak memory.
-    Returns the launch counts."""
+    Returns the launch counts, the losses and the step."""
     import contextlib
     import dataclasses
 
@@ -1606,6 +1654,7 @@ def phase_train(dev, lr: float, must_fall: bool, recorder=None) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.train import PHASES
     from repro_torch.models.registry import build
+    from repro_torch.runtime.trace import set_default_tracer
 
     tr = TRAIN
     cfg = dataclasses.replace(get_config(tr["arch"]), n_layers=tr["layers"])
@@ -1616,62 +1665,92 @@ def phase_train(dev, lr: float, must_fall: bool, recorder=None) -> dict:
     ops.reset_launches()
     t0 = time.perf_counter()
     api = build(cfg)
-    with recorder or contextlib.nullcontext():
-        res = train_run(api, api.init_params(
-            torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev),
-            n, lr, steps, tr["seq_len"], tr["global_batch"])
+    prev = set_default_tracer(tracer) if tracer is not None else None
+    try:
+        with recorder or contextlib.nullcontext():
+            res = train_run(api, api.init_params(
+                torch.Generator(device=dev).manual_seed(0), torch.bfloat16,
+                dev), n, lr, steps, tr["seq_len"], tr["global_batch"],
+                sync=sync)
+    finally:
+        if tracer is not None:
+            set_default_tracer(prev)
     wall = time.perf_counter() - t0
     counts = dict(ops.LAUNCHES)
     by_kernel = dict(ops.ATTENTION_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     shards = res["state"]["params"]
+    step = res["step"]
     (plan,) = res["plans"]
     sched = plan.schedule
     cs = sched.inner
+    bp = step.bucket_plan
     losses, gnorms = res["losses"], res["gnorms"]
-    log(f"train: {cfg.name} layers={cfg.n_layers} (cut from "
+    if bp is not None:
+        cheapest = sorted(bp.sweep.items(),
+                          key=lambda kv: (kv[1]["contended"], kv[0]))[:3]
+        plan_txt = (
+            f"bucket plan {bp.bucket_bytes} bytes ({bp.bucket_floats} f32 "
+            f"units), K={bp.num_buckets}, {bp.precision}, overlap "
+            f"{bp.overlap.get('mode')}, predicted contended "
+            f"{bp.predicted_contended * 1e3:.4f} ms pipelined "
+            f"{bp.predicted_pipelined * 1e3:.4f} ms serial "
+            f"{bp.predicted_serial * 1e3:.4f} ms; the sweep's three "
+            f"cheapest rows "
+            + "; ".join(f"{b} units K={r['num_buckets']} contended "
+                        f"{r['contended'] * 1e3:.4f} ms"
+                        for b, r in cheapest)
+            + f"; {len(step.gather_buckets)} gather bucket(s), "
+            f"{len(step.scatter_buckets)} scatter bucket(s); schedule "
+            f"{cs.describe()}")
+    else:
+        plan_txt = (f"plan {cs.describe()} (predicted "
+                    f"{plan.predicted * 1e3:.3f} ms)")
+    log(f"train [{label}]: {cfg.name} layers={cfg.n_layers} (cut from "
         f"{get_config(tr['arch']).n_layers}) d={cfg.d_model} heads="
         f"{cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab};"
         f" {sum(t.numel() for t in shards) / 1e6:.1f} M parameters (padded)"
         f" in {len(shards)} leaves; {n} local ranks, seq {tr['seq_len']}, "
-        f"global batch {tr['global_batch']}, lr {lr}; plan {cs.describe()} "
-        f"(predicted {plan.predicted * 1e3:.3f} ms); losses {losses}; "
-        f"gnorms {gnorms}; gathered rows equal on every step; wall "
-        f"{wall:.1f} s; peak memory {peak / 2**30:.2f} GiB")
+        f"global batch {tr['global_batch']}, lr {lr}; {plan_txt}; losses "
+        f"{losses}; gnorms {gnorms}; gathered rows equal on every step; "
+        f"wall {wall:.1f} s; peak memory {peak / 2**30:.2f} GiB")
     if not all(math.isfinite(x) for x in losses + gnorms):
-        fail(f"train: non-finite loss or gnorm: {losses} {gnorms}")
+        fail(f"train [{label}]: non-finite loss or gnorm: {losses} {gnorms}")
     if must_fall and not losses[-1] < losses[0]:
-        fail(f"train: the loss did not fall at lr {lr}: {losses}")
-    rs_steps = family_steps(cs, "reduce_scatter")
-    ag_steps = family_steps(cs, "allgather")
-    rs_folds = sum(len(st.folds) for st in rs_steps)
-    folds = rs_folds + sum(len(st.folds) for st in ag_steps)
-    want = steps * len(shards) * folds
-    log(f"train: fused_reduce launches {counts['fused_reduce']} = {steps} "
-        f"steps x {len(shards)} leaves x {folds} fold phases "
-        f"({rs_folds} reduce-scatter, {folds - rs_folds} all-gather "
-        f"landings) -> expected {want}; launches {json.dumps(counts)}; "
-        f"attention kernels {json.dumps(by_kernel)}; guard "
-        f"{json.dumps(sched.stats)}")
+        fail(f"train [{label}]: the loss did not fall at lr {lr}: {losses}")
+    rs_folds = sum(len(st.folds) for st in family_steps(cs,
+                                                        "reduce_scatter"))
+    ag_folds = sum(len(st.folds) for st in family_steps(cs, "allgather"))
+    if bp is None:
+        n_ag = n_rs = len(shards)
+    else:
+        n_ag, n_rs = len(step.gather_buckets), len(step.scatter_buckets)
+    want = steps * (n_ag * ag_folds + n_rs * rs_folds)
+    log(f"train [{label}]: fused_reduce launches {counts['fused_reduce']} = "
+        f"{steps} steps x ({n_ag} all-gathers x {ag_folds} landing phases "
+        f"+ {n_rs} reduce-scatters x {rs_folds} fold phases) -> expected "
+        f"{want}; launches {json.dumps(counts)}; attention kernels "
+        f"{json.dumps(by_kernel)}; guard {json.dumps(sched.stats)}")
     if counts["fused_reduce"] != want:
-        fail(f"train launched fused_reduce {counts['fused_reduce']} "
-             f"time(s), expected {want}")
+        fail(f"train [{label}] launched fused_reduce "
+             f"{counts['fused_reduce']} time(s), expected {want}")
     for name, count in counts.items():
         if name != "fused_reduce" and count:
-            fail(f"train launched {name} {count} time(s)")
+            fail(f"train [{label}] launched {name} {count} time(s)")
     if any(by_kernel.values()):
-        fail(f"train ran attention kernels {by_kernel}")
+        fail(f"train [{label}] ran attention kernels {by_kernel}")
     if sched.demotions or sched.stats["failures"]:
-        fail(f"train: guard {sched.stats}, {sched.demotions} demotion(s)")
+        fail(f"train [{label}]: guard {sched.stats}, {sched.demotions} "
+             f"demotion(s)")
     step_ms = statistics.median(res["step_s"][1:]) * 1e3
     parts = {k: statistics.median(p[k] for p in res["phase_ms"][1:])
              for k in PHASES}
     bounds = train_bounds(cfg, cs, shards, n, tr["seq_len"],
-                          tr["global_batch"])
+                          tr["global_batch"], step)
     coll = parts["gather"] + parts["reduce_scatter"]
     coll_bound = bounds["gather"] + bounds["reduce_scatter"]
-    log(f"train: step time median of steps 2-{steps} {step_ms:.1f} ms "
-        f"(first {res['step_s'][0] * 1e3:.1f} ms; steps "
+    log(f"train [{label}]: step time median of steps 2-{steps} "
+        f"{step_ms:.1f} ms (first {res['step_s'][0] * 1e3:.1f} ms; steps "
         f"{[round(x * 1e3, 1) for x in res['step_s']]}); device parts "
         + ", ".join(f"{k} {parts[k]:.2f} ms (bound {bounds[k]:.2f})"
                     for k in PHASES)
@@ -1680,7 +1759,7 @@ def phase_train(dev, lr: float, must_fall: bool, recorder=None) -> dict:
         f"{coll_bound:.2f} ms; one rank's forward and backward bound: bytes "
         f"{bounds['rank_bytes_ms']:.3f} ms, products "
         f"{bounds['rank_flops_ms']:.3f} ms")
-    return counts
+    return {"counts": counts, "losses": losses, "step": step}
 
 
 def trainer_rows(dev, recorder) -> list:
@@ -1720,6 +1799,138 @@ def trainer_rows(dev, recorder) -> list:
     return rows
 
 
+def sync_launches(cs, buckets: int) -> dict:
+    """Kernel launches of `buckets` reduce-scatters and all-gathers through
+    schedule `cs` at its wire: one fold kernel a fold phase (fused_reduce
+    at full precision and on the bf16 wire; on a scaled wire quant_reduce,
+    or dequantize where the phase only lands copies) and, on a scaled
+    wire, one quantize a live round."""
+    steps = family_steps(cs, "reduce_scatter") + family_steps(cs,
+                                                              "allgather")
+    folds = sum(len(st.folds) for st in steps)
+    if cs.wire is None or not cs.wire.scale_block:
+        return {"fused_reduce": buckets * folds}
+    rounds = sum(1 for st in steps for rd in st.rounds if rd.perm)
+    landings = 0
+    for st in steps:
+        for fd in st.folds:
+            act = fd.blk >= 0
+            landings += int(not fd.include_self[act].any() and bool(
+                ((fd.ops[act] >= 0).sum(axis=1) == 1).all()))
+    return {"quantize": buckets * rounds, "dequantize": buckets * landings,
+            "quant_reduce": buckets * (folds - landings)}
+
+
+def phase_sync_bucketed(dev) -> dict:
+    """`core.bucketing.sync_bucketed` on the card (8 local ranks, the
+    planner's default pricing): full precision and the
+    pinned bf16, fp8 and int8 wires (each at its error budget as the
+    tolerance), each at the default bucket and at SYNC_MERGED's pinned
+    one with pipeline on and off, on the smoke-size trainer's leaves and
+    on SYNC_BIG's; then `execute_buckets` with a `MergedSchedule` built
+    by `merge_schedules(cs, cs)` on the pinned buckets, so that the
+    merged branch runs whatever the argmin picks. Each result against the plain column sum (f32 within 1e-6 of
+    the largest |value|, a wire within its budget), each call's launches
+    of fused_reduce, quantize, quant_reduce and dequantize exactly
+    `sync_launches`. Returns the launch counts of the phase."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import bucketing, overlap
+    from repro_torch.core.cost_model import PRECISIONS
+    from repro_torch.core.sync import AxisPlan, SyncConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.models.tree import tree_items
+    from repro_torch.planner.service import default_service
+
+    n = TRAIN["local_ranks"]
+    svc = default_service()
+    smoke = build(smoke_config(get_config(TRAIN["arch"])))
+    sets = {"trainer smoke leaves": [tuple(t.shape) for _, t in
+                                     tree_items(smoke.params_spec())],
+            SYNC_BIG[0]: SYNC_BIG[1]}
+    ops.reset_launches()
+
+    def check(what, got, want, scale, budget, before, expect):
+        torch.cuda.synchronize()
+        err = max(float((o.double() - w).abs().max())
+                  for o, w in zip(got, want)) / scale
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before
+                    if ops.LAUNCHES[k] != before[k]}
+        log(f"sync_bucketed {what}: rel err {err:.2e} (budget {budget:g});"
+            f" launches {json.dumps(launched)}, expected "
+            f"{json.dumps(expect)}")
+        if not err <= budget:
+            fail(f"sync_bucketed {what}: rel err {err:.3e} over {budget}")
+        if launched != expect:
+            fail(f"sync_bucketed {what}: launches {launched}, expected "
+                 f"{expect}")
+
+    for set_name, shapes in sets.items():
+        g = torch.Generator(device=dev).manual_seed(len(shapes))
+        leaves = [torch.randn((n, *s), generator=g, device=dev)
+                  for s in shapes]
+        want = [x.double().sum(dim=0) for x in leaves]
+        scale = max(float(w.abs().max()) for w in want)
+        sizes = [int(x[0].numel()) for x in leaves]
+        pinned = SYNC_MERGED[set_name]
+        for wire in (None, "bf16", "fp8", "int8"):
+            budget = 1e-6 if wire is None else PRECISIONS[wire].error_budget
+            for bb, pipeline in ((None, True), (pinned, True),
+                                 (pinned, False)):
+                cfg = SyncConfig(strategy="plan", bucket_bytes=bb,
+                                 pipeline=pipeline, precision=wire,
+                                 tolerance=None if wire is None else budget)
+                bp = svc.get_bucket_plan(
+                    [("data", n)], sum(sizes), config=bucketing.BucketConfig(
+                        bucket_bytes=bb, pipeline=pipeline, precision=wire,
+                        tolerance=cfg.tolerance))
+                k = len(bucketing.partition(sizes, ["f32"] * len(sizes),
+                                            bp.bucket_bytes,
+                                            itemsizes=[4] * len(sizes)))
+                before = dict(ops.LAUNCHES)
+                stats = {}
+                got = bucketing.sync_bucketed(leaves, [("data", n)], cfg,
+                                              stats=stats)
+                if stats["precision"] != (wire or "f32"):
+                    fail(f"sync_bucketed {set_name}: the plan's wire is "
+                         f"{stats['precision']}, not {wire or 'f32'}")
+                check(f"{set_name} wire={wire or 'f32'} bucket_bytes={bb} "
+                      f"pipeline={pipeline}: {k} bucket(s) of "
+                      f"{bp.bucket_bytes} "
+                      f"bytes, {stats['overlap_mode']} issuance, "
+                      f"{bp.axis_plans[0].schedule.describe()}",
+                      got, want, scale, budget, before,
+                      sync_launches(bp.axis_plans[0].schedule, k))
+                del got
+        bb = pinned
+        bp = svc.get_bucket_plan([("data", n)], sum(sizes),
+                                 config=bucketing.BucketConfig(
+                                     bucket_bytes=bb))
+        cs = bp.axis_plans[0].schedule
+        ms = overlap.merge_schedules(cs, cs)
+        buckets = bucketing.partition(sizes, ["f32"] * len(sizes), bb,
+                                      itemsizes=[4] * len(sizes))
+        launches = ms.stats["launches"]
+        before = dict(ops.LAUNCHES)
+        got = bucketing.execute_buckets(
+            leaves, buckets, [AxisPlan("data", "plan", schedule=cs)],
+            merged=ms, reverse=True)
+        check(f"{set_name} merged: {len(buckets)} buckets of {bb} bytes, "
+              f"{ms.describe()}", got, want, scale, 1e-6, before,
+              sync_launches(cs, len(buckets)))
+        if ms.stats != {"launches": launches + len(buckets) - 1,
+                        "failures": 0}:
+            fail(f"sync_bucketed {set_name} merged: {ms.stats}, expected "
+                 f"{len(buckets) - 1} more launches and no failure")
+        del got, leaves, want
+        torch.cuda.empty_cache()
+    counts = dict(ops.LAUNCHES)
+    log(f"sync_bucketed: launches {json.dumps(counts)}")
+    return counts
+
+
 def shard_drift(got, want, lr: float, steps: int) -> tuple[int, int, float]:
     """Final shards of two runs of the trainer from one state: (elements
     farther apart than 1e-4 of their leaf's largest |value|, elements in
@@ -1736,14 +1947,14 @@ def shard_drift(got, want, lr: float, steps: int) -> tuple[int, int, float]:
     return far, total, worst
 
 
-def phase_train_reference(dev) -> None:
+def phase_train_reference(dev, sync=None, label: str = "per-leaf") -> None:
     """The trainer at smoke size in f32 on the card (fused_reduce on the
     card, the model in torch ops) against the same code on the CPU, from
-    one state and the same batches: TRAIN_SMOKE_STEPS steps, per-step
-    loss and gnorm within 1e-4 relative, as the served smoke models are
-    held; the final shards within 1e-4 of each leaf's largest |value|
-    but for at most 1e-4 of their elements, those within 2·lr a step
-    (`shard_drift`)."""
+    one state and the same batches, with `sync` (default: the per-leaf
+    path): TRAIN_SMOKE_STEPS steps, per-step loss and gnorm within 1e-4
+    relative, as the served smoke models are held; the final shards
+    within 1e-4 of each leaf's largest |value| but for at most 1e-4 of
+    their elements, those within 2·lr a step (`shard_drift`)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.config import smoke_config
@@ -1755,40 +1966,101 @@ def phase_train_reference(dev) -> None:
     lr, steps = TRAIN["lr"], TRAIN_SMOKE_STEPS
     runs = {str(where): train_run(api, _to(params, where),
                                   TRAIN["local_ranks"], lr, steps, 32,
-                                  TRAIN["global_batch"])
+                                  TRAIN["global_batch"], sync=sync,
+                                  param_dtype=torch.float32)
             for where in ("cpu", dev)}
     card, cpu = runs[str(dev)], runs["cpu"]
+    step = card["step"]
+    buckets = (f"; {len(step.gather_buckets)} gather and "
+               f"{len(step.scatter_buckets)} scatter buckets"
+               if step.bucket_plan is not None else "")
     metric_err = max(abs(g - c) / abs(c) for k in ("losses", "gnorms")
                      for g, c in zip(card[k], cpu[k]))
     far, total, worst = shard_drift([t.cpu() for t in card["state"]["params"]],
                                     cpu["state"]["params"], lr, steps)
-    log(f"train: smoke-size f32 {steps} steps card vs CPU: losses "
-        f"{card['losses']} / {cpu['losses']}, gnorms {card['gnorms']} / "
-        f"{cpu['gnorms']}; rel err {metric_err:.2e}; final shards: {far} "
-        f"of {total} elements past 1e-4 of their leaf's largest |value|, "
-        f"the farthest {worst:.3f} of 2·lr·steps")
+    log(f"train [{label}]: smoke-size f32 {steps} steps card vs CPU{buckets}:"
+        f" losses {card['losses']} / {cpu['losses']}, gnorms "
+        f"{card['gnorms']} / {cpu['gnorms']}; rel err {metric_err:.2e}; "
+        f"final shards: {far} of {total} elements past 1e-4 of their "
+        f"leaf's largest |value|, the farthest {worst:.3f} of 2·lr·steps")
     if not (metric_err <= 1e-4 and far <= 1e-4 * total and worst <= 1.0):
-        fail(f"the card's smoke-size trainer disagrees with the CPU run: "
-             f"{metric_err:.2e}, {far} of {total} shard elements, "
+        fail(f"the card's smoke-size trainer [{label}] disagrees with the "
+             f"CPU run: {metric_err:.2e}, {far} of {total} shard elements, "
              f"{worst:.3f}")
+    if sync is not None and sync.bucket_bytes and min(
+            len(step.gather_buckets), len(step.scatter_buckets)) < 3:
+        fail(f"train [{label}]: fewer than 3 buckets a half")
 
 
 def phase_train_all(dev) -> dict:
-    """Phase 5: the trainer at TRAIN's lr, then at each of TRAIN_FALL_LRS
-    (the loss must fall), fused_reduce at the trainer's shapes, and the
-    smoke-size trainer on the card against the CPU. Returns the launch
-    counts of the full-width runs, summed."""
+    """Phase 5: the per-leaf trainer at TRAIN's lr, then at each of
+    TRAIN_FALL_LRS (the loss must fall), fused_reduce at the trainer's
+    shapes; the bucketed trainer at the default plan (run (a), at the
+    first of TRAIN_FALL_LRS: one bucket a half, the loss must fall, the
+    per-leaf losses printed beside) and with bucket_bytes pinned to
+    TRAIN_BUCKET_BYTES (run (b): its scatter buckets issued last first on
+    every step); `sync_bucketed` on the card (run (c)); and the
+    smoke-size trainer on the card against the CPU, per leaf and bucketed
+    (run (d), TRAIN_SMOKE_BUCKET_BYTES). Returns the launch counts of the
+    full-width runs and of run (c), summed."""
     import torch
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.runtime.trace import Tracer
+
     recorder = FoldRecorder()
-    counts = phase_train(dev, TRAIN["lr"], False, recorder)
+    counts = phase_train(dev, TRAIN["lr"], False, recorder)["counts"]
+    per_leaf = {}
     for lr in TRAIN_FALL_LRS:
-        for name, n in phase_train(dev, lr, True).items():
+        r = phase_train(dev, lr, True)
+        per_leaf[lr] = r["losses"]
+        for name, n in r["counts"].items():
             counts[name] += n
+        del r
     torch.cuda.empty_cache()
     log_rows(trainer_rows(dev, recorder))
     del recorder
     torch.cuda.empty_cache()
+
+    lr = TRAIN_FALL_LRS[0]
+    r = phase_train(dev, lr, True, sync=SyncConfig(strategy="plan"),
+                    label="bucketed, default plan")
+    step = r["step"]
+    log(f"train [bucketed, default plan]: losses {r['losses']}, the per-leaf"
+        f" run's {per_leaf[lr]} at lr {lr} (printed, not gated)")
+    if not (step.bucket_plan.num_buckets == 1
+            and len(step.gather_buckets) == len(step.scatter_buckets) == 1):
+        fail(f"train: the default plan is not one bucket: "
+             f"{step.bucket_plan}")
+    for name, n in r["counts"].items():
+        counts[name] += n
+    del r, step
+    torch.cuda.empty_cache()
+
+    tracer = Tracer(enabled=True)
+    r = phase_train(dev, lr, True, sync=SyncConfig(
+        strategy="plan", bucket_bytes=TRAIN_BUCKET_BYTES,
+        backward_overlap=True), label="bucketed, 64 MiB", tracer=tracer)
+    k = len(r["step"].scatter_buckets)
+    order = [s.args["bucket"] for s in tracer.spans
+             if s.name == "bucket/zero3_rs"]
+    log(f"train [bucketed, 64 MiB]: {k} scatter buckets "
+        f"{[bk.indices for bk in r['step'].scatter_buckets]}, issued "
+        f"{order}")
+    if k != 10 or order != list(range(k - 1, -1, -1)) * TRAIN["steps"]:
+        fail(f"train [bucketed, 64 MiB]: {k} buckets issued {order}, "
+             f"expected 10 a step, last first")
+    for name, n in r["counts"].items():
+        counts[name] += n
+    del r, tracer
+    torch.cuda.empty_cache()
+
+    for name, n in phase_sync_bucketed(dev).items():
+        counts[name] += n
+    torch.cuda.empty_cache()
     phase_train_reference(dev)
+    phase_train_reference(dev, SyncConfig(
+        strategy="plan", bucket_bytes=TRAIN_SMOKE_BUCKET_BYTES),
+        label="bucketed")
     return counts
 
 

@@ -264,16 +264,30 @@ class CompiledSchedule:
         out = buf.reshape(self.n, -1)
         return out[:, :size] if out.shape[1] != size else out
 
-    def run_local_reduce_scatter(self, X: torch.Tensor) -> torch.Tensor:
+    def run_local_reduce_scatter(self, X: torch.Tensor, *,
+                                 overwrite: bool = False) -> torch.Tensor:
         """ReduceScatter on a local mesh: X (n, size) as for `run_local`;
         returns (n, size_padded / n), row i rank i's canonical shard —
         blocks [i·k, (i+1)·k) of the column sum of the rows zero-padded to
-        a multiple of num_blocks (k = blocks_per_shard)."""
+        a multiple of num_blocks (k = blocks_per_shard).
+
+        With `overwrite`, X itself is the working buffer (no private copy):
+        it must be contiguous with size a multiple of num_blocks, and
+        holds partial sums afterwards. The result is the same."""
         self._check_family("run_local_reduce_scatter",
                            ("allreduce", "reduce_scatter"))
         k = self._check_shards("run_local_reduce_scatter")
         self._check_rows("run_local_reduce_scatter", X)
-        buf = self._padded_buffer(X)
+        if overwrite:
+            if X.shape[1] % self.num_blocks or not X.is_contiguous():
+                raise LoweringError(
+                    f"an overwritable reduce-scatter operand must be "
+                    f"contiguous with a multiple of {self.num_blocks} "
+                    f"elements a rank; got {tuple(X.shape)}, contiguous="
+                    f"{X.is_contiguous()}")
+            buf = X.view(self.n * self.num_blocks, -1)
+        else:
+            buf = self._padded_buffer(X)
         with default_tracer().span("exec/reduce_scatter",
                                    plan=self.plan_name, n=self.n):
             self._run_steps_local(self.rs, buf, phase="rs")
@@ -981,7 +995,7 @@ class GuardedSchedule:
         if tele is not None:
             tele.remeasure("guard_failure", info)
 
-    def _guarded(self, what: str, X: torch.Tensor) -> torch.Tensor:
+    def _guarded(self, what: str, X: torch.Tensor, **kw) -> torch.Tensor:
         from repro_torch.runtime.metrics import default_metrics
 
         self.stats["launches"] += 1
@@ -989,7 +1003,7 @@ class GuardedSchedule:
             "guarded_launches_total",
             "collective launches through the schedule guard").inc()
         try:
-            return getattr(self.inner, what)(X)
+            return getattr(self.inner, what)(X, **kw)
         except Exception as e:
             self._note_failure(what, e)
             raise
@@ -997,8 +1011,10 @@ class GuardedSchedule:
     def run_local(self, X: torch.Tensor) -> torch.Tensor:
         return self._guarded("run_local", X)
 
-    def run_local_reduce_scatter(self, X: torch.Tensor) -> torch.Tensor:
-        return self._guarded("run_local_reduce_scatter", X)
+    def run_local_reduce_scatter(self, X: torch.Tensor, *,
+                                 overwrite: bool = False) -> torch.Tensor:
+        return self._guarded("run_local_reduce_scatter", X,
+                             overwrite=overwrite)
 
     def run_local_all_gather(self, S: torch.Tensor) -> torch.Tensor:
         return self._guarded("run_local_all_gather", S)

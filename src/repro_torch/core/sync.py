@@ -5,9 +5,10 @@ mesh-axis position, the single-switch stand-in topology an axis is
 planned on, the per-axis plan labels `PlannerService.get_axis_plans`
 returns, the trainer's `SyncConfig`, and `resolve_axis_plans` for
 `strategy="plan"`, the GenTree plan lowered to a schedule the local mesh
-runs. The flat strategies (`psum`, `ring`, `rhd`, `cps`, `hcps`,
-`gentree`) and `sync_gradients` need the multi-process executor (ROADMAP
-§1 item 4); wire precisions are chosen by the bucket plans (item 2).
+runs, bound to the wire precision the config asks for. The flat
+strategies (`psum`, `ring`, `rhd`, `cps`, `hcps`, `gentree`) and
+`sync_gradients` need the multi-process executor (ROADMAP §1 item 4);
+the bucketed path is `core.bucketing.sync_bucketed`.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ class SyncConfig:
     bucket size, an explicit value pins it, and 0 disables bucketing
     (per-leaf execution). pipeline=False runs buckets back-to-back.
     The reference's fields and defaults; the port runs `strategy="plan"`
-    with `bucket_bytes=0` at full precision (see `resolve_axis_plans`).
+    (see `resolve_axis_plans`).
     """
     strategy: str = "auto"
     factors: tuple[int, ...] | None = None   # for explicit hcps
@@ -129,14 +130,10 @@ def plan_axes_gentree(axes: Sequence[tuple[str, int]], size_floats: float,
     return out
 
 
-def resolve_axis_plans(axes: Sequence[tuple[str, int]], cfg: SyncConfig,
-                       size_floats: float) -> list[AxisPlan]:
-    """Per-axis plans of `strategy="plan"`: for each axis of size > 1 the
-    planner's executable (`get_axis_executable` at the axis's Table-5
-    class, `cfg.params` honoured), wrapped in the schedule guard unless
-    `cfg.guard` is off. The level index counts the original axis position
-    (size-1 axes are skipped but keep their level), as the reference's.
-    Lookups go through the process-wide planner service."""
+def check_plan_config(cfg: SyncConfig) -> None:
+    """The port runs `strategy="plan"` without `compress`; the flat
+    strategies and the int8 CPS AllReduce raise NotImplementedError, as
+    they need the multi-process executor (ROADMAP §1 item 4)."""
     if cfg.strategy != "plan":
         raise NotImplementedError(
             f"sync strategy {cfg.strategy!r} needs the multi-process "
@@ -145,13 +142,28 @@ def resolve_axis_plans(axes: Sequence[tuple[str, int]], cfg: SyncConfig,
         raise NotImplementedError(
             f"compress={cfg.compress!r} (allreduce_int8_cps) needs the "
             "multi-process executor (ROADMAP §1 item 4)")
-    if cfg.precision is not None:
-        raise NotImplementedError(
-            f"precision={cfg.precision!r}: compressed gradient sync comes "
-            "with the bucket plans (ROADMAP §1 item 2)")
+
+
+def resolve_axis_plans(axes: Sequence[tuple[str, int]], cfg: SyncConfig,
+                       size_floats: float) -> list[AxisPlan]:
+    """Per-axis plans of `strategy="plan"`: for each axis of size > 1 the
+    planner's executable (`get_axis_executable` at the axis's Table-5
+    class, `cfg.params` honoured), bound to the wire `cfg.precision` asks
+    for within `cfg.tolerance` (`cost_model.resolve_precision`: a
+    precision whose error budget exceeds the tolerance clamps to f32),
+    wrapped in the schedule guard unless `cfg.guard` is off. The level
+    index counts the original axis position (size-1 axes are skipped but
+    keep their level), as the reference's. Lookups go through the
+    process-wide planner service."""
+    check_plan_config(cfg)
     from repro_torch.core.lower import guard_schedule
     from repro_torch.planner.service import default_service
     svc = default_service()
+    wire = None
+    if cfg.precision is not None:
+        from .cost_model import resolve_precision
+        prec = resolve_precision(cfg.precision, cfg.tolerance)
+        wire = prec if prec.name != "f32" else None
     out = []
     for i, (a, n) in enumerate(axes):
         if n <= 1:
@@ -160,6 +172,10 @@ def resolve_axis_plans(axes: Sequence[tuple[str, int]], cfg: SyncConfig,
                                        level=axis_level(i),
                                        params=cfg.params)
         sched = resp.schedule
+        if wire is not None:
+            # a wire-bound copy: its guard wrapper is memoized apart from
+            # the full-precision users of the same cached schedule
+            sched = sched.with_wire(wire)
         if cfg.guard:
             sched = guard_schedule(sched,
                                    telemetry=getattr(svc, "telemetry", None))

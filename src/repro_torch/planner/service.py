@@ -12,15 +12,17 @@ The serving slice of the reference `planner/service.py` (DESIGN.md §5):
     reduce-scatter and all-gather as the halves of the axis's GenTree
     AllReduce plan, all-to-all and p2p from their flat builders;
   * `get_axis_plans(axes, size_floats)` — per-mesh-axis plan labels;
+  * `get_bucket_plan(axes, total_floats)` — the GenModel-argmin gradient
+    bucket size, wire precision and issuance (sequential or merged) for
+    the bucketed sync, with the axis's lowered schedule (DESIGN.md §9);
   * `observe(...)` — the online loop: residuals, drift, and the refit
     that hot-swaps the pricing basis (DESIGN.md §10);
   * `mark_degraded` / `clear_degraded` — degraded-link repricing
     (DESIGN.md §12): a level at bandwidth factor f pays β/f on every
     pricing and execution path.
 
-Arrival-skew re-ranking, bucket plans and whole-step plans are not
-ported yet. Uncalibrated mesh-axis pricing defaults to the paper's GPU
-testbed with its NVLink row for the leaf class
+Arrival-skew re-ranking and whole-step plans are not ported yet.
+Uncalibrated mesh-axis pricing defaults to the paper's GPU testbed with its NVLink row for the leaf class
 (`cost_model.GPU_AXIS_BASIS`).
 
 Plan generation (GenTree + candidate simulation) costs hundreds of
@@ -74,6 +76,40 @@ class PlanResponse:
     # alongside the plan entry under "_exec" (derived artifact — never
     # persisted; recompiled once per placement after a disk-warm restart)
     schedule: object | None = None
+
+
+@dataclass(eq=False)
+class BucketPlan:
+    """get_bucket_plan's answer: the GenModel-argmin gradient bucket size
+    for a mesh-axis list, plus one lowered schedule per axis (DESIGN.md
+    §9). `sweep` records every candidate's modeled pipelined/serial time
+    so benchmarks (and the perf gate) can verify the argmin.
+
+    The pipeline is priced twice (DESIGN.md §15): `predicted_pipelined`
+    keeps the optimistic `max(t_rs, t_ag)` steady state (the lower
+    bound), `predicted_contended` charges the overlapped RS/AG rounds
+    through the per-link occupancy merge — shared links serialize, a
+    summed fan-in can cross w_t — and is what the argmin ranks on.
+    `overlap` records the argmin over {sequential, merged} issuance for
+    one bucket pair; when "merged" wins on a single-axis plan,
+    `merged_schedule` carries the lowered `core.overlap.MergedSchedule`
+    (derived artifact — rebuilt, never persisted)."""
+    axes: tuple[tuple[str, int], ...]     # live axes (n > 1), leaf first
+    bucket_floats: int                    # chosen bucket size, in elements
+    bucket_bytes: int                     # same, in bytes of the priced dtype
+    num_buckets: int                      # for the quoted total size
+    axis_plans: list = field(default_factory=list)   # AxisPlan("plan", …)
+    predicted_pipelined: float = 0.0      # optimistic double-buffered total
+    predicted_serial: float = 0.0         # same buckets, no overlap
+    predicted_contended: float = 0.0      # contention-priced pipeline (§15)
+    predicted_per_leaf: float | None = None   # per-leaf baseline (if sized)
+    pipeline: bool = True
+    sweep: dict = field(default_factory=dict)  # bucket_floats -> model row
+    overlap: dict = field(default_factory=dict)  # {mode, t_joint, …}
+    merged_schedule: object | None = None  # only when overlap mode=="merged"
+    precision: str = "f32"                # chosen wire format (DESIGN.md §13)
+    source: str = "cold"
+    key: str = ""
 
 
 # Family spellings accepted by `get_family_executable`: HLO op names and
@@ -835,6 +871,71 @@ class PlannerService:
         return (float(sum(res.per_step[:split + 1])),
                 float(sum(res.per_step[split + 1:])))
 
+    def _axis_contended_time(self, n: int, level: str,
+                             size_floats: float, dtype: str, eff,
+                             precision=None) -> float:
+        """Joint time of the axis plan's RS half run CONCURRENTLY with
+        its AG half, paired round-by-round under the per-link occupancy
+        merge (DESIGN.md §15) — the steady-state cost of bucket k's
+        ReduceScatter overlapping bucket k−1's AllGather. Shared links
+        serialize their β/ε and the summed receive fan-in prices through
+        one `_incast` call, so the result sits in
+        [max(T_RS, T_AG), T_RS + T_AG] — and an above-threshold summed
+        fan-in pushes it toward (or past) the sequential sum, which is
+        exactly the signal the {sequential, merged} argmin keys on.
+
+        Same plan fetch / rescale / wire-compression path as
+        `_axis_halves_time`; the engine choice mirrors `Simulator`
+        (reference walks `cost_model.contended_pair_time`, anything else
+        the vectorized `FastEngine.contended_halves_total` — the two
+        agree ≤ 1e-9, pinned by tests/test_overlap.py)."""
+        from repro_torch.core import plans as plans_mod
+        from repro_torch.core.sync import level_switch_topo
+        topo = level_switch_topo(int(n), eff, level)
+        dsize = DTYPE_BYTES.get(dtype, 4)
+        size_floats = max(size_floats, 1.0)
+        resp = self.get_plan(topo, size_floats * dsize, dtype, params=eff)
+        plan = resp.plan
+        factor = size_floats / resp.size_floats if resp.size_floats \
+            else 1.0
+        if abs(factor - 1.0) > 1e-12:
+            plan = self._scaled_plan(plan, factor)
+        if precision is not None and precision.name != "f32":
+            from repro_torch.core.cost_model import compressed_plan
+            plan = compressed_plan(plan, precision)
+        if plan.family != "allreduce" or not plan.steps:
+            res = Simulator(topo, eff, unit_bytes=dsize,
+                            engine=self.engine).simulate(plan)
+            return float(sum(res.per_step))
+        rs_half, ag_half = plans_mod.family_halves(plan)
+        if self.engine == "reference":
+            from repro_torch.core.cost_model import contended_pair_time
+            t = contended_pair_time(topo, rs_half, ag_half, eff,
+                                    unit_bytes=dsize)
+        else:
+            from repro_torch.core.simfast import FastEngine
+            t = FastEngine(topo, eff, unit_bytes=dsize
+                           ).contended_halves_total(rs_half, ag_half)
+        # which links serialized: surfaced as a gauge + span attributes so
+        # a Chrome trace of the sweep shows the contention hot spot
+        if rs_half.steps and ag_half.steps:
+            from repro_torch.core.overlap import occupancy_summary
+            summ = occupancy_summary(topo, rs_half.steps[0],
+                                     ag_half.steps[0], unit_bytes=dsize)
+            default_metrics().gauge(
+                "planner_contended_busiest_link_units",
+                "traffic units on the busiest link when RS and AG "
+                "rounds of adjacent buckets overlap").set(
+                float(summ["busiest_link_units"]))
+            with default_tracer().span(
+                    "planner/contended_price", n=int(n), level=level,
+                    links_shared=int(summ["links_shared"]),
+                    busiest_link=int(summ["busiest_link"]),
+                    busiest_link_units=float(summ["busiest_link_units"])):
+                pass
+        return float(t)
+
+
     def _axis_term_shares(self, n: int, level: str, size_floats: float,
                           dtype: str, eff, merged: GenModelParams,
                           precision=None):
@@ -859,6 +960,290 @@ class PlannerService:
         if abs(factor - 1.0) > 1e-12:
             plan = self._scaled_plan(plan, factor)
         return evaluate_plan_terms(plan, merged, precision=precision)
+
+    def get_bucket_plan(self, axes: Sequence[tuple[str, int]],
+                        total_floats: float, dtype: str = "float32", *,
+                        params: Mapping[str, GenModelParams] | None = None,
+                        config=None,
+                        leaf_sizes: Sequence[int] | None = None
+                        ) -> BucketPlan:
+        """GenModel-argmin gradient bucket size for a DP-axis list, with
+        one lowered `CompiledSchedule` per axis (DESIGN.md §9).
+
+        Sweeps powers-of-two bucket sizes (plus the monolithic
+        single-bucket candidate) JOINTLY with the wire precision
+        (DESIGN.md §13): each (bucket, precision) candidate is priced per
+        axis with the configured engine — per-bucket α, the γ/δ
+        memory-access terms (including the quant/dequant passes), the
+        compressed β and incast all come from GenModel itself — and the
+        double-buffered pipeline is modeled
+        (`core.bucketing.pipelined_time`: bucket k's AllGather overlaps
+        bucket k+1's ReduceScatter). The schedules are resolved via
+        `get_axis_executable` for the chosen size only (bound to the
+        chosen wire via `CompiledSchedule.with_wire`), so they live on
+        that size class's plan entry — lowered once, never re-lowered per
+        step. Pass `leaf_sizes` to also model the per-leaf (unbucketed)
+        baseline for comparison.
+
+        `config.bucket_bytes` pins the bucket size (the sweep collapses
+        to that single candidate, still priced); `config.precision` pins
+        the wire format and `config.tolerance` is the error-budget guard
+        — with no tolerance the sweep stays lossless, and a pinned
+        precision whose budget exceeds the tolerance clamps to f32
+        (`cost_model.resolve_precision`). Axes with n == 1 are skipped
+        but keep their mesh level, exactly as
+        `core.sync.resolve_axis_plans` enumerates.
+        """
+        import math
+
+        from repro_torch.core.bucketing import (BucketConfig,
+                                          contended_pipelined_time,
+                                          pipelined_time, serial_time)
+        from repro_torch.core.cost_model import (PRECISIONS, allowed_precisions,
+                                           resolve_precision)
+        from repro_torch.core.sync import AxisPlan, axis_level
+
+        cfg = config or BucketConfig()
+        if cfg.precision is not None:
+            prec_cands = [resolve_precision(cfg.precision, cfg.tolerance)]
+        else:
+            prec_cands = allowed_precisions(cfg.tolerance) \
+                or [PRECISIONS["f32"]]
+        axes = tuple((str(a), int(n)) for a, n in axes)
+        live = [(i, a, n) for i, (a, n) in enumerate(axes) if n > 1]
+        # uncalibrated, the axis basis is GPU_AXIS_BASIS (the reference
+        # prices TPU_V5E): the round's one deliberate pricing difference
+        eff = self._apply_health(dict(params) if params
+                                 else self.params or GPU_AXIS_BASIS)
+        dsize = DTYPE_BYTES.get(dtype, 4)
+        total = max(float(total_floats), 1.0)
+        leaf_key = (tuple(int(s) for s in leaf_sizes)
+                    if leaf_sizes is not None else None)
+        key = axis_key(axes, eff, self.cache.bucket(total * dsize),
+                       extra=self._config_extra()
+                       + ("bucket_plan", cfg.key(), dtype, leaf_key,
+                          None))      # the reference's skew-model slot
+
+        def resolve_axis_plans(bucket_floats: int, prec_name: str = "f32"):
+            # hierarchical sizes: the RS chain runs the leaf axis first,
+            # so axis k's schedule only ever sees bucket / prod(earlier
+            # n) elements — resolve (and price) each axis at the size it
+            # actually executes
+            wire = PRECISIONS[prec_name] if prec_name != "f32" else None
+            out, shard = [], float(bucket_floats)
+            for i, a, n in live:
+                sched = self.get_axis_executable(
+                    a, n, shard, dtype, level=axis_level(i),
+                    params=eff).schedule
+                if wire is not None:
+                    # wire-bound copy lives on the returned BucketPlan (not
+                    # the shared size-class entry), so the guard ladder's
+                    # per-wire demotion state persists across steps without
+                    # leaking into full-precision users of the same plan
+                    sched = sched.with_wire(wire)
+                out.append(AxisPlan(a, "plan", schedule=sched))
+                shard /= n
+            return out
+
+        def resolve_merged(plans_list, overlap_info):
+            # The merged executable interleaves bucket k's RS rounds with
+            # bucket k-1's AG rounds of the SAME axis schedule
+            # (core.overlap.merge_schedules memoizes on the schedule, so
+            # warm hits share the wrapper). Only built when the contended
+            # price beat sequential AND the chain is a single live axis —
+            # multi-axis chains keep sequential issuance (the hierarchical
+            # handoff already serializes at the axis boundary).
+            if overlap_info.get("mode") != "merged" or len(plans_list) != 1:
+                return None
+            from repro_torch.core.lower import LoweringError
+            from repro_torch.core.overlap import merge_schedules
+            try:
+                sched = plans_list[0].schedule
+                return merge_schedules(sched, sched)
+            except LoweringError:
+                return None
+
+        # one sweep per key: concurrent cold traces against a shared service
+        # must not each run the full pricing sweep and race on the schedules
+        with self._lock:
+            entry = self.cache.get(key)
+            if entry is not None:
+                obj = entry.get("_obj")
+                if obj is not None:
+                    return dataclasses.replace(obj, source="memory")
+                # disk-warm (or schedule-invalidated) entry: the choice is
+                # recorded; only the schedules need re-resolving
+                prec_name = str(entry.get("precision", "f32"))
+                # pre-§15 snapshots carry no contended quote / overlap
+                # verdict: fall back to the optimistic pipeline time and
+                # sequential issuance rather than invalidating the entry
+                ov = dict(entry.get("overlap") or {})
+                plans_list = resolve_axis_plans(
+                    int(entry["bucket_floats"]), prec_name)
+                obj = BucketPlan(
+                    axes=tuple((a, n) for _, a, n in live),
+                    bucket_floats=int(entry["bucket_floats"]),
+                    bucket_bytes=int(entry["bucket_floats"]) * dsize,
+                    num_buckets=int(entry["num_buckets"]),
+                    axis_plans=plans_list,
+                    predicted_pipelined=entry["pipelined"],
+                    predicted_serial=entry["serial"],
+                    predicted_contended=float(
+                        entry.get("contended", entry["pipelined"])),
+                    predicted_per_leaf=entry.get("per_leaf"),
+                    pipeline=bool(entry.get("pipeline", True)),
+                    sweep={int(b): row for b, row in entry["sweep"].items()},
+                    overlap=ov,
+                    merged_schedule=resolve_merged(plans_list, ov),
+                    precision=prec_name, source="disk", key=key)
+                entry["_obj"] = obj
+                return obj
+
+            if not live:
+                obj = BucketPlan(axes=(), bucket_floats=int(total),
+                                 bucket_bytes=int(total) * dsize,
+                                 num_buckets=0, pipeline=cfg.pipeline,
+                                 source="cold", key=key)
+                self.cache.put(key, {"kind": "bucket_plan",
+                                     "bucket_floats": int(total),
+                                     "num_buckets": 0, "pipelined": 0.0,
+                                     "serial": 0.0, "per_leaf": None,
+                                     "pipeline": cfg.pipeline, "sweep": {},
+                                     "_obj": obj})
+                return obj
+
+            # ---- candidate sweep (all pricing through the plan cache) --------
+            halves_memo: dict[tuple, tuple[float, float]] = {}
+            joint_memo: dict[tuple, float] = {}
+
+            def halves(i: int, n: int, size_floats: float, prec=None):
+                lvl = axis_level(i)
+                pname = prec.name if prec is not None else "f32"
+                mk = (lvl, n, round(max(float(size_floats), 1.0), 6), pname)
+                if mk not in halves_memo:
+                    halves_memo[mk] = self._axis_halves_time(
+                        n, lvl, float(size_floats), dtype, eff,
+                        precision=prec)
+                return halves_memo[mk]
+
+            def joint(i: int, n: int, size_floats: float, prec=None):
+                lvl = axis_level(i)
+                pname = prec.name if prec is not None else "f32"
+                mk = (lvl, n, round(max(float(size_floats), 1.0), 6), pname)
+                if mk not in joint_memo:
+                    joint_memo[mk] = self._axis_contended_time(
+                        n, lvl, float(size_floats), dtype, eff,
+                        precision=prec)
+                return joint_memo[mk]
+
+            if cfg.bucket_bytes:
+                cands = [max(1, int(cfg.bucket_bytes) // dsize)]
+            else:
+                cands, nbytes = [], max(cfg.min_bucket_bytes, 4096)
+                while nbytes < total * dsize and nbytes <= cfg.max_bucket_bytes:
+                    cands.append(max(1, nbytes // dsize))
+                    nbytes *= 2
+                cands.append(int(math.ceil(total)))    # monolithic: K = 1
+
+            # the honest rank: the contended pipeline estimate (per-link
+            # occupancy merge, DESIGN.md §15) replaces the optimistic
+            # max(t_rs, t_ag) steady state; the naive "pipelined" row
+            # rides along as the lower bound + drift metric
+            # (overlap_bench's contended_vs_naive_pipeline_error)
+            rank = "contended" if cfg.pipeline else "serial"
+            sweep: dict[int, dict] = {}
+            with default_tracer().span("planner/bucket_sweep",
+                                       candidates=len(cands)
+                                       * len(prec_cands)):
+                for bf in cands:
+                    k = max(1, math.ceil(total / bf))
+                    best = None
+                    for prec in prec_cands:
+                        t_rs = t_ag = t_joint = 0.0
+                        shard = float(bf)
+                        for i, _a, n in live:
+                            rs, ag = halves(i, n, shard, prec)
+                            t_rs += rs
+                            t_ag += ag
+                            if k > 1:
+                                t_joint += joint(i, n, shard, prec)
+                            shard /= n  # outer axes see inner axes' shard
+                        row = {
+                            "num_buckets": k, "t_rs": t_rs, "t_ag": t_ag,
+                            "t_joint": t_joint,
+                            "pipelined": pipelined_time(t_rs, t_ag, k),
+                            "contended": contended_pipelined_time(
+                                t_rs, t_ag, k,
+                                t_joint if k > 1 else None),
+                            "serial": serial_time(t_rs, t_ag, k),
+                            "precision": prec.name,
+                        }
+                        # ties break toward fewer bits dropped (f32 first
+                        # in allowed_precisions order)
+                        if best is None or row[rank] < best[rank]:
+                            best = row
+                    # t_rs/t_ag/t_joint ride along so consumers
+                    # (bucket_bench's CI gate) can recompute the pipeline
+                    # model independently instead of tautologically
+                    # re-minimizing the stored totals; rows stay keyed by
+                    # bucket size, each holding its own argmin over wire
+                    # precisions
+                    sweep[bf] = best
+            chosen = min(sweep, key=lambda b: (sweep[b][rank], b))
+            prec_name = str(sweep[chosen].get("precision", "f32"))
+            crow = sweep[chosen]
+            # per-pair issuance argmin: merge bucket k's RS with bucket
+            # k-1's AG only when the contended concurrent price strictly
+            # beats running the pair back-to-back — the planner can prove
+            # it never selects a losing merge (tests/test_overlap.py)
+            t_pair_seq = float(crow["t_rs"] + crow["t_ag"])
+            merged_wins = bool(cfg.pipeline
+                               and int(crow["num_buckets"]) > 1
+                               and crow["t_joint"] > 0.0
+                               and crow["t_joint"] < t_pair_seq)
+            overlap = {
+                "mode": "merged" if merged_wins else "sequential",
+                "t_joint": float(crow["t_joint"]),
+                "t_pair_sequential": t_pair_seq,
+                "t_pair_naive": float(max(crow["t_rs"], crow["t_ag"])),
+            }
+
+            per_leaf = None
+            if leaf_sizes is not None:
+                per_leaf = 0.0
+                for s in leaf_sizes:
+                    if s <= 0:
+                        continue
+                    shard = float(s)
+                    for i, _a, n in live:
+                        rs, ag = halves(i, n, shard)
+                        per_leaf += rs + ag
+                        shard /= n
+
+            plans_list = resolve_axis_plans(int(chosen), prec_name)
+            obj = BucketPlan(
+                axes=tuple((a, n) for _, a, n in live),
+                bucket_floats=int(chosen), bucket_bytes=int(chosen) * dsize,
+                num_buckets=int(crow["num_buckets"]),
+                axis_plans=plans_list,
+                predicted_pipelined=crow["pipelined"],
+                predicted_serial=crow["serial"],
+                predicted_contended=crow["contended"],
+                predicted_per_leaf=per_leaf, pipeline=cfg.pipeline,
+                sweep=sweep, overlap=overlap,
+                merged_schedule=resolve_merged(plans_list, overlap),
+                precision=prec_name, source="cold", key=key)
+            self.cache.put(key, {
+                "kind": "bucket_plan", "bucket_floats": int(chosen),
+                "num_buckets": int(crow["num_buckets"]),
+                "pipelined": crow["pipelined"],
+                "contended": crow["contended"],
+                "serial": crow["serial"], "per_leaf": per_leaf,
+                "pipeline": cfg.pipeline, "precision": prec_name,
+                "overlap": overlap,
+                "sweep": {str(b): row for b, row in sweep.items()},
+                "_obj": obj})
+            return obj
 
     # ---- per-mesh-axis plans -----------------------------------------------
     def get_axis_plans(self, axes: Sequence[tuple[str, int]],

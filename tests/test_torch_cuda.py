@@ -636,6 +636,19 @@ def test_smoke_trainer_on_card_matches_cpu(dev):
     those within 2·lr a step: AdamW's first update is about lr·sign(g),
     so an element whose gradient the two devices round to opposite signs
     moves up to 2·lr a step apart."""
+    _smoke_trainer_card_vs_cpu(dev, None)
+
+
+def test_bucketed_smoke_trainer_on_card_matches_cpu(dev):
+    """The same on the bucketed path, bucket_bytes pinned to 32 KiB (10
+    buckets a half at smoke size): each rank's gradients written into
+    the bucket tensors, each reduce-scattered in place on the card."""
+    from repro_torch.core.sync import SyncConfig
+    _smoke_trainer_card_vs_cpu(dev, SyncConfig(strategy="plan",
+                                               bucket_bytes=32768))
+
+
+def _smoke_trainer_card_vs_cpu(dev, sync):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch import train
@@ -652,8 +665,12 @@ def test_smoke_trainer_on_card_matches_cpu(dev):
     for where in ("cpu", dev):
         params = [s.to(where, copy=True) for s in shards]
         state = {"params": params, "opt": adamw_init(params)}
+        kw = {} if sync is None else {"sync": sync}
         step = train.make_manual_train_step(api, 8, AdamWConfig(lr=1e-3),
-                                            device=where)
+                                            device=where,
+                                            param_dtype=torch.float32, **kw)
+        if sync is not None:
+            assert len(step.scatter_buckets) >= 3
         metrics = []
         for s in range(3):
             batch = {k: torch.as_tensor(v, device=where).long()
@@ -672,3 +689,43 @@ def test_smoke_trainer_on_card_matches_cpu(dev):
         total += d.numel()
         assert d.max() <= 2 * 1e-3 * 3
     assert far <= 1e-4 * total
+
+
+@pytest.mark.parametrize("wire", [None, "bf16", "fp8", "int8"])
+@pytest.mark.parametrize("bucket_bytes", [None, 4096])
+def test_sync_bucketed_on_card_equals_cpu(dev, wire, bucket_bytes):
+    """`sync_bucketed` on the card gives the CPU's result exactly (rounds
+    are copies; the folds, quantize and dequantize kernels compute their
+    plain versions' operations in the same order), including the merged
+    issuance the pinned bucket's plan picks."""
+    from repro_torch.core.bucketing import sync_bucketed
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.planner.service import PlannerService
+
+    shapes = [(13,), (3, 7), (0,), (5, 5, 5), (1000,), (64, 9), (2048,)]
+    leaves = [_rand((8, *s), 40 + i, "cpu") for i, s in enumerate(shapes)]
+    cfg = SyncConfig(strategy="plan", bucket_bytes=bucket_bytes,
+                     precision=wire, params=PAPER_TABLE5)
+    cpu = sync_bucketed(leaves, [("data", 8)], cfg, service=PlannerService())
+    before = dict(ops.LAUNCHES)
+    got = sync_bucketed([x.to(dev) for x in leaves], [("data", 8)], cfg,
+                        service=PlannerService())
+    torch.cuda.synchronize()
+    assert sum(ops.LAUNCHES.values()) > sum(before.values())
+    for g, c in zip(got, cpu, strict=True):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), c)
+
+
+def test_overwriting_reduce_scatter_on_card(dev):
+    """The in-place reduce-scatter of a bf16 bucket tensor on the card
+    equals the one through a private copy, launch for launch."""
+    cs = lower_plan(gentree(single_switch(8), 1e6, params=PAPER_TABLE5).plan)
+    X = _rand((8, 8 * 4099), 41, dev).to(torch.bfloat16)
+    want = cs.run_local_reduce_scatter(X)
+    before = ops.LAUNCHES["fused_reduce"]
+    got = cs.run_local_reduce_scatter(X.clone(), overwrite=True)
+    torch.cuda.synchronize()
+    folds = sum(len(st.folds) for st in cs.rs
+                + ([cs.reorder] if cs.reorder is not None else []))
+    assert ops.LAUNCHES["fused_reduce"] == before + folds
+    assert torch.equal(got, want)

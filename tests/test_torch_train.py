@@ -10,7 +10,9 @@ One subprocess with 8 forced host devices runs the reference cases: the
 reference's `make_manual_train_step` on a plain `jax.sharding.Mesh` (its
 `run_training` and `launch/mesh.py` build their meshes with
 `jax.make_mesh`, which these tests avoid), with `SyncConfig(strategy=
-"plan", bucket_bytes=0, params=PAPER_TABLE5)` on both sides. Both
+"plan", bucket_bytes=0, params=PAPER_TABLE5)` on both sides, and for the
+"bucketed/" parts (`test_torch_train_bucketed.py`) the bucketed path at
+`BUCKETED`'s bucket_bytes. Both
 packages train from the reference's own `init_params`, carried over by
 `convert.params_from_jax`: in f32 (the reference casts each gathered
 leaf to its `params_spec()` dtype, so its side is handed a ModelAPI
@@ -68,6 +70,10 @@ CLIP = {"active": 10.0, "inactive": 1e-3}   # gradient scale of each case
 SPECS = ["stablelm-12b", "gemma2-27b", "stablelm-12b/full"]
 # per-step loss and gnorm, relative (module docstring)
 STEP_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+# the bucketed step's bucket_bytes by dtype (`test_torch_train_bucketed.py`):
+# pinned in f32 so that the smoke model splits into several buckets, the
+# GenModel argmin (None) in bf16
+BUCKETED = {"float32": 32768, "bfloat16": None}
 
 _CHILD = r"""
 import dataclasses, os, sys
@@ -168,15 +174,15 @@ mesh = Mesh(np.array(jax.devices()[:8]).reshape(8, 1), ("data", "model"))
 if "optim" in parts:
     put("shard/odd", shard_params_zero3(tree("odd"), mesh))
 sync = SyncConfig(strategy="plan", bucket_bytes=0, params=PAPER_TABLE5)
-for dtype in ("float32", "bfloat16"):
-    if f"train/{dtype}" not in parts and f"shards/{dtype}" not in parts:
-        continue
+
+
+def init_state(dtype, prefix):
     api = api_of("stablelm-12b", getattr(jnp, dtype))
     params = api.init_params(jax.random.PRNGKey(0))
-    put(f"train/{dtype}/init", params)
+    put(f"{prefix}/init", params)
     state = {"params": shard_params_zero3(params, mesh),
              "opt": adamw_init(shard_params_zero3(params, mesh))}
-    put(f"train/{dtype}/shards", state["params"])
+    put(f"{prefix}/shards", state["params"])
     # the moments and the step placed as the step returns them, so its
     # second call does not compile again
     state["opt"] = {k: jax.tree.map(lambda z, p: jax.device_put(z, p.sharding),
@@ -184,12 +190,10 @@ for dtype in ("float32", "bfloat16"):
                     for k in ("m", "v")}
     state["opt"]["step"] = jax.device_put(jnp.zeros((), jnp.int32),
                                           NamedSharding(mesh, P()))
-    size = sum(float(x.size) for x in jax.tree.leaves(state["params"])) / 8
-    (plan,) = resolve_axis_plans([("data", 8)], sync, size)
-    res[f"plan/{dtype}/size"] = np.asarray(size)
-    res[f"plan/{dtype}/describe"] = np.asarray(plan.schedule.describe())
-    if f"train/{dtype}" not in parts:
-        continue
+    return api, state
+
+
+def train(api, state, sync, prefix):
     step = make_manual_train_step(api, mesh, AdamWConfig(lr=spec["lr"]),
                                   sync=sync)
     losses, gnorms = [], []
@@ -197,9 +201,29 @@ for dtype in ("float32", "bfloat16"):
         state, m = step(state, jax.tree.map(jnp.asarray, data.batch_at(s)))
         losses.append(float(m["loss"]))
         gnorms.append(float(m["gnorm"]))
-    put(f"train/{dtype}/final", state)
-    res[f"train/{dtype}/losses"] = np.asarray(losses)
-    res[f"train/{dtype}/gnorms"] = np.asarray(gnorms)
+    put(f"{prefix}/final", state)
+    res[f"{prefix}/losses"] = np.asarray(losses)
+    res[f"{prefix}/gnorms"] = np.asarray(gnorms)
+
+
+for dtype in ("float32", "bfloat16"):
+    if f"train/{dtype}" not in parts and f"shards/{dtype}" not in parts:
+        continue
+    api, state = init_state(dtype, f"train/{dtype}")
+    size = sum(float(x.size) for x in jax.tree.leaves(state["params"])) / 8
+    (plan,) = resolve_axis_plans([("data", 8)], sync, size)
+    res[f"plan/{dtype}/size"] = np.asarray(size)
+    res[f"plan/{dtype}/describe"] = np.asarray(plan.schedule.describe())
+    if f"train/{dtype}" in parts:
+        train(api, state, sync, f"train/{dtype}")
+# the bucketed path: SyncConfig's own bucket_bytes (None, the GenModel
+# argmin) or a pinned one, and its default backward_overlap
+for dtype, bucket_bytes in spec.get("bucketed", {}).items():
+    if f"bucketed/{dtype}" not in parts:
+        continue
+    api, state = init_state(dtype, f"bucketed/{dtype}")
+    train(api, state, SyncConfig(strategy="plan", bucket_bytes=bucket_bytes,
+                                 params=PAPER_TABLE5), f"bucketed/{dtype}")
 np.savez(out_path, **res)
 """
 
@@ -270,8 +294,9 @@ def few_threads():
 def run_reference(tmp_path_factory, inputs, parts) -> dict:
     """The reference cases of `parts` ("data", "model", "optim", and
     "shards/<dtype>" or "train/<dtype>" for dtype float32 or bfloat16,
-    the init, its shards and its plan, and for "train/" the 3 steps),
-    run in one JAX subprocess."""
+    the init, its shards and its plan, and for "train/" the 3 steps;
+    "bucketed/<dtype>", the init and 3 bucketed steps), run in one JAX
+    subprocess."""
     d = tmp_path_factory.mktemp("torch_train")
     np.savez(d / "inputs.npz", **inputs)
     env = dict(os.environ)
@@ -280,7 +305,7 @@ def run_reference(tmp_path_factory, inputs, parts) -> dict:
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
     spec = repr({"data": DATA, "archs": ARCHS, "specs": SPECS,
                  "clip": list(CLIP), "lr": LR, "steps": STEPS,
-                 "parts": list(parts)})
+                 "bucketed": BUCKETED, "parts": list(parts)})
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD, str(d / "out.npz"),
          str(d / "inputs.npz"), spec],
@@ -393,12 +418,12 @@ def test_adamw_init_is_f32_zeros():
 # ---------------------------------------------------------------------------
 # ZeRO-3 layout and the plan
 # ---------------------------------------------------------------------------
-def check_shards(ref, dtype):
+def check_shards(ref, dtype, prefix="train"):
     """The port's shards of the reference's init, leaf by leaf and in
     order, equal the reference's `shard_params_zero3` rows."""
-    params = _params(ref, f"train/{dtype}/init", getattr(torch, dtype))
+    params = _params(ref, f"{prefix}/{dtype}/init", getattr(torch, dtype))
     got = train.shard_params_zero3(params, N)
-    want = _leaves(ref, f"train/{dtype}/shards")
+    want = _leaves(ref, f"{prefix}/{dtype}/shards")
     assert len(got) == len(want) == 12
     for t, w in zip(got, want):
         assert t.dtype == getattr(torch, dtype)
@@ -488,9 +513,10 @@ def test_unequal_gathered_rows_are_refused(monkeypatch, ref):
 # ---------------------------------------------------------------------------
 # the ZeRO-3 step
 # ---------------------------------------------------------------------------
-def port_run(ref, dtype) -> dict:
-    """The port's 3 steps in `dtype` from the reference's init, with every
-    kernel-wrapper call counted."""
+def port_run(ref, dtype, sync=None, prefix="train") -> dict:
+    """The port's 3 steps in `dtype` from the reference's init (under
+    `prefix/dtype`), with every kernel-wrapper call counted; `sync`
+    defaults to the per-leaf path."""
     counts = {}
     names = ("fused_reduce_into", "rmsnorm", "flash_attention", "wkv",
              "ssm_scan", "quantize", "dequantize_into", "quant_reduce_into")
@@ -505,12 +531,13 @@ def port_run(ref, dtype) -> dict:
         setattr(ops, name, counted(name))
     try:
         shards = train.shard_params_zero3(
-            _params(ref, f"train/{dtype}/init", getattr(torch, dtype)), N)
+            _params(ref, f"{prefix}/{dtype}/init", getattr(torch, dtype)), N)
         state = {"params": shards, "opt": adamw_init(shards)}
         step = train.make_manual_train_step(
             _api("stablelm-12b"), N, AdamWConfig(lr=LR),
-            sync=SyncConfig(strategy="plan", bucket_bytes=0,
-                            params=PAPER_TABLE5), device="cpu")
+            sync=sync or SyncConfig(strategy="plan", bucket_bytes=0,
+                                    params=PAPER_TABLE5), device="cpu",
+            param_dtype=getattr(torch, dtype))
         data = SyntheticLM(DataConfig(**DATA))
         losses, gnorms = [], []
         for s in range(STEPS):
@@ -526,11 +553,11 @@ def port_run(ref, dtype) -> dict:
             "step": step, "counts": counts}
 
 
-def check_steps(ref, run, dtype):
+def check_steps(ref, run, dtype, prefix="train"):
     """Per-step loss and gnorm within STEP_TOL[dtype] of the reference's;
     the reference's loss falls and every step clips (gnorm > 1)."""
-    want_l = ref[f"train/{dtype}/losses"]
-    want_g = ref[f"train/{dtype}/gnorms"]
+    want_l = ref[f"{prefix}/{dtype}/losses"]
+    want_g = ref[f"{prefix}/{dtype}/gnorms"]
     assert (want_g > 1.0).all() and want_l[-1] < want_l[0]
     np.testing.assert_allclose(run["losses"], want_l, rtol=STEP_TOL[dtype],
                                atol=0)
@@ -558,8 +585,6 @@ def check_launches(run):
     SyncConfig(strategy="gentree", bucket_bytes=0),
     SyncConfig(strategy="ring", bucket_bytes=0),
     SyncConfig(strategy="psum", bucket_bytes=0),
-    SyncConfig(strategy="plan"),
-    SyncConfig(strategy="plan", bucket_bytes=1 << 20),
     SyncConfig(strategy="plan", bucket_bytes=0, precision="fp8"),
     SyncConfig(strategy="plan", bucket_bytes=0, compress="int8"),
 ], ids=lambda s: f"{s.strategy}-{s.bucket_bytes}-{s.precision}-{s.compress}")
