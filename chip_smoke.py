@@ -4,10 +4,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --attention [--src OTHER/src]
     python3 chip_smoke.py --recurrence [--src OTHER/src]
+    python3 chip_smoke.py --planner
 
 The second and third forms build the kernels and run the attention rows
 or the recurrence rows of phase 2 alone (of another source tree with
---src: two commits timed on one card in turn), and print no result line.
+--src: two commits timed on one card in turn), the fourth the planner
+phase (3c) alone; none prints a result line.
 Phases, each of which fails the run (non-zero exit, no result line) on
 any error:
 
@@ -77,6 +79,27 @@ any error:
                 within their budget), with device time, wall time and
                 the schedule's byte bound; every landing on fp8/int8
                 launches dequantize;
+  3c. planner — the rest of the planner, on PlannerService instances of
+                its own: (a) the Fig.-4 curve of `TorchProvider` (x
+                blocks folded by one fused_reduce launch, CUDA events
+                behind a spin) at the reference's fig4_size and at 2^24
+                floats, δ and γ fitted; (b) the decode and 2^26 gradient
+                AllReduces observed as serve observes them, then
+                `PlannerService.calibrate` on the card (backend "torch":
+                Fig. 4 and the CPS AllReduce on the local mesh, every
+                level), each fitted level passing `validate_params`,
+                the two AllReduces fetched again, run against the column
+                sum (1e-6) and observed: predicted, observed and drift
+                before and after; (c) `get_plan` under exponential
+                arrival skew at SKEW_SCALES on both topologies, priced on
+                the fitted params, and every candidate the re-ranking
+                prices (GenTree, cps, ring, rhd) lowered and run at 2^20
+                f32 a rank within 1e-6; (d) `get_step_plan` on the
+                reference tests' mix and on the bucketed trainer's own
+                full-width step (its buckets' reduce-scatters and
+                all-gathers), each family's schedule run at 2^24 f32 a
+                rank against the exact answer. The phase's launches are
+                counted in advance and must match exactly;
   4. serve    — `repro_torch.launch.serve` on stablelm-12b, rwkv6-1.6b,
                 hymba-1.5b and gemma2-27b in turn, each at full size
                 (random bf16 weights), batch 4, prompt 32, 32 new tokens,
@@ -124,8 +147,8 @@ any error:
                 TRAIN_SMOKE_BUCKET_BYTES (per-step loss and gnorm within
                 1e-4, the final shards as `shard_drift` says).
 
-The main path is phases 3, 3b, 4 and 5: every launch count is zeroed
-just before the executor, the families, each served run, each
+The main path is phases 3, 3b, 3c, 4 and 5: every launch count is zeroed
+just before the executor, the families, the planner, each served run, each
 full-width training run and the `sync_bucketed` runs, and read just
 after. The executor must launch fused_reduce, quantize, quant_reduce and
 dequantize (it runs the compressed wires), the families dequantize;
@@ -201,6 +224,23 @@ TRAIN_SMOKE_BUCKET_BYTES = 32768  # 10 buckets of the smoke-size leaves
 # a rank in 8 leaves; and the pinned bucket bytes of its merged runs
 SYNC_BIG = ("2^26 f32 a rank in 8 leaves", [(1 << 23,)] * 8)
 SYNC_MERGED = {"trainer smoke leaves": 4096, SYNC_BIG[0]: 64 << 20}
+# the planner phase: the Fig.-4 fold sizes (floats; the reference's
+# default fig4_size and 2^24), the calibration's Fig.-4 size, the arrival
+# skew scales (s, exponential) and the f32 a rank at which every
+# candidate the re-ranking prices runs, the step plans' mixes (the
+# reference tests' MIX of tests/test_families.py; the bucketed trainer's
+# own step is read off its BucketPlan) and the f32 a rank at which each
+# family's schedule runs
+PLANNER_FIG4_SIZES = (1e6, 1 << 24)
+PLANNER_CAL_FIG4 = 1 << 24
+SKEW_SCALES = (1e-5, 1e-2)
+SKEW_SIZE = 1 << 20
+STEP_MIX = {"allreduce": {"count": 4, "size_floats": 1 << 20},
+            "reduce_scatter": {"count": 2, "size_floats": 1 << 18},
+            "allgather": {"count": 2, "size_floats": 1 << 18},
+            "all_to_all": {"count": 6, "size_floats": 1 << 16},
+            "p2p": {"count": 1, "size_floats": 1 << 14}}
+STEP_SIZE = 1 << 24
 # largest disagreement a kernel may show with its plain version: 0 = bit
 # for bit; otherwise a share of the largest |value| of each output (for
 # flash_attention, of each query row's output), by output dtype where the
@@ -1191,9 +1231,11 @@ def phase_executor(dev, recorder) -> dict:
 
 
 def family_steps(cs, family: str) -> list:
-    """The steps a family entry point runs: the ReduceScatter half and the
-    shard reorder, the unorder and the AllGather half, or the movement
-    steps of all-to-all and p2p."""
+    """The steps a family entry point runs: both halves of the AllReduce,
+    the ReduceScatter half and the shard reorder, the unorder and the
+    AllGather half, or the movement steps of all-to-all and p2p."""
+    if family == "allreduce":
+        return cs.rs + cs.ag
     if family == "reduce_scatter":
         return cs.rs + ([cs.reorder] if cs.reorder is not None else [])
     if family == "allgather":
@@ -1208,6 +1250,10 @@ def family_case(cs, family: str, size: int, dev, seed: int):
     import torch
     n = cs.n
     g = torch.Generator(device=dev).manual_seed(seed)
+    if family == "allreduce":
+        X = torch.randn((n, size), generator=g, device=dev)
+        return ("run_local", X,
+                X.double().sum(dim=0).expand(n, -1), 1e-6)
     if family == "allgather":
         S = torch.randn((n, size // n), generator=g, device=dev)
         return ("run_local_all_gather", S,
@@ -1289,6 +1335,255 @@ def phase_families(dev, recorder) -> dict:
     log(f"families: launches {json.dumps(counts)}")
     if counts["dequantize"] <= 0:
         fail("kernel dequantize was never launched by the families")
+    return counts
+
+
+def run_checked(cs, family: str, size: int, dev, seed: int, what: str
+                ) -> tuple[float, float]:
+    """Run schedule `cs` through the guard's entry point for `family` at
+    `size` elements a rank against the exact answer (`family_case`; f32
+    within its tolerance, a wire within its budget), then time it (host
+    clock to a synchronize: a warm-up and the median of 3). Five runs in
+    all; returns (relative error, wall ms)."""
+    import torch
+    from repro_torch.core.lower import guard_schedule
+    entry, X, want, f32_tol = family_case(cs, family, size, dev, seed)
+    sched = guard_schedule(cs)
+    got = getattr(sched, entry)(X)
+    torch.cuda.synchronize()
+    err = float((got.double() - want.double()).abs().max()) / float(
+        want.abs().max())
+    del got
+    budget = f32_tol if cs.wire is None else cs.wire.error_budget
+    if not err <= budget:
+        fail(f"{what}: rel err {err:.3e} over {budget}")
+    wall = host_ms(lambda: getattr(sched, entry)(X))
+    if sched.demotions or sched.stats["failures"]:
+        fail(f"{what}: guard demoted {sched.demotions} time(s), "
+             f"{sched.stats['failures']} failure(s)")
+    return err, wall
+
+
+def phase_planner(dev) -> dict:
+    """The rest of the planner on the card, each part on PlannerService
+    instances of its own (the other phases' plans do not move):
+    (a) Fig. 4: `TorchProvider.fig4_curve` at PLANNER_FIG4_SIZES, δ and γ
+    fitted; (b) the decode and gradient AllReduces of EXEC_SIZES observed
+    as serve observes them (`source="local_mesh"`), then `calibrate` on
+    the card (`backend="torch"`), the fitted params validated, the two
+    executables fetched again, run against the column sum and observed;
+    (c) `get_plan` under arrival skew on the two topologies at
+    SKEW_SCALES, every candidate the re-ranking prices lowered and run at
+    SKEW_SIZE; (d) `get_step_plan` on STEP_MIX and on the bucketed
+    trainer's own step, each family's schedule run at STEP_SIZE. Every
+    launch is counted in advance and must match exactly. Returns the
+    launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import gentree as gentree_mod
+    from repro_torch.core.cost_model import cost_cps
+    from repro_torch.core.fitting import fit_delta_gamma
+    from repro_torch.core.lower import guard_schedule, lower_plan
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.core.topology import single_switch, symmetric_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_manual_train_step
+    from repro_torch.models.registry import build
+    from repro_torch.planner import service as service_mod
+    from repro_torch.planner.calibrate import (CalibrationConfig,
+                                               TorchProvider,
+                                               validate_params)
+    from repro_torch.planner.service import PlannerService
+    from repro_torch.planner.skew import SkewModel, pick_plan_under_skew
+
+    n = TRAIN["local_ranks"]
+    ops.reset_launches()
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def expect(counts: dict) -> None:
+        for k, v in counts.items():
+            want[k] += v
+
+    # (a) Fig. 4 through fused_reduce: a warm-up and 5 timed folds a fan-in
+    prov = TorchProvider(device=dev)
+    hbm_delta = 4 / HBM_BYTES_PER_S
+    for size in PLANNER_FIG4_SIZES:
+        cfg = CalibrationConfig(backend="torch", fig4_size=size)
+        xs, ts = prov.fig4_curve("server", None, cfg)
+        expect({"fused_reduce": 6 * len(xs)})
+        delta, gamma = fit_delta_gamma(xs, ts, size)
+        fit = (xs + 1) * size * delta + (xs - 1) * size * gamma
+        resid = float(np.max(np.abs(fit - ts) / ts))
+        log(f"planner fig4 S={size:.0f}: x, ms: " + ", ".join(
+            f"{x:.0f} {t * 1e3:.4f}" for x, t in zip(xs, ts)))
+        log(f"planner fig4 S={size:.0f}: delta {delta:.4e} s a float "
+            f"({4 / delta / 1e12:.3f} TB/s), gamma {gamma:.4e} (before "
+            f"clamping), fit residual max {resid:.2%}; delta / (4 B / "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {hbm_delta:.3e} s) = "
+            f"{delta / hbm_delta:.3f}")
+
+    # (b) observed against predicted, before and after calibrating
+    svc = PlannerService()
+
+    def observe(size: int, label: str, when: str):
+        resp = svc.get_axis_executable("model", n, float(size))
+        sched = guard_schedule(resp.schedule, telemetry=svc.telemetry)
+        g = torch.Generator(device=dev).manual_seed(size % 997)
+        X = torch.randn((n, size), generator=g, device=dev)
+        got = sched.run_local(X)
+        ref = X.double().sum(dim=0)
+        err = float((got.double() - ref).abs().max() / ref.abs().max())
+        del got, ref
+        if not err <= 1e-6:
+            fail(f"planner {when} {label}: rel err {err:.3e} over 1e-06")
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sched.run_local(X)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        del X
+        measured = sorted(ts)[1]
+        obs = svc.observe("root_sw", n, float(size), measured, key=resp.key,
+                          source="local_mesh")
+        expect(steps_launches(resp.schedule, family_steps(resp.schedule,
+                                                          "allreduce"), 4))
+        if sched.demotions or sched.stats["failures"]:
+            fail(f"planner {when} {label}: guard demoted or failed")
+        log(f"planner {when} calibration, {label}: {resp.algo} "
+            f"({resp.schedule.describe()}) rel err {err:.2e}; predicted "
+            f"{obs['predicted'] * 1e3:.4f} ms, observed "
+            f"{measured * 1e3:.4f} ms (observed / predicted "
+            f"{measured / obs['predicted']:.3f}), drift "
+            f"{abs(obs['rel_residual']):.2f}")
+        return resp
+
+    before = {label: observe(size, label, "before")
+              for size, label in EXEC_SIZES}
+    ccfg = CalibrationConfig(backend="torch", fig4_size=PLANNER_CAL_FIG4)
+    t0 = time.perf_counter()
+    res = svc.calibrate(cfg=ccfg)
+    cal_s = time.perf_counter() - t0
+    # per level: a warm-up and 5 folds a fan-in; a warm-up and 3 runs of
+    # each (n, S)'s CPS, one fold kernel a fold phase
+    cps_folds = {m: steps_launches(cs, family_steps(cs, "allreduce"), 1)[
+        "fused_reduce"] for m in ccfg.ns for cs in [lower_plan(
+            gentree_mod.baseline_plan("cps", single_switch(m),
+                                      float(ccfg.sizes[0])))]}
+    expect({"fused_reduce": len(ccfg.levels) * (
+        6 * len(ccfg.fig4_xs)
+        + sum(4 * cps_folds[m] * len(ccfg.sizes) for m in ccfg.ns))})
+    log(f"planner: calibrated on the card in {cal_s:.1f} s (backend "
+        f"{res.backend}, {len(ccfg.levels)} levels, Fig. 4 at "
+        f"{ccfg.fig4_size} floats, CPS over n {ccfg.ns[0]}..{ccfg.ns[-1]} "
+        f"and S {list(ccfg.sizes)})")
+    for lvl, p in res.params.items():
+        bad = validate_params(p)
+        log(f"planner calibrated {lvl}: alpha {p.alpha:.4e} beta "
+            f"{p.beta:.4e} gamma {p.gamma:.4e} delta {p.delta:.4e} "
+            f"epsilon {p.epsilon:.4e} w_t {p.w_t}")
+        if bad:
+            fail(f"planner: the fitted {lvl} params fail validate_params: "
+                 f"{bad}")
+    smp, fitted = res.samples["root_sw"], res.params["root_sw"]
+    for m, size, t in zip(smp.ns, smp.sizes, smp.times):
+        if int(m) in (2, 8, 16):
+            log(f"planner CPS curve n={m:.0f} S={size:.0f}: measured "
+                f"{t * 1e3:.4f} ms, fitted {cost_cps(int(m), size, fitted) * 1e3:.4f} ms")
+    for size, label in EXEC_SIZES:
+        resp = observe(size, label, "after")
+        old = before[label]
+        if (resp.algo, resp.schedule.describe()) != (
+                old.algo, old.schedule.describe()):
+            log(f"planner {label}: the plan changed with calibration: "
+                f"{old.algo} ({old.schedule.describe()}) -> {resp.algo} "
+                f"({resp.schedule.describe()})")
+        else:
+            log(f"planner {label}: the plan is unchanged by calibration")
+
+    # (c) arrival skew, priced on the fitted params
+    baseline_wins = 0
+    for tname, topo in (("single_switch(8)", single_switch(8)),
+                        ("symmetric_tree(2,4)", symmetric_tree(2, 4))):
+        models = [SkewModel(dist="exponential", scale=sc)
+                  for sc in SKEW_SCALES]
+        for model in models:
+            ssvc = PlannerService(params=svc.params, skew=model)
+            resp = ssvc.get_plan(topo, SKEW_SIZE * 4)
+            baseline_wins += resp.algo != "gentree"
+            log(f"planner skew {tname} exponential scale {model.scale:g} "
+                f"s: {resp.algo} wins, priced {resp.predicted_time * 1e3:.4f}"
+                f" ms synchronized, {resp.expected_skewed_time * 1e3:.4f} ms "
+                f"under skew")
+        # the candidates the re-ranking priced (`PlannerService.get_plan`)
+        m = topo.num_servers()
+        cands = [("gentree", gentree_mod.gentree(
+            topo, resp.size_floats, params=ssvc.params).plan)] + [
+            (k, gentree_mod.baseline_plan(k, topo, resp.size_floats))
+            for k in ssvc.baseline_kinds
+            if not (k == "rhd" and m & (m - 1))]
+        for name, plan in cands:
+            cs = lower_plan(plan)
+            what = f"planner skew {tname} candidate {name}"
+            err, wall = run_checked(cs, "allreduce", SKEW_SIZE, dev, 11, what)
+            expect(steps_launches(cs, family_steps(cs, "allreduce"), 5))
+            costs = [pick_plan_under_skew([(name, plan)], topo, model,
+                                          ssvc.params)[2]
+                     for model in models]
+            log(f"{what} ({cs.describe()}) rel err {err:.2e}, wall "
+                f"{wall:.4f} ms; priced under skew " + ", ".join(
+                    f"{c * 1e3:.4f} ms at {mo.scale:g} s"
+                    for c, mo in zip(costs, models)))
+    log(f"planner skew: a baseline won {baseline_wins} of "
+        f"{2 * len(SKEW_SCALES)} re-rankings")
+
+    # (d) whole-step plans: the tests' mix, and the bucketed trainer's own
+    # step at full width, its bucket plan from a service of its own
+    prev = service_mod.peek_default_service()
+    service_mod.set_default_service(PlannerService())
+    try:
+        tcfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                                   n_layers=TRAIN["layers"])
+        step = make_manual_train_step(build(tcfg), n,
+                                      sync=SyncConfig(strategy="plan"),
+                                      device=dev)
+    finally:
+        service_mod.set_default_service(prev)
+    rs = [n * bk.width for bk in step.scatter_buckets]
+    ag = [n * bk.width for bk in step.gather_buckets]
+    trainer_mix = {"reduce_scatter": (len(rs), sum(rs) / len(rs)),
+                   "allgather": (len(ag), sum(ag) / len(ag))}
+    for mname, mix, dtype in (("the tests' MIX", STEP_MIX, "float32"),
+                              ("the bucketed trainer's step", trainer_mix,
+                               "bfloat16")):
+        sp = svc.get_step_plan([("data", n)], mix, dtype)
+        log(f"planner step plan, {mname} ({dtype}): precision "
+            f"{sp.precision}, ratio {sp.ratio:.4f}; per call "
+            f"{sp.total_per_call * 1e3:.4f} ms, coalesced "
+            f"{sp.total_joint * 1e3:.4f} ms, best {sp.total_best * 1e3:.4f}"
+            f" ms")
+        for fam, q in sorted(sp.quotes.items()):
+            log(f"planner step plan, {mname}, {fam}: {q['count']} x "
+                f"{q['size_floats']:.0f}: per call "
+                f"{q['per_call_total'] * 1e3:.4f} ms, coalesced "
+                f"{q['joint_total'] * 1e3:.4f} ms, pipelined "
+                f"{q['contended'] * 1e3:.4f} ms; {q['mode']} "
+                f"{q['best_total'] * 1e3:.4f} ms, {q['precision']}")
+        for i, (fam, cs) in enumerate(sorted(sp.schedules.items())):
+            what = f"planner step plan, {mname}, {fam} schedule"
+            err, wall = run_checked(cs, fam, STEP_SIZE, dev, 20 + i, what)
+            expect(steps_launches(cs, family_steps(cs, fam), 5))
+            log(f"{what} ({cs.describe()}) at {STEP_SIZE} f32 a rank: rel "
+                f"err {err:.2e}, wall {wall:.4f} ms")
+        torch.cuda.empty_cache()
+
+    counts = dict(ops.LAUNCHES)
+    log(f"planner: launches {json.dumps(counts)}")
+    if counts != want:
+        fail(f"planner: launches {counts}, expected {want}")
     return counts
 
 
@@ -1799,17 +2094,15 @@ def trainer_rows(dev, recorder) -> list:
     return rows
 
 
-def sync_launches(cs, buckets: int) -> dict:
-    """Kernel launches of `buckets` reduce-scatters and all-gathers through
-    schedule `cs` at its wire: one fold kernel a fold phase (fused_reduce
-    at full precision and on the bf16 wire; on a scaled wire quant_reduce,
-    or dequantize where the phase only lands copies) and, on a scaled
-    wire, one quantize a live round."""
-    steps = family_steps(cs, "reduce_scatter") + family_steps(cs,
-                                                              "allgather")
+def steps_launches(cs, steps, runs: int) -> dict:
+    """Kernel launches of `runs` runs of `steps` of schedule `cs` at its
+    wire: one fold kernel a fold phase (fused_reduce at full precision and
+    on the bf16 wire; on a scaled wire quant_reduce, or dequantize where
+    the phase only lands copies) and, on a scaled wire, one quantize a
+    live round."""
     folds = sum(len(st.folds) for st in steps)
     if cs.wire is None or not cs.wire.scale_block:
-        return {"fused_reduce": buckets * folds}
+        return {"fused_reduce": runs * folds}
     rounds = sum(1 for st in steps for rd in st.rounds if rd.perm)
     landings = 0
     for st in steps:
@@ -1817,8 +2110,15 @@ def sync_launches(cs, buckets: int) -> dict:
             act = fd.blk >= 0
             landings += int(not fd.include_self[act].any() and bool(
                 ((fd.ops[act] >= 0).sum(axis=1) == 1).all()))
-    return {"quantize": buckets * rounds, "dequantize": buckets * landings,
-            "quant_reduce": buckets * (folds - landings)}
+    return {"quantize": runs * rounds, "dequantize": runs * landings,
+            "quant_reduce": runs * (folds - landings)}
+
+
+def sync_launches(cs, buckets: int) -> dict:
+    """Kernel launches of `buckets` reduce-scatters and all-gathers through
+    schedule `cs` at its wire (`steps_launches`)."""
+    return steps_launches(cs, family_steps(cs, "reduce_scatter")
+                          + family_steps(cs, "allgather"), buckets)
 
 
 def phase_sync_bucketed(dev) -> dict:
@@ -2177,6 +2477,10 @@ def main() -> int:
                     help="build the kernels and run the recurrence rows of "
                     "phase 2 alone (WKV_GRID, SSM_GRID and the state "
                     "hand-offs), then stop: no result line")
+    ap.add_argument("--planner", action="store_true",
+                    help="build the kernels and run the planner phase "
+                    "alone (Fig. 4, calibration, skew, step plans), then "
+                    "stop: no result line")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree (default: this checkout's "
                     "src), e.g. another commit's unpacked beside it, to "
@@ -2213,6 +2517,10 @@ def main() -> int:
         log_rows(recurrence_grid(dev))
         log(f"recurrence grid done at {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.planner:
+        phase_planner(dev)
+        log(f"phase planner done at {time.perf_counter() - t0:.1f} s")
+        return 0
     unlaunched = phase_kernels(dev)
     log(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
     from repro_torch.kernels import ops
@@ -2222,6 +2530,8 @@ def main() -> int:
     log(f"phase executor done at {time.perf_counter() - t0:.1f} s")
     families = phase_families(dev, rec_fam)
     log(f"phase families done at {time.perf_counter() - t0:.1f} s")
+    planner = phase_planner(dev)
+    log(f"phase planner done at {time.perf_counter() - t0:.1f} s")
     served = dict.fromkeys([*TOLERANCE, *ops.ATTENTION_LAUNCHES], 0)
     for arch in SERVE_ARCHS:
         for name, n in phase_serve(dev, rec_serve,
@@ -2241,8 +2551,8 @@ def main() -> int:
     # each kernel is timed at its first launch on the main path: the
     # server's shapes where it launched the kernel, else the executor's,
     # else the families'
-    main_path = {k: executor[k] + families[k] + served[k] + trained[k]
-                 for k in TOLERANCE}
+    main_path = {k: executor[k] + families[k] + planner[k] + served[k]
+                 + trained[k] for k in TOLERANCE}
     log(f"main path: flash_attention launches by CUDA kernel "
         f"{json.dumps({k: served[k] for k in ops.ATTENTION_LAUNCHES})}")
     line = kernels_line(dev, {**rec_fam.first, **rec_exec.first,

@@ -149,8 +149,9 @@ PAPER_TABLE5 = {
 # machine, 4×200 Gbps RoCE NICs between machines), as the repository's
 # Table-4 benchmark parameterizes it (benchmarks/table4_gpu_testbed.py,
 # GPU_PARAMS). These are the paper's testbed parameters, NOT measured on
-# this card: they are the service's default pricing basis until the GPU
-# calibration path is ported. Units: seconds per round / per data unit.
+# this card: they are the service's default pricing basis until it is
+# calibrated (`PlannerService.calibrate`; `backend="torch"` measures on
+# the card). Units: seconds per round / per data unit.
 GPU_TESTBED = {
     "root_sw": GenModelParams(alpha=2e-5, beta=6.4e-12, gamma=0.0,
                               delta=0.0, epsilon=6.0e-13, w_t=9),

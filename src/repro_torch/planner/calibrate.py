@@ -18,6 +18,10 @@ instance):
     the level class (the default; deterministic, runs anywhere);
   * "closed_form" — sample the Table-2 closed forms directly (exact
     round-trip, used by the calibration tests);
+  * "torch"       — time the port's own kernels on a device
+    (`TorchProvider`, the card by default; it raises without one): the
+    Fig.-4 folds through `fused_reduce` and the CPS AllReduce on a local
+    mesh of n ranks, all on that one device;
   * `TelemetryProvider` — the online loop (DESIGN.md §10): runtime
     telemetry samples (`runtime.telemetry`), recorded by
     `PlannerService.observe` as CPS-equivalent (n, S, time) points,
@@ -49,7 +53,7 @@ class CalibrationConfig:
     sizes: tuple[float, ...] = (1e6, 4e6, 1.6e7)     # data units (floats)
     fig4_xs: tuple[int, ...] = tuple(range(2, 17))   # fan-in degrees
     fig4_size: float = 1e6
-    backend: str = "simulator"    # simulator | closed_form
+    backend: str = "simulator"    # simulator | closed_form | torch
     unit_bytes: int = 4
     levels: tuple[str, ...] = ("cross_dc", "root_sw", "middle_sw", "server")
     # plan-evaluation engine for the simulator backend's sweeps: "fast"
@@ -225,8 +229,8 @@ class MeasurementProvider:
 
     `cps_curve` returns (ns, sizes, times) of co-located-PS AllReduce
     runs; `fig4_curve` returns (xs, times) of the fan-in fold
-    microbench. Subclasses measure (simulator / closed form / runtime
-    telemetry); the fit never knows which.
+    microbench. Subclasses measure (simulator / closed form / the port's
+    kernels on a device / runtime telemetry); the fit never knows which.
     """
 
     name = "base"
@@ -377,7 +381,39 @@ class TelemetryProvider(MeasurementProvider):
         return int(source.w_t)
 
 
-_PROVIDERS = {p.name: p for p in (SimulatorProvider, ClosedFormProvider)}
+class TorchProvider(MeasurementProvider):
+    """Time the port's own fold kernel and CPS schedule on one device —
+    the counterpart of the reference's `lax` backend.
+
+    `fig4_curve` folds x blocks of `cfg.fig4_size` f32 in one
+    `ops.fused_reduce` launch (x·S read, S written: the (x+1)·S traffic
+    of GenModel's δ term), timed on the device's clock. `cps_curve` runs
+    the CPS AllReduce with all n ranks of a local mesh on that ONE
+    device (`CompiledSchedule.run_local`), timed on the host clock to a
+    synchronize — the clock `PlannerService.observe` compares against.
+    That curve describes one device's memory and launches, not links,
+    and the device cannot tell level classes apart, so every level gets
+    the same curves. `device` defaults to the card; without one the
+    constructor raises (no fallback): the CPU runs only when asked for
+    (`device="cpu"`)."""
+
+    name = "torch"
+
+    def __init__(self, device="cuda"):
+        from repro_torch.runtime.device import resolve_device
+        self.device = resolve_device(device)
+
+    def cps_curve(self, level, source, cfg):
+        return measure_local_cps(cfg.ns, cfg.sizes, device=self.device)
+
+    def fig4_curve(self, level, source, cfg):
+        xs = np.array(cfg.fig4_xs, dtype=float)
+        return xs, _measure_card_fold(cfg.fig4_xs, cfg.fig4_size,
+                                      device=self.device)
+
+
+_PROVIDERS = {p.name: p for p in (SimulatorProvider, ClosedFormProvider,
+                                  TorchProvider)}
 
 
 def provider_for(cfg: CalibrationConfig) -> MeasurementProvider:
@@ -385,6 +421,96 @@ def provider_for(cfg: CalibrationConfig) -> MeasurementProvider:
     if cls is None:
         raise ValueError(f"unknown backend {cfg.backend!r}")
     return cls()
+
+
+# device cycles of the spin ahead of each timed fold (≈ 1 ms at the
+# H100's 1.98 GHz boost clock): longer than the host takes to enqueue the
+# start event, the fold and the end event
+_FOLD_SPIN_CYCLES = 1 << 21
+
+
+def _measure_card_fold(fan_ins, s: float, device="cuda",
+                       repeats: int = 5) -> np.ndarray:
+    """Real Fig.-4 measurement on a device: per fan-in x, the median of
+    `repeats` folds of x blocks of S f32 into one, each a single
+    `ops.fused_reduce` launch, after one warm-up launch (a kernel's first
+    launch loads its module). Timed with CUDA events on the card, each
+    pair enqueued behind a spin kernel so that the events bracket the
+    fold's device time and not the host's dispatch, and on the host clock
+    on the CPU; follows T(x) = (x+1)·S·δ + (x−1)·S·γ with the device's
+    memory and add rates."""
+    import time
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    times = []
+    for x in fan_ins:
+        blocks = torch.ones((int(x), int(s)), dtype=torch.float32,
+                            device=dev)
+        ops.fused_reduce(blocks)
+        ts = []
+        for _ in range(repeats):
+            if on_card:
+                t0, t1 = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                torch.cuda._sleep(_FOLD_SPIN_CYCLES)
+                t0.record()
+                ops.fused_reduce(blocks)
+                t1.record()
+                t1.synchronize()
+                ts.append(t0.elapsed_time(t1) * 1e-3)
+            else:
+                t0 = time.perf_counter()
+                ops.fused_reduce(blocks)
+                ts.append(time.perf_counter() - t0)
+        times.append(sorted(ts)[len(ts) // 2])
+        del blocks
+    return np.array(times)
+
+
+def measure_local_cps(ns, sizes, device="cuda", repeats: int = 3):
+    """Time the CPS AllReduce on a local mesh of n ranks, all on one
+    device: `gentree.baseline_plan("cps", single_switch(n), S)` lowered by
+    `core.lower.lower_plan` (the structure is size-free: once per n) and
+    run with `CompiledSchedule.run_local` on an (n, S) f32 tensor, one
+    warm-up and then the median of `repeats` on the host clock to a
+    synchronize. Returns the same (ns, sizes, times) triple as the
+    synthetic backends. The times describe that device's memory and
+    launches, not links."""
+    import time
+
+    import torch
+
+    from repro_torch.core.gentree import baseline_plan
+    from repro_torch.core.lower import lower_plan
+
+    dev = torch.device(device)
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out_ns, out_sizes, out_times = [], [], []
+    for n in ns:
+        cs = lower_plan(baseline_plan("cps", single_switch(int(n)),
+                                      float(sizes[0])))
+        for s in sizes:
+            x = torch.randn((int(n), int(s)), generator=gen, device=dev)
+            cs.run_local(x)
+            sync()
+            ts = []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                cs.run_local(x)
+                sync()
+                ts.append(time.perf_counter() - t0)
+            out_ns.append(float(n))
+            out_sizes.append(float(s))
+            out_times.append(sorted(ts)[len(ts) // 2])
+            del x
+    return np.array(out_ns), np.array(out_sizes), np.array(out_times)
 
 
 def measure_cps_curve(level: str, source: GenModelParams,
@@ -423,7 +549,8 @@ def calibrate_levels(source: dict[str, GenModelParams] | None = None,
                      ) -> CalibrationResult:
     """Measure + refit every level class. `source` is the measurement
     target: the params dict the synthetic backends treat as ground truth
-    (online, `TelemetryProvider` replaces it with measured timings).
+    (`TorchProvider` and, online, `TelemetryProvider` replace it with
+    measured timings).
 
     `provider` overrides the backend lookup with a custom
     `MeasurementProvider` instance — notably `TelemetryProvider`, which

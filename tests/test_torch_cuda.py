@@ -729,3 +729,54 @@ def test_overwriting_reduce_scatter_on_card(dev):
                 + ([cs.reorder] if cs.reorder is not None else []))
     assert ops.LAUNCHES["fused_reduce"] == before + folds
     assert torch.equal(got, want)
+
+
+def test_torch_provider_launches_fused_reduce_as_counted(dev):
+    """The card's calibration backend: a warm-up and 5 timed folds a
+    fan-in (one `fused_reduce` launch each) and a warm-up and 3 timed CPS
+    runs an (n, S), one fold kernel a fold phase; positive times."""
+    from repro_torch.core.gentree import baseline_plan
+    from repro_torch.planner.calibrate import (CalibrationConfig,
+                                               TorchProvider)
+    cfg = CalibrationConfig(backend="torch", ns=(2, 3, 8),
+                            sizes=(1000.0, 1 << 16), fig4_xs=(2, 5, 9),
+                            fig4_size=1 << 16)
+    prov = TorchProvider()
+    assert prov.device.type == "cuda"
+    before = dict(ops.LAUNCHES)
+    xs, f4 = prov.fig4_curve("server", PAPER_TABLE5["server"], cfg)
+    assert ops.LAUNCHES["fused_reduce"] == before["fused_reduce"] + 6 * 3
+    ns, sizes, times = prov.cps_curve("server", PAPER_TABLE5["server"], cfg)
+    torch.cuda.synchronize()
+    folds = {m: sum(len(st.folds) for st in cs.rs + cs.ag) for m in cfg.ns
+             for cs in [lower_plan(baseline_plan("cps", single_switch(m),
+                                                 1000.0))]}
+    assert ops.LAUNCHES["fused_reduce"] == before["fused_reduce"] + 18 + sum(
+        4 * folds[m] * len(cfg.sizes) for m in cfg.ns)
+    assert {k: v for k, v in ops.LAUNCHES.items() if k != "fused_reduce"} \
+        == {k: v for k, v in before.items() if k != "fused_reduce"}
+    assert (f4 > 0).all() and (times > 0).all()
+    assert len(times) == len(cfg.ns) * len(cfg.sizes)
+
+
+def test_service_calibrated_on_card_runs_its_decode_plan(dev):
+    """A service calibrated on the card (`backend="torch"`) prices with the
+    fitted params, which pass `validate_params`, and its decode AllReduce
+    lowers and runs within 1e-6 of the column sum."""
+    from repro_torch.planner.calibrate import (CalibrationConfig,
+                                               validate_params)
+    from repro_torch.planner.service import PlannerService
+    svc = PlannerService()
+    res = svc.calibrate(cfg=CalibrationConfig(
+        backend="torch", ns=(2, 4, 8), sizes=(1 << 16, 1 << 18),
+        fig4_xs=(2, 4, 8), fig4_size=1 << 20, levels=("root_sw", "server")))
+    assert res.backend == "torch" and svc.params == res.params
+    for lvl, p in res.params.items():
+        assert validate_params(p) == [], lvl
+    resp = svc.get_axis_executable("model", 8, 4 * 5120.0)
+    X = _rand((8, 4 * 5120), 42, dev)
+    got = resp.schedule.run_local(X)
+    want = X.double().sum(dim=0)
+    torch.cuda.synchronize()
+    assert float((got.double() - want).abs().max() / want.abs().max()) \
+        <= 1e-6
