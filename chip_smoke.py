@@ -5,11 +5,13 @@
     python3 chip_smoke.py --attention [--src OTHER/src]
     python3 chip_smoke.py --recurrence [--src OTHER/src]
     python3 chip_smoke.py --planner
+    python3 chip_smoke.py --flat
 
 The second and third forms build the kernels and run the attention rows
 or the recurrence rows of phase 2 alone (of another source tree with
 --src: two commits timed on one card in turn), the fourth the planner
-phase (3c) alone; none prints a result line.
+phase (3c) alone, the fifth the flat collectives phase (3b2) alone; none
+prints a result line.
 Phases, each of which fails the run (non-zero exit, no result line) on
 any error:
 
@@ -176,6 +178,7 @@ path never launches), the card's name and power limit, and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -216,6 +219,8 @@ REFERENCE_RUN = {"gemma2-27b": (2, 48, 64)}
 TRAIN = dict(arch="stablelm-12b", layers=2, steps=3, seq_len=128,
              global_batch=8, lr=1e-3, local_ranks=8)
 TRAIN_FALL_LRS = (1e-4,)
+# the per-leaf trainer's other sync labels, at the first of TRAIN_FALL_LRS
+TRAIN_FLAT = ("ring", "rhd", "cps", "hcps", "gentree", "auto")
 TRAIN_SMOKE_STEPS = 3            # smoke-size f32 steps, card against CPU
 # the bucketed trainer's pinned bucket: 10 buckets of the full-width leaves
 TRAIN_BUCKET_BYTES = 64 << 20
@@ -1338,6 +1343,296 @@ def phase_families(dev, recorder) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the flat collectives (core.collectives, core.sync) on the local mesh
+# ---------------------------------------------------------------------------
+# the reference test's strategies on 8 ranks, then rhd on the ranks that
+# are not a power of two; sizes a rank: EXEC_SIZES and the padded 13
+FLAT_CASES = ([(8, "psum", None), (8, "ring", None), (8, "rhd", None),
+               (8, "cps", None), (8, "hcps", (4, 2)), (8, "hcps", (2, 4)),
+               (8, "hcps", (2, 2, 2))]
+              + [(n, "rhd", None) for n in (3, 5, 6, 7)])
+FLAT_PADDED = 13
+
+
+def flat_folds(strategy: str, factors, n: int, half: str) -> int:
+    """The fused_reduce launches of one flat collective, from its
+    structure: a reduce-scatter folds n − 1 times on the ring (one
+    2-operand fold a step, the first reads two ranks' chunks in place),
+    log2 p times by rhd over its power-of-two core p (plus the fold-in of
+    the extras at n ≠ p), once for cps and psum (one n-ary fold), once a
+    stage for hcps; an all-gather only copies; an AllReduce is its
+    reduce-scatter's folds (psum: one n-ary fold and a broadcast copy)."""
+    if half == "all_gather":
+        return 0
+    pow2 = 1 << (n.bit_length() - 1)
+    return {"psum": 1, "cps": 1, "ring": n - 1,
+            "rhd": pow2.bit_length() - 1 + (n != pow2),
+            "hcps": len(factors or ())}[strategy]
+
+
+class Counted:
+    """`fn` with its calls counted, so that a phase's launches can be
+    reckoned as (launches a call) × (calls) over its checks and timings."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self):
+        self.calls += 1
+        return self.fn()
+
+
+def flat_strategy_bytes(strategy, factors, n: int, size: int, half: str,
+                        elem: int = 4) -> int:
+    """Bytes one flat collective must move if each round's copy and each
+    fold's rows cross device memory once (`FlatProgram.nbytes` of its
+    reduce-scatter and all-gather programs), plus the copy of the input
+    into a padded (or, for rhd's in-place fold-in, private) buffer."""
+    from repro_torch.core import collectives as C
+    mult = C._pad_multiple(n, strategy)
+    L = size + (-size) % mult
+    total = 0
+    if half == "allreduce" and strategy == "psum":
+        return C.flat_program("psum", "allreduce", (n,), (0,)).nbytes(
+            n, size, elem)
+    fac = tuple(factors) if factors else None
+    rs = C.flat_program(strategy, "reduce_scatter", (n,), (0,), fac,
+                        order=half != "allreduce")
+    ag = C.flat_program(strategy, "all_gather", (n,), (0,), fac,
+                        order=half != "allreduce")
+    if half in ("allreduce", "reduce_scatter"):
+        if L != size or rs.mutates_input:
+            total += 2 * n * L * elem
+        total += rs.nbytes(n, L, elem)
+    if half in ("allreduce", "all_gather"):
+        total += ag.nbytes(n, L, elem)
+    return total
+
+
+def phase_flat(dev) -> tuple[dict, list]:
+    """The flat collectives on the local mesh (`core.collectives`,
+    `core.sync`), every sum a fused_reduce launch: each case of
+    FLAT_CASES at EXEC_SIZES a rank (and 8 × FLAT_PADDED) through
+    `allreduce`, `reduce_scatter` and `all_gather` (rhd off a power of
+    two: its AllReduce; its reduce-scatter shards over the core), held
+    against the column sum in f32 (1e-6 of the largest |value|; the
+    all-gather exactly), each call's fused_reduce launches exactly
+    `flat_folds`; the GenTree plan (`run_local` through
+    `collectives.allreduce(strategy="plan")`) on the same inputs;
+    `allreduce_int8_cps` within 0.05, `allreduce_topk` exact on a sparse
+    input, and `sync_gradients` over a (pod 2, data 4) mesh with hcps (2,
+    2). Prints each run's device time (CUDA events), wall time (host
+    clock to a synchronize), the function's bound (input read and output
+    written once) and the strategy's byte bound (`flat_strategy_bytes`).
+    Returns the phase's launches and the fold kernel's rows at the new
+    launch shapes (gathered, recorded tables; dense, beside torch.sum)."""
+    import torch
+    from repro_torch.core import collectives as C
+    from repro_torch.core import sync as S
+    from repro_torch.core.lower import guard_schedule
+    from repro_torch.kernels import ops, ref
+    from repro_torch.planner.service import default_service
+
+    svc = default_service()
+    ops.reset_launches()
+    expected = 0
+    # the fold launches of 2^26 a rank recorded for the kernel rows:
+    # ring's 2-operand folds, cps's 8-ary fold, hcps (4, 2)'s two stages
+    recorded = {(8, "ring", None): FoldRecorder(),
+                (8, "cps", None): FoldRecorder(),
+                (8, "hcps", (4, 2)): FoldRecorder()}
+    rows = []
+
+    def run(what, fn, per_call, *, time_it=True, big=False):
+        """Call fn once checked (its fused_reduce launches must be
+        per_call), then time it; returns (result, device ms, wall ms)."""
+        nonlocal expected
+        f = Counted(fn)
+        before = ops.LAUNCHES["fused_reduce"]
+        got = f()
+        torch.cuda.synchronize()
+        launched = ops.LAUNCHES["fused_reduce"] - before
+        if launched != per_call:
+            fail(f"flat {what}: {launched} fused_reduce launch(es), its "
+                 f"structure gives {per_call}")
+        dev_ms = wall_ms = float("nan")
+        if time_it:
+            dev_ms = (device_ms(f, launches=2, blocks=2) if big
+                      else device_ms(f, launches=3, blocks=3))
+            wall_ms = host_ms(f, calls=2 if big else 3)
+        expected += per_call * f.calls
+        return got, dev_ms, wall_ms
+
+    def report(what, err, tol, dev_ms, wall_ms, fn_bytes, strat_bytes,
+               launches):
+        log(f"flat {what}: rel err {err:.2e} (tol {tol:g}); fused_reduce "
+            f"{launches} a call (by its structure); device {dev_ms:.4f} ms "
+            f"wall {wall_ms:.4f} ms; in+out bound "
+            f"{bound_ms(fn_bytes):.4f} ms; strategy byte bound "
+            f"{bound_ms(strat_bytes):.4f} ms")
+        if not err <= tol:
+            fail(f"flat {what}: rel err {err:.3e} over {tol}")
+
+    sizes = [(s, label) for s, label in EXEC_SIZES] + [(FLAT_PADDED,
+                                                        "padded 13")]
+    for size, label in sizes:
+        big = size >= 1 << 24
+        for n, strategy, factors in FLAT_CASES:
+            if size == FLAT_PADDED and n != 8:
+                continue
+            g = torch.Generator(device=dev).manual_seed(size % 997 + n)
+            X = torch.randn((n, size), generator=g, device=dev)
+            want = X.double().sum(dim=0)
+            scale = float(want.abs().max())
+            name = f"{strategy}{'' if factors is None else factors} n={n}"
+            what = f"{name} {label}"
+            elem = X.element_size()
+            per = flat_folds(strategy, factors, n, "allreduce")
+            rec = recorded.get((n, strategy, factors)) if big else None
+            with rec or contextlib.nullcontext():
+                got, d_ms, w_ms = run(f"allreduce {what}", lambda: C.allreduce(
+                    X, "x", strategy, factors=factors), per, big=big)
+            err = float((got.double() - want).abs().max()) / scale
+            del got
+            report(f"allreduce {what}", err, 1e-6, d_ms, w_ms,
+                   2 * X.numel() * elem,
+                   flat_strategy_bytes(strategy, factors, n, size,
+                                       "allreduce"), per)
+            if strategy == "rhd" and n & (n - 1):
+                continue
+            per = flat_folds(strategy, factors, n, "reduce_scatter")
+            rs, d_ms, w_ms = run(f"reduce_scatter {what}",
+                                 lambda: C.reduce_scatter(
+                                     X, "x", strategy, factors=factors),
+                                 per, big=big)
+            mult = C._pad_multiple(n, strategy)
+            wp = torch.nn.functional.pad(want, (0, (-size) % mult))
+            err = float((rs.double() - wp.reshape(n, -1)).abs().max()) / scale
+            report(f"reduce_scatter {what}", err, 1e-6, d_ms, w_ms,
+                   (X.numel() + rs.numel()) * elem,
+                   flat_strategy_bytes(strategy, factors, n, size,
+                                       "reduce_scatter"), per)
+            ag, d_ms, w_ms = run(f"all_gather {what}", lambda: C.all_gather(
+                rs, "x", strategy, factors=factors), 0, big=big)
+            exact = torch.equal(ag, rs.reshape(1, -1).expand(n, -1))
+            report(f"all_gather {what}", 0.0 if exact else float("inf"), 0.0,
+                   d_ms, w_ms, (rs.numel() + ag.numel()) * elem,
+                   flat_strategy_bytes(strategy, factors, n, size,
+                                       "all_gather"), 0)
+            del rs, ag
+            if n == 8 and strategy == "cps":
+                # the same inputs through the GenTree plan and int8 CPS
+                cs = svc.get_axis_executable("x", n, float(size)).schedule
+                sched = guard_schedule(cs)
+                per = sum(len(st.folds) for st in cs.rs + cs.ag)
+                got, d_ms, w_ms = run(f"gentree {label}", lambda: C.allreduce(
+                    X, "x", "plan", schedule=sched), per, big=big)
+                err = float((got.double() - want).abs().max()) / scale
+                del got
+                report(f"allreduce gentree plan n=8 {label} "
+                       f"({cs.describe()})", err, 1e-6, d_ms, w_ms,
+                       2 * X.numel() * elem, schedule_bytes(cs, size,
+                                                            X.dtype), per)
+                if sched.demotions or sched.stats["failures"]:
+                    fail(f"flat gentree {label}: guard {sched.stats}")
+                got, d_ms, w_ms = run(f"int8 cps {label}",
+                                      lambda: S.allreduce_int8_cps(X, "x"),
+                                      1, big=big)
+                err = float((got.double() - want).abs().max()) / scale
+                del got
+                report(f"allreduce_int8_cps n=8 {label}", err, 0.05, d_ms,
+                       w_ms, 2 * X.numel() * elem,
+                       # X read, its int8 payload written and read, the
+                       # decoded f32 operands written and read, the
+                       # gathered f32 result written
+                       X.numel() * (elem + 2 + 2 * 4 + 4), 1)
+            del X, want
+        torch.cuda.empty_cache()
+
+    # top-k on the reference test's sparse input and at the decode size:
+    # k covers every nonzero, so the result is the column sum, added in
+    # rank order from zero (the plain fold's order): exact
+    for size in (1000, 4 * 5120):
+        sparse = torch.zeros((8, size), device=dev)
+        g = torch.Generator(device=dev).manual_seed(size)
+        sparse[:, :5] = torch.randn((8, 5), generator=g, device=dev)
+        got, d_ms, w_ms = run(f"topk {size}", lambda: S.allreduce_topk(
+            sparse, "x", k_frac=0.01), 0)
+        exact = all(torch.equal(r, ref.fused_reduce_ref(sparse))
+                    for r in got)
+        report(f"allreduce_topk 8 x {size} sparse (5 nonzeros a rank)",
+               0.0 if exact else float("inf"), 0.0, d_ms, w_ms,
+               2 * sparse.numel() * 4, 2 * sparse.numel() * 4, 0)
+
+    # sync_gradients on (pod 2, data 4) with hcps (2, 2), the reference
+    # test's case and a decode-sized leaf: data folds twice, pod once
+    cfg = S.SyncConfig(strategy="hcps", factors=(2, 2))
+    axes, mesh = [("data", 4), ("pod", 2)], [("pod", 2), ("data", 4)]
+    plans = S.resolve_axis_plans(axes, cfg, 1.0)
+    per = sum(flat_folds(p.strategy, p.factors, n, "allreduce")
+              for p, (_, n) in zip(plans, axes))
+    for size in (24, 4 * 5120):
+        z = torch.randn((2, 4, size), generator=torch.Generator(
+            device=dev).manual_seed(size), device=dev)
+        want = z.double().sum(dim=(0, 1))
+        got, d_ms, w_ms = run(f"sync_gradients {size}",
+                              lambda: S.sync_gradients({"g": z}, axes, cfg,
+                                                       mesh=mesh)["g"], per)
+        err = float((got.double() - want).abs().max()) / float(
+            want.abs().max())
+        report(f"sync_gradients (pod 2, data 4) hcps (2, 2) x {size} "
+               f"({', '.join(f'{p.axis} {p.strategy}{p.factors or ()}' for p in plans)})",
+               err, 1e-6, d_ms, w_ms, 2 * z.numel() * 4,
+               sum(8 // n * flat_strategy_bytes(p.strategy, p.factors, n,
+                                                size, "allreduce")
+                   for p, (_, n) in zip(plans, axes)), per)
+
+    counts = dict(ops.LAUNCHES)
+    log(f"flat: fused_reduce launches {counts['fused_reduce']}, expected "
+        f"{expected} (each call's structure times its calls); launches "
+        f"{json.dumps(counts)}")
+    if counts["fused_reduce"] != expected:
+        fail(f"flat: {counts['fused_reduce']} fused_reduce launches, "
+             f"expected {expected}")
+    for name, count in counts.items():
+        if name != "fused_reduce" and count:
+            fail(f"flat launched {name} {count} time(s)")
+
+    # the fold kernel at the new launch shapes (2^26 a rank, 8 ranks):
+    # the gathered form with the recorded tables, and the dense (B, x, L)
+    # form beside torch.sum over the stack
+    picks = []
+    for (n, strategy, factors), rec in recorded.items():
+        seen = set()
+        for call in rec.calls.values():
+            table = call[2]
+            key = (table.rows.shape, call[0][1], table.has_own)
+            if key not in seen:
+                seen.add(key)
+                picks.append((f"{strategy}{factors or ''}", call))
+    for case, (src_shape, src_dtype, table, out_shape, out_dtype) in picks:
+        B, x = table.rows.shape
+        own = table.has_own
+        L = src_shape[1]
+        label = (f"flat {case} fold x={x}{' + own' if own else ''}: into "
+                 f"B={B} L={L}")
+        r = measure(fused_reduce_into_case(src_shape, src_dtype, table,
+                                           out_shape, out_dtype, dev))
+        rows.append(("fused_reduce", label, r))
+        r = measure(fused_reduce_case((B, x + int(own), L), src_dtype, dev))
+        rows.append(("fused_reduce", f"flat fold dense ({B}, {x + int(own)}"
+                     f", {L}) vs torch.sum", r))
+        torch.cuda.empty_cache()
+    r = measure(fused_reduce_case((9, 1 << 24), torch.float32, dev))
+    rows.append(("fused_reduce", "Fig. 4 fold dense (9, 2^24) f32", r))
+    for name, what, r in rows:
+        if r["max_abs_err"] != 0.0:
+            fail(f"{name} {what} differs from its plain version by "
+                 f"{r['max_abs_err']}")
+    return counts, rows
+
+
 def run_checked(cs, family: str, size: int, dev, seed: int, what: str
                 ) -> tuple[float, float]:
     """Run schedule `cs` through the guard's entry point for `family` at
@@ -1840,7 +2135,7 @@ class FoldRecorder:
 
 
 def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
-                 step=None) -> dict:
+                 step=None, plan=None) -> dict:
     """The least time of each part of one step (ms), from this run's
     shapes: the gather and the reduce-scatter at their schedule's bytes
     (`schedule_bytes` of each launch's per-rank rows: each leaf's padded
@@ -1855,7 +2150,17 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
     P = sum(int(t.numel()) for t in shards)       # padded, all ranks
     elem = shards[0].element_size()
     dtype = shards[0].dtype
-    if step is not None and step.bucket_plan is not None:
+    if plan is not None and plan.strategy != "plan":
+        # a flat label: its programs' bytes at each leaf's padded rows
+        # (`flat_strategy_bytes`)
+        gather = sum(flat_strategy_bytes(plan.strategy, plan.factors, n,
+                                         int(t.numel()), "all_gather", elem)
+                     for t in shards)
+        scatter = sum(flat_strategy_bytes(plan.strategy, plan.factors, n,
+                                          int(t.numel()), "reduce_scatter",
+                                          elem)
+                      for t in shards)
+    elif step is not None and step.bucket_plan is not None:
         gather = sum(schedule_bytes(cs, n * bk.width, dtype,
                                     family_steps(cs, "allgather"))
                      for bk in step.gather_buckets)
@@ -1977,8 +2282,9 @@ def phase_train(dev, lr: float, must_fall: bool, recorder=None, *,
     shards = res["state"]["params"]
     step = res["step"]
     (plan,) = res["plans"]
-    sched = plan.schedule
-    cs = sched.inner
+    flat = plan.strategy != "plan"          # a flat label: no schedule
+    sched = None if flat else plan.schedule
+    cs = None if flat else sched.inner
     bp = step.bucket_plan
     losses, gnorms = res["losses"], res["gnorms"]
     if bp is not None:
@@ -1998,6 +2304,11 @@ def phase_train(dev, lr: float, must_fall: bool, recorder=None, *,
             + f"; {len(step.gather_buckets)} gather bucket(s), "
             f"{len(step.scatter_buckets)} scatter bucket(s); schedule "
             f"{cs.describe()}")
+    elif flat:
+        plan_txt = (f"flat {plan.strategy}"
+                    + (f" factors {plan.factors}" if plan.factors else "")
+                    + (f" (predicted {plan.predicted * 1e3:.3f} ms)"
+                       if plan.predicted is not None else ""))
     else:
         plan_txt = (f"plan {cs.describe()} (predicted "
                     f"{plan.predicted * 1e3:.3f} ms)")
@@ -2013,9 +2324,15 @@ def phase_train(dev, lr: float, must_fall: bool, recorder=None, *,
         fail(f"train [{label}]: non-finite loss or gnorm: {losses} {gnorms}")
     if must_fall and not losses[-1] < losses[0]:
         fail(f"train [{label}]: the loss did not fall at lr {lr}: {losses}")
-    rs_folds = sum(len(st.folds) for st in family_steps(cs,
-                                                        "reduce_scatter"))
-    ag_folds = sum(len(st.folds) for st in family_steps(cs, "allgather"))
+    if flat:
+        rs_folds = flat_folds(plan.strategy, plan.factors, n,
+                              "reduce_scatter")
+        ag_folds = flat_folds(plan.strategy, plan.factors, n, "all_gather")
+    else:
+        rs_folds = sum(len(st.folds) for st in family_steps(
+            cs, "reduce_scatter"))
+        ag_folds = sum(len(st.folds) for st in family_steps(cs,
+                                                            "allgather"))
     if bp is None:
         n_ag = n_rs = len(shards)
     else:
@@ -2025,7 +2342,8 @@ def phase_train(dev, lr: float, must_fall: bool, recorder=None, *,
         f"{steps} steps x ({n_ag} all-gathers x {ag_folds} landing phases "
         f"+ {n_rs} reduce-scatters x {rs_folds} fold phases) -> expected "
         f"{want}; launches {json.dumps(counts)}; attention kernels "
-        f"{json.dumps(by_kernel)}; guard {json.dumps(sched.stats)}")
+        f"{json.dumps(by_kernel)}; guard "
+        f"{json.dumps(sched.stats) if sched is not None else 'none (flat)'}")
     if counts["fused_reduce"] != want:
         fail(f"train [{label}] launched fused_reduce "
              f"{counts['fused_reduce']} time(s), expected {want}")
@@ -2034,14 +2352,14 @@ def phase_train(dev, lr: float, must_fall: bool, recorder=None, *,
             fail(f"train [{label}] launched {name} {count} time(s)")
     if any(by_kernel.values()):
         fail(f"train [{label}] ran attention kernels {by_kernel}")
-    if sched.demotions or sched.stats["failures"]:
+    if sched is not None and (sched.demotions or sched.stats["failures"]):
         fail(f"train [{label}]: guard {sched.stats}, {sched.demotions} "
              f"demotion(s)")
     step_ms = statistics.median(res["step_s"][1:]) * 1e3
     parts = {k: statistics.median(p[k] for p in res["phase_ms"][1:])
              for k in PHASES}
     bounds = train_bounds(cfg, cs, shards, n, tr["seq_len"],
-                          tr["global_batch"], step)
+                          tr["global_batch"], step, plan)
     coll = parts["gather"] + parts["reduce_scatter"]
     coll_bound = bounds["gather"] + bounds["reduce_scatter"]
     log(f"train [{label}]: step time median of steps 2-{steps} "
@@ -2054,7 +2372,8 @@ def phase_train(dev, lr: float, must_fall: bool, recorder=None, *,
         f"{coll_bound:.2f} ms; one rank's forward and backward bound: bytes "
         f"{bounds['rank_bytes_ms']:.3f} ms, products "
         f"{bounds['rank_flops_ms']:.3f} ms")
-    return {"counts": counts, "losses": losses, "step": step}
+    return {"counts": counts, "losses": losses, "step": step, "peak": peak,
+            "step_ms": step_ms, "parts": parts}
 
 
 def trainer_rows(dev, recorder) -> list:
@@ -2322,6 +2641,27 @@ def phase_train_all(dev) -> dict:
     torch.cuda.empty_cache()
 
     lr = TRAIN_FALL_LRS[0]
+    # the per-leaf step with the flat labels, "gentree" and "auto" (psum):
+    # the same weights and batches as the per-leaf plan run at lr, so step
+    # 1's loss (no sync before it) is that run's to every digit, and the
+    # later steps differ by the sums' roundings only
+    base = per_leaf[lr]
+    for sync_label in TRAIN_FLAT:
+        r = phase_train(dev, lr, True, sync=SyncConfig(strategy=sync_label),
+                        label=f"per-leaf, --sync {sync_label}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"], base)]
+        log(f"train [per-leaf, --sync {sync_label}]: losses {r['losses']} "
+            f"against the plan run's {base}: step 1 "
+            f"{'equal' if r['losses'][0] == base[0] else 'DIFFERS'}, steps"
+            f" 2-{len(base)} rel {[f'{x:.2e}' for x in rel[1:]]}; step "
+            f"{r['step_ms']:.1f} ms; peak {r['peak'] / 2**30:.2f} GiB")
+        if r["losses"][0] != base[0] or max(rel[1:]) > 1e-2:
+            fail(f"train [--sync {sync_label}]: losses {r['losses']} are "
+                 f"not the plan run's {base} (step 1 exactly, then 1e-2)")
+        for name, c in r["counts"].items():
+            counts[name] += c
+        del r
+        torch.cuda.empty_cache()
     r = phase_train(dev, lr, True, sync=SyncConfig(strategy="plan"),
                     label="bucketed, default plan")
     step = r["step"]
@@ -2481,6 +2821,9 @@ def main() -> int:
                     help="build the kernels and run the planner phase "
                     "alone (Fig. 4, calibration, skew, step plans), then "
                     "stop: no result line")
+    ap.add_argument("--flat", action="store_true",
+                    help="build the kernels and run the flat collectives "
+                    "phase alone, then stop: no result line")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree (default: this checkout's "
                     "src), e.g. another commit's unpacked beside it, to "
@@ -2521,6 +2864,10 @@ def main() -> int:
         phase_planner(dev)
         log(f"phase planner done at {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.flat:
+        log_rows(phase_flat(dev)[1])
+        log(f"phase flat done at {time.perf_counter() - t0:.1f} s")
+        return 0
     unlaunched = phase_kernels(dev)
     log(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
     from repro_torch.kernels import ops
@@ -2530,6 +2877,9 @@ def main() -> int:
     log(f"phase executor done at {time.perf_counter() - t0:.1f} s")
     families = phase_families(dev, rec_fam)
     log(f"phase families done at {time.perf_counter() - t0:.1f} s")
+    flat, flat_rows = phase_flat(dev)
+    log_rows(flat_rows)
+    log(f"phase flat done at {time.perf_counter() - t0:.1f} s")
     planner = phase_planner(dev)
     log(f"phase planner done at {time.perf_counter() - t0:.1f} s")
     served = dict.fromkeys([*TOLERANCE, *ops.ATTENTION_LAUNCHES], 0)
@@ -2551,8 +2901,8 @@ def main() -> int:
     # each kernel is timed at its first launch on the main path: the
     # server's shapes where it launched the kernel, else the executor's,
     # else the families'
-    main_path = {k: executor[k] + families[k] + planner[k] + served[k]
-                 + trained[k] for k in TOLERANCE}
+    main_path = {k: executor[k] + families[k] + flat[k] + planner[k]
+                 + served[k] + trained[k] for k in TOLERANCE}
     log(f"main path: flash_attention launches by CUDA kernel "
         f"{json.dumps({k: served[k] for k in ops.ATTENTION_LAUNCHES})}")
     line = kernels_line(dev, {**rec_fam.first, **rec_exec.first,

@@ -31,8 +31,8 @@ kernel launch on a card):
   * `invalidate_schedules` — drops every lowered schedule and cached
     bucket plan of a service.
 
-A chain over more than one live axis needs a process group an axis (the
-multi-process executor, ROADMAP §1 item 4): the executor raises on it.
+The hierarchical bucket chain over more than one live axis is not
+ported yet (ROADMAP §1 item 4b): the executor raises on it.
 """
 from __future__ import annotations
 
@@ -227,9 +227,9 @@ def supports_halves(axis_plans) -> bool:
 def _one_axis(axis_plans, what: str):
     if len(axis_plans) != 1:
         raise NotImplementedError(
-            f"{what} over {len(axis_plans)} live mesh axes: a hierarchical "
-            "chain needs a process group an axis, the multi-process "
-            "executor (ROADMAP §1 item 4)")
+            f"{what} over {len(axis_plans)} live mesh axes: the "
+            "hierarchical bucket chain is not ported yet (ROADMAP §1 "
+            "item 4b)")
     return axis_plans[0]
 
 
@@ -343,7 +343,7 @@ def sync_bucketed(grads: Sequence[torch.Tensor],
     costs. Metrics: `sync_bucketed_total`, `sync_buckets_per_step`,
     `bucket_pipeline_occupancy`, `sync_bucketed_merged_issue_total`;
     span `sync/bucketed`. More than one live axis raises
-    NotImplementedError (ROADMAP §1 item 4)."""
+    NotImplementedError (ROADMAP §1 item 4b)."""
     leaves = list(grads)
     live = [(a, int(n)) for a, n in axes if int(n) > 1]
     sizes = [int(x[0].numel()) if x.shape[0] else 0 for x in leaves]

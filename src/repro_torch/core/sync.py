@@ -1,20 +1,29 @@
-"""Mesh-axis level classes and per-axis plan selection.
+"""Gradient synchronization strategies on the local mesh: where GenTree
+meets the trainer.
 
 From the reference `core/sync.py`: which Table-5 level class prices each
 mesh-axis position, the single-switch stand-in topology an axis is
-planned on, the per-axis plan labels `PlannerService.get_axis_plans`
-returns, the trainer's `SyncConfig`, and `resolve_axis_plans` for
-`strategy="plan"`, the GenTree plan lowered to a schedule the local mesh
-runs, bound to the wire precision the config asks for. The flat
-strategies (`psum`, `ring`, `rhd`, `cps`, `hcps`, `gentree`) and
-`sync_gradients` need the multi-process executor (ROADMAP §1 item 4);
-the bucketed path is `core.bucketing.sync_bucketed`.
+planned on, the per-axis plans (`plan_axes_gentree`,
+`resolve_axis_plans`: the flat labels psum, ring, rhd, cps and hcps;
+"gentree", the planner's label per axis; "plan", the GenTree plan
+lowered to a schedule and bound to the wire the config asks for), the
+trainer's `SyncConfig`, the expert-parallel all-to-all context, the
+int8 CPS and top-k AllReduces, and `sync_gradients`.
+
+Gradients are local-mesh tensors (`core.collectives`): their leading
+dimensions are the mesh axes, row r of an axis rank r's gradient. Every
+sum on a CUDA tensor is a `fused_reduce` launch (the top-k AllReduce
+scatter-adds its sparse pairs with `index_add_`, as the reference's
+scatter-add). The bucketed path is `core.bucketing.sync_bucketed`.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
+import torch
+
+from . import collectives
 from .cost_model import GPU_AXIS_BASIS, GenModelParams, best_flat_plan
 
 
@@ -40,8 +49,7 @@ class SyncConfig:
     and pipelined by default: bucket_bytes=None lets GenModel pick the
     bucket size, an explicit value pins it, and 0 disables bucketing
     (per-leaf execution). pipeline=False runs buckets back-to-back.
-    The reference's fields and defaults; the port runs `strategy="plan"`
-    (see `resolve_axis_plans`).
+    The reference's fields and defaults.
     """
     strategy: str = "auto"
     factors: tuple[int, ...] | None = None   # for explicit hcps
@@ -130,32 +138,56 @@ def plan_axes_gentree(axes: Sequence[tuple[str, int]], size_floats: float,
     return out
 
 
+SYNC_STRATEGIES = ("auto", "psum", "ring", "rhd", "cps", "hcps",
+                   "gentree", "plan")
+
+
 def check_plan_config(cfg: SyncConfig) -> None:
-    """The port runs `strategy="plan"` without `compress`; the flat
-    strategies and the int8 CPS AllReduce raise NotImplementedError, as
-    they need the multi-process executor (ROADMAP §1 item 4)."""
-    if cfg.strategy != "plan":
-        raise NotImplementedError(
-            f"sync strategy {cfg.strategy!r} needs the multi-process "
-            "executor (ROADMAP §1 item 4); the port runs strategy='plan'")
-    if cfg.compress is not None:
-        raise NotImplementedError(
-            f"compress={cfg.compress!r} (allreduce_int8_cps) needs the "
-            "multi-process executor (ROADMAP §1 item 4)")
+    """A strategy label the reference knows and a `compress` it takes
+    (None or "int8"); ValueError otherwise."""
+    if cfg.strategy not in SYNC_STRATEGIES:
+        raise ValueError(f"unknown sync strategy {cfg.strategy!r}; one of "
+                         f"{SYNC_STRATEGIES}")
+    if cfg.compress not in (None, "int8"):
+        raise ValueError(f"unknown compress {cfg.compress!r}; None or "
+                         "'int8'")
 
 
 def resolve_axis_plans(axes: Sequence[tuple[str, int]], cfg: SyncConfig,
                        size_floats: float) -> list[AxisPlan]:
-    """Per-axis plans of `strategy="plan"`: for each axis of size > 1 the
-    planner's executable (`get_axis_executable` at the axis's Table-5
-    class, `cfg.params` honoured), bound to the wire `cfg.precision` asks
-    for within `cfg.tolerance` (`cost_model.resolve_precision`: a
-    precision whose error budget exceeds the tolerance clamps to f32),
-    wrapped in the schedule guard unless `cfg.guard` is off. The level
-    index counts the original axis position (size-1 axes are skipped but
-    keep their level), as the reference's. Lookups go through the
-    process-wide planner service."""
+    """Per-axis plan resolution shared by the gradient-sync and ZeRO-3
+    engines, for each axis of size > 1.
+
+    "gentree": the process-wide planner service's `get_axis_plans`
+    (`cfg.params` honoured). "plan": the planner's executable
+    (`get_axis_executable` at the axis's Table-5 class), bound to the
+    wire `cfg.precision` asks for within `cfg.tolerance`
+    (`cost_model.resolve_precision`: a precision whose error budget
+    exceeds the tolerance clamps to f32), wrapped in the schedule guard
+    unless `cfg.guard` is off; the level index counts the original axis
+    position (size-1 axes keep their level). A flat label is the axis's
+    plan as it is, hcps with `cfg.factors` where they multiply to the
+    axis size, else the axis's first factorization, or cps on a prime
+    axis."""
+    import math
+    from .plans import factorizations
+
     check_plan_config(cfg)
+    if cfg.strategy == "gentree":
+        from repro_torch.planner.service import default_service
+        return default_service().get_axis_plans(axes, size_floats,
+                                                params=cfg.params)
+    if cfg.strategy != "plan":
+        def axis_plan(a: str, n: int) -> AxisPlan:
+            if cfg.strategy != "hcps":
+                return AxisPlan(a, cfg.strategy, cfg.factors)
+            if cfg.factors and math.prod(cfg.factors) == n:
+                return AxisPlan(a, "hcps", tuple(cfg.factors))
+            facs = factorizations(n)
+            if facs:
+                return AxisPlan(a, "hcps", tuple(facs[0]))
+            return AxisPlan(a, "cps", None)
+        return [axis_plan(a, n) for a, n in axes if n > 1]
     from repro_torch.core.lower import guard_schedule
     from repro_torch.planner.service import default_service
     svc = default_service()
@@ -182,3 +214,217 @@ def resolve_axis_plans(axes: Sequence[tuple[str, int]], cfg: SyncConfig,
         out.append(AxisPlan(a, "plan", schedule=sched,
                             predicted=resp.predicted_time))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel AllToAll context: the trainer opens `expert_parallel(...)`
+# around the loss so the MoE layer's dispatch/combine exchanges run over
+# the right mesh axis — and, under strategy="plan", from the lowered
+# all_to_all plan instead of one copy.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class EPContext:
+    axis: str                       # mesh axis the experts shard over
+    size: int                       # axis size (number of expert groups)
+    # lowered family="all_to_all" CompiledSchedule (possibly guarded);
+    # None ⇒ collectives.all_to_all's one copy
+    schedule: object | None = None
+
+
+_EP_CONTEXT: list = [None]
+
+
+def ep_context() -> EPContext | None:
+    """The active expert-parallel context, if any."""
+    return _EP_CONTEXT[0]
+
+
+class expert_parallel:
+    """Context manager installing an EPContext for the enclosed calls."""
+
+    def __init__(self, axis: str, size: int, schedule=None):
+        self._ctx = EPContext(axis, int(size), schedule)
+        self._prev = None
+
+    def __enter__(self) -> EPContext:
+        self._prev = _EP_CONTEXT[0]
+        _EP_CONTEXT[0] = self._ctx
+        return self._ctx
+
+    def __exit__(self, *exc):
+        _EP_CONTEXT[0] = self._prev
+        return False
+
+
+def ep_all_to_all(x: torch.Tensor, axis_name: str, *, mesh=None
+                  ) -> torch.Tensor:
+    """AllToAll for the MoE dispatch/combine: the active EPContext's
+    planned schedule when it matches `axis_name`, the plain exchange
+    otherwise."""
+    ctx = _EP_CONTEXT[0]
+    sched = ctx.schedule if ctx is not None and ctx.axis == axis_name \
+        else None
+    return collectives.all_to_all(x, axis_name, schedule=sched, mesh=mesh)
+
+
+def _quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 quantization of (R, L) f32 rows: scale = max|x| / 127
+    + 1e-30 a row, q = clip(round(x / scale), −127, 127) (round half to
+    even), as the reference's jnp ops."""
+    scale = x.abs().amax(dim=1) / 127.0 + 1e-30
+    q = torch.clamp(torch.round(x / scale[:, None]), -127, 127).to(
+        torch.int8)
+    return q, scale
+
+
+def allreduce_int8_cps(x: torch.Tensor, axis_name: str, *, mesh=None
+                       ) -> torch.Tensor:
+    """CPS AllReduce with the int8 wire (gradient compression): each rank
+    quantizes its rows with one f32 scale, rank i's chunk i of every rank
+    is decoded (q·scale) and summed by ONE n-ary `fused_reduce` launch over
+    all ranks, the shard is quantized again and gathered, and every rank
+    decodes it. 4× less β/ε cost per the paper's model, at one extra γ/δ
+    quantize pass. Returns x's shape and dtype."""
+    import numpy as np
+
+    from repro_torch.kernels import ops as kops
+    sizes, dim, n, R = collectives._axis(x, axis_name, mesh)
+    if n == 1:
+        return x
+    flat, pad, _ = collectives._flat(x.float(), R, n)
+    c = flat.shape[1] // n
+    q, scale = _quantize_int8(flat)
+    # row Q[i, g] is rank i of group g; its group's rows are Q[:, g]
+    Q = collectives.axis_rows(sizes, (dim,))
+    G = Q.shape[1]
+    rank = np.empty(R, np.int64)
+    rank[Q] = np.arange(n)[:, None]
+    peers = np.empty((R, n), np.int64)
+    peers[Q.reshape(-1)] = np.broadcast_to(Q.T[None], (n, G, n)).reshape(-1, n)
+    rank = torch.from_numpy(rank).to(x.device)
+    peers = torch.from_numpy(peers).to(x.device)
+    # the all-to-all: rank i's operands are chunk i of its group's ranks,
+    # each decoded with its sender's scale, then one n-ary fold
+    deq = q.view(R, n, c)[peers, rank[:, None]].float() \
+        * scale[peers][..., None]
+    shard = kops.fused_reduce(deq)                              # (R, c)
+    del deq
+    qs, sc = _quantize_int8(shard)
+    lead = tuple(x.shape[:len(sizes)])
+    full = collectives.all_gather(
+        (qs.float() * sc[:, None]).reshape(*lead, c), axis_name, "cps",
+        mesh=mesh).reshape(R, -1)
+    if pad:
+        full = full[:, :-pad]
+    return full.reshape(x.shape).to(x.dtype)
+
+
+def allreduce_topk(x: torch.Tensor, axis_name: str, k_frac: float = 0.01,
+                   *, mesh=None) -> torch.Tensor:
+    """Top-k sparsified AllReduce for the low-bandwidth hop: each rank
+    keeps the k·|g| largest-magnitude entries (`torch.topk` on |x|), the
+    (values, indices) pairs are gathered and scatter-added into a dense
+    zero vector, a rank at a time in rank order (`index_add_`; within a
+    rank the indices are distinct, so the sums are deterministic). Every
+    rank gets the result. Error feedback is the caller's concern."""
+    sizes, dim, n, R = collectives._axis(x, axis_name, mesh)
+    flat = x.reshape(R, -1)
+    L = flat.shape[1]
+    k = max(1, int(L * k_frac))
+    _, idx = torch.topk(flat.abs(), k, dim=1)
+    vals = flat.gather(1, idx)
+    Qn = collectives.axis_rows(sizes, (dim,))
+    Q = torch.tensor(Qn, device=x.device)
+    G = Q.shape[1]
+    off = (torch.arange(G, device=x.device) * L)[:, None]
+    acc = torch.zeros(G * L, dtype=flat.dtype, device=x.device)
+    for r in range(n):
+        acc.index_add_(0, (idx[Q[r]] + off).reshape(-1),
+                       vals[Q[r]].reshape(-1))
+    group = torch.empty(R, dtype=torch.long, device=x.device)
+    group[Q.reshape(-1)] = torch.arange(G, device=x.device).repeat(n)
+    return acc.view(G, L).index_select(0, group).reshape(x.shape)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def sync_gradients(grads, axes: Sequence[tuple[str, int]], cfg: SyncConfig,
+                   stats: dict | None = None, *, mesh=None):
+    """AllReduce every gradient leaf across the DP axes per the config.
+
+    `grads` is a tree (dicts, lists, tuples) of local-mesh tensors on
+    `mesh` (default: `axes` in the order given, one leading dimension an
+    axis). Hierarchical, as the reference's: leaf-level axis first, then
+    the outer axes, each over its own dimension with the other dimensions
+    as groups.
+
+      * "auto": one psum over every live axis at once;
+      * "plan" with `bucket_bytes` other than 0: the bucketed path,
+        `core.bucketing.sync_bucketed` (one live axis);
+      * otherwise per leaf: `resolve_axis_plans` at the summed per-rank
+        size, each axis's collective in turn, with `compress="int8"` the
+        int8 CPS AllReduce on cps and hcps axes.
+
+    `stats`, when given, is filled with the resolved plans and their
+    modeled costs (bucketed: the bucket plan's identity and quotes).
+    Span `sync/gradients` on the per-leaf path."""
+    mesh = list(axes) if mesh is None else list(mesh)
+    sizes = [int(s) for _, s in mesh]
+    R = 1
+    for s in sizes:
+        R *= s
+    if cfg.strategy == "auto":
+        names = [a for a, n in axes if n > 1]
+        return _tree_map(lambda g: collectives.psum(g, names, mesh=mesh),
+                         grads)
+
+    if cfg.strategy == "plan" and cfg.bucket_bytes != 0:
+        from .bucketing import sync_bucketed
+        leaves = _tree_leaves(grads)
+        live = [int(n) for _, n in axes if int(n) > 1]
+        # one live axis: each leaf as (n, ...) rows in rank order
+        rows = [g.reshape(R, -1) if live == [R] else g for g in leaves]
+        done = {id(g): r.reshape(g.shape) for g, r in zip(
+            leaves, sync_bucketed(rows, axes, cfg, stats=stats))}
+        return _tree_map(lambda g: done[id(g)], grads)
+
+    plans = resolve_axis_plans(axes, cfg, size_floats=float(
+        sum(g.numel() // R for g in _tree_leaves(grads))))
+    if stats is not None:
+        stats.update({
+            "axis_plans": [(p.axis, p.strategy, p.predicted)
+                           for p in plans],
+            "predicted_total": (sum(p.predicted for p in plans)
+                                if all(p.predicted is not None
+                                       for p in plans) and plans
+                                else None),
+        })
+
+    def leaf(g):
+        for pl in plans:
+            if cfg.compress == "int8" and pl.strategy in ("cps", "hcps"):
+                g = allreduce_int8_cps(g, pl.axis, mesh=mesh)
+            else:
+                g = collectives.allreduce(g, pl.axis, pl.strategy,
+                                          factors=pl.factors,
+                                          schedule=pl.schedule, mesh=mesh)
+        return g
+
+    from repro_torch.runtime.trace import default_tracer
+    with default_tracer().span("sync/gradients", strategy=cfg.strategy,
+                               axes=len(plans)):
+        return _tree_map(leaf, grads)

@@ -10,18 +10,22 @@ ranks are the rows of tensors on one device (the local mesh of
 `launch.serve` is, and each fold phase of a schedule is one
 `fused_reduce_into` launch on a card.
 
-Scope: the reference's `SyncConfig(strategy="plan")` on one
-data-parallel axis, for the dense family: bucketed by default (GenModel
-picks the bucket, `core.bucketing`), per leaf with `bucket_bytes=0`.
-These raise `NotImplementedError` and are never replaced by another
-path: the flat strategies, the `auto` (pjit) engine and the schedule
-probe `observe_sync_probe` (ROADMAP §1 item 4); checkpointing and the
-fault loop (item 5); MoE and the recurrent families' training (item 6);
-a lossy wire in the trainer (item 9).
+Scope: the reference's manual engine on one data-parallel axis, for
+the dense family, with every `SyncConfig` strategy of the reference:
+"plan" bucketed by default (GenModel picks the bucket,
+`core.bucketing`), per leaf with `bucket_bytes=0`; the flat labels
+psum, ring, rhd, cps and hcps, "gentree" (the planner's label for the
+axis) and "auto" (psum) per leaf, through `core.collectives`. These
+raise `NotImplementedError` and are never replaced by another path: the
+`auto` (pjit) engine (ROADMAP §1 items 4b and 6) and the schedule probe
+`observe_sync_probe` (item 4b); checkpointing and the fault loop (item
+5); MoE and the recurrent families' training (item 6); a lossy wire or
+`compress` in the trainer (item 9).
 
     python -m repro_torch.launch.train --engine manual --sync plan --smoke
+    python -m repro_torch.launch.train --engine manual --sync ring --smoke
 
-trains the smoke-size stablelm-12b on the card; `--device cpu` runs it
+train the smoke-size stablelm-12b on the card; `--device cpu` runs them
 on the CPU. Without `--smoke` the model is the full configuration.
 """
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.sync import AxisPlan, SyncConfig, resolve_axis_plans
 from repro_torch.models.registry import ModelAPI
 from repro_torch.models.tree import (stack_layers, tree_from_items,
@@ -74,21 +79,42 @@ def shard_params_zero3(params: dict, n: int) -> list[torch.Tensor]:
 def _gather_leaf(shards: torch.Tensor, numel: int,
                  plans: Sequence[AxisPlan]) -> torch.Tensor:
     """(n, shard) → (n, numel): every rank's gathered copy of the leaf,
-    trimmed of its padding."""
+    trimmed of its padding. `collectives.all_gather` inverts
+    `_scatter_leaf`'s reduce-scatter per strategy, the hcps un-reorder
+    included."""
     full = shards
     for pl in plans:
-        full = pl.schedule.run_local_all_gather(full)
+        full = collectives.all_gather(full, pl.axis, pl.strategy,
+                                      factors=pl.factors,
+                                      schedule=pl.schedule)
     return full[:, :numel]
 
 
 def _scatter_leaf(grads: torch.Tensor, plans: Sequence[AxisPlan]
                   ) -> torch.Tensor:
     """(n, numel) per-rank gradients → (n, shard): row i rank i's shard
-    of their sum, zero-padded to the schedule's block multiple."""
+    of their sum, zero-padded to the plan's multiple."""
     out = grads
     for pl in reversed(plans):
-        out = pl.schedule.run_local_reduce_scatter(out)
+        out = collectives.reduce_scatter(out, pl.axis, pl.strategy,
+                                         factors=pl.factors,
+                                         schedule=pl.schedule)
     return out
+
+
+def _shard_of(numel: int, n: int, plans: Sequence[AxisPlan]) -> int:
+    """The per-rank elements of a leaf of `numel` after `plans`'
+    reduce-scatter: the leaf padded to each plan's multiple (a
+    schedule's block count, a flat label's `_pad_multiple`), over n, or
+    over the power-of-two core for rhd on other axis sizes."""
+    padded = numel
+    for pl in plans:
+        mult = (pl.schedule.num_blocks if pl.strategy == "plan"
+                else collectives._pad_multiple(n, pl.strategy))
+        padded = -(-padded // mult) * mult
+    if any(pl.strategy == "rhd" for pl in plans):
+        return padded // collectives._rhd_pow2(n)[0]
+    return padded // n
 
 
 def _rank_batch(batch: dict, r: int, n: int) -> dict:
@@ -165,10 +191,11 @@ def make_manual_train_step(api: ModelAPI, n: int,
          reference's shard_map: each rank clips by the norm of its own
          shards.
 
-    The sync path is the reference's (`sync.strategy` must be "plan",
-    without `compress`):
-      * bucketed, when `sync.bucket_bytes` is not 0 (None: GenModel picks
-        the bucket; a value pins it): `PlannerService.get_bucket_plan` at
+    The sync path is the reference's, for every `sync.strategy` it takes
+    (`compress` raises, as a lossy wire does):
+      * bucketed, for "plan" when `sync.bucket_bytes` is not 0 (None:
+        GenModel picks the bucket; a value pins it):
+        `PlannerService.get_bucket_plan` at
         the model's bytes in `param_dtype` over 4, and ONE all-gather a
         gather bucket (`core.bucketing.zero3_gather_bucketed`, shard cap
         bucket_bytes // n; the gathered rows compared bucket by bucket)
@@ -182,18 +209,22 @@ def make_manual_train_step(api: ModelAPI, n: int,
         per-leaf path (the bucket plan does not lower, or has no
         canonical shards), so does this step: it logs why, and
         `step.bucket_plan` is None;
-      * per leaf, when `sync.bucket_bytes` is 0: one all-gather and one
-        reduce-scatter a leaf, the axis plan resolved at the summed
-        element count of one rank's shards (`resolve_axis_plans`). A plan
-        whose reduce-scattered shard of some leaf would not be that
-        leaf's parameter shard (its blocks pad the leaf past the
-        multiple of n) is refused here.
+      * per leaf otherwise: one all-gather and one reduce-scatter a leaf
+        (`collectives.all_gather` / `reduce_scatter`), the axis plan
+        resolved at the summed element count of one rank's shards: "auto"
+        is psum, "gentree" the planner's label for the axis
+        (`PlannerService.get_axis_plans`), "plan" its lowered schedule,
+        a flat label itself (`resolve_axis_plans`). A plan whose
+        reduce-scattered shard of some leaf would not be that leaf's
+        parameter shard (its blocks pad the leaf past the multiple of n,
+        or rhd shards over the power-of-two core) is refused here.
     A lossy wire (a `precision` the plan binds, other than f32) raises
     NotImplementedError (ROADMAP §1 item 9): under it each rank's
     gathered copy differs, so the ranks could not share one.
 
-    `step.plans` is the one guarded axis plan the step runs (the bucket
-    plan's on the bucketed path), `step.bucket_plan` the
+    `step.plans` is the one axis plan the step runs (the bucket plan's on
+    the bucketed path; a "plan" schedule guarded unless `sync.guard` is
+    off), `step.bucket_plan` the
     `PlannerService.BucketPlan` or None, `step.gather_buckets` /
     `step.scatter_buckets` the two halves' `Zero3Bucket`s (empty per
     leaf).
@@ -213,6 +244,11 @@ def make_manual_train_step(api: ModelAPI, n: int,
             f"{cfg.name}: the trainer takes the dense family; the "
             f"{cfg.family!r} family's training is ROADMAP §1 item 6")
     check_plan_config(sync)
+    if sync.compress is not None:
+        raise NotImplementedError(
+            f"compress={sync.compress!r} in the ZeRO-3 trainer: the "
+            "reference compresses only in sync_gradients, and a lossy "
+            "wire in the trainer is ROADMAP §1 item 9")
     specs = tree_items(api.params_spec(param_dtype))
     paths = [p for p, _ in specs]
     numels = [math.prod(t.shape) for _, t in specs]
@@ -220,7 +256,7 @@ def make_manual_train_step(api: ModelAPI, n: int,
     shard_sizes = [-(-m // n) for m in numels]
     itemsize = torch.empty((), dtype=param_dtype).element_size()
     bplan = None
-    if sync.bucket_bytes != 0:
+    if sync.strategy == "plan" and sync.bucket_bytes != 0:
         bplan, why = _bucket_plan(n, sync, sum(numels) * itemsize)
         if bplan is None:
             _log.warning("bucketed ZeRO-3 sync falls back to the per-leaf "
@@ -228,20 +264,21 @@ def make_manual_train_step(api: ModelAPI, n: int,
     if bplan is not None:
         plans = list(bplan.axis_plans)
     else:
-        plans = resolve_axis_plans([("data", int(n))], sync,
-                                   float(sum(shard_sizes)))
+        plans = ([AxisPlan("data", "psum")] if sync.strategy == "auto"
+                 else resolve_axis_plans([("data", int(n))], sync,
+                                         float(sum(shard_sizes))))
         for path, numel, size in zip(paths, numels, shard_sizes):
-            padded = numel
-            for pl in plans:
-                nb = pl.schedule.num_blocks
-                padded = -(-padded // nb) * nb
-            if padded != size * n:
+            got = _shard_of(numel, n, plans)
+            if got != size:
+                what = (plans[0].schedule.describe()
+                        if plans[0].strategy == "plan"
+                        else plans[0].strategy)
                 raise ValueError(
                     f"leaf {'/'.join(path)}: the plan's reduce-scatter "
-                    f"shards hold {padded // n} elements, its parameter "
-                    f"shards {size} ({plans[0].schedule.describe()})")
+                    f"shards hold {got} elements, its parameter "
+                    f"shards {size} ({what})")
     for pl in plans:
-        if pl.schedule.wire is not None:
+        if pl.schedule is not None and pl.schedule.wire is not None:
             raise NotImplementedError(
                 f"the {pl.schedule.wire.name} wire in the ZeRO-3 trainer: "
                 "under a lossy all-gather each rank's gathered copy "
@@ -401,7 +438,7 @@ def observe_sync_probe(*args, **kw):
     multi-process executor."""
     raise NotImplementedError(
         "observe_sync_probe: timing an axis's schedule needs one device "
-        "a rank, the multi-process executor (ROADMAP §1 item 4)")
+        "a rank, the multi-process executor (ROADMAP §1 item 4b)")
 
 
 # ---------------------------------------------------------------------------
@@ -413,8 +450,8 @@ class TrainConfig:
     steps: int = 50
     seq_len: int = 128
     global_batch: int = 8
-    engine: str = "auto"            # auto (ROADMAP §1 item 4) | manual
-    sync: str = "auto"              # plan; the flat labels are item 4
+    engine: str = "auto"            # auto (ROADMAP §1 items 4, 6) | manual
+    sync: str = "auto"         # auto|psum|ring|rhd|cps|hcps|gentree|plan
     # backward-overlapped bucket issuance (DESIGN.md §15): the gradient
     # buckets reduce last first; False keeps forward order
     backward_overlap: bool = True
@@ -423,7 +460,7 @@ class TrainConfig:
     seed: int = 0
     log_every: int = 10
     # the reference probes the schedule after training and feeds the
-    # planner; on the local mesh that is item 4, so it is off here and
+    # planner; on the local mesh that is item 4b, so it is off here and
     # True raises
     observe_sync: bool = False
     # export a Chrome trace of the run's spans / the metrics registry
@@ -440,11 +477,11 @@ def _check_train_scope(tc: TrainConfig) -> None:
         raise NotImplementedError(
             f"engine={tc.engine!r}: the single-program sharded engine needs "
             "the multi-process executor and DTensor placements (ROADMAP §1 "
-            "items 4 and 6); the port runs engine='manual'")
-    if tc.sync != "plan":
-        raise NotImplementedError(
-            f"sync={tc.sync!r}: the flat strategies need the multi-process "
-            "executor (ROADMAP §1 item 4); the port runs sync='plan'")
+            "items 4b and 6); the port runs engine='manual'")
+    from repro_torch.core.sync import SYNC_STRATEGIES
+    if tc.sync not in SYNC_STRATEGIES:
+        raise ValueError(f"unknown sync strategy {tc.sync!r}; one of "
+                         f"{SYNC_STRATEGIES}")
     if tc.ckpt_dir is not None:
         raise NotImplementedError(
             "checkpointing and the fault-tolerant loop (ckpt_dir) are "
@@ -459,9 +496,10 @@ def _check_train_scope(tc: TrainConfig) -> None:
 def run_training(tc: TrainConfig, smoke: bool = True, on_log=print) -> dict:
     """Train `tc.arch` (smoke-shrunk unless `smoke` is False) from random
     bf16 weights for `tc.steps` steps on a local mesh of `tc.local_ranks`
-    ranks on `tc.device`, with the reference's planned sync,
+    ranks on `tc.device`, with the reference's sync,
     `SyncConfig(strategy=tc.sync, backward_overlap=tc.backward_overlap)`:
-    bucketed, GenModel picking the bucket. Returns the state, the
+    for "plan" bucketed, GenModel picking the bucket; per leaf for the
+    other labels. Returns the state, the
     per-step losses and gnorms, host-clock step times (each ending in the
     loss's copy to the host), per-step device times of `PHASES` on a
     card, the axis plans, the bucket plan and the model config."""
@@ -489,6 +527,12 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print) -> dict:
                f"{bp.overlap.get('mode', 'sequential')} issuance, "
                f"{bp.precision}, predicted {bp.predicted_contended * 1e3:.3f}"
                f" ms; {bp.axis_plans[0].schedule.describe()}")
+    else:
+        on_log("planner: per-leaf sync, " + "; ".join(
+            pl.schedule.describe() if pl.strategy == "plan"
+            else f"axis {pl.axis} {pl.strategy}"
+            + (f" factors {pl.factors}" if pl.factors else "")
+            for pl in step_fn.plans))
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=tc.seq_len,
                                   global_batch=tc.global_batch,
                                   seed=tc.seed))
@@ -544,7 +588,9 @@ def main():
     ap.add_argument("--arch", default="stablelm-12b")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--engine", default="auto")
-    ap.add_argument("--sync", default="auto")
+    ap.add_argument("--sync", default="auto",
+                    choices=["auto", "psum", "ring", "rhd", "cps", "hcps",
+                             "gentree", "plan"])
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--ckpt-dir", default=None)

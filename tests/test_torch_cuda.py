@@ -780,3 +780,79 @@ def test_service_calibrated_on_card_runs_its_decode_plan(dev):
     torch.cuda.synchronize()
     assert float((got.double() - want).abs().max() / want.abs().max()) \
         <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the flat collectives (core.collectives, core.sync) on the local mesh
+# ---------------------------------------------------------------------------
+FLAT = [("psum", None, 8), ("ring", None, 8), ("rhd", None, 8),
+        ("cps", None, 8), ("hcps", (4, 2), 8), ("hcps", (2, 4), 8),
+        ("hcps", (2, 2, 2), 8), ("rhd", None, 3), ("rhd", None, 5),
+        ("rhd", None, 6), ("rhd", None, 7), ("ring", None, 5)]
+
+
+def _flat_folds(strategy, factors, n, half):
+    """The fused_reduce launches of one flat collective, from its
+    structure: ring n − 1 folds, rhd log2 p (+1 at n ≠ p), cps 1, hcps one
+    a stage, psum 1 (reduce-scatter 1); an all-gather none."""
+    pow2 = 1 << (n.bit_length() - 1)
+    rs = {"psum": 1, "ring": n - 1, "cps": 1,
+          "rhd": pow2.bit_length() - 1 + (n != pow2),
+          "hcps": len(factors or ())}[strategy]
+    return {"reduce_scatter": rs, "all_gather": 0, "allreduce": rs}[half]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strategy,factors,n", FLAT,
+                         ids=[f"{s}-{f}-{n}" for s, f, n in FLAT])
+def test_flat_collective_on_card(dev, strategy, factors, n, dtype):
+    """Each flat collective gives on the card the bits it gives on the CPU
+    (the same fold order; the kernel equals its plain version), and
+    launches exactly its folds: allreduce, reduce-scatter and all-gather,
+    at a size the strategy must pad."""
+    from repro_torch.core import collectives as C
+    X = _rand((n, 4 * 1000 + 13), 50 + n, dev).to(dtype)
+    before = ops.LAUNCHES["fused_reduce"]
+    got = C.allreduce(X, "x", strategy, factors=factors)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_reduce"] - before == _flat_folds(
+        strategy, factors, n, "allreduce")
+    assert torch.equal(got.cpu(), C.allreduce(X.cpu(), "x", strategy,
+                                              factors=factors))
+    if strategy == "rhd" and n & (n - 1):
+        return               # its reduce-scatter shards over the core
+    before = ops.LAUNCHES["fused_reduce"]
+    rs = C.reduce_scatter(X, "x", strategy, factors=factors)
+    ag = C.all_gather(rs, "x", strategy, factors=factors)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_reduce"] - before == _flat_folds(
+        strategy, factors, n, "reduce_scatter")
+    want = C.reduce_scatter(X.cpu(), "x", strategy, factors=factors)
+    assert torch.equal(rs.cpu(), want)
+    assert torch.equal(ag.cpu(), C.all_gather(want, "x", strategy,
+                                              factors=factors))
+
+
+def test_int8_cps_topk_and_two_axis_sync_on_card(dev):
+    """allreduce_int8_cps (one fused_reduce launch) and allreduce_topk give
+    the CPU's bits on the card; sync_gradients over a (2, 4) mesh with
+    hcps (2, 2) within 1e-6 of the column sum."""
+    from repro_torch.core import sync as S
+    g = _rand((8, 1000), 60, dev)
+    before = ops.LAUNCHES["fused_reduce"]
+    got = S.allreduce_int8_cps(g, "x")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fused_reduce"] == before + 1
+    assert torch.equal(got.cpu(), S.allreduce_int8_cps(g.cpu(), "x"))
+    sparse = torch.zeros((8, 1000), device=dev)
+    sparse[:, :5] = _rand((8, 5), 61, dev)
+    got = S.allreduce_topk(sparse, "x")
+    assert torch.equal(got.cpu(), S.allreduce_topk(sparse.cpu(), "x"))
+    assert torch.equal(got[0].cpu(), ref.fused_reduce_ref(sparse.cpu()))
+    z = _rand((2, 4, 24), 62, dev)
+    out = S.sync_gradients({"g": z}, [("data", 4), ("pod", 2)],
+                           S.SyncConfig(strategy="hcps", factors=(2, 2)),
+                           mesh=[("pod", 2), ("data", 4)])["g"]
+    want = z.double().sum(dim=(0, 1))
+    assert float((out.double() - want).abs().max() / want.abs().max()) \
+        <= 1e-6

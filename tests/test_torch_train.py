@@ -74,6 +74,8 @@ STEP_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 # pinned in f32 so that the smoke model splits into several buckets, the
 # GenModel argmin (None) in bf16
 BUCKETED = {"float32": 32768, "bfloat16": None}
+# the per-leaf step's other sync labels (`test_torch_train_flat.py`)
+FLAT_LABELS = ["ring", "rhd", "cps", "hcps", "gentree", "auto"]
 
 _CHILD = r"""
 import dataclasses, os, sys
@@ -224,6 +226,13 @@ for dtype, bucket_bytes in spec.get("bucketed", {}).items():
     api, state = init_state(dtype, f"bucketed/{dtype}")
     train(api, state, SyncConfig(strategy="plan", bucket_bytes=bucket_bytes,
                                  params=PAPER_TABLE5), f"bucketed/{dtype}")
+# the per-leaf path with the flat labels, "gentree" and "auto" (psum)
+for label in spec.get("flat", []):
+    if f"flat/{label}" not in parts:
+        continue
+    api, state = init_state("float32", f"flat/{label}/float32")
+    train(api, state, SyncConfig(strategy=label, params=PAPER_TABLE5),
+          f"flat/{label}/float32")
 np.savez(out_path, **res)
 """
 
@@ -295,8 +304,9 @@ def run_reference(tmp_path_factory, inputs, parts) -> dict:
     """The reference cases of `parts` ("data", "model", "optim", and
     "shards/<dtype>" or "train/<dtype>" for dtype float32 or bfloat16,
     the init, its shards and its plan, and for "train/" the 3 steps;
-    "bucketed/<dtype>", the init and 3 bucketed steps), run in one JAX
-    subprocess."""
+    "bucketed/<dtype>", the init and 3 bucketed steps; "flat/<label>",
+    the init and 3 f32 steps with `SyncConfig(strategy=label)`), run in
+    one JAX subprocess."""
     d = tmp_path_factory.mktemp("torch_train")
     np.savez(d / "inputs.npz", **inputs)
     env = dict(os.environ)
@@ -305,7 +315,8 @@ def run_reference(tmp_path_factory, inputs, parts) -> dict:
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
     spec = repr({"data": DATA, "archs": ARCHS, "specs": SPECS,
                  "clip": list(CLIP), "lr": LR, "steps": STEPS,
-                 "bucketed": BUCKETED, "parts": list(parts)})
+                 "bucketed": BUCKETED, "flat": FLAT_LABELS,
+                 "parts": list(parts)})
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD, str(d / "out.npz"),
          str(d / "inputs.npz"), spec],
@@ -589,17 +600,43 @@ def check_launches(run):
     SyncConfig(strategy="plan", bucket_bytes=0, compress="int8"),
 ], ids=lambda s: f"{s.strategy}-{s.bucket_bytes}-{s.precision}-{s.compress}")
 def test_out_of_scope_sync_raises(sync):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.make_manual_train_step(_api("stablelm-12b"), N, sync=sync,
-                                     device="cpu")
+    """A lossy wire (a bound precision, or `compress`) in the trainer
+    raises with its roadmap item (9). The flat labels, "gentree" and the
+    default "auto" raised until the flat collectives were ported; now
+    they build the per-leaf step on the label's plan ("auto": psum)."""
+    api = _api("stablelm-12b")
+    if sync.precision is not None or sync.compress is not None:
+        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 9"):
+            train.make_manual_train_step(api, N, sync=sync, device="cpu")
+        return
+    step = train.make_manual_train_step(api, N, sync=sync, device="cpu")
+    (plan,) = step.plans
+    assert step.bucket_plan is None and plan.axis == "data"
+    want = {"auto": "psum", "gentree": plan.strategy}.get(sync.strategy,
+                                                           sync.strategy)
+    assert plan.strategy == want in ("psum", "ring", "rhd", "cps", "hcps")
 
 
 @pytest.mark.parametrize("strategy", ["gentree", "ring", "rhd", "cps",
                                       "hcps", "psum", "auto"])
 def test_resolve_axis_plans_takes_plan_only(strategy):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        resolve_axis_plans([("data", N)], SyncConfig(strategy=strategy,
-                                                     bucket_bytes=0), 1e3)
+    """Every label of the reference resolves (it raised until the flat
+    collectives were ported): a flat label is the axis's plan as it is
+    (hcps with the axis's first factorization), "auto" stays the label
+    `sync_gradients` reads as one psum, "gentree" is the planner's label
+    for the axis; an unknown label raises."""
+    plans = resolve_axis_plans([("data", N), ("pod", 1)], SyncConfig(
+        strategy=strategy, bucket_bytes=0, params=PAPER_TABLE5), 1e3)
+    (plan,) = plans
+    assert plan.axis == "data" and plan.schedule is None
+    if strategy == "gentree":
+        assert plan.strategy in ("ring", "rhd", "cps", "hcps")
+        assert plan.predicted is not None
+    else:
+        assert plan.strategy == strategy
+        assert plan.factors == ((2, 2, 2) if strategy == "hcps" else None)
+    with pytest.raises(ValueError, match="unknown sync strategy"):
+        resolve_axis_plans([("data", N)], SyncConfig(strategy="tree"), 1e3)
 
 
 @pytest.mark.parametrize("field,value,item", [
@@ -609,9 +646,18 @@ def test_resolve_axis_plans_takes_plan_only(strategy):
     ("observe_sync", True, "item 4"),
 ])
 def test_out_of_scope_train_config_raises(field, value, item):
+    """What the manual trainer still refuses raises with its roadmap item.
+    `sync` "gentree" and "auto" raised (item 4) until the flat
+    collectives were ported: with engine="manual" they now pass the scope
+    check, and an unknown label raises ValueError."""
     tc = dataclasses.replace(train.TrainConfig(
         steps=1, engine="manual", sync="plan", device="cpu"),
         **{field: value})
+    if field == "sync":
+        assert train._check_train_scope(tc) is None
+        with pytest.raises(ValueError, match="unknown sync strategy"):
+            train._check_train_scope(dataclasses.replace(tc, sync="tree"))
+        return
     with pytest.raises(NotImplementedError, match=item):
         train.run_training(tc, on_log=lambda *_: None)
 
