@@ -6,12 +6,14 @@
     python3 chip_smoke.py --recurrence [--src OTHER/src]
     python3 chip_smoke.py --planner
     python3 chip_smoke.py --flat
+    python3 chip_smoke.py --ft
 
 The second and third forms build the kernels and run the attention rows
 or the recurrence rows of phase 2 alone (of another source tree with
 --src: two commits timed on one card in turn), the fourth the planner
-phase (3c) alone, the fifth the flat collectives phase (3b2) alone; none
-prints a result line.
+phase (3c) alone, the fifth the flat collectives phase (3b2) alone, the
+sixth phase 5's per-leaf run at the first of TRAIN_FALL_LRS and phase
+ft; none prints a result line.
 Phases, each of which fails the run (non-zero exit, no result line) on
 any error:
 
@@ -147,12 +149,36 @@ any error:
                 trainer at smoke size in f32 on the card against the same
                 code on the CPU, per leaf and bucketed at
                 TRAIN_SMOKE_BUCKET_BYTES (per-step loss and gnorm within
-                1e-4, the final shards as `shard_drift` says).
+                1e-4, the final shards as `shard_drift` says);
+  ft       — checkpoints and fault tolerance: `run_training` with a
+                checkpoint directory (FaultTolerantLoop; checkpoints
+                under build/, removed after). (a) phase 5's per-leaf run
+                at the first of TRAIN_FALL_LRS (the same weights and
+                batches) for 4 steps, a checkpoint every 2, against the
+                same run without faults: a device loss at step 3 and a
+                corrupted payload in a reduce-scatter of step 3's
+                second attempt, each a step past the checkpoint of step
+                2, each restored in place and replayed; its losses by
+                step equal the fault-free run's, whose first 3 equal
+                phase 5's, to every digit, and its fused_reduce
+                launches the step calls' and the failed attempt's
+                (`phase_ft`); the
+                checkpoint's bytes, host snapshot, write + CRC, restore
+                (checksum pass, read, copy to the card) with GB/s, the
+                device peak during the restore, the disk's free space;
+                (b) the smoke soak (bf16, TRAIN_SMOKE_BUCKET_BYTES, 12
+                steps, a checkpoint every 3): a delay, two device
+                losses, a root_sw sag and its restore, a corrupted
+                newest checkpoint the restore falls back past and one
+                corrupted payload at a guarded gather, against the same
+                run without faults: the final state bit for bit, 3
+                restarts, a checkpoint fallback, a guarded failure, no
+                degraded level left, no demotion, exact launches.
 
-The main path is phases 3, 3b, 3c, 4 and 5: every launch count is zeroed
-just before the executor, the families, the planner, each served run, each
-full-width training run and the `sync_bucketed` runs, and read just
-after. The executor must launch fused_reduce, quantize, quant_reduce and
+The main path is phases 3, 3b, 3c, 4, 5 and ft: every launch count is
+zeroed just before the executor, the families, the planner, each served
+run, each full-width training run, the `sync_bucketed` runs and each run
+of phase ft, and read just after. The executor must launch fused_reduce, quantize, quant_reduce and
 dequantize (it runs the compressed wires), the families dequantize;
 grouped_reduce and quant_reduce_requant have no caller on the main path
 (nor in the JAX package) and show 0 launches, timed in phase 2 at their
@@ -168,8 +194,9 @@ kernel, `ops.ATTENTION_LAUNCHES`); each training run must launch
 fused_reduce exactly steps × (its all-gathers × the all-gather's fold
 phases + its reduce-scatters × the reduce-scatter's) and no other
 kernel (the training forward runs torch ops, as the
-reference's runs XLA ops), with no guard demotion or failure anywhere (the guard raises rather than demote, so a
-failure ends the run). The last lines are the per-kernel JSON (launches
+reference's runs XLA ops), with no guard demotion anywhere and no guard
+failure but the one phase ft injects (the guard raises rather than
+demote: a failure ends the run, or in phase ft's loop a restore). The last lines are the per-kernel JSON (launches
 on the main path; time, plain time, bound and yardstick of the wrapper
 call of the kernel's first launch in phase 4, or in phase 3 or 3b for a
 kernel phase 4 does not launch, or phase 2's 2^26 case for one the main
@@ -225,6 +252,25 @@ TRAIN_SMOKE_STEPS = 3            # smoke-size f32 steps, card against CPU
 # the bucketed trainer's pinned bucket: 10 buckets of the full-width leaves
 TRAIN_BUCKET_BYTES = 64 << 20
 TRAIN_SMOKE_BUCKET_BYTES = 32768  # 10 buckets of the smoke-size leaves
+# phase ft, the checkpointed trainer (`run_training` with a checkpoint
+# directory): (a) TRAIN at the first of TRAIN_FALL_LRS per leaf, FT_FULL's
+# steps, a checkpoint every FT_FULL["ckpt_every"], a device loss at
+# FT_FULL["loss_at"], then a payload corruption at reduce-scatter
+# FT_FULL["scatter"] of the attempt after FT_FULL["after"] completed step
+# calls (the second of step FT_FULL["loss_at"]); FT_FULL["calls"] the step
+# calls that complete; (b) the smoke soak, bf16, bucketed at
+# TRAIN_SMOKE_BUCKET_BYTES: the reference soak's fault mix
+# (tests/test_faults.py) at half its steps, (kind, at, target, magnitude),
+# plus one payload corruption in the gather of bucket FT_SOAK["bucket"]
+# of the first run of step 8, after FT_SOAK["after"] completed step calls
+FT_FULL = dict(steps=4, ckpt_every=2, loss_at=3, after=4, scatter=5,
+               calls=[0, 1, 2] + [2] + [2, 3])
+FT_SOAK = dict(steps=12, ckpt_every=3, after=9, bucket=5, events=[
+    ("delay", 2, "", 0.02), ("device_loss", 4, "", 0.0),
+    ("link_degrade", 7, "root_sw", 0.5), ("link_restore", 9, "root_sw", 0.0),
+    ("file_corrupt", 10, "checkpoint", 0.0), ("device_loss", 11, "", 0.0)],
+    calls=[0, 1, 2, 3] + [3, 4, 5, 6, 7] + [6, 7, 8, 9, 10]
+    + [6, 7, 8, 9, 10, 11])
 # sync_bucketed's leaves beside the trainer's smoke-size ones: 2^26 f32
 # a rank in 8 leaves; and the pinned bucket bytes of its merged runs
 SYNC_BIG = ("2^26 f32 a rank in 8 leaves", [(1 << 23,)] * 8)
@@ -2611,7 +2657,7 @@ def phase_train_reference(dev, sync=None, label: str = "per-leaf") -> None:
         fail(f"train [{label}]: fewer than 3 buckets a half")
 
 
-def phase_train_all(dev) -> dict:
+def phase_train_all(dev) -> tuple[dict, dict]:
     """Phase 5: the per-leaf trainer at TRAIN's lr, then at each of
     TRAIN_FALL_LRS (the loss must fall), fused_reduce at the trainer's
     shapes; the bucketed trainer at the default plan (run (a), at the
@@ -2621,17 +2667,21 @@ def phase_train_all(dev) -> dict:
     every step); `sync_bucketed` on the card (run (c)); and the
     smoke-size trainer on the card against the CPU, per leaf and bucketed
     (run (d), TRAIN_SMOKE_BUCKET_BYTES). Returns the launch counts of the
-    full-width runs and of run (c), summed."""
+    full-width runs and of run (c), summed, and the per-leaf run at the
+    first of TRAIN_FALL_LRS (its losses and fused_reduce launches: phase
+    ft's baseline)."""
     import torch
     from repro_torch.core.sync import SyncConfig
     from repro_torch.runtime.trace import Tracer
 
     recorder = FoldRecorder()
     counts = phase_train(dev, TRAIN["lr"], False, recorder)["counts"]
-    per_leaf = {}
+    per_leaf, baseline = {}, {}
     for lr in TRAIN_FALL_LRS:
         r = phase_train(dev, lr, True)
         per_leaf[lr] = r["losses"]
+        baseline.setdefault("losses", r["losses"])
+        baseline.setdefault("fused_reduce", r["counts"]["fused_reduce"])
         for name, n in r["counts"].items():
             counts[name] += n
         del r
@@ -2701,6 +2751,348 @@ def phase_train_all(dev) -> dict:
     phase_train_reference(dev, SyncConfig(
         strategy="plan", bucket_bytes=TRAIN_SMOKE_BUCKET_BYTES),
         label="bucketed")
+    return counts, baseline
+
+
+# ---------------------------------------------------------------------------
+# the checkpointed trainer
+# ---------------------------------------------------------------------------
+class CheckpointRecorder:
+    """Spies on `CheckpointManager`: after each write, the save's bytes,
+    host-snapshot and write-plus-CRC seconds (`saves`); around each
+    restore, the device memory live before it and the device peak during
+    it (the peak statistics are reset before it; the peak before it is
+    kept in `peak_before`), with the restore's checksum, read and copy
+    seconds (`restores`)."""
+
+    def __init__(self):
+        from repro_torch.checkpoint.store import CheckpointManager
+        self.cls = CheckpointManager
+        self.real = (CheckpointManager._write, CheckpointManager.restore)
+        self.saves: list[dict] = []
+        self.restores: list[dict] = []
+        self.peak_before = 0
+
+    def __enter__(self):
+        import torch
+        real_write, real_restore = self.real
+        rec = self
+
+        def write(mgr, step, host):
+            real_write(mgr, step, host)
+            rec.saves.append(dict(mgr.last_save))
+
+        def restore(mgr, like, step=None):
+            torch.cuda.synchronize()
+            rec.peak_before = max(rec.peak_before,
+                                  torch.cuda.max_memory_allocated())
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = real_restore(mgr, like, step)
+            torch.cuda.synchronize()
+            rec.restores.append({
+                "live": live, "peak": torch.cuda.max_memory_allocated(),
+                "seconds": time.perf_counter() - t0, **mgr.last_restore})
+            return out
+        self.cls._write, self.cls.restore = write, restore
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._write, self.cls.restore = self.real
+
+
+def ft_launches(out) -> tuple[int, int, int]:
+    """(fused_reduce launches of one step call, of one gather launch, of
+    one scatter launch) of a `run_training` result: each all-gather's fold
+    phases, each reduce-scatter's, a leaf each per leaf, a bucket each
+    bucketed."""
+    (plan,) = out["plans"]
+    cs = plan.schedule.inner
+    step = out["step"]
+    rs = sum(len(st.folds) for st in family_steps(cs, "reduce_scatter"))
+    ag = sum(len(st.folds) for st in family_steps(cs, "allgather"))
+    if step.bucket_plan is None:
+        n_ag = n_rs = len(out["state"]["params"])
+    else:
+        n_ag, n_rs = len(step.gather_buckets), len(step.scatter_buckets)
+    return n_ag * ag + n_rs * rs, ag, rs
+
+
+def _gbps(nbytes: float, seconds: float) -> str:
+    return f"{seconds:.3f} s ({nbytes / seconds / 1e9:.2f} GB/s)" \
+        if seconds > 0 else f"{seconds:.3f} s"
+
+
+def _state_bytes(cfg, n: int) -> int:
+    """The bytes of the trainer's ZeRO-3 state of `cfg` on n ranks: bf16
+    shards and f32 m and v, each leaf padded to a multiple of n."""
+    import torch
+    from repro_torch.models.registry import build
+    from repro_torch.models.tree import tree_items
+    padded = sum(-(-math.prod(t.shape) // n) * n for _, t in tree_items(
+        build(cfg).params_spec(torch.bfloat16)))
+    return padded * (2 + 4 + 4) + 4
+
+
+def phase_ft(dev, baseline: dict) -> dict:
+    """Phase ft: `run_training` with a checkpoint directory (the
+    FaultTolerantLoop over the ZeRO-3 step; checkpoints under the ignored
+    build/ of this checkout, removed after).
+
+    (a) TRAIN per leaf at the first of TRAIN_FALL_LRS, the weights and
+    batches of phase 5's run at that lr, FT_FULL["steps"] steps, first
+    without faults, then with a checkpoint every FT_FULL["ckpt_every"]
+    under two faults, each a step past the newest checkpoint: a device
+    loss at the start of step FT_FULL["loss_at"] (before its first
+    launch), restored in place and replayed; then a corrupted payload at
+    reduce-scatter FT_FULL["scatter"] of that step's second attempt, so
+    the step stops part-way through its reduce-scatters, restored and
+    replayed again. The step calls must be FT_FULL["calls"]; each call's
+    loss must equal the fault-free run's of its step index, and that
+    run's first steps phase 5's (`baseline`), to every digit;
+    fused_reduce must launch exactly the step calls' launches plus the
+    launches of the attempt cut off (its gathers and the scatters before
+    the corrupted one), and the fault-free run the step calls' alone (as
+    many a step as phase 5's run). Prints the
+    checkpoint's bytes, the host snapshot (what blocks the step), the
+    write with its CRC, the restore's checksum pass, read and copy to the
+    device (each with its GB/s), the device memory before and the peak
+    during the restore, the disk's free space and the host's memory.
+
+    (b) The smoke soak: stablelm-12b at smoke size, bf16, 8 ranks,
+    bucketed at TRAIN_SMOKE_BUCKET_BYTES, FT_SOAK's steps and plan plus
+    its payload corruption, against the same run without faults: the
+    same final state bit for bit, every step's loss equal, the step calls
+    FT_SOAK["calls"], 3 restarts, 1 checkpoint fallback, 1 guarded
+    failure, no degraded level left, no demotion; fused_reduce launched
+    exactly the step calls' launches (plus, in the faulted run, the
+    gathers before the corrupted payload). Returns the launch counts of
+    the four runs (each zeroed just before its run, read just after)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import TrainConfig, run_training
+    from repro_torch.planner.service import default_service
+    from repro_torch.runtime.faults import (FaultEvent, FaultInjector,
+                                            FaultPlan)
+    from repro_torch.runtime.metrics import default_metrics
+
+    t_phase = time.perf_counter()
+    tr = TRAIN
+    lr = TRAIN_FALL_LRS[0]
+    counts = dict.fromkeys(ops.LAUNCHES, 0)
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="ft_", dir=root))
+
+    def run(tc, events, label):
+        """One run of `tc` under a plan of `events`, its launches counted;
+        returns the result, what fired and the log lines."""
+        lines = []
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with FaultInjector(FaultPlan(seed=7, events=tuple(events))) as inj:
+            out = run_training(tc, smoke=tc.n_layers is None,
+                               on_log=lambda m: (lines.append(m),
+                                                 log(f"ft [{label}]: {m}")))
+        torch.cuda.synchronize()
+        got = dict(ops.LAUNCHES)
+        for name, c in got.items():
+            counts[name] += c
+        return out, inj.stats()["fired"], lines, got
+
+    try:
+        # (a) full width
+        cfg = dataclasses.replace(get_config(tr["arch"]),
+                                  n_layers=tr["layers"])
+        need = _state_bytes(cfg, tr["local_ranks"])
+        free = shutil.disk_usage(work).free
+        with open("/proc/meminfo") as f:
+            mem = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in f}
+        log(f"ft [full width]: checkpoint of {need / 1e9:.3f} GB; up to 3 on"
+            f" disk (keep=2 and a .tmp_ dir) need {3 * need / 1e9:.1f} GB, "
+            f"{free / 1e9:.1f} GB free in {work}; host memory "
+            f"{mem.get('MemAvailable', 0) / 2**30:.1f} GiB available of "
+            f"{mem.get('MemTotal', 0) / 2**30:.1f}")
+        if free < 3 * need:
+            fail(f"phase ft: {free / 1e9:.1f} GB free in {work}, the "
+                 f"full-width checkpoints need {3 * need / 1e9:.1f}")
+        tc = TrainConfig(
+            arch=tr["arch"], steps=FT_FULL["steps"], seq_len=tr["seq_len"],
+            global_batch=tr["global_batch"], lr=lr, engine="manual",
+            sync="plan", bucket_bytes=0, n_layers=tr["layers"],
+            local_ranks=tr["local_ranks"], log_every=1)
+        clean, _, _, got_clean = run(tc, [], "full width, fault-free")
+        per_call, per_gather, per_scatter = ft_launches(clean)
+        n_leaves = len(clean["state"]["params"])
+        want_loss = dict(zip(clean["steps"], clean["losses"]))
+        want_clean = FT_FULL["steps"] * per_call
+        del clean
+        torch.cuda.empty_cache()
+        # each completed step call runs n_leaves guarded gathers, then
+        # n_leaves guarded reduce-scatters; the lost attempt runs none
+        ordinal = FT_FULL["after"] * 2 * n_leaves + n_leaves \
+            + FT_FULL["scatter"]
+        tc = dataclasses.replace(tc, ckpt_dir=str(work / "full"),
+                                 ckpt_every=FT_FULL["ckpt_every"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with CheckpointRecorder() as rec:
+            out, fired, lines, got = run(
+                tc, [FaultEvent("device_loss", FT_FULL["loss_at"]),
+                     FaultEvent("payload_corrupt", ordinal)], "full width")
+        wall = time.perf_counter() - t0
+        peak = max(rec.peak_before, torch.cuda.max_memory_allocated(dev))
+        calls = len(out["steps"])
+        cut = n_leaves * per_gather + FT_FULL["scatter"] * per_scatter
+        want = calls * per_call + cut
+        final = sorted(os.listdir(work / "full"))
+        (plan,) = out["plans"]
+        log(f"ft [full width]: step calls {out['steps']}, losses "
+            f"{out['losses']}; the fault-free run's by step {want_loss}; "
+            f"phase 5's per-leaf lr {lr} run {baseline['losses']}; fired "
+            f"{fired} (the payload at guarded launch {ordinal}: "
+            f"reduce-scatter {FT_FULL['scatter']} of {n_leaves}); restarts "
+            f"{out['loop'].restarts}; guard {plan.schedule.stats}, "
+            f"demotions {plan.schedule.demotions}; directory {final}; wall "
+            f"{wall:.1f} s; run peak {peak / 2**30:.2f} GiB")
+        log(f"ft [full width]: fused_reduce launches {got['fused_reduce']}, "
+            f"expected {want} = {calls} step calls x {per_call} + {cut} of "
+            f"the attempt cut off ({n_leaves} gathers x {per_gather} + "
+            f"{FT_FULL['scatter']} scatters x {per_scatter}; the device "
+            f"loss fires before its step's first launch); fault-free "
+            f"{got_clean['fused_reduce']}, expected {FT_FULL['steps']} x "
+            f"{per_call} = {want_clean} (phase 5's {baseline['fused_reduce']}"
+            f" for {tr['steps']} steps); launches {json.dumps(got)}")
+        if out["steps"] != FT_FULL["calls"] \
+                or fired != {"device_loss": 1, "payload_corrupt": 1} \
+                or out["loop"].restarts != 2 or plan.schedule.demotions:
+            fail(f"phase ft [full width]: step calls {out['steps']}, fired "
+                 f"{fired}, {out['loop'].restarts} restart(s), demotions "
+                 f"{plan.schedule.demotions}")
+        resumes = [m for m in lines if m.startswith("ft: resume")]
+        if resumes != [f"ft: resume {{'step': {FT_FULL['ckpt_every']}}}"] * 2 \
+                or final != ["LATEST", f"step_{FT_FULL['ckpt_every']:08d}",
+                             f"step_{FT_FULL['steps']:08d}"]:
+            fail(f"phase ft [full width]: restores {resumes}, the directory "
+                 f"holds {final}")
+        if any(loss != want_loss[s] for s, loss in
+               zip(out["steps"], out["losses"], strict=True)) \
+                or [want_loss[s] for s in range(len(baseline["losses"]))] \
+                != baseline["losses"]:
+            fail(f"phase ft [full width]: losses {out['losses']} at steps "
+                 f"{out['steps']} are not the fault-free {want_loss}, or "
+                 f"those not phase 5's {baseline['losses']}, to every digit")
+        if got["fused_reduce"] != want or any(
+                c for k, c in got.items() if k != "fused_reduce") \
+                or got_clean["fused_reduce"] != want_clean \
+                or tr["steps"] * per_call != baseline["fused_reduce"]:
+            fail(f"phase ft [full width]: launches {got} / fault-free "
+                 f"{got_clean}, expected {want} / {want_clean} fused_reduce "
+                 f"and no other kernel")
+        sv = rec.saves
+        rs = rec.restores
+        if len(sv) != 3 or len(rs) != 2:
+            fail(f"phase ft [full width]: {len(sv)} saves and {len(rs)} "
+                 f"restores, expected 3 and 2")
+        for s_ in sv:
+            log(f"ft [full width]: save at step {s_['step']}: "
+                f"{s_['bytes'] / 1e9:.3f} GB of leaves ({s_['file_bytes']} "
+                f"bytes on disk); host snapshot "
+                f"{_gbps(s_['bytes'], s_['snapshot_s'])}; write + CRC "
+                f"{_gbps(s_['file_bytes'], s_['write_s'])}")
+        for r in rs:
+            log(f"ft [full width]: restore of step {r['step']}: "
+                f"{r['bytes'] / 1e9:.3f} GB in {r['seconds']:.3f} s: "
+                f"checksum pass {_gbps(r['bytes'], r['verify_s'])}, read "
+                f"{_gbps(r['bytes'], r['read_s'])}, to the device "
+                f"{_gbps(r['bytes'], r['copy_s'])}; device memory "
+                f"{r['live'] / 2**30:.2f} GiB before, peak "
+                f"{r['peak'] / 2**30:.2f} GiB during (in place: "
+                f"+{(r['peak'] - r['live']) / 2**20:.1f} MiB)")
+        if sv[0]["bytes"] != need:
+            fail(f"phase ft: a checkpoint holds {sv[0]['bytes']} bytes of "
+                 f"leaves, the state {need}")
+        del out, rec
+        torch.cuda.empty_cache()
+
+        # (b) the smoke soak
+        base = dict(arch=tr["arch"], steps=FT_SOAK["steps"], seq_len=32,
+                    global_batch=tr["global_batch"], lr=TRAIN["lr"],
+                    engine="manual", sync="plan",
+                    bucket_bytes=TRAIN_SMOKE_BUCKET_BYTES,
+                    local_ranks=tr["local_ranks"],
+                    ckpt_every=FT_SOAK["ckpt_every"], log_every=1000)
+        clean, _, _, got_clean = run(
+            TrainConfig(**base, ckpt_dir=str(work / "clean")), [],
+            "soak, fault-free")
+        per_call, per_gather, _ = ft_launches(clean)
+        step = clean["step"]
+        ordinal = FT_SOAK["after"] * (len(step.gather_buckets)
+                                      + len(step.scatter_buckets)) \
+            + FT_SOAK["bucket"]
+        events = [FaultEvent(*e) for e in FT_SOAK["events"]] \
+            + [FaultEvent("payload_corrupt", ordinal)]
+        names = ("ft_restarts_total", "ckpt_restore_fallbacks_total",
+                 "guarded_failures_total")
+        before = {k: default_metrics().counter(k).value for k in names}
+        chaos, fired, _, got_chaos = run(
+            TrainConfig(**base, ckpt_dir=str(work / "chaos")), events,
+            "soak, faulted")
+        delta = {k: default_metrics().counter(k).value - before[k]
+                 for k in names}
+        degraded = default_service().degraded()
+        (plan,) = chaos["plans"]
+        same = all(torch.equal(a, b) for a, b in zip(
+            chaos["state"]["params"] + chaos["state"]["opt"]["m"]
+            + chaos["state"]["opt"]["v"] + [chaos["state"]["opt"]["step"]],
+            clean["state"]["params"] + clean["state"]["opt"]["m"]
+            + clean["state"]["opt"]["v"] + [clean["state"]["opt"]["step"]],
+            strict=True))
+        want_loss = dict(zip(clean["steps"], clean["losses"]))
+        want_clean = FT_SOAK["steps"] * per_call
+        want_chaos = len(FT_SOAK["calls"]) * per_call \
+            + FT_SOAK["bucket"] * per_gather
+        log(f"ft [soak]: {len(step.gather_buckets)} gather and "
+            f"{len(step.scatter_buckets)} scatter buckets; payload "
+            f"corruption at guarded launch {ordinal}; fired {fired}; step "
+            f"calls {chaos['steps']}; counters {delta}; degraded after "
+            f"{degraded}; guard {plan.schedule.stats}, demotions "
+            f"{plan.schedule.demotions}; final state "
+            f"{'equal' if same else 'DIFFERS'} to the fault-free run's; "
+            f"fused_reduce launches {got_clean['fused_reduce']} fault-free "
+            f"(expected {FT_SOAK['steps']} x {per_call} = {want_clean}), "
+            f"{got_chaos['fused_reduce']} faulted (expected "
+            f"{len(FT_SOAK['calls'])} step calls x {per_call} + "
+            f"{FT_SOAK['bucket']} gathers x {per_gather} before the "
+            f"corrupted payload = {want_chaos})")
+        if not same or any(loss != want_loss[s] for s, loss in
+                           zip(chaos["steps"], chaos["losses"])):
+            fail("phase ft [soak]: the faulted run does not end on the "
+                 "fault-free run's state and losses bit for bit")
+        if chaos["steps"] != FT_SOAK["calls"] or delta[names[0]] < 3 \
+                or delta[names[1]] < 1 or delta[names[2]] < 1:
+            fail(f"phase ft [soak]: step calls {chaos['steps']}, counters "
+                 f"{delta}")
+        if degraded or plan.schedule.demotions:
+            fail(f"phase ft [soak]: degraded {degraded}, demotions "
+                 f"{plan.schedule.demotions}")
+        if got_clean["fused_reduce"] != want_clean \
+                or got_chaos["fused_reduce"] != want_chaos:
+            fail(f"phase ft [soak]: fused_reduce launched "
+                 f"{got_clean['fused_reduce']} / {got_chaos['fused_reduce']}"
+                 f", expected {want_clean} / {want_chaos}")
+        del clean, chaos
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase ft: wall {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -2824,6 +3216,10 @@ def main() -> int:
     ap.add_argument("--flat", action="store_true",
                     help="build the kernels and run the flat collectives "
                     "phase alone, then stop: no result line")
+    ap.add_argument("--ft", action="store_true",
+                    help="build the kernels, run phase 5's per-leaf run at "
+                    "the first of TRAIN_FALL_LRS and phase ft, then stop: "
+                    "no result line")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree (default: this checkout's "
                     "src), e.g. another commit's unpacked beside it, to "
@@ -2868,6 +3264,12 @@ def main() -> int:
         log_rows(phase_flat(dev)[1])
         log(f"phase flat done at {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.ft:
+        r = phase_train(dev, TRAIN_FALL_LRS[0], True)
+        phase_ft(dev, {"losses": r["losses"],
+                       "fused_reduce": r["counts"]["fused_reduce"]})
+        log(f"phase ft done at {time.perf_counter() - t0:.1f} s")
+        return 0
     unlaunched = phase_kernels(dev)
     log(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
     from repro_torch.kernels import ops
@@ -2896,8 +3298,11 @@ def main() -> int:
     for arch in SERVE_ARCHS:
         phase_model_reference(dev, arch)
     log(f"phase serve done at {time.perf_counter() - t0:.1f} s")
-    trained = phase_train_all(dev)
+    trained, baseline = phase_train_all(dev)
     log(f"phase train done at {time.perf_counter() - t0:.1f} s")
+    for name, n in phase_ft(dev, baseline).items():
+        trained[name] += n
+    log(f"phase ft done at {time.perf_counter() - t0:.1f} s")
     # each kernel is timed at its first launch on the main path: the
     # server's shapes where it launched the kernel, else the executor's,
     # else the families'

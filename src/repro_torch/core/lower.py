@@ -952,14 +952,22 @@ class GuardedSchedule:
     points (`run_local`, `run_local_reduce_scatter`,
     `run_local_all_gather`, `run_local_all_to_all`, `run_local_p2p`).
 
-    The guard counts launches (`stats`, `guarded_launches_total`). A
-    failed launch is recorded (`stats["failures"]`,
+    The guard counts launches (`stats`, `guarded_launches_total`). Before
+    each launch it consults the armed fault injector
+    (`runtime.faults.active_injector().check_launch`, which consumes one
+    launch ordinal); an injected payload corruption (`InjectedFault`)
+    takes the path of a real launch failure, and no fold of that launch
+    runs. A failed launch is recorded (`stats["failures"]`,
     `guarded_failures_total`, a `guard/failure` trace instant and a
-    telemetry re-measure window) and raised. Unlike the reference
-    package's ladder it never gives way to a flat sum or to the
-    full-precision schedule: either would answer correctly while a kernel
-    that failed to build or launch went unseen. So `demotions`, which
-    callers assert on, is always 0.
+    telemetry re-measure window) and raised: the fault-tolerant loop
+    answers it by restoring the newest intact checkpoint and replaying
+    the step. Unlike the reference package's ladder the guard neither
+    retries the planned rung nor gives way to a flat sum or to the
+    full-precision schedule. A flat rung would answer correctly while a
+    kernel that failed to build or launch went unseen; a retry would
+    fold again rows that a partial in-place reduce-scatter
+    (`overwrite=True`, the bucketed trainer's) had already folded. So
+    `demotions`, which callers assert on, is always 0.
 
     Everything not guarded (describe, plan_name, …) delegates to the
     wrapped schedule.
@@ -996,6 +1004,7 @@ class GuardedSchedule:
             tele.remeasure("guard_failure", info)
 
     def _guarded(self, what: str, X: torch.Tensor, **kw) -> torch.Tensor:
+        from repro_torch.runtime.faults import active_injector
         from repro_torch.runtime.metrics import default_metrics
 
         self.stats["launches"] += 1
@@ -1003,6 +1012,9 @@ class GuardedSchedule:
             "guarded_launches_total",
             "collective launches through the schedule guard").inc()
         try:
+            inj = active_injector()
+            if inj is not None:
+                inj.check_launch(f"{self.inner.plan_name}/{what}")
             return getattr(self.inner, what)(X, **kw)
         except Exception as e:
             self._note_failure(what, e)

@@ -18,12 +18,21 @@ psum, ring, rhd, cps and hcps, "gentree" (the planner's label for the
 axis) and "auto" (psum) per leaf, through `core.collectives`. These
 raise `NotImplementedError` and are never replaced by another path: the
 `auto` (pjit) engine (ROADMAP §1 items 4b and 6) and the schedule probe
-`observe_sync_probe` (item 4b); checkpointing and the fault loop (item
-5); MoE and the recurrent families' training (item 6); a lossy wire or
-`compress` in the trainer (item 9).
+`observe_sync_probe` (item 4b); MoE and the recurrent families' training
+(item 6); a lossy wire or `compress` in the trainer (item 9).
+
+With a checkpoint directory the run goes through the reference's
+`FaultTolerantLoop` (`runtime.ft`): a checkpoint every `ckpt_every`
+steps, and on a failed step (an injected device loss, a guarded launch
+that failed) a restore of the newest intact checkpoint and a replay; a
+run resumes from the directory's newest checkpoint. A fault plan
+(`runtime.faults`) injects device losses, link sags, delays, corrupted
+checkpoints and corrupted collective payloads.
 
     python -m repro_torch.launch.train --engine manual --sync plan --smoke
     python -m repro_torch.launch.train --engine manual --sync ring --smoke
+    python -m repro_torch.launch.train --engine manual --sync plan --smoke \
+        --steps 30 --ckpt-dir ckpt --faults seed=7,steps=30,device_loss=0.1
 
 train the smoke-size stablelm-12b on the card; `--device cpu` runs them
 on the CPU. Without `--smoke` the model is the full configuration.
@@ -456,7 +465,10 @@ class TrainConfig:
     # buckets reduce last first; False keeps forward order
     backward_overlap: bool = True
     lr: float = 1e-3
-    ckpt_dir: str | None = None     # ROADMAP §1 item 5
+    # checkpoint directory: the run goes through FaultTolerantLoop,
+    # saving every ckpt_every steps and resuming from the newest
+    ckpt_dir: str | None = None
+    ckpt_every: int = 25
     seed: int = 0
     log_every: int = 10
     # the reference probes the schedule after training and feeds the
@@ -466,10 +478,20 @@ class TrainConfig:
     # export a Chrome trace of the run's spans / the metrics registry
     trace_path: str | None = None
     metrics_path: str | None = None
-    fault_plan: str | None = None   # ROADMAP §1 item 5
+    # chaos mode (DESIGN.md §12): a `FaultPlan.parse` spec string (e.g.
+    # "seed=7,steps=200,link_degrade=0.01,payload_corrupt=0.05") arms a
+    # deterministic fault injector for the run; None defers to any
+    # $REPRO_FAULT_PLAN / surrounding FaultInjector context
+    fault_plan: str | None = None
     # ranks of the local mesh: the leading axis of every shard tensor
     local_ranks: int = 8
     device: str = "cuda"
+    # the model's depth, cut from the configuration's (None: as it is);
+    # the widths stay
+    n_layers: int | None = None
+    # the "plan" sync's bucket (SyncConfig.bucket_bytes): None lets
+    # GenModel pick it, 0 runs the per-leaf path
+    bucket_bytes: int | None = None
 
 
 def _check_train_scope(tc: TrainConfig) -> None:
@@ -482,27 +504,38 @@ def _check_train_scope(tc: TrainConfig) -> None:
     if tc.sync not in SYNC_STRATEGIES:
         raise ValueError(f"unknown sync strategy {tc.sync!r}; one of "
                          f"{SYNC_STRATEGIES}")
-    if tc.ckpt_dir is not None:
-        raise NotImplementedError(
-            "checkpointing and the fault-tolerant loop (ckpt_dir) are "
-            "ROADMAP §1 item 5")
-    if tc.fault_plan is not None:
-        raise NotImplementedError(
-            "the fault injector (fault_plan) is ROADMAP §1 item 5")
     if tc.observe_sync:
         observe_sync_probe()
 
 
 def run_training(tc: TrainConfig, smoke: bool = True, on_log=print) -> dict:
-    """Train `tc.arch` (smoke-shrunk unless `smoke` is False) from random
-    bf16 weights for `tc.steps` steps on a local mesh of `tc.local_ranks`
-    ranks on `tc.device`, with the reference's sync,
-    `SyncConfig(strategy=tc.sync, backward_overlap=tc.backward_overlap)`:
-    for "plan" bucketed, GenModel picking the bucket; per leaf for the
-    other labels. Returns the state, the
-    per-step losses and gnorms, host-clock step times (each ending in the
-    loss's copy to the host), per-step device times of `PHASES` on a
-    card, the axis plans, the bucket plan and the model config."""
+    """Train `tc.arch` (smoke-shrunk unless `smoke` is False; its depth cut
+    to `tc.n_layers` when set) from random bf16 weights for `tc.steps`
+    steps on a local mesh of `tc.local_ranks` ranks on `tc.device`, with
+    the reference's sync, `SyncConfig(strategy=tc.sync, bucket_bytes=
+    tc.bucket_bytes, backward_overlap=tc.backward_overlap)`: for "plan"
+    bucketed, GenModel picking the bucket unless `tc.bucket_bytes` is
+    set; per leaf for the other labels.
+
+    With `tc.ckpt_dir` the steps run in a `FaultTolerantLoop` (the
+    reference's `run_training`): a checkpoint (`keep=2`) every
+    `tc.ckpt_every` steps and at the end, restore-and-replay on a failed
+    step, resumption from the directory's newest checkpoint. The restore
+    overwrites the state's tensors in place, so it allocates no second
+    state on the device. `tc.fault_plan` arms a `FaultInjector` over the
+    run (else an injector the caller entered, or $REPRO_FAULT_PLAN, is
+    the one consulted). Without a checkpoint directory an injected or
+    real failure ends the run with its error.
+
+    Returns the state; per `one_step` call, replays included (the
+    reference's meaning), the loss, gnorm, host-clock step time (ending
+    in the loss's copy to the host), device times of `PHASES` on a card,
+    and the step index it ran (`steps`); the axis plans, the bucket plan,
+    the step function, the model config, and with a checkpoint directory
+    the loop and its `CheckpointManager` (`ckpt`: `last_save` /
+    `last_restore`; else both None)."""
+    import contextlib
+
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models.config import smoke_config
@@ -514,11 +547,13 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print) -> dict:
     cfg = get_config(tc.arch)
     if smoke:
         cfg = smoke_config(cfg)
+    if tc.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=int(tc.n_layers))
     api = build(cfg)
     n = int(tc.local_ranks)
     step_fn = make_manual_train_step(
         api, n, AdamWConfig(lr=tc.lr),
-        sync=SyncConfig(strategy=tc.sync,
+        sync=SyncConfig(strategy=tc.sync, bucket_bytes=tc.bucket_bytes,
                         backward_overlap=tc.backward_overlap), device=dev)
     bp = step_fn.bucket_plan
     if bp is not None:
@@ -547,8 +582,9 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print) -> dict:
         "train_step_seconds", "wall time per training step",
         buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0))
 
-    losses, gnorms, step_s, phases = [], [], [], []
-    for s in range(tc.steps):
+    losses, gnorms, step_s, phases, steps = [], [], [], [], []
+
+    def one_step(state: dict, s: int) -> dict:
         t0 = time.perf_counter()
         with tracer.span("train/step", step=s):
             batch = {k: torch.as_tensor(np.asarray(v), device=dev).long()
@@ -561,10 +597,48 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print) -> dict:
         gnorms.append(gnorm)
         step_s.append(dt)
         phases.append(phase_ms(metrics))
+        steps.append(s)
         if s % tc.log_every == 0:
             on_log(f"step {s:5d}  loss {loss:.4f}  gnorm {gnorm:.3f}")
+        return state
 
+    injector = None
+    inj_scope = contextlib.nullcontext()
+    if tc.fault_plan:
+        from repro_torch.runtime.faults import FaultInjector, FaultPlan
+        injector = FaultInjector(FaultPlan.parse(tc.fault_plan))
+        # entering the scope arms the process-global injector, so the
+        # guarded launches see the payload-corruption events too
+        inj_scope = injector
+        on_log(f"chaos: armed fault plan {injector.plan.key()} "
+               f"({len(injector.plan.events)} events)")
     from repro_torch.planner.service import default_service
+    loop = mgr = None
+    if tc.ckpt_dir:
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.runtime.ft import FaultTolerantLoop
+
+        def on_event(kind: str, info: dict) -> None:
+            if kind in ("failure", "resume", "ckpt_corrupt", "degrade",
+                        "restore", "budget_reset"):
+                on_log(f"ft: {kind} {info}")
+
+        mgr = CheckpointManager(tc.ckpt_dir, keep=2)
+        # the planner takes the injected link faults into its health map
+        loop = FaultTolerantLoop(
+            one_step, state, mgr, ckpt_every=tc.ckpt_every,
+            planner=default_service() if tc.sync in ("gentree", "plan")
+            else None, injector=injector, on_event=on_event)
+        with inj_scope:
+            state = loop.run(tc.steps)
+        on_log(f"checkpoint: {_ckpt_line(mgr)}")
+    else:
+        with inj_scope:
+            for s in range(tc.steps):
+                state = one_step(state, s)
+    if injector is not None:
+        on_log(f"chaos: injector fired {injector.stats()['fired']}")
+
     st = default_service().stats()
     cs = st["cache"]
     on_log(f"planner cache: {st['entries']} entries, {cs['hits']} hits / "
@@ -578,8 +652,23 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print) -> dict:
         default_metrics().export(tc.metrics_path)
         on_log(f"metrics -> {tc.metrics_path}")
     return {"state": state, "losses": losses, "gnorms": gnorms,
-            "step_s": step_s, "phase_ms": phases, "plans": step_fn.plans,
-            "bucket_plan": step_fn.bucket_plan, "config": cfg}
+            "step_s": step_s, "phase_ms": phases, "steps": steps,
+            "plans": step_fn.plans, "bucket_plan": step_fn.bucket_plan,
+            "step": step_fn, "config": cfg, "loop": loop, "ckpt": mgr}
+
+
+def _ckpt_line(mgr) -> str:
+    """The latest save's and restore's bytes and times, for the log."""
+    sv, rs = mgr.last_save, mgr.last_restore
+    gb = sv.get("bytes", 0) / 1e9
+    line = (f"step {sv.get('step')} {gb:.3f} GB, host snapshot "
+            f"{sv.get('snapshot_s', 0.0):.3f} s, write + CRC "
+            f"{sv.get('write_s', 0.0):.3f} s")
+    if rs:
+        line += (f"; last restore step {rs['step']}: checksums "
+                 f"{rs.get('verify_s', 0.0):.3f} s, read "
+                 f"{rs['read_s']:.3f} s, to the device {rs['copy_s']:.3f} s")
+    return line
 
 
 def main():
@@ -593,12 +682,16 @@ def main():
                              "gentree", "plan"])
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint here and run the fault-tolerant loop "
+                    "(resumes from the newest checkpoint in it)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="export a Chrome-trace JSON of the run")
     ap.add_argument("--metrics", default=None, metavar="PATH",
                     help="export a metrics snapshot (JSON + .prom)")
-    ap.add_argument("--faults", default=None, metavar="SPEC")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="arm a fault plan, e.g. seed=7,steps=12,"
+                    "device_loss=0.1 (runtime.faults.FaultPlan.parse)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",
                     help="train the smoke-size config (the reference's "

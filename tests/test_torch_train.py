@@ -76,6 +76,16 @@ STEP_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 BUCKETED = {"float32": 32768, "bfloat16": None}
 # the per-leaf step's other sync labels (`test_torch_train_flat.py`)
 FLAT_LABELS = ["ring", "rhd", "cps", "hcps", "gentree", "auto"]
+# the checkpointed runs (`test_torch_train_ft.py`): the reference's
+# `run_training` (manual engine, sync "plan", its default bucket) for
+# FT["steps"] steps, a checkpoint every FT["ckpt_every"], under the card
+# soak's fault plan without its payload corruption: (kind, at, target,
+# magnitude), the reference soak's mix (tests/test_faults.py) at half its
+# steps
+FT = dict(steps=12, ckpt_every=3, events=[
+    ("delay", 2, "", 0.02), ("device_loss", 4, "", 0.0),
+    ("link_degrade", 7, "root_sw", 0.5), ("link_restore", 9, "root_sw", 0.0),
+    ("file_corrupt", 10, "checkpoint", 0.0), ("device_loss", 11, "", 0.0)])
 
 _CHILD = r"""
 import dataclasses, os, sys
@@ -233,6 +243,35 @@ for label in spec.get("flat", []):
     api, state = init_state("float32", f"flat/{label}/float32")
     train(api, state, SyncConfig(strategy=label, params=PAPER_TABLE5),
           f"flat/{label}/float32")
+# the checkpointed run under a fault plan: its init state saved as step 0
+# (the state run_training builds), then run_training itself, whose
+# checkpoints stay in ft/run
+if "ft" in parts:
+    from repro.checkpoint import CheckpointManager
+    from repro.launch.train import TrainConfig, run_training
+    from repro.runtime.faults import FaultEvent, FaultInjector, FaultPlan
+    ft = spec["ft"]
+    params = build(smoke_config(get_config("stablelm-12b"))).init_params(
+        jax.random.PRNGKey(0))
+    CheckpointManager(ft["dir"] + "/init", async_save=False).save(0, {
+        "params": shard_params_zero3(params, mesh),
+        "opt": adamw_init(shard_params_zero3(params, mesh))})
+    lines = []
+    plan = FaultPlan(seed=7, events=tuple(FaultEvent(*e)
+                                          for e in ft["events"]))
+    with FaultInjector(plan) as inj:
+        out = run_training(TrainConfig(
+            arch="stablelm-12b", steps=ft["steps"],
+            seq_len=spec["data"]["seq_len"],
+            global_batch=spec["data"]["global_batch"], lr=spec["lr"],
+            engine="manual", sync="plan", ckpt_dir=ft["dir"] + "/run",
+            ckpt_every=ft["ckpt_every"], log_every=1, observe_sync=False),
+            mesh=mesh, on_log=lines.append)
+    res["ft/losses"] = np.asarray(out["losses"])
+    res["ft/steps"] = np.asarray([int(l.split()[1]) for l in lines
+                                  if l.startswith("step ")])
+    res["ft/fired"] = np.asarray([f"{k} {v}" for k, v in
+                                  sorted(inj.stats()["fired"].items())])
 np.savez(out_path, **res)
 """
 
@@ -305,8 +344,10 @@ def run_reference(tmp_path_factory, inputs, parts) -> dict:
     "shards/<dtype>" or "train/<dtype>" for dtype float32 or bfloat16,
     the init, its shards and its plan, and for "train/" the 3 steps;
     "bucketed/<dtype>", the init and 3 bucketed steps; "flat/<label>",
-    the init and 3 f32 steps with `SyncConfig(strategy=label)`), run in
-    one JAX subprocess."""
+    the init and 3 f32 steps with `SyncConfig(strategy=label)`; "ft",
+    the reference's `run_training` under FT's plan, its init state saved
+    as a step-0 checkpoint in `<ft/dir>/init` and its checkpoints left in
+    `<ft/dir>/run`), run in one JAX subprocess."""
     d = tmp_path_factory.mktemp("torch_train")
     np.savez(d / "inputs.npz", **inputs)
     env = dict(os.environ)
@@ -316,13 +357,17 @@ def run_reference(tmp_path_factory, inputs, parts) -> dict:
     spec = repr({"data": DATA, "archs": ARCHS, "specs": SPECS,
                  "clip": list(CLIP), "lr": LR, "steps": STEPS,
                  "bucketed": BUCKETED, "flat": FLAT_LABELS,
+                 "ft": {**FT, "dir": str(d / "ft")},
                  "parts": list(parts)})
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD, str(d / "out.npz"),
          str(d / "inputs.npz"), spec],
         env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    return dict(np.load(d / "out.npz"))
+    out = dict(np.load(d / "out.npz"))
+    if "ft" in parts:
+        out["ft/dir"] = str(d / "ft")
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -645,18 +690,38 @@ def test_resolve_axis_plans_takes_plan_only(strategy):
     ("fault_plan", "seed=7,steps=20", "item 5"),
     ("observe_sync", True, "item 4"),
 ])
-def test_out_of_scope_train_config_raises(field, value, item):
+def test_out_of_scope_train_config_raises(field, value, item, tmp_path,
+                                          monkeypatch):
     """What the manual trainer still refuses raises with its roadmap item.
     `sync` "gentree" and "auto" raised (item 4) until the flat
     collectives were ported: with engine="manual" they now pass the scope
-    check, and an unknown label raises ValueError."""
+    check, and an unknown label raises ValueError. `ckpt_dir` and
+    `fault_plan` raised (item 5) until checkpoints and the fault loop
+    were ported: now the run trains and writes LATEST, or arms its plan
+    and reports what fired."""
     tc = dataclasses.replace(train.TrainConfig(
-        steps=1, engine="manual", sync="plan", device="cpu"),
+        steps=1, engine="manual", sync="plan", device="cpu", seq_len=16),
         **{field: value})
     if field == "sync":
         assert train._check_train_scope(tc) is None
         with pytest.raises(ValueError, match="unknown sync strategy"):
             train._check_train_scope(dataclasses.replace(tc, sync="tree"))
+        return
+    if field in ("ckpt_dir", "fault_plan"):
+        from repro_torch.runtime.faults import ENV_VAR, FaultPlan
+        monkeypatch.delenv(ENV_VAR, raising=False)
+        monkeypatch.chdir(tmp_path)           # "ckpt" is a relative dir
+        logs = []
+        out = train.run_training(tc, on_log=logs.append)
+        assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+        if field == "ckpt_dir":
+            assert (tmp_path / value / "LATEST").read_text() \
+                == "step_00000001"
+        else:
+            plan = FaultPlan.parse(value)
+            assert f"chaos: armed fault plan {plan.key()} " \
+                f"({len(plan.events)} events)" in logs
+            assert "chaos: injector fired {}" in logs
         return
     with pytest.raises(NotImplementedError, match=item):
         train.run_training(tc, on_log=lambda *_: None)
