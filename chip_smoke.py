@@ -149,7 +149,21 @@ any error:
                 trainer at smoke size in f32 on the card against the same
                 code on the CPU, per leaf and bucketed at
                 TRAIN_SMOKE_BUCKET_BYTES (per-step loss and gnorm within
-                1e-4, the final shards as `shard_drift` says);
+                1e-4, the final shards as `shard_drift` says), per leaf
+                over TRAIN_MESH and bucketed on the fp8 wire. Between
+                (b) and (c), at the first of TRAIN_FALL_LRS
+                (`phase_train_levels`): the trainer over the two-level
+                local mesh TRAIN_MESH, (pod 2, data 4), with
+                `SyncConfig(strategy="plan")`, whose bucketed request
+                takes the per-leaf path there, one plan a level; then
+                per leaf on 8 ranks with each wire of TRAIN_WIRES (each
+                rank forwards its own gathered copy) at depth
+                TRAIN_LOSSY_LAYERS, the gap to the f32 wire's losses
+                printed. Each: finite and falling losses, each kernel's
+                launches exactly `level_launches` (a schedule's per
+                group of the other axis), the gather's and
+                reduce-scatter's device ms beside their byte bounds
+                (`level_bytes`), the peak memory and the wall time;
   ft       — checkpoints and fault tolerance: `run_training` with a
                 checkpoint directory (FaultTolerantLoop; checkpoints
                 under build/, removed after). (a) phase 5's per-leaf run
@@ -252,6 +266,17 @@ TRAIN_SMOKE_STEPS = 3            # smoke-size f32 steps, card against CPU
 # the bucketed trainer's pinned bucket: 10 buckets of the full-width leaves
 TRAIN_BUCKET_BYTES = 64 << 20
 TRAIN_SMOKE_BUCKET_BYTES = 32768  # 10 buckets of the smoke-size leaves
+# phase 5's two-level runs: TRAIN at the first of TRAIN_FALL_LRS over the
+# (pod 2, data 4) local mesh, sync "plan" (bucketed by default, which the
+# reference takes per leaf on two axes); then the lossy wires, per leaf on
+# 8 ranks, at TRAIN_LOSSY_LAYERS (the memory reckoning: 8 gathered copies
+# of the full-width weights on top of the per-leaf run's peak)
+TRAIN_MESH = [("pod", 2), ("data", 4)]
+TRAIN_WIRES = ("fp8", "int8")
+TRAIN_LOSSY_LAYERS = 2
+# phase 3b2's bucketed (pod 2, data 4) rows: each rank's data in 8 leaves,
+# at the default bucket and at this pinned one
+FLAT_TWO_AXIS_BUCKET = 64 << 10
 # phase ft, the checkpointed trainer (`run_training` with a checkpoint
 # directory): (a) TRAIN at the first of TRAIN_FALL_LRS per leaf, FT_FULL's
 # steps, a checkpoint every FT_FULL["ckpt_every"], a device loss at
@@ -1468,9 +1493,13 @@ def phase_flat(dev) -> tuple[dict, list]:
     `collectives.allreduce(strategy="plan")`) on the same inputs;
     `allreduce_int8_cps` within 0.05, `allreduce_topk` exact on a sparse
     input, and `sync_gradients` over a (pod 2, data 4) mesh with hcps (2,
-    2). Prints each run's device time (CUDA events), wall time (host
-    clock to a synchronize), the function's bound (input read and output
-    written once) and the strategy's byte bound (`flat_strategy_bytes`).
+    2), and with "plan" at 20,480 and 2^26 f32 a rank in 8 leaves, per
+    leaf and bucketed (the hierarchical bucket chain) at the default
+    bucket and at FLAT_TWO_AXIS_BUCKET, the bucketed routes within 1e-6
+    of the per-leaf one. Prints each run's device time (CUDA events),
+    wall time (host clock to a synchronize), the function's bound (input
+    read and output written once) and the strategy's byte bound
+    (`flat_strategy_bytes`, or the schedules' `schedule_bytes`).
     Returns the phase's launches and the fold kernel's rows at the new
     launch shapes (gathered, recorded tables; dense, beside torch.sum)."""
     import torch
@@ -1633,6 +1662,91 @@ def phase_flat(dev) -> tuple[dict, list]:
                sum(8 // n * flat_strategy_bytes(p.strategy, p.factors, n,
                                                 size, "allreduce")
                    for p, (_, n) in zip(plans, axes)), per)
+
+    # sync_gradients(strategy="plan") on the same mesh, each rank's data in
+    # 8 leaves: per leaf (a schedule an axis, its groups side by side in
+    # one run), then bucketed (the hierarchical bucket chain, a group of
+    # the other axis at a time) at the default bucket and a pinned one;
+    # the routes agree within 1e-6
+    from repro_torch.core.bucketing import BucketConfig, partition
+    for size in (4 * 5120, 1 << 26):
+        t_row = time.perf_counter()
+        big = size >= 1 << 24
+        z = torch.randn((2, 4, size), generator=torch.Generator(
+            device=dev).manual_seed(size + 1), device=dev)
+        leaves = [c.contiguous() for c in z.chunk(8, dim=-1)]
+        widths = [int(c.shape[-1]) for c in leaves]
+        want = z.double().sum(dim=(0, 1))
+        scale = float(want.abs().max())
+        del z
+        cfg0 = S.SyncConfig(strategy="plan", bucket_bytes=0)
+        leaf_plans = S.resolve_axis_plans(axes, cfg0, float(size))
+        per = sum(len(st.folds) for p in leaf_plans
+                  for st in p.schedule.rs + p.schedule.ag) * len(leaves)
+        base, d_ms, w_ms = run(
+            f"sync_gradients plan per leaf {size}",
+            lambda: S.sync_gradients(leaves, axes, cfg0, mesh=mesh), per,
+            big=big)
+        err = float((torch.cat(base, dim=-1).double() - want).abs().max()
+                    ) / scale
+        described = "; ".join(p.schedule.describe() for p in leaf_plans)
+        report(f"sync_gradients (pod 2, data 4) plan per leaf 8 leaves x "
+               f"{size // 8} ({described})",
+               err, 1e-6, d_ms, w_ms, 2 * 8 * size * 4,
+               sum(schedule_bytes(p.schedule, 8 // n * w, torch.float32)
+                   for p, (_, n) in zip(leaf_plans, axes)
+                   for w in widths), per)
+        for bb in (None, FLAT_TWO_AXIS_BUCKET):
+            cfg = S.SyncConfig(strategy="plan", bucket_bytes=bb)
+            bp = svc.get_bucket_plan(axes, float(size), dtype="float32",
+                                     config=BucketConfig(bucket_bytes=bb))
+            bks = partition(widths, ["f32"] * len(widths), bp.bucket_bytes,
+                            itemsizes=[4] * len(widths))
+            per = 0
+            for p, (_, n) in zip(bp.axis_plans, axes):
+                cs = p.schedule
+                per += len(bks) * 8 // n * sum(
+                    len(st.folds) for st in family_steps(
+                        cs, "reduce_scatter") + family_steps(cs,
+                                                             "allgather"))
+            stats = {}
+            got, d_ms, w_ms = run(
+                f"sync_gradients plan bucketed {bb} {size}",
+                lambda: S.sync_gradients(leaves, axes, cfg, mesh=mesh,
+                                         stats=stats), per, big=big)
+            err = max(float((g.double() - b.double()).abs().max())
+                      for g, b in zip(got, base)) / scale
+            err_sum = float((torch.cat(got, dim=-1).double() - want).abs()
+                            .max()) / scale
+            del got
+            # each bucket's chain: the reduce-scatter and all-gather of
+            # each axis at the size it runs on, once a group
+            strat = 0
+            for bk in bks:
+                cur = sum(widths[i] for i in bk.indices)
+                for p, (_, n) in zip(bp.axis_plans, axes):
+                    cs = p.schedule
+                    strat += 8 // n * (
+                        schedule_bytes(cs, cur, torch.float32,
+                                       family_steps(cs, "reduce_scatter"))
+                        + schedule_bytes(cs, cur, torch.float32,
+                                         family_steps(cs, "allgather")))
+                    cur = -(-cur // cs.num_blocks) * cs.num_blocks // n
+            described = "; ".join(p.schedule.describe()
+                                  for p in bp.axis_plans)
+            report(f"sync_gradients (pod 2, data 4) plan bucketed "
+                   f"bucket_bytes={bb}: {len(bks)} bucket(s) of "
+                   f"{bp.bucket_bytes} bytes, {stats['overlap_mode']} "
+                   f"mode, {described}; against per leaf", err, 1e-6, d_ms,
+                   w_ms,
+                   2 * 8 * size * 4, strat, per)
+            if not err_sum <= 1e-6:
+                fail(f"flat bucketed {bb} {size}: {err_sum:.3e} from the "
+                     "column sum")
+        del leaves, base, want
+        torch.cuda.empty_cache()
+        log(f"flat: bucketed (pod 2, data 4) rows at {size} a rank: wall "
+            f"{time.perf_counter() - t_row:.1f} s")
 
     counts = dict(ops.LAUNCHES)
     log(f"flat: fused_reduce launches {counts['fused_reduce']}, expected "
@@ -2235,10 +2349,11 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
             "rank_flops_ms": flops / BF16_FLOPS * 1e3}
 
 
-def train_run(api, params, n: int, lr: float, steps: int, seq_len: int,
+def train_run(api, params, n, lr: float, steps: int, seq_len: int,
               global_batch: int, seed: int = 0, sync=None, param_dtype=None):
     """`steps` steps of `make_manual_train_step` on `api` from `params`
-    (the port's per-layer tree, on the device the run takes), with `sync`
+    (the port's per-layer tree, on the device the run takes) on the local
+    mesh `n` (a rank count, or (axis, size) pairs), with `sync`
     (default: the step's own, the per-leaf path) and shards of
     `param_dtype` (default bf16): the state, per-step losses, gnorms,
     host-clock step times (each ending in the loss's copy to the host),
@@ -2420,6 +2535,161 @@ def phase_train(dev, lr: float, must_fall: bool, recorder=None, *,
         f"{bounds['rank_flops_ms']:.3f} ms")
     return {"counts": counts, "losses": losses, "step": step, "peak": peak,
             "step_ms": step_ms, "parts": parts}
+
+
+def level_launches(step, leaves: int, steps: int) -> dict:
+    """Kernel launches of `steps` per-leaf steps over the live axes of
+    `step.mesh`: for each leaf and each axis plan, a flat label's
+    reduce-scatter folds (`flat_folds`: one launch for every group of the
+    other axes; its all-gather only copies), or a schedule's launches at
+    its wire (`steps_launches`) of its reduce-scatter and all-gather,
+    once a group of the other axes (`collectives._per_group`)."""
+    sizes = dict(step.mesh)
+    R = math.prod(sizes.values())
+    out: dict = {}
+    for pl in step.plans:
+        n = sizes[pl.axis]
+        if pl.strategy == "plan":
+            cs = pl.schedule
+            got = steps_launches(cs, family_steps(cs, "reduce_scatter")
+                                 + family_steps(cs, "allgather"), R // n)
+        else:
+            got = {"fused_reduce": flat_folds(pl.strategy, pl.factors, n,
+                                              "reduce_scatter")}
+        for name, c in got.items():
+            out[name] = out.get(name, 0) + steps * leaves * c
+    return {k: v for k, v in out.items() if v}
+
+
+def level_bytes(step, numels, dtype) -> tuple[int, int]:
+    """(gather, reduce-scatter) bytes of one per-leaf step over the live
+    axes of `step.mesh`, each launch's rows crossing device memory once:
+    per leaf of `numels`, the reduce-scatter axis by axis in reverse mesh
+    order on the shard the axis before left (padded to the axis's
+    multiple), the all-gather in mesh order up to the same sizes; each
+    schedule's `schedule_bytes` (a flat label's `flat_strategy_bytes`)
+    once a group of the other axes."""
+    import torch
+    from repro_torch.core import collectives as C
+    elem = torch.empty((), dtype=dtype).element_size()
+    sizes = dict(step.mesh)
+    R = math.prod(sizes.values())
+    gather = scatter = 0
+    for m in numels:
+        cur, seen = m, []
+        for pl in reversed(step.plans):
+            n = sizes[pl.axis]
+            G = R // n
+            if pl.strategy == "plan":
+                cs = pl.schedule
+                mult = cs.num_blocks
+                scatter += G * schedule_bytes(
+                    cs, cur, dtype, family_steps(cs, "reduce_scatter"))
+            else:
+                mult = C._pad_multiple(n, pl.strategy)
+                scatter += G * flat_strategy_bytes(
+                    pl.strategy, pl.factors, n, cur, "reduce_scatter", elem)
+            padded = -(-cur // mult) * mult
+            seen.append((pl, n, G, padded))
+            cur = padded // n
+        for pl, n, G, padded in reversed(seen):
+            if pl.strategy == "plan":
+                cs = pl.schedule
+                gather += G * schedule_bytes(cs, padded, dtype,
+                                             family_steps(cs, "allgather"))
+            else:
+                gather += G * flat_strategy_bytes(
+                    pl.strategy, pl.factors, n, padded, "all_gather", elem)
+    return gather, scatter
+
+
+def phase_train_levels(dev, lr: float, *, mesh, sync, label: str,
+                       layers: int = TRAIN["layers"], base=None) -> dict:
+    """The ZeRO-3 trainer at TRAIN's full width and seq, depth `layers`,
+    per leaf on the local mesh `mesh` with `sync` (a bucketed request on
+    two axes takes the per-leaf path, as the reference's does: checked),
+    TRAIN["steps"] steps at `lr`, every launch count zeroed just before
+    and read just after. Checks: finite and falling losses, finite
+    gnorms, each kernel's launches exactly `level_launches` and no other
+    kernel, no guard failure. Prints the plans, the losses (and their gap
+    to `base`, the f32-wire run's, where given), the launches beside the
+    count, the gather's and reduce-scatter's device ms (CUDA events,
+    median after the first step) beside their byte bounds
+    (`level_bytes`), the peak memory and the wall time. Returns the
+    launch counts, the losses, the peak and the wall seconds."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build
+    from repro_torch.models.tree import tree_items
+
+    tr = TRAIN
+    cfg = dataclasses.replace(get_config(tr["arch"]), n_layers=layers)
+    steps = tr["steps"]
+    torch.empty(1, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    api = build(cfg)
+    res = train_run(api, api.init_params(
+        torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev),
+        mesh, lr, steps, tr["seq_len"], tr["global_batch"], sync=sync)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    by_kernel = dict(ops.ATTENTION_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    step = res["step"]
+    losses, gnorms = res["losses"], res["gnorms"]
+    numels = [math.prod(t.shape) for _, t in tree_items(api.params_spec())]
+    want = level_launches(step, len(numels), steps)
+    plans = "; ".join(
+        (pl.schedule.describe() if pl.strategy == "plan"
+         else f"axis {pl.axis} {pl.strategy}"
+         + (f" factors {pl.factors}" if pl.factors else ""))
+        for pl in step.plans)
+    gap = ("" if base is None else "; gap to the f32 wire's losses "
+           + str([f"{a - b:+.3e}" for a, b in zip(losses, base)]))
+    log(f"train [{label}]: {cfg.name} layers={cfg.n_layers} (cut from "
+        f"{get_config(tr['arch']).n_layers}) d={cfg.d_model}; mesh "
+        f"{step.mesh}, wire {step.wire or 'f32'}, "
+        f"{'bucketed' if step.bucket_plan is not None else 'per leaf'}; "
+        f"plans {plans}; seq {tr['seq_len']}, global "
+        f"batch {tr['global_batch']}, lr {lr}; losses {losses}; gnorms "
+        f"{gnorms}{gap}; wall {wall:.1f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"train [{label}]: launches {json.dumps(counts)}, expected "
+        f"{json.dumps(want)} ({len(numels)} leaves x {steps} steps, each "
+        f"axis plan once a group of the other axes); attention kernels "
+        f"{json.dumps(by_kernel)}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"train [{label}]: non-finite loss or gnorm: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train [{label}]: the loss did not fall at lr {lr}: {losses}")
+    if sync.bucket_bytes != 0 and len(step.mesh) > 1 \
+            and step.bucket_plan is not None:
+        fail(f"train [{label}]: a bucketed request on two axes kept its "
+             "bucket plan; the reference takes the per-leaf path")
+    if {k: v for k, v in counts.items() if v} != want:
+        fail(f"train [{label}]: launches {counts}, expected {want}")
+    if any(by_kernel.values()):
+        fail(f"train [{label}] ran attention kernels {by_kernel}")
+    for pl in step.plans:
+        if pl.schedule is not None and (pl.schedule.demotions
+                                        or pl.schedule.stats["failures"]):
+            fail(f"train [{label}]: guard {pl.schedule.stats}")
+    parts = {k: statistics.median(p[k] for p in res["phase_ms"][1:])
+             for k in ("gather", "reduce_scatter")}
+    gb, sb = level_bytes(step, numels, torch.bfloat16)
+    log(f"train [{label}]: device gather {parts['gather']:.2f} ms (byte "
+        f"bound {bound_ms(gb):.2f}), reduce-scatter "
+        f"{parts['reduce_scatter']:.2f} ms (byte bound {bound_ms(sb):.2f});"
+        f" step {statistics.median(res['step_s'][1:]) * 1e3:.1f} ms "
+        f"(median of steps 2-{steps})")
+    return {"counts": counts, "losses": losses, "peak": peak, "wall": wall}
 
 
 def trainer_rows(dev, recorder) -> list:
@@ -2612,26 +2882,30 @@ def shard_drift(got, want, lr: float, steps: int) -> tuple[int, int, float]:
     return far, total, worst
 
 
-def phase_train_reference(dev, sync=None, label: str = "per-leaf") -> None:
+def phase_train_reference(dev, sync=None, label: str = "per-leaf",
+                          mesh=None) -> float:
     """The trainer at smoke size in f32 on the card (fused_reduce on the
     card, the model in torch ops) against the same code on the CPU, from
     one state and the same batches, with `sync` (default: the per-leaf
-    path): TRAIN_SMOKE_STEPS steps, per-step loss and gnorm within 1e-4
+    path) on the local mesh `mesh` (default: TRAIN's 8 ranks):
+    TRAIN_SMOKE_STEPS steps, per-step loss and gnorm within 1e-4
     relative, as the served smoke models are held; the final shards
     within 1e-4 of each leaf's largest |value| but for at most 1e-4 of
-    their elements, those within 2·lr a step (`shard_drift`)."""
+    their elements, those within 2·lr a step (`shard_drift`). Returns
+    the wall seconds of the two runs."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.config import smoke_config
     from repro_torch.models.registry import build
 
+    t0 = time.perf_counter()
     api = build(smoke_config(get_config(TRAIN["arch"])))
     params = api.init_params(torch.Generator().manual_seed(0), torch.float32,
                              "cpu")
     lr, steps = TRAIN["lr"], TRAIN_SMOKE_STEPS
     runs = {str(where): train_run(api, _to(params, where),
-                                  TRAIN["local_ranks"], lr, steps, 32,
-                                  TRAIN["global_batch"], sync=sync,
+                                  mesh or TRAIN["local_ranks"], lr, steps,
+                                  32, TRAIN["global_batch"], sync=sync,
                                   param_dtype=torch.float32)
             for where in ("cpu", dev)}
     card, cpu = runs[str(dev)], runs["cpu"]
@@ -2655,6 +2929,12 @@ def phase_train_reference(dev, sync=None, label: str = "per-leaf") -> None:
     if sync is not None and sync.bucket_bytes and min(
             len(step.gather_buckets), len(step.scatter_buckets)) < 3:
         fail(f"train [{label}]: fewer than 3 buckets a half")
+    if sync is not None and sync.precision and step.wire != sync.precision:
+        fail(f"train [{label}]: the step's wire is {step.wire}, not "
+             f"{sync.precision}")
+    wall = time.perf_counter() - t0
+    log(f"train [{label}]: smoke-size card vs CPU wall {wall:.1f} s")
+    return wall
 
 
 def phase_train_all(dev) -> tuple[dict, dict]:
@@ -2664,9 +2944,12 @@ def phase_train_all(dev) -> tuple[dict, dict]:
     first of TRAIN_FALL_LRS: one bucket a half, the loss must fall, the
     per-leaf losses printed beside) and with bucket_bytes pinned to
     TRAIN_BUCKET_BYTES (run (b): its scatter buckets issued last first on
-    every step); `sync_bucketed` on the card (run (c)); and the
-    smoke-size trainer on the card against the CPU, per leaf and bucketed
-    (run (d), TRAIN_SMOKE_BUCKET_BYTES). Returns the launch counts of the
+    every step); the two-level trainer over TRAIN_MESH and the per-leaf
+    trainer on each of TRAIN_WIRES (`phase_train_levels`); `sync_bucketed`
+    on the card (run (c)); and the smoke-size trainer on the card against
+    the CPU, per leaf, bucketed (run (d), TRAIN_SMOKE_BUCKET_BYTES), per
+    leaf over TRAIN_MESH and bucketed on the fp8 wire. Returns the launch
+    counts of the
     full-width runs and of run (c), summed, and the per-leaf run at the
     first of TRAIN_FALL_LRS (its losses and fused_reduce launches: phase
     ft's baseline)."""
@@ -2744,6 +3027,27 @@ def phase_train_all(dev) -> tuple[dict, dict]:
     del r, tracer
     torch.cuda.empty_cache()
 
+    # the two-level mesh, then the lossy wires per leaf: the same weights
+    # and batches as the per-leaf plan run at lr
+    r = phase_train_levels(dev, lr, mesh=TRAIN_MESH,
+                           sync=SyncConfig(strategy="plan"),
+                           label="two-level (pod 2, data 4), sync plan")
+    for name, n in r["counts"].items():
+        counts[name] += n
+    del r
+    torch.cuda.empty_cache()
+    for wire in TRAIN_WIRES:
+        r = phase_train_levels(
+            dev, lr, mesh=TRAIN["local_ranks"],
+            sync=SyncConfig(strategy="plan", bucket_bytes=0,
+                            precision=wire),
+            label=f"per-leaf, {wire} wire", layers=TRAIN_LOSSY_LAYERS,
+            base=base if TRAIN_LOSSY_LAYERS == TRAIN["layers"] else None)
+        for name, n in r["counts"].items():
+            counts[name] += n
+        del r
+        torch.cuda.empty_cache()
+
     for name, n in phase_sync_bucketed(dev).items():
         counts[name] += n
     torch.cuda.empty_cache()
@@ -2751,6 +3055,12 @@ def phase_train_all(dev) -> tuple[dict, dict]:
     phase_train_reference(dev, SyncConfig(
         strategy="plan", bucket_bytes=TRAIN_SMOKE_BUCKET_BYTES),
         label="bucketed")
+    phase_train_reference(dev, SyncConfig(strategy="plan", bucket_bytes=0),
+                          label="two-level (pod 2, data 4), per leaf",
+                          mesh=TRAIN_MESH)
+    phase_train_reference(dev, SyncConfig(
+        strategy="plan", bucket_bytes=TRAIN_SMOKE_BUCKET_BYTES,
+        precision="fp8"), label="bucketed, fp8 wire")
     return counts, baseline
 
 

@@ -14,25 +14,30 @@ The pricing half is the reference package's, copied: `BucketConfig`
 `partition`, and the time models the sweep prices (`serial_time`,
 `pipelined_time`, `contended_pipelined_time`).
 
-The executor half runs on the local mesh of `core.lower`: the `n` ranks
-are the rows of (n, ...) tensors on one device, and a bucket is the
-(n, Σsize) column concatenation of its member leaves, reduce-scattered
-and all-gathered by one schedule launch each (every fold phase one
-kernel launch on a card):
+The executor half runs on the local mesh of `core.lower` and
+`core.collectives`: the ranks are the rows of tensors on one device, and
+a bucket is the (ranks, Σsize) column concatenation of its member
+leaves. On one live axis the bucket is reduce-scattered and
+all-gathered by one schedule launch each; on several it runs the
+reference's hierarchical chain, one schedule a live axis in the bucket
+plan's order (`collectives.reduce_scatter` / `all_gather` /
+`allreduce` with `mesh=`), the all-gathers in reverse, each undoing its
+axis's schedule padding. Every fold phase is one kernel launch on a
+card (on several axes one a group of the other axes,
+`collectives._per_group`).
 
   * `execute_buckets` — every bucket's RS then AG, in the reference's
     four issuance branches (merged, pipelined, sequential halves, whole
-    AllReduce) and their spans;
+    AllReduce) and their spans; merged issuance on one live axis only,
+    as the reference's;
   * `sync_bucketed` — the bucketed gradient AllReduce of
-    `SyncConfig(strategy="plan")` on one live axis;
+    `SyncConfig(strategy="plan")` over the live axes;
   * `zero3_layout`, `zero3_gather_bucketed`, `zero3_scatter_bucketed` —
     the ZeRO-3 trainer's bucketed parameter all-gather and gradient
-    reduce-scatter, in the reference's bucket row layout;
+    reduce-scatter, in the reference's bucket row layout (one axis, as
+    the reference's);
   * `invalidate_schedules` — drops every lowered schedule and cached
     bucket plan of a service.
-
-The hierarchical bucket chain over more than one live axis is not
-ported yet (ROADMAP §1 item 4b): the executor raises on it.
 """
 from __future__ import annotations
 
@@ -224,23 +229,56 @@ def supports_halves(axis_plans) -> bool:
                for pl in axis_plans)
 
 
-def _one_axis(axis_plans, what: str):
-    if len(axis_plans) != 1:
-        raise NotImplementedError(
-            f"{what} over {len(axis_plans)} live mesh axes: the "
-            "hierarchical bucket chain is not ported yet (ROADMAP §1 "
-            "item 4b)")
-    return axis_plans[0]
+def _rs_chain(rows: torch.Tensor, axis_plans, mesh
+              ) -> tuple[torch.Tensor, list[int]]:
+    """Hierarchical ReduceScatter of (R, size) mesh rows, the axes in the
+    bucket plan's order: the final (R, shard) rows and each axis's
+    pre-RS size a rank (the mirrored AG chain undoes the padding with
+    them)."""
+    from . import collectives
+    lead = [s for _, s in mesh]
+    R = rows.shape[0]
+    sizes = []
+    for pl in axis_plans:
+        sizes.append(int(rows.shape[1]))
+        rows = collectives.reduce_scatter(
+            rows.reshape(*lead, -1), pl.axis, "plan", schedule=pl.schedule,
+            mesh=mesh).reshape(R, -1)
+    return rows, sizes
+
+
+def _ag_chain(shard: torch.Tensor, axis_plans, sizes, mesh) -> torch.Tensor:
+    from . import collectives
+    lead = [s for _, s in mesh]
+    R = shard.shape[0]
+    for pl, sz in zip(reversed(axis_plans), reversed(sizes)):
+        shard = collectives.all_gather(
+            shard.reshape(*lead, -1), pl.axis, "plan", schedule=pl.schedule,
+            mesh=mesh).reshape(R, -1)[:, :sz]
+    return shard
+
+
+def _allreduce_chain(rows: torch.Tensor, axis_plans, mesh) -> torch.Tensor:
+    from . import collectives
+    lead = [s for _, s in mesh]
+    for pl in axis_plans:
+        rows = collectives.allreduce(rows.reshape(*lead, -1), pl.axis,
+                                     "plan", schedule=pl.schedule,
+                                     mesh=mesh).reshape(rows.shape)
+    return rows
 
 
 def execute_buckets(leaves: Sequence[torch.Tensor],
                     buckets: Sequence[Bucket], axis_plans, *,
                     pipeline: bool = True, merged=None,
-                    reverse: bool = False) -> list[torch.Tensor]:
+                    reverse: bool = False, mesh=None) -> list[torch.Tensor]:
     """AllReduce every bucket over the local mesh's ranks: `leaves[i]` is
-    an (n, ...) tensor, row r rank r's leaf. Returns the reduced leaf
-    list, every row of a bucketed leaf the column sum (leaves outside
-    any bucket, the empty ones, unchanged). One live axis only.
+    an (n, ...) tensor, row r rank r's leaf, on the one axis of
+    `axis_plans`; or, with `mesh` (the local mesh's (axis, size) pairs),
+    a tensor leading with the mesh's sizes, reduced over every axis of
+    `axis_plans` by the hierarchical chain in their order. Returns the
+    reduced leaf list, every rank's copy of a bucketed leaf the sum over
+    the axes (leaves outside any bucket, the empty ones, unchanged).
 
     Issuance as the reference's (DESIGN.md §9): each bucket moves
     QUEUED → RS → SHARD → AG → DONE with at most two in flight; step k
@@ -255,8 +293,13 @@ def execute_buckets(leaves: Sequence[torch.Tensor],
     out = list(leaves)
     if not buckets:
         return out
-    cs = _one_axis(axis_plans, "execute_buckets").schedule
-    n = leaves[buckets[0].indices[0]].shape[0]
+    if mesh is None:
+        if len(axis_plans) != 1:
+            raise ValueError(f"{len(axis_plans)} axis plans need the local "
+                             "mesh their leaves lie on (mesh=)")
+        mesh = [(axis_plans[0].axis, leaves[buckets[0].indices[0]].shape[0])]
+    mesh = [(str(a), int(s)) for a, s in mesh]
+    n = math.prod(s for _, s in mesh)
     flats = []
     for bk in buckets:
         parts = [leaves[i].reshape(n, -1) for i in bk.indices]
@@ -268,11 +311,18 @@ def execute_buckets(leaves: Sequence[torch.Tensor],
     tracer = default_tracer()
     results: list = [None] * k
     halves = supports_halves(axis_plans)
+    sizes: list = [None] * k
+
+    def rs(i):
+        shard, sizes[i] = _rs_chain(flats[i], axis_plans, mesh)
+        return shard
 
     def gather(i, shard):
-        return cs.run_local_all_gather(shard)[:, :flats[i].shape[1]]
+        return _ag_chain(shard, axis_plans, sizes[i], mesh)
 
-    if merged is not None and pipeline and k > 1 and halves:
+    if merged is not None and pipeline and k > 1 and halves \
+            and len(axis_plans) == 1:
+        cs = axis_plans[0].schedule
         shards: list = [None] * k
         prev = None
         for i in order:
@@ -287,14 +337,15 @@ def execute_buckets(leaves: Sequence[torch.Tensor],
                 shards[prev] = None
             prev = i
         with tracer.span("bucket/ag", bucket=prev):
-            results[prev] = gather(prev, shards[prev])
+            results[prev] = cs.run_local_all_gather(
+                shards[prev])[:, :flats[prev].shape[1]]
     elif pipeline and k > 1 and halves:
         shards = [None] * k
         prev = None
         for i in order:
             with tracer.span("bucket/rs", bucket=i,
                              elements=int(flats[i].shape[1])):
-                shards[i] = cs.run_local_reduce_scatter(flats[i])
+                shards[i] = rs(i)
             if prev is not None:
                 with tracer.span("bucket/ag", bucket=prev):
                     results[prev] = gather(prev, shards[prev])
@@ -306,7 +357,7 @@ def execute_buckets(leaves: Sequence[torch.Tensor],
         for i in order:
             with tracer.span("bucket/rs", bucket=i,
                              elements=int(flats[i].shape[1])):
-                shard = cs.run_local_reduce_scatter(flats[i])
+                shard = rs(i)
             with tracer.span("bucket/ag", bucket=i):
                 results[i] = gather(i, shard)
     else:
@@ -314,7 +365,7 @@ def execute_buckets(leaves: Sequence[torch.Tensor],
         for i in order:
             with tracer.span("bucket/allreduce", bucket=i,
                              elements=int(flats[i].shape[1])):
-                results[i] = cs.run_local(flats[i])
+                results[i] = _allreduce_chain(flats[i], axis_plans, mesh)
 
     for bk, res in zip(buckets, results):
         off = 0
@@ -326,36 +377,45 @@ def execute_buckets(leaves: Sequence[torch.Tensor],
 
 def sync_bucketed(grads: Sequence[torch.Tensor],
                   axes: Sequence[tuple[str, int]], cfg, *, service=None,
-                  stats: dict | None = None) -> list[torch.Tensor]:
+                  stats: dict | None = None, mesh=None) -> list[torch.Tensor]:
     """Bucketed, double-buffered gradient AllReduce on the local mesh —
-    the reference's `SyncConfig(strategy="plan")` path. `grads[i]` is an
-    (n, ...) tensor, row r rank r's gradient, n the one live axis's size;
-    returns the list with every row the column sum. The bucket size, the
-    axis schedule and the issuance (merged or sequential) come from
-    `PlannerService.get_bucket_plan`, priced at the grads' total bytes
+    the reference's `SyncConfig(strategy="plan")` path. `grads[i]` is a
+    local-mesh tensor leading with the sizes of `mesh` (default: the live
+    axes of `axes`, in their order; on one live axis of n ranks an (n,
+    ...) tensor, row r rank r's gradient); returns the list with every
+    rank's copy the sum over the live axes. The bucket size, the axis
+    schedules (one a live axis, in the order of `axes`: the leaf axis
+    first, as the reference's chain runs) and the issuance (merged or
+    sequential; merged on one live axis only) come from
+    `PlannerService.get_bucket_plan`, priced at one rank's total bytes
     in f32 units, with `cfg.params`, `cfg.bucket_bytes`, `cfg.pipeline`,
     `cfg.precision` and `cfg.tolerance`; a wire the plan binds runs the
     quantize / quant_reduce / dequantize kernels. `cfg.backward_overlap`
-    issues the buckets last first; `cfg.guard` wraps the schedule in
+    issues the buckets last first; `cfg.guard` wraps the schedules in
     `core.lower.guard_schedule`.
 
     `stats`, when given, is filled with the plan's identity and modeled
     costs. Metrics: `sync_bucketed_total`, `sync_buckets_per_step`,
     `bucket_pipeline_occupancy`, `sync_bucketed_merged_issue_total`;
-    span `sync/bucketed`. More than one live axis raises
-    NotImplementedError (ROADMAP §1 item 4b)."""
+    span `sync/bucketed`."""
     leaves = list(grads)
     live = [(a, int(n)) for a, n in axes if int(n) > 1]
-    sizes = [int(x[0].numel()) if x.shape[0] else 0 for x in leaves]
+    mesh = live if mesh is None else [(str(a), int(s)) for a, s in mesh]
+    lead = tuple(s for _, s in mesh)
+    R = math.prod(lead)
+    for a, n in live:
+        if dict(mesh).get(a) != n:
+            raise ValueError(f"axis {a!r} of size {n} is not in the mesh "
+                             f"{mesh}")
+    for x in leaves:
+        if tuple(x.shape[:len(lead)]) != lead:
+            raise ValueError(f"sync_bucketed takes per-rank rows leading "
+                             f"with the mesh's sizes {lead} "
+                             f"({', '.join(a for a, _ in mesh)}); got a "
+                             f"leaf of shape {tuple(x.shape)}")
+    sizes = [int(x.numel()) // R for x in leaves]
     if not live or sum(sizes) == 0 or not leaves:
         return leaves
-    _one_axis(live, "sync_bucketed")
-    n = live[0][1]
-    for x in leaves:
-        if x.dim() == 0 or x.shape[0] != n:
-            raise ValueError(f"sync_bucketed takes ({n}, ...) per-rank "
-                             f"rows on axis {live[0][0]!r}; got a leaf "
-                             f"of shape {tuple(x.shape)}")
 
     if service is None:
         from repro_torch.planner.service import default_service
@@ -427,7 +487,7 @@ def sync_bucketed(grads: Sequence[torch.Tensor],
                                reverse=reverse):
         return execute_buckets(leaves, buckets, axis_plans,
                                pipeline=bcfg.pipeline, merged=merged,
-                               reverse=reverse)
+                               reverse=reverse, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -374,7 +374,8 @@ def sync_gradients(grads, axes: Sequence[tuple[str, int]], cfg: SyncConfig,
 
       * "auto": one psum over every live axis at once;
       * "plan" with `bucket_bytes` other than 0: the bucketed path,
-        `core.bucketing.sync_bucketed` (one live axis);
+        `core.bucketing.sync_bucketed` (on several live axes the
+        reference's hierarchical bucket chain);
       * otherwise per leaf: `resolve_axis_plans` at the summed per-rank
         size, each axis's collective in turn, with `compress="int8"` the
         int8 CPS AllReduce on cps and hcps axes.
@@ -395,11 +396,9 @@ def sync_gradients(grads, axes: Sequence[tuple[str, int]], cfg: SyncConfig,
     if cfg.strategy == "plan" and cfg.bucket_bytes != 0:
         from .bucketing import sync_bucketed
         leaves = _tree_leaves(grads)
-        live = [int(n) for _, n in axes if int(n) > 1]
-        # one live axis: each leaf as (n, ...) rows in rank order
-        rows = [g.reshape(R, -1) if live == [R] else g for g in leaves]
-        done = {id(g): r.reshape(g.shape) for g, r in zip(
-            leaves, sync_bucketed(rows, axes, cfg, stats=stats))}
+        done = {id(g): r for g, r in zip(
+            leaves, sync_bucketed(leaves, axes, cfg, stats=stats,
+                                  mesh=mesh))}
         return _tree_map(lambda g: done[id(g)], grads)
 
     plans = resolve_axis_plans(axes, cfg, size_floats=float(

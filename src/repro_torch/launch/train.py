@@ -4,22 +4,26 @@ The reference's manual engine (`launch/train.py`) shards every parameter
 leaf over the data-parallel ranks (ZeRO-3: flat per-rank shards),
 gathers them with a planned AllGather and reduces the gradients with a
 planned ReduceScatter: GenTree's plan, lowered by `core.lower` and run
-round for round, as the collective of a training step. Here the `n`
-ranks are the rows of tensors on one device (the local mesh of
-`CompiledSchedule.run_local_*`), as the decode AllReduce of
+round for round, as the collective of a training step, one plan per
+level of the data-parallel mesh. Here the ranks are the rows of tensors
+on one device (the local mesh of `core.collectives`, whose leading
+dimensions are the mesh axes), as the decode AllReduce of
 `launch.serve` is, and each fold phase of a schedule is one
 `fused_reduce_into` launch on a card.
 
-Scope: the reference's manual engine on one data-parallel axis, for
-the dense family, with every `SyncConfig` strategy of the reference:
-"plan" bucketed by default (GenModel picks the bucket,
-`core.bucketing`), per leaf with `bucket_bytes=0`; the flat labels
-psum, ring, rhd, cps and hcps, "gentree" (the planner's label for the
-axis) and "auto" (psum) per leaf, through `core.collectives`. These
-raise `NotImplementedError` and are never replaced by another path: the
+Scope: the reference's manual engine over the data-parallel axes of a
+local mesh, one axis (`("data", n)`) or several (e.g. `[("pod", 2),
+("data", 4)]`, the paper's hierarchical structure), for the dense
+family, with every `SyncConfig` strategy of the reference: "plan"
+bucketed by default on one axis (GenModel picks the bucket,
+`core.bucketing`), per leaf with `bucket_bytes=0` or on several axes;
+the flat labels psum, ring, rhd, cps and hcps, "gentree" (the planner's
+label for each axis) and "auto" (psum) per leaf, through
+`core.collectives`; a wire the plan binds (bf16, fp8, int8). These raise
+`NotImplementedError` and are never replaced by another path: the
 `auto` (pjit) engine (ROADMAP §1 items 4b and 6) and the schedule probe
 `observe_sync_probe` (item 4b); MoE and the recurrent families' training
-(item 6); a lossy wire or `compress` in the trainer (item 9).
+(item 6); `compress` in the trainer (item 9).
 
 With a checkpoint directory the run goes through the reference's
 `FaultTolerantLoop` (`runtime.ft`): a checkpoint every `ckpt_every`
@@ -36,6 +40,8 @@ checkpoints and corrupted collective payloads.
 
 train the smoke-size stablelm-12b on the card; `--device cpu` runs them
 on the CPU. Without `--smoke` the model is the full configuration.
+`run_training(tc, mesh=[("pod", 2), ("data", 4)])` trains over the
+two-level mesh.
 """
 from __future__ import annotations
 
@@ -66,6 +72,18 @@ _log = logging.getLogger(__name__)
 # ---------------------------------------------------------------------------
 # ZeRO-3 layout
 # ---------------------------------------------------------------------------
+def _mesh_of(mesh) -> list[tuple[str, int]]:
+    """The data-parallel local mesh as (axis, size) pairs in mesh order:
+    an int n is the one axis ("data", n)."""
+    if isinstance(mesh, (int, np.integer)):
+        return [("data", int(mesh))]
+    out = [(str(a), int(s)) for a, s in mesh]
+    if not out or any(s < 1 for _, s in out):
+        raise ValueError(f"a local mesh is (axis, size) pairs of sizes >= 1;"
+                         f" got {mesh!r}")
+    return out
+
+
 def _split(x: torch.Tensor, n: int) -> torch.Tensor:
     flat = x.reshape(-1)
     pad = (-flat.numel()) % n
@@ -73,63 +91,81 @@ def _split(x: torch.Tensor, n: int) -> torch.Tensor:
     return flat.reshape(n, -1)
 
 
-def shard_params_zero3(params: dict, n: int) -> list[torch.Tensor]:
-    """The reference's ZeRO-3 shards of `params`: one (n, shard) tensor a
-    leaf, row i rank i's shard, in the reference's leaf order. The port's
-    per-layer list under "layers" is stacked to (L, ...) leaves first (a
-    tree without that list is taken as stacked already); each leaf is
+def shard_params_zero3(params: dict, mesh) -> list[torch.Tensor]:
+    """The reference's ZeRO-3 shards of `params` over the local mesh
+    `mesh` (an int n, or (axis, size) pairs): one (n, shard) tensor a
+    leaf, n the product of the sizes, row r the rank whose mesh index is
+    r in row-major order (on [("pod", 2), ("data", 4)] rank (p, d) holds
+    row 4p + d), in the reference's leaf order. The port's per-layer
+    list under "layers" is stacked to (L, ...) leaves first (a tree
+    without that list is taken as stacked already); each leaf is
     flattened and zero-padded to a multiple of n. The tensors are
     copies."""
+    n = math.prod(s for _, s in _mesh_of(mesh))
     if isinstance(params.get("layers"), list):
         params = stack_layers(params)
     return [_split(x, n) for _, x in tree_items(params)]
 
 
 def _gather_leaf(shards: torch.Tensor, numel: int,
-                 plans: Sequence[AxisPlan]) -> torch.Tensor:
+                 plans: Sequence[AxisPlan], mesh=None) -> torch.Tensor:
     """(n, shard) → (n, numel): every rank's gathered copy of the leaf,
     trimmed of its padding. `collectives.all_gather` inverts
     `_scatter_leaf`'s reduce-scatter per strategy, the hcps un-reorder
-    included."""
-    full = shards
+    included. On several axes (`mesh`, the live (axis, size) pairs) the
+    plans gather in mesh order, as the reference's do, so rank (p, d)'s
+    shard lands at chunk d·P + p of the gathered vector, not 4p + d."""
+    n = shards.shape[0]
+    full = shards if mesh is None else shards.reshape(
+        *(s for _, s in mesh), -1)
     for pl in plans:
         full = collectives.all_gather(full, pl.axis, pl.strategy,
                                       factors=pl.factors,
-                                      schedule=pl.schedule)
-    return full[:, :numel]
+                                      schedule=pl.schedule, mesh=mesh)
+    return full.reshape(n, -1)[:, :numel]
 
 
-def _scatter_leaf(grads: torch.Tensor, plans: Sequence[AxisPlan]
-                  ) -> torch.Tensor:
+def _scatter_leaf(grads: torch.Tensor, plans: Sequence[AxisPlan],
+                  mesh=None) -> torch.Tensor:
     """(n, numel) per-rank gradients → (n, shard): row i rank i's shard
-    of their sum, zero-padded to the plan's multiple."""
-    out = grads
+    of their sum, zero-padded to the plans' multiples; on several axes
+    (`mesh`) the plans reduce-scatter in reverse mesh order, the exact
+    inverse of `_gather_leaf`."""
+    n = grads.shape[0]
+    out = grads if mesh is None else grads.reshape(
+        *(s for _, s in mesh), -1)
     for pl in reversed(plans):
         out = collectives.reduce_scatter(out, pl.axis, pl.strategy,
                                          factors=pl.factors,
-                                         schedule=pl.schedule)
-    return out
+                                         schedule=pl.schedule, mesh=mesh)
+    return out.reshape(n, -1)
 
 
-def _shard_of(numel: int, n: int, plans: Sequence[AxisPlan]) -> int:
+def _shard_of(numel: int, mesh, plans: Sequence[AxisPlan]) -> int:
     """The per-rank elements of a leaf of `numel` after `plans`'
-    reduce-scatter: the leaf padded to each plan's multiple (a
-    schedule's block count, a flat label's `_pad_multiple`), over n, or
-    over the power-of-two core for rhd on other axis sizes."""
-    padded = numel
-    for pl in plans:
+    reduce-scatter on `mesh` (an int n, or (axis, size) pairs), axis by
+    axis in reverse: the shard left by the axis before, padded to this
+    axis's multiple (a schedule's block count, a flat label's
+    `_pad_multiple`), over its size, or over the power-of-two core for
+    rhd on other axis sizes."""
+    sizes = dict(_mesh_of(mesh))
+    cur = numel
+    for pl in reversed(plans):
+        n = sizes[pl.axis]
         mult = (pl.schedule.num_blocks if pl.strategy == "plan"
                 else collectives._pad_multiple(n, pl.strategy))
-        padded = -(-padded // mult) * mult
-    if any(pl.strategy == "rhd" for pl in plans):
-        return padded // collectives._rhd_pow2(n)[0]
-    return padded // n
+        padded = -(-cur // mult) * mult
+        cur = padded // (collectives._rhd_pow2(n)[0] if pl.strategy == "rhd"
+                         else n)
+    return cur
 
 
 def _rank_batch(batch: dict, r: int, n: int) -> dict:
     """Rank r's rows of the batch: [r·B/n, (r+1)·B/n) of each leaf whose
     leading size B is a multiple of n above 1, the whole leaf otherwise
-    (the reference's `batch_specs` replicates such a leaf)."""
+    (the reference's `batch_specs` replicates such a leaf). On several
+    axes r is the row-major mesh index, as the reference's batch spec
+    over all data-parallel axes splits it."""
     out = {}
     for k, v in batch.items():
         B = v.shape[0] if v.dim() else 0
@@ -172,14 +208,17 @@ def _bucket_plan(n: int, sync: SyncConfig, total_bytes: float):
     return bp, None
 
 
-def make_manual_train_step(api: ModelAPI, n: int,
+def make_manual_train_step(api: ModelAPI, mesh,
                            opt_cfg: AdamWConfig = AdamWConfig(), *,
                            sync: SyncConfig = SyncConfig(strategy="plan",
                                                          bucket_bytes=0),
                            device: str | torch.device = "cuda",
                            param_dtype: torch.dtype = torch.bfloat16):
-    """ZeRO-3 step over a local mesh of `n` data-parallel ranks on
-    `device`: `step(state, batch) -> (state, metrics)`.
+    """ZeRO-3 step over a local mesh of data-parallel ranks on `device`:
+    `step(state, batch) -> (state, metrics)`. `mesh` is an int n (one
+    axis, ("data", n)) or the mesh's (axis, size) pairs in the reference
+    mesh's order, e.g. [("pod", 2), ("data", 4)]; n is the product of the
+    sizes, and the live axes (size > 1) are the reference's `axes`.
 
     `state` is {"params": [(n, shard) per leaf], "opt": {"m", "v":
     lists of the same shapes in f32, "step"}} (`shard_params_zero3`,
@@ -188,52 +227,59 @@ def make_manual_train_step(api: ModelAPI, n: int,
     `batch` is {"tokens", "labels"} of the global batch on `device`. Per
     step:
 
-      1. the parameters are gathered with the schedule's AllGather; the
-         n gathered rows must be equal (checked, `torch.equal`), so the
-         ranks share one copy and the others are dropped;
-      2. each rank r runs `api.loss_fn(remat=True)` on its rows of the
-         batch, and its gradients, in the parameters' dtype, land in
-         row r of the tensors the reduce-scatter runs on;
-      3. the gradients are reduce-scattered with the schedule and divided
-         by n in their dtype;
+      1. the parameters are gathered with the plans' AllGathers, in mesh
+         order; at full precision the n gathered rows must be equal
+         (checked, `torch.equal`), so the ranks share one copy and the
+         others are dropped. Under a lossy wire each rank's copy differs
+         (its own shard exact, the others decoded), so the (n, numel)
+         rows are kept and rank r's forward reads row r;
+      2. each rank r (row-major mesh index) runs `api.loss_fn(remat=True)`
+         on its rows of the batch, and its gradients, in the parameters'
+         dtype, land in row r of the tensors the reduce-scatter runs on;
+      3. the gradients are reduce-scattered with the plans in reverse
+         mesh order and divided by n in their dtype;
       4. AdamW runs per rank on that rank's shards, as inside the
          reference's shard_map: each rank clips by the norm of its own
          shards.
 
     The sync path is the reference's, for every `sync.strategy` it takes
-    (`compress` raises, as a lossy wire does):
-      * bucketed, for "plan" when `sync.bucket_bytes` is not 0 (None:
-        GenModel picks the bucket; a value pins it):
+    (`compress` raises):
+      * bucketed, for "plan" on one live axis when `sync.bucket_bytes` is
+        not 0 (None: GenModel picks the bucket; a value pins it):
         `PlannerService.get_bucket_plan` at
         the model's bytes in `param_dtype` over 4, and ONE all-gather a
         gather bucket (`core.bucketing.zero3_gather_bucketed`, shard cap
-        bucket_bytes // n; the gathered rows compared bucket by bucket)
-        and ONE in-place reduce-scatter a scatter bucket. Each scatter
+        bucket_bytes // n; at full precision the gathered rows compared
+        bucket by bucket) and ONE in-place reduce-scatter a scatter
+        bucket. Each scatter
         bucket's (n ranks, n·width) tensor is allocated once a step, zero
         only in its padding, and each rank's gradient is written straight
         into its columns (`Zero3Bucket.write`), so there is no
         concatenation copy and no private copy in the reduce-scatter.
         With `sync.backward_overlap` the buckets reduce last first
         (spans `bucket/zero3_rs`). Where the reference falls back to the
-        per-leaf path (the bucket plan does not lower, or has no
-        canonical shards), so does this step: it logs why, and
-        `step.bucket_plan` is None;
+        per-leaf path (more than one live axis: the bucket row layout is
+        one axis's; the bucket plan does not lower, or has no canonical
+        shards), so does this step: it logs why, and `step.bucket_plan`
+        is None;
       * per leaf otherwise: one all-gather and one reduce-scatter a leaf
-        (`collectives.all_gather` / `reduce_scatter`), the axis plan
-        resolved at the summed element count of one rank's shards: "auto"
-        is psum, "gentree" the planner's label for the axis
+        and a live axis (`collectives.all_gather` / `reduce_scatter`,
+        `mesh=` on several axes), the axis plans resolved at the summed
+        element count of one rank's shards, each axis priced at
+        `axis_level` of its position among the live axes (on [("pod",
+        2), ("data", 4)] "pod" is level 0, as in the reference): "auto"
+        is psum, "gentree" the planner's label for each axis
         (`PlannerService.get_axis_plans`), "plan" its lowered schedule,
-        a flat label itself (`resolve_axis_plans`). A plan whose
-        reduce-scattered shard of some leaf would not be that leaf's
-        parameter shard (its blocks pad the leaf past the multiple of n,
-        or rhd shards over the power-of-two core) is refused here.
-    A lossy wire (a `precision` the plan binds, other than f32) raises
-    NotImplementedError (ROADMAP §1 item 9): under it each rank's
-    gathered copy differs, so the ranks could not share one.
+        bound to the wire `sync.precision` asks for within
+        `sync.tolerance`, a flat label itself (`resolve_axis_plans`). A
+        plan whose reduce-scattered shard of some leaf would not be that
+        leaf's parameter shard (its blocks pad the leaf past the multiple
+        of n, or rhd shards over the power-of-two core) is refused here.
 
-    `step.plans` is the one axis plan the step runs (the bucket plan's on
-    the bucketed path; a "plan" schedule guarded unless `sync.guard` is
-    off), `step.bucket_plan` the
+    `step.plans` is the axis plans the step runs, in mesh order (the
+    bucket plan's on the bucketed path; a "plan" schedule guarded unless
+    `sync.guard` is off), `step.mesh` the live (axis, size) pairs,
+    `step.wire` the wire's name or None, `step.bucket_plan` the
     `PlannerService.BucketPlan` or None, `step.gather_buckets` /
     `step.scatter_buckets` the two halves' `Zero3Bucket`s (empty per
     leaf).
@@ -258,6 +304,10 @@ def make_manual_train_step(api: ModelAPI, n: int,
             f"compress={sync.compress!r} in the ZeRO-3 trainer: the "
             "reference compresses only in sync_gradients, and a lossy "
             "wire in the trainer is ROADMAP §1 item 9")
+    live = [(a, s) for a, s in _mesh_of(mesh) if s > 1]
+    n = math.prod(s for _, s in live)
+    # one live axis: (n, ...) rows as they are; several: the local mesh
+    kw = {"mesh": live} if len(live) > 1 else {}
     specs = tree_items(api.params_spec(param_dtype))
     paths = [p for p, _ in specs]
     numels = [math.prod(t.shape) for _, t in specs]
@@ -266,33 +316,35 @@ def make_manual_train_step(api: ModelAPI, n: int,
     itemsize = torch.empty((), dtype=param_dtype).element_size()
     bplan = None
     if sync.strategy == "plan" and sync.bucket_bytes != 0:
-        bplan, why = _bucket_plan(n, sync, sum(numels) * itemsize)
+        if len(live) == 1:
+            bplan, why = _bucket_plan(n, sync, sum(numels) * itemsize)
+        else:
+            why = (f"{len(live)} live mesh axes: the bucket row layout is "
+                   "one axis's")
         if bplan is None:
             _log.warning("bucketed ZeRO-3 sync falls back to the per-leaf "
                          "path, as the reference's does: %s", why)
     if bplan is not None:
         plans = list(bplan.axis_plans)
     else:
-        plans = ([AxisPlan("data", "psum")] if sync.strategy == "auto"
-                 else resolve_axis_plans([("data", int(n))], sync,
+        plans = ([AxisPlan(a, "psum") for a, _ in live]
+                 if sync.strategy == "auto"
+                 else resolve_axis_plans(live, sync,
                                          float(sum(shard_sizes))))
         for path, numel, size in zip(paths, numels, shard_sizes):
-            got = _shard_of(numel, n, plans)
+            got = _shard_of(numel, live or n, plans)
             if got != size:
-                what = (plans[0].schedule.describe()
-                        if plans[0].strategy == "plan"
-                        else plans[0].strategy)
+                what = "; ".join(pl.schedule.describe()
+                                 if pl.strategy == "plan" else pl.strategy
+                                 for pl in plans)
                 raise ValueError(
                     f"leaf {'/'.join(path)}: the plan's reduce-scatter "
                     f"shards hold {got} elements, its parameter "
                     f"shards {size} ({what})")
-    for pl in plans:
-        if pl.schedule is not None and pl.schedule.wire is not None:
-            raise NotImplementedError(
-                f"the {pl.schedule.wire.name} wire in the ZeRO-3 trainer: "
-                "under a lossy all-gather each rank's gathered copy "
-                "differs, so the ranks cannot share one (ROADMAP §1 "
-                "item 9)")
+    wires = {pl.schedule.wire.name for pl in plans
+             if pl.schedule is not None and pl.schedule.wire is not None}
+    # under a lossy wire each rank's gathered copy differs from the others'
+    lossy = bool(wires)
     gather_buckets = scatter_buckets = []
     if bplan is not None:
         k = plans[0].schedule.blocks_per_shard
@@ -313,14 +365,19 @@ def make_manual_train_step(api: ModelAPI, n: int,
         return e
 
     def gather(shards: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each leaf's one shared copy, or under a lossy wire its (n,
+        *shape) rows, row r rank r's copy."""
         if bplan is not None:
             return zero3_gather_bucketed(
                 shards, [(shape, s.dtype) for shape, s in zip(shapes,
                                                               shards)],
-                plans[0], bplan.bucket_bytes, n, shared=True)
+                plans[0], bplan.bucket_bytes, n, shared=not lossy)
         out = []
         for s, numel, shape, path in zip(shards, numels, shapes, paths):
-            full = _gather_leaf(s, numel, plans)
+            full = _gather_leaf(s, numel, plans, **kw)
+            if lossy:
+                out.append(full.reshape(n, *shape))
+                continue
             if not torch.equal(full[1:], full[:1].expand(n - 1, -1)):
                 raise RuntimeError(f"leaf {'/'.join(path)}: the gathered "
                                    "rows of the ranks differ")
@@ -347,7 +404,7 @@ def make_manual_train_step(api: ModelAPI, n: int,
         if bplan is None:
             out = []
             for i in range(len(bufs)):
-                out.append(_scatter_leaf(bufs[i], plans))
+                out.append(_scatter_leaf(bufs[i], plans, **kw))
                 bufs[i] = None
             return out
         out: list = [torch.zeros((n, 0), dtype=param_dtype, device=dev)
@@ -380,7 +437,8 @@ def make_manual_train_step(api: ModelAPI, n: int,
         losses = []
         with tracer.span("train/forward_backward", ranks=n):
             for r in range(n):
-                leaves = [f.detach().requires_grad_(True) for f in full]
+                leaves = [(f[r] if lossy else f).detach().requires_grad_(True)
+                          for f in full]
                 params = unstack_layers(tree_from_items(zip(paths, leaves)))
                 loss = api.loss_fn(params, _rank_batch(batch, r, n),
                                    remat=True)
@@ -423,6 +481,8 @@ def make_manual_train_step(api: ModelAPI, n: int,
         return state, metrics
 
     step.plans = plans
+    step.mesh = live
+    step.wire = next(iter(wires)) if wires else None
     step.bucket_plan = bplan
     step.gather_buckets = gather_buckets
     step.scatter_buckets = scatter_buckets
@@ -508,14 +568,18 @@ def _check_train_scope(tc: TrainConfig) -> None:
         observe_sync_probe()
 
 
-def run_training(tc: TrainConfig, smoke: bool = True, on_log=print) -> dict:
+def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
+                 mesh=None) -> dict:
     """Train `tc.arch` (smoke-shrunk unless `smoke` is False; its depth cut
     to `tc.n_layers` when set) from random bf16 weights for `tc.steps`
-    steps on a local mesh of `tc.local_ranks` ranks on `tc.device`, with
-    the reference's sync, `SyncConfig(strategy=tc.sync, bucket_bytes=
+    steps on the local mesh `mesh` on `tc.device` (the reference's
+    `mesh=`: (axis, size) pairs such as [("pod", 2), ("data", 4)], or an
+    int; None is one axis of `tc.local_ranks` ranks), with the
+    reference's sync, `SyncConfig(strategy=tc.sync, bucket_bytes=
     tc.bucket_bytes, backward_overlap=tc.backward_overlap)`: for "plan"
-    bucketed, GenModel picking the bucket unless `tc.bucket_bytes` is
-    set; per leaf for the other labels.
+    bucketed on one live axis, GenModel picking the bucket unless
+    `tc.bucket_bytes` is set, per leaf on several; per leaf for the
+    other labels.
 
     With `tc.ckpt_dir` the steps run in a `FaultTolerantLoop` (the
     reference's `run_training`): a checkpoint (`keep=2`) every
@@ -550,9 +614,9 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print) -> dict:
     if tc.n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=int(tc.n_layers))
     api = build(cfg)
-    n = int(tc.local_ranks)
+    mesh = int(tc.local_ranks) if mesh is None else mesh
     step_fn = make_manual_train_step(
-        api, n, AdamWConfig(lr=tc.lr),
+        api, mesh, AdamWConfig(lr=tc.lr),
         sync=SyncConfig(strategy=tc.sync, bucket_bytes=tc.bucket_bytes,
                         backward_overlap=tc.backward_overlap), device=dev)
     bp = step_fn.bucket_plan
@@ -572,7 +636,8 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print) -> dict:
                                   global_batch=tc.global_batch,
                                   seed=tc.seed))
     gen = torch.Generator(device=dev).manual_seed(tc.seed)
-    shards = shard_params_zero3(api.init_params(gen, torch.bfloat16, dev), n)
+    shards = shard_params_zero3(api.init_params(gen, torch.bfloat16, dev),
+                                mesh)
     state = {"params": shards, "opt": adamw_init(shards)}
 
     tracer = default_tracer()

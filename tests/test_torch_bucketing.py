@@ -20,7 +20,13 @@
   host devices and a plain `jax.sharding.Mesh` in one subprocess: f32
   within 1e-6, the f32 gather exactly, a wire within its budget (plus
   1e-6 against the reference's own wire result); the issue order of the
-  buckets, read from the tracer's spans, equal to the reference's.
+  buckets, read from the tracer's spans, equal to the reference's;
+- `sync_bucketed` over two live axes (the hierarchical bucket chain) on
+  the (pod 2, data 4) mesh against the reference's
+  `sync_gradients(strategy="plan")` on a plain 2 x 4 `Mesh`, at the
+  default bucket, a pinned 1 KiB one, without the pipeline and on each
+  wire: the same tolerances, the same issue order, exact launch
+  counts.
 
 Every input is made from a fixed numpy seed.
 """
@@ -84,6 +90,10 @@ SYNC = {"auto": {}, "b1k": {"bucket_bytes": 1024},
         "int8": {"bucket_bytes": 4096, "precision": "int8"},
         "tol": {"tolerance": 0.1}}
 SYNC_CASES = [("odd", c) for c in SYNC] + [("smoke", "auto")]
+# sync_bucketed over two live axes: the "odd" leaves on the (pod 2, data 4)
+# mesh, the reference's `sync_gradients` axes (leaf axis first)
+TWO_AXIS = ["auto", "b1k", "b1k_serial", "bf16", "fp8", "int8"]
+AXES2, MESH2 = [("data", 4), ("pod", 2)], [("pod", 2), ("data", 4)]
 # ZeRO-3 halves: (leaf set, bucket_bytes, reverse)
 ZERO3 = [("odd", 256, True), ("odd", 4096, False), ("smoke", 16384, True)]
 
@@ -139,7 +149,7 @@ from repro.planner.service import PlannerService, set_default_service
 from repro.runtime.trace import default_tracer
 
 out_path, in_path = sys.argv[1], sys.argv[2]
-LEAVES, SYNC, SYNC_CASES, ZERO3 = eval(sys.argv[3])
+LEAVES, SYNC, SYNC_CASES, ZERO3, TWO_AXIS = eval(sys.argv[3])
 inp = dict(np.load(in_path))
 res = {}
 mesh = Mesh(np.array(jax.devices()[:8]), ("x",))
@@ -170,6 +180,25 @@ for name, case in SYNC_CASES:
     for i, o in enumerate(outs):
         res[f"sync/{name}/{case}/{i}"] = o
     res[f"sync/{name}/{case}/spans"] = spans()
+
+# sync_gradients(strategy="plan") over two live axes on a plain 2 x 4 Mesh
+from repro.core.sync import sync_gradients
+mesh2 = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("pod", "data"))
+shapes = LEAVES["odd"]
+for case in TWO_AXIS:
+    set_default_service(PlannerService())
+    tracer.clear()
+    cfg = SyncConfig(strategy="plan", params=PAPER_TABLE5, **SYNC[case])
+    leaves = [jnp.asarray(inp[f"odd/{i}"].reshape(2, 4, *s))
+              for i, s in enumerate(shapes)]
+    f = jax.jit(shard_map(
+        lambda *xs: tuple(o[None, None] for o in sync_gradients(
+            [x[0, 0] for x in xs], [("data", 4), ("pod", 2)], cfg)),
+        mesh=mesh2, in_specs=tuple(P("pod", "data") for _ in leaves),
+        out_specs=tuple(P("pod", "data") for _ in leaves), check_vma=False))
+    for i, (o, s) in enumerate(zip(f(*leaves), shapes)):
+        res[f"two/{case}/{i}"] = np.asarray(o).reshape(8, *s)
+    res[f"two/{case}/spans"] = spans()
 
 svc = PlannerService()
 plan = AxisPlan("x", "plan", schedule=svc.get_axis_executable(
@@ -205,7 +234,7 @@ def shard_map_results(tmp_path_factory):
     env["JAX_PLATFORMS"] = "cpu"
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    spec = repr((LEAVES, SYNC, SYNC_CASES, ZERO3))
+    spec = repr((LEAVES, SYNC, SYNC_CASES, ZERO3, TWO_AXIS))
     proc = subprocess.run([sys.executable, "-c", _CHILD, str(d / "out.npz"),
                            str(d / "inputs.npz"), spec],
                           env=env, capture_output=True, text=True,
@@ -719,10 +748,22 @@ def test_sync_bucketed_counts_its_metrics():
 
 
 def test_sync_bucketed_refuses_two_live_axes():
+    """Two live axes were refused until the hierarchical bucket chain was
+    ported; now leaves leading with the live axes' sizes (the default
+    mesh: `axes` in their order) reduce over both, every rank's copy the
+    sum over the mesh. Rows that do not lead with the mesh's sizes still
+    raise, one live axis among size-1 axes runs as before, and no live
+    axis is a no-op."""
+    rng = np.random.default_rng(3)
+    z = torch.from_numpy(rng.standard_normal((4, 2, 37)).astype(np.float32))
+    (got,) = tb.sync_bucketed([z], [("data", 4), ("pod", 2)],
+                              _sync_cfg("auto"), service=PlannerService())
+    want = np.broadcast_to(z.double().sum((0, 1)).numpy(), z.shape)
+    assert got.shape == z.shape and _rel(got.numpy(), want) <= 1e-6
+    with pytest.raises(ValueError, match="per-rank rows"):
+        tb.sync_bucketed([torch.zeros((N, 4))], [("data", 4), ("pod", 2)],
+                         _sync_cfg("auto"), service=PlannerService())
     leaves = [torch.zeros((N, 4))]
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-        tb.sync_bucketed(leaves, [("data", 4), ("pod", 2)], _sync_cfg("auto"),
-                         service=PlannerService())
     # one live axis among size-1 axes is fine; no live axis is a no-op
     tb.sync_bucketed(leaves, [("data", N), ("pod", 1)], _sync_cfg("auto"),
                      service=PlannerService())
@@ -731,6 +772,90 @@ def test_sync_bucketed_refuses_two_live_axes():
     with pytest.raises(ValueError, match="per-rank rows"):
         tb.sync_bucketed([torch.zeros((4, 4))], [("data", N)],
                          _sync_cfg("auto"), service=PlannerService())
+
+
+def _port_sync2(case, stats=None):
+    """The port's sync_bucketed over AXES2 on MESH2: the "odd" leaves as
+    (2, 4, ...) local-mesh tensors, rank (p, d) row 4p + d."""
+    leaves = [torch.from_numpy(x.reshape(2, 4, *x.shape[1:]))
+              for x in _leaves("odd")]
+    got = tb.sync_bucketed(leaves, AXES2, _sync_cfg(case),
+                           service=PlannerService(), stats=stats,
+                           mesh=MESH2)
+    return [g.reshape(N, *g.shape[2:]) for g in got]
+
+
+@pytest.mark.parametrize("case", TWO_AXIS)
+def test_two_axis_sync_bucketed_matches_shard_map(case, shard_map_results,
+                                                  tracer):
+    """The hierarchical bucket chain against the reference's
+    `sync_gradients(strategy="plan")` under shard_map on a plain (pod 2,
+    data 4) Mesh: f32 within 1e-6, a wire within its budget plus 1e-6;
+    the column sum over both axes within the same; the buckets issued as
+    the reference issues them (merged issuance stays one-axis only)."""
+    stats = {}
+    got = _port_sync2(case, stats)
+    prec = stats["precision"]
+    assert prec == SYNC[case].get("precision", "f32")
+    assert stats["axes"] == AXES2
+    tol = 1e-6 if prec == "f32" else PRECISIONS[prec].error_budget + 1e-6
+    for i, (g, x) in enumerate(zip(got, _leaves("odd"), strict=True)):
+        assert g.shape == x.shape and g.dtype == torch.float32
+        want = shard_map_results[f"two/{case}/{i}"]
+        assert _rel(g.numpy(), want) <= tol
+        assert _rel(g.numpy(), np.broadcast_to(x.astype(np.float64).sum(0),
+                                               x.shape)) <= tol
+    spans = _bucket_spans(tracer)
+    assert spans == list(shard_map_results[f"two/{case}/spans"])
+    assert not any(sp.startswith("bucket/rs_ag") for sp in spans)
+
+
+def _launches(cs, steps) -> dict:
+    """Kernel launches of one run of `steps` of schedule `cs` at its wire:
+    a fold kernel a fold phase (fused_reduce_into at full precision and
+    on the bf16 wire; on a scaled wire quant_reduce_into, or
+    dequantize_into where the phase only lands copies) and, on a scaled
+    wire, a quantize a live round."""
+    folds = _folds(steps)
+    if cs.wire is None or not cs.wire.scale_block:
+        return {"fused_reduce_into": folds}
+    rounds = sum(1 for st in steps for rd in st.rounds if rd.perm)
+    landings = 0
+    for st in steps:
+        for fd in st.folds:
+            act = fd.blk >= 0
+            landings += int(not fd.include_self[act].any() and bool(
+                ((fd.ops[act] >= 0).sum(axis=1) == 1).all()))
+    return {"quantize": rounds, "dequantize_into": landings,
+            "quant_reduce_into": folds - landings}
+
+
+@pytest.mark.parametrize("case", TWO_AXIS)
+def test_two_axis_sync_bucketed_launches(monkeypatch, case):
+    """Per bucket, per axis of the chain, one launch a fold phase (and a
+    quantize a live round on a scaled wire) of the axis schedule's RS and
+    AG halves, once a group of the other axis (`_per_group`: 2 groups
+    on "data", 4 on "pod")."""
+    counts = _count(monkeypatch)
+    stats = {}
+    _port_sync2(case, stats)
+    cfg = _sync_cfg(case)
+    bp = PlannerService().get_bucket_plan(
+        AXES2, sum(int(np.prod(s)) for s in ODD), dtype="float32",
+        params=PAPER_TABLE5, config=tb.BucketConfig(
+            bucket_bytes=cfg.bucket_bytes, pipeline=cfg.pipeline,
+            precision=cfg.precision, tolerance=cfg.tolerance))
+    assert bp.key == stats["key"] and len(bp.axis_plans) == 2
+    k = len(tb.partition([int(np.prod(s)) for s in ODD], ["f"] * len(ODD),
+                         stats["bucket_bytes"], itemsizes=[4] * len(ODD)))
+    want: dict = {}
+    for pl in bp.axis_plans:
+        cs = pl.schedule
+        groups = N // cs.n
+        for name, c in _launches(cs, tov._rs_steps(cs)
+                                 + tov._ag_steps(cs)).items():
+            want[name] = want.get(name, 0) + k * groups * c
+    assert counts == {name: c for name, c in want.items() if c}
 
 
 def test_guarded_sync_records_and_raises(monkeypatch):

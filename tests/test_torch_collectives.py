@@ -460,15 +460,28 @@ def test_unknown_strategy_and_missing_factors_raise():
 
 def test_bucketed_sync_over_two_live_axes_raises():
     """`sync_gradients` with "plan" and buckets over two live axes takes
-    the bucketed path, whose hierarchical chain is not ported (ROADMAP §1
-    item 4b); per leaf (`bucket_bytes=0`) the two-axis sync runs."""
+    the bucketed path, the reference's hierarchical bucket chain (it
+    raised until the chain was ported); it agrees with the per-leaf
+    two-axis sync (`bucket_bytes=0`) within 1e-6, at the default bucket
+    (one) and at a pinned 64 bytes (a bucket a leaf)."""
     z = torch.randn((2, 4, 24), generator=torch.Generator().manual_seed(5))
+    y = torch.randn((2, 4, 3, 7), generator=torch.Generator().manual_seed(6))
     axes, mesh = [("data", 4), ("pod", 2)], [("pod", 2), ("data", 4)]
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4b"):
-        S.sync_gradients({"g": z}, axes, S.SyncConfig(strategy="plan"),
-                         mesh=mesh)
-    got = S.sync_gradients({"g": z}, axes, S.SyncConfig(
-        strategy="plan", bucket_bytes=0, params=PAPER_TABLE5),
-        mesh=mesh)["g"]
-    assert _rel(got, np.broadcast_to(z.double().sum((0, 1)).numpy(),
-                                     z.shape)) <= 1e-6
+    per_leaf = S.sync_gradients({"g": z, "h": y}, axes, S.SyncConfig(
+        strategy="plan", bucket_bytes=0, params=PAPER_TABLE5), mesh=mesh)
+    for x, k in ((z, "g"), (y, "h")):
+        assert _rel(per_leaf[k], np.broadcast_to(
+            x.double().sum((0, 1)).numpy(), x.shape)) <= 1e-6
+    for bucket_bytes in (None, 64):
+        stats = {}
+        got = S.sync_gradients({"g": z, "h": y}, axes, S.SyncConfig(
+            strategy="plan", bucket_bytes=bucket_bytes,
+            params=PAPER_TABLE5), stats=stats, mesh=mesh)
+        assert stats["axes"] == axes
+        if bucket_bytes is None:
+            assert stats["num_buckets"] == 1
+        else:
+            assert stats["bucket_bytes"] == bucket_bytes
+        for k in ("g", "h"):
+            assert got[k].shape == per_leaf[k].shape
+            assert _rel(got[k], per_leaf[k].numpy()) <= 1e-6

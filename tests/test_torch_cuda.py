@@ -648,7 +648,29 @@ def test_bucketed_smoke_trainer_on_card_matches_cpu(dev):
                                                bucket_bytes=32768))
 
 
-def _smoke_trainer_card_vs_cpu(dev, sync):
+def test_two_level_smoke_trainer_on_card_matches_cpu(dev):
+    """The same per leaf over the two-level (pod 2, data 4) local mesh:
+    one plan a level, the "plan" schedules run a group of the other axis
+    at a time on the card."""
+    from repro_torch.core.sync import SyncConfig
+    _smoke_trainer_card_vs_cpu(dev, SyncConfig(strategy="plan",
+                                               bucket_bytes=0),
+                               mesh=[("pod", 2), ("data", 4)])
+
+
+def test_fp8_smoke_trainer_on_card_matches_cpu(dev):
+    """The same per leaf with the fp8 wire: each rank forwards its own
+    gathered copy; quantize, quant_reduce and dequantize on the card."""
+    from repro_torch.core.sync import SyncConfig
+    before = dict(ops.LAUNCHES)
+    _smoke_trainer_card_vs_cpu(dev, SyncConfig(strategy="plan",
+                                               bucket_bytes=0,
+                                               precision="fp8"))
+    for name in ("quantize", "quant_reduce", "dequantize"):
+        assert ops.LAUNCHES[name] > before[name]
+
+
+def _smoke_trainer_card_vs_cpu(dev, sync, mesh=8):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch import train
@@ -658,7 +680,7 @@ def _smoke_trainer_card_vs_cpu(dev, sync):
 
     api = build(smoke_config(get_config("stablelm-12b")))
     shards = train.shard_params_zero3(api.init_params(
-        torch.Generator().manual_seed(0), torch.float32, "cpu"), 8)
+        torch.Generator().manual_seed(0), torch.float32, "cpu"), mesh)
     data = SyntheticLM(DataConfig(vocab=api.cfg.vocab, seq_len=32,
                                   global_batch=8, seed=0))
     runs = {}
@@ -666,10 +688,10 @@ def _smoke_trainer_card_vs_cpu(dev, sync):
         params = [s.to(where, copy=True) for s in shards]
         state = {"params": params, "opt": adamw_init(params)}
         kw = {} if sync is None else {"sync": sync}
-        step = train.make_manual_train_step(api, 8, AdamWConfig(lr=1e-3),
+        step = train.make_manual_train_step(api, mesh, AdamWConfig(lr=1e-3),
                                             device=where,
                                             param_dtype=torch.float32, **kw)
-        if sync is not None:
+        if sync is not None and sync.bucket_bytes != 0:
             assert len(step.scatter_buckets) >= 3
         metrics = []
         for s in range(3):
@@ -710,6 +732,32 @@ def test_sync_bucketed_on_card_equals_cpu(dev, wire, bucket_bytes):
     before = dict(ops.LAUNCHES)
     got = sync_bucketed([x.to(dev) for x in leaves], [("data", 8)], cfg,
                         service=PlannerService())
+    torch.cuda.synchronize()
+    assert sum(ops.LAUNCHES.values()) > sum(before.values())
+    for g, c in zip(got, cpu, strict=True):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("wire", [None, "fp8"])
+@pytest.mark.parametrize("bucket_bytes", [None, 1024])
+def test_two_axis_sync_bucketed_on_card_equals_cpu(dev, wire, bucket_bytes):
+    """The hierarchical bucket chain over (pod 2, data 4) on the card
+    gives the CPU's bits: every axis schedule a group at a time, the
+    folds and wire kernels computing their plain versions' operations."""
+    from repro_torch.core.bucketing import sync_bucketed
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.planner.service import PlannerService
+
+    shapes = [(13,), (3, 7), (0,), (5, 5, 5), (1000,), (64, 9), (2048,)]
+    leaves = [_rand((2, 4, *s), 60 + i, "cpu") for i, s in enumerate(shapes)]
+    axes, mesh = [("data", 4), ("pod", 2)], [("pod", 2), ("data", 4)]
+    cfg = SyncConfig(strategy="plan", bucket_bytes=bucket_bytes,
+                     precision=wire, params=PAPER_TABLE5)
+    cpu = sync_bucketed(leaves, axes, cfg, service=PlannerService(),
+                        mesh=mesh)
+    before = dict(ops.LAUNCHES)
+    got = sync_bucketed([x.to(dev) for x in leaves], axes, cfg,
+                        service=PlannerService(), mesh=mesh)
     torch.cuda.synchronize()
     assert sum(ops.LAUNCHES.values()) > sum(before.values())
     for g, c in zip(got, cpu, strict=True):

@@ -76,6 +76,16 @@ STEP_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 BUCKETED = {"float32": 32768, "bfloat16": None}
 # the per-leaf step's other sync labels (`test_torch_train_flat.py`)
 FLAT_LABELS = ["ring", "rhd", "cps", "hcps", "gentree", "auto"]
+# lossy wires in the trainer (`test_torch_train_bucketed.py`): (wire,
+# bucket_bytes) on the one-axis mesh, f32 weights; 0 is the per-leaf path,
+# 32 KiB a pinned bucket
+LOSSY = [("fp8", 0), ("int8", 0), ("fp8", 32768), ("int8", 32768)]
+# the two-level (pod 2, data 4) mesh (`test_torch_train_mesh.py`): (sync
+# label, dtype, wire), per leaf
+MESH = [("plan", "float32", "f32"), ("ring", "float32", "f32"),
+        ("cps", "float32", "f32"), ("hcps", "float32", "f32"),
+        ("gentree", "float32", "f32"), ("auto", "float32", "f32"),
+        ("plan", "bfloat16", "f32"), ("plan", "float32", "fp8")]
 # the checkpointed runs (`test_torch_train_ft.py`): the reference's
 # `run_training` (manual engine, sync "plan", its default bucket) for
 # FT["steps"] steps, a checkpoint every FT["ckpt_every"], under the card
@@ -188,7 +198,7 @@ if "optim" in parts:
 sync = SyncConfig(strategy="plan", bucket_bytes=0, params=PAPER_TABLE5)
 
 
-def init_state(dtype, prefix):
+def init_state(dtype, prefix, mesh=mesh):
     api = api_of("stablelm-12b", getattr(jnp, dtype))
     params = api.init_params(jax.random.PRNGKey(0))
     put(f"{prefix}/init", params)
@@ -205,7 +215,30 @@ def init_state(dtype, prefix):
     return api, state
 
 
-def train(api, state, sync, prefix):
+# every rank's gathered copy of each leaf, as the reference's step gathers
+# it (_gather_leaf under shard_map with the step's plans): (8, numel) rows
+# in mesh order
+def gathered(api, state, sync, prefix, mesh=mesh):
+    from repro.core.compat import shard_map
+    from repro.launch.mesh import axis_sizes, dp_axes
+    from repro.launch.train import _gather_leaf
+    dp, sizes = dp_axes(mesh), axis_sizes(mesh)
+    axes = [(a, sizes[a]) for a in dp if sizes[a] > 1]
+    leaves = jax.tree.leaves(state["params"])
+    plans = resolve_axis_plans(axes, sync, sum(
+        float(x.size) for x in leaves) / 8)
+    sds = [(tuple(l.shape), l.dtype) for l in jax.tree.leaves(
+        api.params_spec())]
+    f = jax.jit(shard_map(
+        lambda *xs: tuple(_gather_leaf(x[0], sd[0], sd[1], plans).reshape(
+            -1)[None] for x, sd in zip(xs, sds)),
+        mesh=mesh, in_specs=tuple(P(dp, None) for _ in leaves),
+        out_specs=tuple(P(dp) for _ in leaves), check_vma=False))
+    for i, o in enumerate(f(*leaves)):
+        res[f"{prefix}/gathered/{i}"] = np.asarray(o).astype(np.float32)
+
+
+def train(api, state, sync, prefix, mesh=mesh):
     step = make_manual_train_step(api, mesh, AdamWConfig(lr=spec["lr"]),
                                   sync=sync)
     losses, gnorms = [], []
@@ -243,6 +276,51 @@ for label in spec.get("flat", []):
     api, state = init_state("float32", f"flat/{label}/float32")
     train(api, state, SyncConfig(strategy=label, params=PAPER_TABLE5),
           f"flat/{label}/float32")
+# lossy wires in the trainer: SyncConfig(strategy="plan", precision=wire,
+# bucket_bytes=bucket_bytes) on the one-axis mesh, f32 weights; each rank's
+# gathered copy of the init on the per-leaf path
+for wire, bucket_bytes in spec.get("lossy", []):
+    tag = f"lossy/{wire}/{bucket_bytes}"
+    if f"{tag}/float32" not in parts:
+        continue
+    sync_w = SyncConfig(strategy="plan", bucket_bytes=bucket_bytes,
+                        precision=wire, params=PAPER_TABLE5)
+    api, state = init_state("float32", f"{tag}/float32")
+    if bucket_bytes == 0:
+        gathered(api, state, sync_w, f"{tag}/float32")
+    train(api, state, sync_w, f"{tag}/float32")
+# the two-level mesh: the reference's engine over ("pod", "data") on a
+# plain Mesh, one plan a level; the chunk order of a gather over it
+mesh2 = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("pod", "data"))
+if "mesh/order" in parts:
+    from repro.core.compat import shard_map
+    from repro.launch.train import _gather_leaf
+    for label in ("ring", "plan"):
+        plans = resolve_axis_plans([("pod", 2), ("data", 4)], SyncConfig(
+            strategy=label, params=PAPER_TABLE5), 2.0)
+        x = shard_params_zero3({"x": jnp.arange(16, dtype=jnp.float32)},
+                               mesh2)["x"]
+        f = jax.jit(shard_map(
+            lambda v: _gather_leaf(v[0], (16,), jnp.float32, plans)[None],
+            mesh=mesh2, in_specs=P(("pod", "data"), None),
+            out_specs=P(("pod", "data")), check_vma=False))
+        res[f"mesh/order/{label}"] = np.asarray(f(x))
+for label, dtype, wire in spec.get("mesh", []):
+    tag = f"mesh/{label}/{wire}/{dtype}"
+    if tag not in parts:
+        continue
+    sync_m = SyncConfig(strategy=label, bucket_bytes=0,
+                        precision=None if wire == "f32" else wire,
+                        params=PAPER_TABLE5)
+    api, state = init_state(dtype, tag, mesh2)
+    res[f"{tag}/plans"] = np.array([
+        f"{p.axis} {p.strategy} {p.factors} "
+        + (p.schedule.describe() if p.schedule is not None else "")
+        for p in resolve_axis_plans([("pod", 2), ("data", 4)], sync_m, sum(
+            float(x.size) for x in jax.tree.leaves(state["params"])) / 8)])
+    if wire != "f32":
+        gathered(api, state, sync_m, tag, mesh2)
+    train(api, state, sync_m, tag, mesh2)
 # the checkpointed run under a fault plan: its init state saved as step 0
 # (the state run_training builds), then run_training itself, whose
 # checkpoints stay in ft/run
@@ -344,7 +422,11 @@ def run_reference(tmp_path_factory, inputs, parts) -> dict:
     "shards/<dtype>" or "train/<dtype>" for dtype float32 or bfloat16,
     the init, its shards and its plan, and for "train/" the 3 steps;
     "bucketed/<dtype>", the init and 3 bucketed steps; "flat/<label>",
-    the init and 3 f32 steps with `SyncConfig(strategy=label)`; "ft",
+    the init and 3 f32 steps with `SyncConfig(strategy=label)`;
+    "lossy/<wire>/<bucket_bytes>/float32" (LOSSY), the init, each rank's
+    gathered copy of it (per leaf) and 3 f32 steps on that wire;
+    "mesh/<label>/<wire>/<dtype>" (MESH), the same on the (pod 2, data 4)
+    mesh; "mesh/order", the gathered vector of arange(16) on it; "ft",
     the reference's `run_training` under FT's plan, its init state saved
     as a step-0 checkpoint in `<ft/dir>/init` and its checkpoints left in
     `<ft/dir>/run`), run in one JAX subprocess."""
@@ -357,6 +439,7 @@ def run_reference(tmp_path_factory, inputs, parts) -> dict:
     spec = repr({"data": DATA, "archs": ARCHS, "specs": SPECS,
                  "clip": list(CLIP), "lr": LR, "steps": STEPS,
                  "bucketed": BUCKETED, "flat": FLAT_LABELS,
+                 "lossy": LOSSY, "mesh": MESH,
                  "ft": {**FT, "dir": str(d / "ft")},
                  "parts": list(parts)})
     proc = subprocess.run(
@@ -569,10 +652,10 @@ def test_unequal_gathered_rows_are_refused(monkeypatch, ref):
 # ---------------------------------------------------------------------------
 # the ZeRO-3 step
 # ---------------------------------------------------------------------------
-def port_run(ref, dtype, sync=None, prefix="train") -> dict:
+def port_run(ref, dtype, sync=None, prefix="train", mesh=N) -> dict:
     """The port's 3 steps in `dtype` from the reference's init (under
-    `prefix/dtype`), with every kernel-wrapper call counted; `sync`
-    defaults to the per-leaf path."""
+    `prefix/dtype`) on the local mesh `mesh`, with every kernel-wrapper
+    call counted; `sync` defaults to the per-leaf path."""
     counts = {}
     names = ("fused_reduce_into", "rmsnorm", "flash_attention", "wkv",
              "ssm_scan", "quantize", "dequantize_into", "quant_reduce_into")
@@ -587,10 +670,11 @@ def port_run(ref, dtype, sync=None, prefix="train") -> dict:
         setattr(ops, name, counted(name))
     try:
         shards = train.shard_params_zero3(
-            _params(ref, f"{prefix}/{dtype}/init", getattr(torch, dtype)), N)
+            _params(ref, f"{prefix}/{dtype}/init", getattr(torch, dtype)),
+            mesh)
         state = {"params": shards, "opt": adamw_init(shards)}
         step = train.make_manual_train_step(
-            _api("stablelm-12b"), N, AdamWConfig(lr=LR),
+            _api("stablelm-12b"), mesh, AdamWConfig(lr=LR),
             sync=sync or SyncConfig(strategy="plan", bucket_bytes=0,
                                     params=PAPER_TABLE5), device="cpu",
             param_dtype=getattr(torch, dtype))
@@ -645,18 +729,25 @@ def check_launches(run):
     SyncConfig(strategy="plan", bucket_bytes=0, compress="int8"),
 ], ids=lambda s: f"{s.strategy}-{s.bucket_bytes}-{s.precision}-{s.compress}")
 def test_out_of_scope_sync_raises(sync):
-    """A lossy wire (a bound precision, or `compress`) in the trainer
-    raises with its roadmap item (9). The flat labels, "gentree" and the
-    default "auto" raised until the flat collectives were ported; now
-    they build the per-leaf step on the label's plan ("auto": psum)."""
+    """`compress` in the trainer raises with its roadmap item (9). The
+    flat labels, "gentree" and the default "auto" raised until the flat
+    collectives were ported, a bound precision until lossy wires were
+    ported to the trainer; now they build the per-leaf step on the
+    label's plan ("auto": psum), the fp8 one on the plan's schedule bound
+    to the fp8 wire."""
     api = _api("stablelm-12b")
-    if sync.precision is not None or sync.compress is not None:
+    if sync.compress is not None:
         with pytest.raises(NotImplementedError, match="ROADMAP §1 item 9"):
             train.make_manual_train_step(api, N, sync=sync, device="cpu")
         return
     step = train.make_manual_train_step(api, N, sync=sync, device="cpu")
     (plan,) = step.plans
     assert step.bucket_plan is None and plan.axis == "data"
+    if sync.precision is not None:
+        assert plan.strategy == "plan" and step.wire == sync.precision
+        assert plan.schedule.wire.name == sync.precision
+        return
+    assert step.wire is None
     want = {"auto": "psum", "gentree": plan.strategy}.get(sync.strategy,
                                                            sync.strategy)
     assert plan.strategy == want in ("psum", "ring", "rhd", "cps", "hcps")
