@@ -45,11 +45,14 @@ any error:
                 1, 7, 33, 40, 65; V off a warp's column slice; K 32,
                 33; Di off the channel block; N 1, 3, 32, 64; widths off
                 the 16-byte path). Attention runs
-                at the four models' prefill and decode shapes (ragged
-                per-row key counts at decode), the smoke widths in f32,
-                and gemma2-27b's long request (prefill of 4,352 tokens,
+                at the served models' prefill and decode shapes (ragged
+                per-row key counts at decode; qwen3-32b's head dim 80,
+                gemma3-4b's 256), the smoke widths in f32,
+                gemma2-27b's long request (prefill of 4,352 tokens,
                 decode against 4,360 of 4,416 cache slots, the 4096
-                window masking), the decode kernel at long context
+                window masking) and gemma3-4b's (prefill of 1,152,
+                decode against 1,160 of 1,168, the 1024 window
+                masking), the decode kernel at long context
                 (stablelm-12b's heads without a softcap, so SDPA times
                 the same function; a batch of four rows of 4,360, 0,
                 300 and 4,416 keys; four queries a head in f32 and
@@ -57,7 +60,9 @@ any error:
                 rows, and the bf16 prefill kernel's edges (Tq 5, 17, 33,
                 129, 130; head dims 64 to 256; groups 1, 4, 5; a row
                 that sees no key; windows narrower than a key tile);
-                rmsnorm at 4·32 rows of every model's width, both
+                rmsnorm at 4·32 rows of every model's width (and head
+                dims 80 and 256), qwen3-32b's head-transposed qk_norm
+                rows at prefill and decode, both
                 offsets, every dtype pair, over the long prefill's 4,352
                 rows, at widths on and off its 16-byte path (1000, 1001)
                 and on misaligned last-token rows;
@@ -105,17 +110,24 @@ any error:
                 rank against the exact answer. The phase's launches are
                 counted in advance and must match exactly;
   4. serve    — `repro_torch.launch.serve` on stablelm-12b, rwkv6-1.6b,
-                hymba-1.5b and gemma2-27b in turn, each at full size
-                (random bf16 weights), batch 4, prompt 32, 32 new tokens,
-                cache 128, 8 local ranks; after each, a few decode steps
-                of the same model under torch.profiler (device busy
-                share, kernels per step, weight-read bound); then one
-                long gemma2-27b request (batch 1, prompt 4,352, 8 new
-                tokens, cache 4,416), so the local layers' 4096 window
-                masks in prefill and decode; each model is freed before
-                the next; then each model's smoke-size version in f32 on
-                the card against the same code on the CPU (gemma2-27b on
-                a 48-token prompt, longer than its smoke window);
+                hymba-1.5b, gemma2-27b, qwen3-32b (qk_norm, head dim
+                80), gemma3-4b (five 1024-window layers to one global,
+                head dim 256) and deepseek-moe-16b (64 routed experts,
+                top 6, 2 shared; the sorted dispatch in 16 groups) in
+                turn, each at full size (random bf16 weights), batch 4,
+                prompt 32, 32 new tokens, cache 128, 8 local ranks;
+                after each, a few decode steps of the same model under
+                torch.profiler (device busy share, kernels per step,
+                weight-read bound); then one long gemma2-27b request
+                (batch 1, prompt 4,352, 8 new tokens, cache 4,416) and
+                one long gemma3-4b request (batch 1, prompt 1,152, 8
+                new, cache 1,168), so the local layers' window masks in
+                prefill and decode; each model is freed before the
+                next; then each model's smoke-size version in f32 on the
+                card against the same code on the CPU (gemma2-27b on a
+                48-token prompt and gemma3-4b on a 40-token one, longer
+                than their smoke windows; deepseek-moe-16b on 4 × 64
+                tokens, whose grouped dispatch drops slots on both);
   5. train    — the ZeRO-3 trainer (`repro_torch.launch.train.
                 make_manual_train_step`, 8 local ranks) on stablelm-12b
                 at full width, its depth cut to 2 layers (TRAIN), random
@@ -199,7 +211,8 @@ grouped_reduce and quant_reduce_requant have no caller on the main path
 2^26 shape; every served run must launch fused_reduce (the
 decode AllReduce folds through it) and exactly the model kernels its
 forwards (prefill and each decode step) run: rmsnorm once per norm (2 a
-dense layer, 3 an RWKV6 layer, 4 a Hymba layer, and the final norm),
+dense or MoE layer, 2 more with qk_norm, 3 an RWKV6 layer, 4 a Hymba
+layer, and the final norm),
 flash_attention once per attention layer, wkv once per RWKV6 layer and
 ssm_scan once per Hymba layer (`expected_launches`), and each
 flash_attention launch on the CUDA kernel its shape selects (the
@@ -239,20 +252,28 @@ EXEC_SIZES = ((4 * 5120, "decode 4x5120"), (1 << 26, "gradient 2^26"))
 FAMILIES = ("reduce_scatter", "allgather", "all_to_all", "p2p")
 SERVE = dict(batch=4, prompt_len=32, max_new=32, cache_len=128,
              local_ranks=8)
-SERVE_ARCHS = ("stablelm-12b", "rwkv6-1.6b", "hymba-1.5b", "gemma2-27b")
+SERVE_ARCHS = ("stablelm-12b", "rwkv6-1.6b", "hymba-1.5b", "gemma2-27b",
+               "qwen3-32b", "gemma3-4b", "deepseek-moe-16b")
 # one long request after the batch: its prompt is longer than gemma2-27b's
 # 4096 window, so the local layers mask in prefill and decode
 LONG = dict(arch="gemma2-27b", batch=1, prompt_len=4352, max_new=8,
             cache_len=4416, local_ranks=8)
+# and one past gemma3-4b's 1024 window (its local layers, five in six)
+LONG_GEMMA3 = dict(arch="gemma3-4b", batch=1, prompt_len=1152, max_new=8,
+                   cache_len=1168, local_ranks=8)
 # per family, what one forward launches per layer: its norms (ln1 and
-# ln2; RWKV6 adds ln_x, Hymba ln_attn and ln_ssm), its attention and its
-# recurrence kernel; the final norm comes on top
-NORMS_PER_LAYER = {"dense": 2, "ssm": 3, "hybrid": 4}
-ATTENTION_PER_LAYER = {"dense": 1, "ssm": 0, "hybrid": 1}
+# ln2; RWKV6 adds ln_x, Hymba ln_attn and ln_ssm; qk_norm two more), its
+# attention and its recurrence kernel; the final norm comes on top. The
+# MoE layer (router, expert products) launches none of the ten kernels.
+NORMS_PER_LAYER = {"dense": 2, "moe": 2, "ssm": 3, "hybrid": 4}
+ATTENTION_PER_LAYER = {"dense": 1, "moe": 1, "ssm": 0, "hybrid": 1}
 RECURRENCE = {"ssm": "wkv", "hybrid": "ssm_scan"}
 PROFILE_STEPS = 4                # decode steps traced after serving
-# (batch, prompt, cache) of the smoke-size model held card against CPU
-REFERENCE_RUN = {"gemma2-27b": (2, 48, 64)}
+# (batch, prompt, cache) of the smoke-size model held card against CPU:
+# gemma2-27b and gemma3-4b past their smoke windows; deepseek-moe-16b's
+# 256 tokens through the grouped dispatch (16 groups), where slots drop
+REFERENCE_RUN = {"gemma2-27b": (2, 48, 64), "gemma3-4b": (2, 40, 48),
+                 "deepseek-moe-16b": (4, 64, 72)}
 # the trainer: stablelm-12b at full width with its depth cut from 40 to 2
 # layers (the one cut), 8 local ranks, the reference TrainConfig's
 # sequence, global batch and lr; then the same run at each lr of
@@ -696,20 +717,25 @@ def ssm_scan_case(B, T, Di, N, dev, seed=0):
 
 
 def rmsnorm_case(shape, x_dtype, w_dtype, offset, dev, seed=0,
-                 last_token=False):
+                 last_token=False, heads=False):
     """The rmsnorm kernel on x `shape` ~ N(0, 3²) and w ~ N(0, 0.5²), or
     with `last_token` on the strided rows x[:, -1:] of such an x (B, T,
     D), as the models' final norm after prefill (`last_token ==
     "misaligned"`: of such an x laid one element past a 16-byte
-    boundary); the yardstick is `F.rms_norm` with (offset + w) formed
-    beforehand."""
+    boundary), or with `heads` on the (B, H, T, hd) `shape` as the head
+    transpose of a (B, T, H, hd) tensor, as qk_norm passes it; the
+    yardstick is `F.rms_norm` with (offset + w) formed beforehand."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device=dev).manual_seed(seed)
     n = math.prod(shape) + (last_token == "misaligned")
     x = (torch.randn((n,), generator=g, device=dev) * 3.0).to(x_dtype)
-    x = x[n - math.prod(shape):].view(shape)
+    if heads:
+        B, H, T, hd = shape
+        x = x[n - math.prod(shape):].view(B, T, H, hd).transpose(1, 2)
+    else:
+        x = x[n - math.prod(shape):].view(shape)
     if last_token:
         x = x[:, -1:]
     D = shape[-1]
@@ -1101,10 +1127,41 @@ FLASH_GRID = [
      None),
     ("prefill ragged, a row sees none, w16", (3, 4, 4, 40, 100, 160), "bf16",
      16, 0.0, [100, 0, 45]),
+    # the served shapes of qwen3-32b (head dim 80, the decode kernel's
+    # 128 template), gemma3-4b (head dim 256; window 1024 and global) and
+    # deepseek-moe-16b, and gemma3-4b's long request
+    ("qwen3-32b prefill", (4, 64, 8, 32, 32, 80), "bf16", 0, 0.0, None),
+    ("qwen3-32b decode", (4, 64, 8, 1, 128, 80), "bf16", 0, 0.0, RAGGED),
+    ("gemma3-4b prefill local", (4, 8, 4, 32, 32, 256), "bf16", 1024, 0.0,
+     None),
+    ("gemma3-4b prefill global", (4, 8, 4, 32, 32, 256), "bf16", 0, 0.0,
+     None),
+    ("gemma3-4b decode local", (4, 8, 4, 1, 128, 256), "bf16", 1024, 0.0,
+     RAGGED),
+    ("gemma3-4b decode global", (4, 8, 4, 1, 128, 256), "bf16", 0, 0.0,
+     RAGGED),
+    ("deepseek-moe-16b prefill", (4, 16, 16, 32, 32, 128), "bf16", 0, 0.0,
+     None),
+    ("deepseek-moe-16b decode", (4, 16, 16, 1, 128, 128), "bf16", 0, 0.0,
+     RAGGED),
+    ("gemma3-4b long local", (1, 8, 4, 1152, 1152, 256), "bf16", 1024, 0.0,
+     None),
+    ("gemma3-4b long global", (1, 8, 4, 1152, 1152, 256), "bf16", 0, 0.0,
+     None),
+    ("gemma3-4b long decode local", (1, 8, 4, 1, 1168, 256), "bf16", 1024,
+     0.0, [1160]),
+    ("gemma3-4b long decode global", (1, 8, 4, 1, 1168, 256), "bf16", 0,
+     0.0, [1160]),
 ]
 # rmsnorm widths: stablelm-12b, rwkv6-1.6b (d and ln_x), hymba-1.5b,
-# gemma2-27b, the smoke models
-RMSNORM_WIDTHS = (5120, 2048, 1600, 4608, 64)
+# gemma2-27b, the smoke models, gemma3-4b, and the head dims qk_norm
+# would take at gemma3-4b and qwen3-32b
+RMSNORM_WIDTHS = (5120, 2048, 1600, 4608, 64, 2560, 256, 80)
+# qwen3-32b's qk_norm rows as the layer passes them: (B, H, T, 80) head
+# transposes of the (B, T, H·80) projections, q's 64 heads and k's 8, at
+# prefill (T 32) and decode (T 1)
+QK_NORM_ROWS = ((4, 64, 32, 80), (4, 8, 32, 80), (4, 64, 1, 80),
+                (4, 8, 1, 80))
 
 
 def model_kernel_grid(dev, *, attention_only: bool = False) -> list:
@@ -1156,6 +1213,10 @@ def model_kernel_grid(dev, *, attention_only: bool = False) -> list:
         check("rmsnorm", f"{what} bf16 x bf16 w offset 1",
               rmsnorm_case(shape, torch.bfloat16, torch.bfloat16, 1.0, dev,
                            last_token=last))
+    for shape in QK_NORM_ROWS:
+        check("rmsnorm", f"qk_norm head-transposed {shape} bf16 x bf16 w "
+              "offset 1", rmsnorm_case(shape, torch.bfloat16, torch.bfloat16,
+                                       1.0, dev, heads=True))
     return rows
 
 
@@ -2044,10 +2105,12 @@ def phase_planner(dev) -> dict:
 
 def expected_launches(cfg, forwards: int) -> dict:
     """Launches of each model kernel in `forwards` forwards of `cfg`:
-    rmsnorm per norm, flash_attention per attention layer, the family's
-    recurrence kernel per layer, and the other recurrence never."""
+    rmsnorm per norm (qk_norm's two a layer included), flash_attention
+    per attention layer, the family's recurrence kernel per layer, and
+    the other recurrence never."""
     fam = cfg.family
-    want = {"rmsnorm": forwards * (NORMS_PER_LAYER[fam] * cfg.n_layers + 1),
+    norms = NORMS_PER_LAYER[fam] + 2 * bool(cfg.qk_norm)
+    want = {"rmsnorm": forwards * (norms * cfg.n_layers + 1),
             "flash_attention":
                 forwards * ATTENTION_PER_LAYER[fam] * cfg.n_layers}
     for family, kernel in RECURRENCE.items():
@@ -2107,6 +2170,12 @@ def phase_serve(dev, recorder, sc: dict) -> dict:
              f"{res['tp_schedule'].demotions} time(s) or failed")
     if not res["self_check_err"] < 1e-5:
         fail(f"serving {arch}: self-check rel err {res['self_check_err']}")
+    if sc["prompt_len"] > SERVE["prompt_len"]:
+        # a long request: some layer's window must mask its prompt
+        windows = {cfg.window_for_layer(i) for i in range(cfg.n_layers)}
+        if not any(0 < w < sc["prompt_len"] for w in windows):
+            fail(f"the long {arch} request of {sc['prompt_len']} tokens "
+                 f"fits every window of {sorted(windows)}")
     toks = res["tokens"]
     want = (sc["batch"], sc["max_new"])
     if toks.shape != want or toks.min() < 0 or toks.max() >= cfg.vocab:
@@ -2143,7 +2212,9 @@ def phase_decode_profile(dev, arch: str) -> None:
     the kernels launched, the device's busy time (the union of kernel,
     copy and set intervals in the trace) and its share of the wall time,
     the weight-read bound (every weight but the embedding read once, over
-    the memory rate), and the kernels that take most device time."""
+    the memory rate: a MoE model's sorted decode runs every expert's
+    capacity buffer, so it reads every routed expert), and the kernels
+    that take most device time."""
     import tempfile
 
     import torch
@@ -2192,6 +2263,12 @@ def phase_decode_profile(dev, arch: str) -> None:
                   ("kernel", "gpu_memcpy", "gpu_memset")]
     kernels = [e for e in dev_events if e["cat"] == "kernel"]
     bound = bound_ms(weight_bytes)
+    if cfg.n_experts:
+        experts = sum(params["layers"][0]["moe"][w].numel()
+                      for w in ("wi", "wg", "wo"))
+        log(f"decode profile: {arch}: {experts / 1e6:.1f} M routed expert "
+            f"weights a layer ({experts * 2 / 1e9:.3f} GB in bf16), all "
+            f"read by each sorted decode step; {cfg.n_layers} layers")
     if not kernels:
         log(f"decode profile: {arch}: {PROFILE_STEPS} steps, wall "
             f"{wall_us / PROFILE_STEPS / 1e3:.3f} ms per step; the trace "
@@ -2225,12 +2302,43 @@ def _to(tree, where):
     return tree.to(where)
 
 
+class MoeRecorder:
+    """Per `transformer.moe` call: the tokens, the slots the sorted
+    dispatch drops and the smallest margin between a token's k-th and
+    (k+1)-th router probability (a near-tie is where two devices could
+    route a token differently). It calls the real layer."""
+
+    def __init__(self):
+        from repro_torch.models import transformer
+        self.mod = transformer
+        self.real = transformer.moe
+        self.calls: list[tuple[int, int, float]] = []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        def spy(p, x, cfg, **kw):
+            xt = x.reshape(-1, x.shape[-1])
+            probs, _, topi = layers.moe_route(p, xt, cfg.top_k)
+            top = probs.sort(dim=-1, descending=True).values
+            margin = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+            self.calls.append((xt.shape[0], layers.moe_drops(topi, cfg),
+                               float(margin.min())))
+            return self.real(p, x, cfg, **kw)
+        self.mod.moe = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe = self.real
+
+
 def phase_model_reference(dev, arch: str) -> None:
     """The smoke-size model of `arch` in f32 on the card (its kernels)
     against the same code on the CPU (their plain versions): prefill of
     a (batch, prompt) of REFERENCE_RUN (default 2 × 8, cache 16) + 4
     greedy decode steps, logits within 1e-4 of the largest |logit|,
-    identical tokens."""
+    identical tokens. A MoE model prints its dropped slots and smallest
+    top-k margin on each side, and must drop slots on both."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.config import smoke_config
@@ -2242,10 +2350,10 @@ def phase_model_reference(dev, arch: str) -> None:
     B, T, cache_len = REFERENCE_RUN.get(arch, (2, 8, 16))
     tokens = torch.randint(0, api.cfg.vocab, (B, T),
                            generator=torch.Generator().manual_seed(1))
-    runs = {}
+    runs, routes = {}, {}
     for where in ("cpu", dev):
         p = _to(params, where)
-        with torch.inference_mode():
+        with torch.inference_mode(), MoeRecorder() as moe:
             logits, cache = api.prefill(p, {"tokens": tokens.to(where)},
                                         cache_len)
             outs, toks = [logits.cpu()], []
@@ -2256,11 +2364,21 @@ def phase_model_reference(dev, arch: str) -> None:
                                                 {"tokens": tok[:, None]})
                 outs.append(logits.cpu())
         runs[str(where)] = (torch.stack(outs), torch.stack(toks))
+        routes[str(where)] = moe.calls
     (lc, tc), (lg, tg) = runs["cpu"], runs[str(dev)]
     err = float((lg - lc).abs().max() / lc.abs().max())
     log(f"model: {arch} smoke-size f32, prompt {T}, logits card vs CPU "
         f"rel err "
         f"{err:.2e}, tokens equal {bool(torch.equal(tc, tg))}")
+    if api.cfg.n_experts:
+        for where, calls in routes.items():
+            drops = sum(d for n, d, _ in calls if n == B * T)
+            log(f"model: {arch} on {where}: {len(calls)} MoE calls, "
+                f"{drops} slots dropped in prefill, smallest top-k margin "
+                f"{min(m for _, _, m in calls):.3e}")
+            if not drops:
+                fail(f"the smoke-size {arch} prefill on {where} dropped no "
+                     "slot: the run must cover a capacity drop")
     if not (torch.isfinite(lg).all() and err <= 1e-4
             and torch.equal(tc, tg)):
         fail(f"the card's smoke-size {arch} disagrees with the CPU run")
@@ -3458,6 +3576,28 @@ def _case_at(wrapper, args, kw, dev):
                                   out_dtype, dev)
 
 
+def phase_serve_all(dev, recorder, t0: float) -> dict:
+    """Phase 4: each of SERVE_ARCHS served and its decode profiled, the
+    long requests, then each smoke-size model card against CPU; returns
+    the kernel launches of the served runs, summed."""
+    from repro_torch.kernels import ops
+    served = dict.fromkeys([*TOLERANCE, *ops.ATTENTION_LAUNCHES], 0)
+    for arch in SERVE_ARCHS:
+        for name, n in phase_serve(dev, recorder,
+                                   {**SERVE, "arch": arch}).items():
+            served[name] += n
+        phase_decode_profile(dev, arch)
+        log(f"phase serve {arch} done at {time.perf_counter() - t0:.1f} s")
+    for sc in (LONG, LONG_GEMMA3):
+        for name, n in phase_serve(dev, recorder, sc).items():
+            served[name] += n
+        log(f"phase serve long {sc['arch']} done at "
+            f"{time.perf_counter() - t0:.1f} s")
+    for arch in SERVE_ARCHS:
+        phase_model_reference(dev, arch)
+    return served
+
+
 def kernels_line(dev, first, main_path, unlaunched) -> dict:
     """Per kernel: its launches on the main path (`main_path`, summed over
     its phases) and its measures at its first main-path launch (`first`),
@@ -3526,6 +3666,10 @@ def main() -> int:
     ap.add_argument("--flat", action="store_true",
                     help="build the kernels and run the flat collectives "
                     "phase alone, then stop: no result line")
+    ap.add_argument("--serve", action="store_true",
+                    help="build the kernels, run the model kernels' rows of "
+                    "phase 2 (FLASH_GRID, the rmsnorm rows) and phase 4 "
+                    "alone, then stop: no result line")
     ap.add_argument("--ft", action="store_true",
                     help="build the kernels, run phase 5's per-leaf run at "
                     "the first of TRAIN_FALL_LRS and phase ft, then stop: "
@@ -3574,6 +3718,12 @@ def main() -> int:
         log_rows(phase_flat(dev)[1])
         log(f"phase flat done at {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.serve:
+        log_rows(model_kernel_grid(dev))
+        log(f"model kernel grid done at {time.perf_counter() - t0:.1f} s")
+        phase_serve_all(dev, ShapeRecorder(), t0)
+        log(f"phase serve done at {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.ft:
         r = phase_train(dev, TRAIN_FALL_LRS[0], True)
         phase_ft(dev, {"losses": r["losses"],
@@ -3594,19 +3744,7 @@ def main() -> int:
     log(f"phase flat done at {time.perf_counter() - t0:.1f} s")
     planner = phase_planner(dev)
     log(f"phase planner done at {time.perf_counter() - t0:.1f} s")
-    served = dict.fromkeys([*TOLERANCE, *ops.ATTENTION_LAUNCHES], 0)
-    for arch in SERVE_ARCHS:
-        for name, n in phase_serve(dev, rec_serve,
-                                   {**SERVE, "arch": arch}).items():
-            served[name] += n
-        phase_decode_profile(dev, arch)
-        log(f"phase serve {arch} done at {time.perf_counter() - t0:.1f} s")
-    for name, n in phase_serve(dev, rec_serve, LONG).items():
-        served[name] += n
-    log(f"phase serve long {LONG['arch']} done at "
-        f"{time.perf_counter() - t0:.1f} s")
-    for arch in SERVE_ARCHS:
-        phase_model_reference(dev, arch)
+    served = phase_serve_all(dev, rec_serve, t0)
     log(f"phase serve done at {time.perf_counter() - t0:.1f} s")
     trained, baseline = phase_train_all(dev)
     log(f"phase train done at {time.perf_counter() - t0:.1f} s")

@@ -7,14 +7,17 @@ from __future__ import annotations
 
 import importlib
 
-# The configurations of the ported model families (dense, RWKV6, Hymba
-# hybrid); the reference's other architectures join as their families are
-# ported.
+# The configurations of the ported model families (dense, MoE, RWKV6,
+# Hymba hybrid); the reference's other architectures join as their
+# families are ported.
 ARCHS = [
     "stablelm_12b",
     "rwkv6_1_6b",
     "hymba_1_5b",
     "gemma2_27b",
+    "qwen3_32b",
+    "gemma3_4b",
+    "deepseek_moe_16b",
 ]
 
 

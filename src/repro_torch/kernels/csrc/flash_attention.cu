@@ -1763,7 +1763,9 @@ bool one_wave(K* kernel, int bytes, int threads, int splits,
 template <typename T, int DP>
 int launch_decode(const Args& a) {
   // blocks of up to 220 KB where every cluster of the grid then runs at
-  // once, else of at most 112 KB (two blocks share an SM)
+  // once, else of at most 112 KB (two blocks share an SM), else the
+  // smallest plan, in several waves (f32 at D 256: one warp's ring alone
+  // passes 112 KB)
   constexpr int kMaxBytes = 220 * 1024, kTwoPerSm = 112 * 1024;
   constexpr int ve = vec_elems<T>();
   auto* kernel = flash_decode_kernel<T, DP>;
@@ -1791,10 +1793,11 @@ int launch_decode(const Args& a) {
     return cudaErrorInvalidValue;
   const long long clusters = static_cast<long long>(a.Hkv) * chunks * a.B;
   // (warps, stages): the most warps, then the deepest ring, whose grid
-  // runs in one wave; else the first of at most 112 KB
+  // runs in one wave; else the first of at most 112 KB; else the last
+  // (fewest bytes) of at most 220 KB
   constexpr int kPlans[][2] = {{8, 3}, {8, 2}, {6, 2}, {4, 3},
                                {4, 2}, {3, 2}, {2, 2}, {1, 2}};
-  DecLayout fallback{};
+  DecLayout fallback{}, smallest{};
   bool found = false;
   for (const auto& p : kPlans) {
     lay.nw = p[0];
@@ -1803,6 +1806,7 @@ int launch_decode(const Args& a) {
     const int merge = dec_merge_bytes(lay);
     lay.bytes = dec_fixed_bytes(lay) + (rings > merge ? rings : merge);
     if (lay.bytes > kMaxBytes) continue;
+    smallest = lay;
     if (fallback.bytes == 0 && lay.bytes <= kTwoPerSm) fallback = lay;
     if (one_wave(kernel, lay.bytes, lay.nw * 32, a.splits, clusters)) {
       found = true;
@@ -1810,6 +1814,7 @@ int launch_decode(const Args& a) {
     }
   }
   if (!found) {
+    if (fallback.bytes == 0) fallback = smallest;
     if (fallback.bytes == 0) return cudaErrorInvalidValue;
     lay = fallback;
   }

@@ -13,8 +13,10 @@ launch raises: the guard gives way to no plain sum. The
 decode loop itself is single-device (`decode_step`), as in the reference
 server. Every ported family serves the same way: the dense transformer
 (stablelm-12b; gemma2-27b with alternating local and global layers and
-soft-capped logits), RWKV6 (rwkv6-1.6b, whose decode state is its recurrent
-state) and the Hymba hybrid (hymba-1.5b, a KV cache plus SSM states).
+soft-capped logits; qwen3-32b with qk_norm; gemma3-4b with five local
+layers to one global), the MoE transformer (deepseek-moe-16b, the sorted
+dispatch), RWKV6 (rwkv6-1.6b, whose decode state is its recurrent state)
+and the Hymba hybrid (hymba-1.5b, a KV cache plus SSM states).
 
     python -m repro_torch.launch.serve --arch rwkv6-1.6b
 
@@ -166,8 +168,8 @@ def main():
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-12b",
-                    help="stablelm-12b, gemma2-27b, rwkv6-1.6b or "
-                    "hymba-1.5b")
+                    help="stablelm-12b, gemma2-27b, qwen3-32b, gemma3-4b, "
+                    "deepseek-moe-16b, rwkv6-1.6b or hymba-1.5b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--local-ranks", type=int, default=8)

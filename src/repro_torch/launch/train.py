@@ -22,8 +22,8 @@ label for each axis) and "auto" (psum) per leaf, through
 `core.collectives`; a wire the plan binds (bf16, fp8, int8). These raise
 `NotImplementedError` and are never replaced by another path: the
 `auto` (pjit) engine (ROADMAP §1 items 4b and 6) and the schedule probe
-`observe_sync_probe` (item 4b); MoE and the recurrent families' training
-(item 6); `compress` in the trainer (item 9).
+`observe_sync_probe` (item 4b); MoE training (item 4) and the recurrent
+families' (item 6); `compress` in the trainer (item 9).
 
 With a checkpoint directory the run goes through the reference's
 `FaultTolerantLoop` (`runtime.ft`): a checkpoint every `ckpt_every`
@@ -294,7 +294,11 @@ def make_manual_train_step(api: ModelAPI, mesh,
 
     dev = resolve_device(device)
     cfg = api.cfg
-    if cfg.family != "dense" or cfg.n_experts:
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the trainer takes the dense family; MoE training "
+            "(expert-parallel dispatch) is ROADMAP §1 item 4")
+    if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the trainer takes the dense family; the "
             f"{cfg.family!r} family's training is ROADMAP §1 item 6")

@@ -1,6 +1,7 @@
 """Dense transformer layers as plain functions over tensors: RMSNorm in
 the `(1 + w)` form, RoPE, GQA attention (full sequence and one-token
-decode against a KV cache), SwiGLU MLP, and the initializer.
+decode against a KV cache), SwiGLU MLP, the MoE layer (sorted and dense
+dispatch), and the initializer.
 
 These mirror the reference `models/layers.py` op for op, with its
 layouts: activations (B, T, D), heads (B, H, T, hd), weights (in, out).
@@ -14,6 +15,10 @@ the (B, T, H·hd) layout the output projection takes. Decode reads the
 cache only up to each row's position (`kv_len`). The reference's banded
 and KV-block attention scans compute the same function as the kernel,
 whose skipped KV tiles stand in for the banded slice.
+
+The MoE layer has no kernel in the reference either: its router and
+expert products are XLA ops, here torch ops (`bmm`), in the reference's
+order and dtypes.
 
 Training takes other layers: no kernel has a backward (the reference's
 Pallas kernels have none, and its training forward never calls them), so
@@ -269,3 +274,151 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, T) → (B, T, D) rows of the (vocab, D) table."""
     return table[tokens]
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
+             device="cpu") -> Params:
+    """The reference's leaves: the router in f32, the routed experts'
+    SwiGLU weights stacked (E, ...), the shared experts one wide MLP."""
+    d, fe, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    p = {
+        "router": dense_init(gen, (d, E), scale=0.02, dtype=torch.float32,
+                             device=device),
+        "wi": dense_init(gen, (E, d, fe), dtype=dtype, device=device),
+        "wg": dense_init(gen, (E, d, fe), dtype=dtype, device=device),
+        "wo": dense_init(gen, (E, fe, d), dtype=dtype, device=device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(gen, d, fe * cfg.n_shared_experts, dtype,
+                               device)
+    return p
+
+
+def moe_capacity(n: int, k: int, E: int, capacity_factor: float) -> int:
+    """Slots an expert takes from a block of n tokens: the reference's
+    int(n·k·cf / E) + 1, rounded up to 8, at least 8."""
+    cap = int(n * k * capacity_factor / E) + 1
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_route(p: Params, xt: torch.Tensor, k: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router of the (n, D) tokens in f32: softmax, the top k with ties
+    to the lower expert (`lax.top_k`'s order: a stable descending sort),
+    renormalised. Returns (probs (n, E), topv (n, k), topi (n, k))."""
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    return probs, topv / (topv.sum(-1, keepdim=True) + 1e-9), topi
+
+
+def _experts(p: Params, eb: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of every expert on its (E, rows, D) buffer rows."""
+    h = F.silu(torch.bmm(eb, p["wg"])) * torch.bmm(eb, p["wi"])
+    return torch.bmm(h, p["wo"])
+
+
+def _moe_sorted(p: Params, xg: torch.Tensor, topi: torch.Tensor,
+                topv: torch.Tensor, E: int, capacity_factor: float
+                ) -> torch.Tensor:
+    """Capacity-bounded sorted dispatch of G independent token blocks:
+    xg (G, ng, D), topi / topv (G, ng, k) → (G, ng, D) in f32. The
+    reference's `_moe_sorted_block` / `_moe_sorted_block_ns` (one
+    function) on each block: the n·k slots sorted stably by expert, the
+    first `cap` of each expert's run kept (in slot order), the rest
+    dropped (zero); the buffers filled and the combine read by gathers."""
+    G, ng, D = xg.shape
+    k = topi.shape[-1]
+    nk = ng * k
+    cap = moe_capacity(ng, k, E, capacity_factor)
+    e_flat = topi.reshape(G, nk)
+    order = torch.argsort(e_flat, dim=-1, stable=True)      # sorted → slot
+    sorted_e = torch.gather(e_flat, 1, order)
+    counts = torch.zeros((G, E), dtype=torch.long, device=xg.device)
+    counts.scatter_add_(1, e_flat, torch.ones_like(e_flat))
+    starts = torch.cumsum(counts, dim=1) - counts
+    ar = torch.arange(nk, device=xg.device)
+    rank = ar - torch.gather(starts, 1, sorted_e)      # within its run
+    # buffer cell (e, c) holds the token at sorted position starts[e] + c
+    cells = torch.arange(cap, device=xg.device)
+    pos = (starts[:, :, None] + cells).clamp(max=nk - 1).reshape(G, E * cap)
+    tok = torch.gather(order, 1, pos) // k
+    eb = torch.gather(xg, 1, tok[..., None].expand(G, E * cap, D))
+    valid = (cells < counts[:, :, None]).reshape(G, E * cap, 1)
+    eb = torch.where(valid, eb, 0.0)
+    eb = eb.reshape(G, E, cap, D).transpose(0, 1).reshape(E, G * cap, D)
+    y = _experts(p, eb).reshape(E, G, cap, D).transpose(0, 1)
+    y = y.reshape(G, E * cap, D)
+    # slot j sits at sorted position inv[j]
+    inv = torch.empty_like(order).scatter_(1, order, ar.expand(G, nk))
+    rank_of_slot = torch.gather(rank, 1, inv)
+    keep = rank_of_slot < cap
+    buf = (e_flat * cap + rank_of_slot).clamp(max=E * cap - 1)
+    rows = torch.gather(y, 1, buf[..., None].expand(G, nk, D)).float()
+    rows = torch.where(keep[..., None], rows, 0.0)
+    return torch.einsum("gnkd,gnk->gnd", rows.reshape(G, ng, k, D),
+                        topv.float())
+
+
+def moe_blocks(cfg: ModelConfig, n: int) -> int:
+    """Blocks the sorted dispatch splits n tokens into: cfg.moe_groups
+    where it is over 1 and divides n, else one."""
+    G = cfg.moe_groups
+    return G if G > 1 and n % G == 0 else 1
+
+
+def moe_drops(topi: torch.Tensor, cfg: ModelConfig,
+              capacity_factor: float = 1.25) -> int:
+    """Slots the sorted dispatch drops for the (n, k) routing `topi`: in
+    each block, past the first `cap` of an expert."""
+    n, k = topi.shape
+    G = moe_blocks(cfg, n)
+    cap = moe_capacity(n // G, k, cfg.n_experts, capacity_factor)
+    counts = torch.zeros((G, cfg.n_experts), dtype=torch.long,
+                         device=topi.device)
+    slots = topi.reshape(G, -1).long()
+    counts.scatter_add_(1, slots, torch.ones_like(slots))
+    return int((counts - cap).clamp(min=0).sum())
+
+
+def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+        dispatch: str = "sorted", capacity_factor: float = 1.25
+        ) -> torch.Tensor:
+    """x: (B, T, D) → (B, T, D), the reference's `moe`. dispatch:
+    "sorted" (capacity-bounded sorted pack; with cfg.moe_groups > 1
+    dividing the tokens, G blocks each with its own capacity, else one
+    block) or "dense" (every expert on every token, masked by the top-k
+    gate). The shared experts are one MLP, added in f32; the output is
+    cast to x's dtype. "ep" and "local" (the shard_map and
+    expert-parallel dispatches) are not ported."""
+    if dispatch in ("ep", "local") or (dispatch == "sorted"
+                                       and cfg.moe_local):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE dispatch {dispatch!r}"
+            f"{' with moe_local' if cfg.moe_local else ''} needs the "
+            "trainer's expert-parallel mesh (ROADMAP §1 item 4)")
+    if dispatch not in ("sorted", "dense"):
+        raise ValueError(f"unknown MoE dispatch {dispatch!r}")
+    B, T, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    n = B * T
+    xt = x.reshape(n, D)
+    _, topv, topi = moe_route(p, xt, k)
+    if dispatch == "dense":
+        gate = torch.zeros((n, E), dtype=torch.float32, device=x.device)
+        gate.scatter_(1, topi, topv)
+        xe = xt.expand(E, n, D)
+        y = _experts(p, xe)                                 # (E, n, D)
+        out = torch.einsum("end,ne->nd", y.float(), gate)
+    else:
+        G = moe_blocks(cfg, n)
+        out = _moe_sorted(p, xt.reshape(G, n // G, D),
+                          topi.reshape(G, n // G, k),
+                          topv.reshape(G, n // G, k), E,
+                          capacity_factor).reshape(n, D)
+    if cfg.n_shared_experts:
+        out = out + mlp(p["shared"], xt).float()
+    return out.to(x.dtype).reshape(B, T, D)

@@ -1,11 +1,11 @@
 """Uniform model API over the ported families.
 
 `build(cfg)` returns a ModelAPI exposing init / prefill / decode / cache
-over the dense transformer, the RWKV6 model (family "ssm") or the Hymba
-hybrid (family "hybrid"), and the training `forward` / `loss_fn` of the
-dense transformer. The recurrent families' training forward (ROADMAP §1
-item 6) and the reference registry's other families (MoE,
-encoder-decoder) are not ported yet.
+over the transformer (families "dense" and "moe"), the RWKV6 model
+(family "ssm") or the Hymba hybrid (family "hybrid"), and the training
+`forward` / `loss_fn` of the dense transformer. MoE training (ROADMAP §1
+item 4), the recurrent families' training forward (item 6) and the
+reference registry's encoder-decoder family are not ported yet.
 """
 from __future__ import annotations
 
@@ -38,12 +38,14 @@ class ModelAPI:
                                              "meta"))
 
 
-def _no_training(cfg: ModelConfig) -> Callable:
+def _no_training(cfg: ModelConfig, what: str | None = None,
+                 item: int = 6) -> Callable:
+    what = what or f"the {cfg.family!r} family's training forward"
+
     def refuse(*args, **kw):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family's training forward is "
-            "not ported yet (ROADMAP §1 item 6); only the dense family "
-            "trains")
+            f"{cfg.name}: {what} is not ported yet (ROADMAP §1 item "
+            f"{item}); only the dense family trains")
     return refuse
 
 
@@ -99,11 +101,17 @@ def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.n_experts or cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet")
     if cfg.family == "ssm":
         return _rwkv_api(cfg)
     if cfg.family == "hybrid":
         return _hybrid_api(cfg)
+    if cfg.n_experts:
+        # MoE serves through the transformer's API and does not train
+        refuse = _no_training(cfg, "MoE training (the expert-parallel "
+                              "dispatch in the trainer)", item=4)
+        return dataclasses.replace(_dense_api(cfg), loss_fn=refuse,
+                                   forward=refuse)
     return _dense_api(cfg)

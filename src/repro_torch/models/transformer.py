@@ -1,10 +1,13 @@
-"""Dense decoder-only transformer: init, training forward and loss, KV
-cache, prefill, decode.
+"""Decoder-only transformer, dense and MoE: init, training forward and
+loss (dense), KV cache, prefill, decode.
 
-Mirrors the dense family of the reference `models/transformer.py`. The
-reference stacks every layer's parameters on a leading (L,) axis and
-scans; here `params["layers"]` is a list of per-layer dicts run by a
-Python loop (`convert.params_from_jax` unstacks the reference's layout).
+Mirrors the dense and MoE families of the reference
+`models/transformer.py`: a MoE layer (`layers.moe`) stands where the
+dense layer's MLP does, in prefill and decode, with the reference's
+`moe_dispatch`. The reference stacks every layer's parameters on a
+leading (L,) axis and scans; here `params["layers"]` is a list of
+per-layer dicts run by a Python loop (`convert.params_from_jax` unstacks
+the reference's layout).
 The KV cache keeps the reference's (L, B, Hkv, S, hd) layout and is
 updated in place by `decode_step`.
 
@@ -21,15 +24,31 @@ from torch.utils.checkpoint import checkpoint
 from .config import ModelConfig
 from .layers import (Params, _attend, _check_supported, _qkv,
                      attention_decode, dense_init, embed, init_attention,
-                     init_mlp, mlp, rmsnorm, train_attention, train_rmsnorm)
+                     init_mlp, init_moe, mlp, moe, rmsnorm, train_attention,
+                     train_rmsnorm)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.n_experts or cfg.family not in ("dense",):
+def _check_served(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported (got "
+            f"{cfg.name}: the dense and MoE families are ported here (got "
             f"family={cfg.family!r}, n_experts={cfg.n_experts})")
     _check_supported(cfg)
+
+
+def _check_trained(cfg: ModelConfig) -> None:
+    _check_served(cfg)
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training (expert-parallel dispatch in the "
+            "trainer) is not ported yet (ROADMAP §1 item 4)")
+
+
+def _ffn(lp: Params, cfg: ModelConfig, z: torch.Tensor,
+         moe_dispatch: str) -> torch.Tensor:
+    if cfg.n_experts:
+        return moe(lp["moe"], z, cfg, dispatch=moe_dispatch)
+    return mlp(lp["mlp"], z)
 
 
 # ---------------------------------------------------------------------------
@@ -37,17 +56,24 @@ def _check_dense(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 dtype=torch.bfloat16, device="cpu") -> Params:
-    """Random weights drawn from `gen` (a generator on `device`)."""
-    _check_dense(cfg)
+    """Random weights drawn from `gen` (a generator on `device`); a MoE
+    layer's `"moe"` stands where a dense layer's `"mlp"` does."""
+    _check_served(cfg)
     d = cfg.d_model
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    layers = [{"ln1": zeros(d), "ln2": zeros(d),
-               "attn": init_attention(gen, cfg, dtype, device),
-               "mlp": init_mlp(gen, d, cfg.d_ff, dtype, device)}
-              for _ in range(cfg.n_layers)]
+    def layer() -> Params:
+        lp = {"ln1": zeros(d), "ln2": zeros(d),
+              "attn": init_attention(gen, cfg, dtype, device)}
+        if cfg.n_experts:
+            lp["moe"] = init_moe(gen, cfg, dtype, device)
+        else:
+            lp["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype, device)
+        return lp
+
+    layers = [layer() for _ in range(cfg.n_layers)]
     p: Params = {
         "layers": layers,
         "ln_f": zeros(d),
@@ -85,8 +111,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             remat: bool = True) -> torch.Tensor:
     """tokens (B, T) → logits (B, T, V), differentiable. A tied embedding
     is scaled by √d_model here, as the reference's `forward` does (its
-    `prefill` and `decode_step` do not)."""
-    _check_dense(cfg)
+    `prefill` and `decode_step` do not). Dense only."""
+    _check_trained(cfg)
     x = embed(params["embed"], tokens)
     if cfg.tie_embeddings:
         x = x * (cfg.d_model ** 0.5)
@@ -129,10 +155,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache_len: int) -> tuple[torch.Tensor, dict]:
+            cache_len: int, moe_dispatch: str = "sorted"
+            ) -> tuple[torch.Tensor, dict]:
     """Forward over the prompt (B, T), recording K/V into a fresh cache of
     `cache_len` slots. Returns (last-token logits (B, 1, V), cache)."""
-    _check_dense(cfg)
+    _check_served(cfg)
     x = embed(params["embed"], tokens)
     B, T, _ = x.shape
     if T > cache_len:
@@ -147,13 +174,14 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         cache["v"][i, :, :, :T] = v
         h = _attend(q, k, v, cfg, window=cfg.window_for_layer(i))
         x = x + h @ lp["attn"]["wo"]
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"]))
+        x = x + _ffn(lp, cfg, rmsnorm(x, lp["ln2"]), moe_dispatch)
     cache["pos"].fill_(T)
     return _logits(params, cfg, x[:, -1:]), cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+                tokens: torch.Tensor, *, moe_dispatch: str = "sorted"
+                ) -> tuple[torch.Tensor, dict]:
     """One decode step. tokens: (B, 1). Returns (logits (B, 1, V), the
     cache, updated in place)."""
     x = embed(params["embed"], tokens)
@@ -165,6 +193,6 @@ def decode_step(params: Params, cfg: ModelConfig, cache: dict,
                                  cache["v"][i], pos, cfg,
                                  window=cfg.window_for_layer(i),
                                  kv_len=kv_len)
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"]))
+        x = x + _ffn(lp, cfg, rmsnorm(x, lp["ln2"]), moe_dispatch)
     cache["pos"] = kv_len
     return _logits(params, cfg, x), cache

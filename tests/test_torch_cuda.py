@@ -963,3 +963,98 @@ def test_smoke_trainer_survives_device_loss_on_card(dev, tmp_path):
         assert g.is_cuda and torch.equal(_bits(g), _bits(w))
     losses = dict(zip(clean["steps"], clean["losses"]))
     assert [losses[s] for s in chaos["steps"]] == chaos["losses"]
+
+
+# the served head dims the decode kernel had not run before: qwen3-32b's
+# 80 (padded to its 128 template) and gemma3-4b's 256, with a window and
+# without, ragged key counts with a row that sees none, f32 and bf16
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,window,kv_len", [
+    (4, 64, 8, 1, 128, 80, 0, [33, 47, 60, 128]),
+    (2, 64, 8, 1, 300, 80, 24, [300, 0]),
+    (4, 8, 4, 1, 128, 256, 1024, [33, 47, 60, 128]),
+    (1, 8, 4, 1, 1168, 256, 1024, [1160]),
+    (2, 8, 4, 4, 1168, 256, 0, [1160, 7])])
+def test_flash_attention_decode_at_served_head_dims(dev, dtype, B, Hq, Hkv,
+                                                    Tq, Tk, D, window,
+                                                    kv_len):
+    q = _rand((B, Tq, Hq, D), 41, dev).to(dtype).transpose(1, 2)
+    k = _rand((B, Hkv, Tk, D), 42, dev).to(dtype)
+    v = _rand((B, Hkv, Tk, D), 43, dev).to(dtype)
+    kw = dict(window=window, kv_len=torch.tensor(kv_len, device=dev))
+    before = dict(ops.ATTENTION_LAUNCHES)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.ATTENTION_LAUNCHES["flash_decode_kernel"] == \
+        before["flash_decode_kernel"] + 1
+    assert got.dtype == dtype and got.shape == (B, Hq, Tq, D)
+    want = ref.flash_attention(q.float(), k.float(), v.float(), **kw)
+    assert torch.isfinite(got.float()).all()
+    assert _row_rel(got, want) <= MODEL_RTOL[dtype]
+    if 0 in kv_len:
+        assert (got[kv_len.index(0)] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,T", [(64, 32), (8, 32), (64, 1)])
+def test_rmsnorm_kernel_qk_norm_rows(dev, dtype, H, T):
+    """qwen3-32b's qk_norm rows as the layer passes them: the (B, H, T,
+    80) head transpose of a (B, T, H·80) projection."""
+    x = _rand((4, T, H, 80), 44, dev, 3.0).to(dtype).transpose(1, 2)
+    w = _rand((80,), 45, dev, 0.5).to(torch.bfloat16)
+    got = ops.rmsnorm(x, w, offset=1.0)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape
+    assert _rel(got, ref.rmsnorm(x.float(), w, offset=1.0)) \
+        <= MODEL_RTOL[dtype]
+
+
+@pytest.mark.parametrize("arch,run", [("qwen3-32b", (2, 8, 16)),
+                                      ("gemma3-4b", (2, 40, 48)),
+                                      ("deepseek-moe-16b", (4, 64, 72))])
+def test_smoke_model_on_card_matches_cpu(dev, arch, run):
+    """The smoke-size model in f32 on the card (its kernels) against the
+    same code on the CPU (their plain versions): prefill and 4 greedy
+    decode steps, logits within 1e-4 of the largest |logit|, the same
+    tokens. gemma3-4b's 40-token prompt passes its 32-key smoke window;
+    deepseek-moe-16b's 256 tokens go through the grouped sorted
+    dispatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+
+    api = build(smoke_config(get_config(arch)))
+    params = api.init_params(torch.Generator().manual_seed(0),
+                             torch.float32, "cpu")
+    B, T, cache_len = run
+    tokens = torch.randint(0, api.cfg.vocab, (B, T),
+                           generator=torch.Generator().manual_seed(1))
+
+    def to(tree, where):
+        if isinstance(tree, dict):
+            return {k: to(v, where) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, where) for v in tree]
+        return tree.to(where)
+
+    runs = {}
+    for where in ("cpu", dev):
+        p = to(params, where)
+        before = ops.LAUNCHES["flash_attention"]
+        with torch.inference_mode():
+            logits, cache = api.prefill(p, {"tokens": tokens.to(where)},
+                                        cache_len)
+            outs, toks = [logits.cpu()], []
+            for _ in range(4):
+                tok = logits[:, -1].argmax(dim=-1)
+                toks.append(tok.cpu())
+                logits, cache = api.decode_step(p, cache,
+                                                {"tokens": tok[:, None]})
+                outs.append(logits.cpu())
+        launched = ops.LAUNCHES["flash_attention"] - before
+        assert launched == (5 * api.cfg.n_layers if where == dev else 0)
+        runs[str(where)] = (torch.stack(outs), torch.stack(toks))
+    (lc, tc), (lg, tg) = runs["cpu"], runs[str(dev)]
+    assert torch.isfinite(lg).all()
+    assert float((lg - lc).abs().max() / lc.abs().max()) <= 1e-4
+    assert torch.equal(tc, tg)
