@@ -7,13 +7,14 @@
     python3 chip_smoke.py --planner
     python3 chip_smoke.py --flat
     python3 chip_smoke.py --ft
+    python3 chip_smoke.py --moe-train
 
 The second and third forms build the kernels and run the attention rows
 or the recurrence rows of phase 2 alone (of another source tree with
 --src: two commits timed on one card in turn), the fourth the planner
 phase (3c) alone, the fifth the flat collectives phase (3b2) alone, the
 sixth phase 5's per-leaf run at the first of TRAIN_FALL_LRS and phase
-ft; none prints a result line.
+ft, the seventh phase 5m alone; none prints a result line.
 Phases, each of which fails the run (non-zero exit, no result line) on
 any error:
 
@@ -176,6 +177,29 @@ any error:
                 group of the other axis), the gather's and
                 reduce-scatter's device ms beside their byte bounds
                 (`level_bytes`), the peak memory and the wall time;
+  5m. moe train — MoE training (`phase_train_moe`): the ZeRO-3 trainer on
+                deepseek-moe-16b at full width, its depth cut to 2 of 28
+                layers (TRAIN_MOE; 64 experts, top 6, 2 shared), random
+                bf16 weights, 8 local ranks, seq 128, global batch 8, 3
+                steps at lr 1e-4 (the loss must fall), per leaf with
+                `SyncConfig(strategy="plan", bucket_bytes=0)`: the
+                reference's expert-parallel dispatch over "data" (8
+                experts a rank) with its exchange on the guarded planned
+                all-to-all. Prints the step time and its parts beside
+                `train_bounds`, each exchange's device ms (CUDA events
+                around it) beside its byte bound and the standalone
+                exchange beside the same, the peak memory, the slots
+                dropped a step and the smallest top-k margin, and checks
+                the exact fused_reduce launches: the gathers' and
+                reduce-scatters' fold phases, plus the exchanges' (2 a
+                MoE layer in the forward, 2 in its recompute, 2 in the
+                backward, each the schedule's fold phases), counted
+                apart; no other kernel. Then the smoke-size trainer (8
+                experts, top 2, 1 shared) in f32 on the card against the
+                CPU, per leaf, EP over one axis (8 ranks) and over
+                TRAIN_MESH ("pod" is the EP axis): per-step loss and
+                gnorm within 1e-4, equal drops, exact launches (none on
+                the CPU);
   ft       — checkpoints and fault tolerance: `run_training` with a
                 checkpoint directory (FaultTolerantLoop; checkpoints
                 under build/, removed after). (a) phase 5's per-leaf run
@@ -201,10 +225,10 @@ any error:
                 restarts, a checkpoint fallback, a guarded failure, no
                 degraded level left, no demotion, exact launches.
 
-The main path is phases 3, 3b, 3c, 4, 5 and ft: every launch count is
-zeroed just before the executor, the families, the planner, each served
-run, each full-width training run, the `sync_bucketed` runs and each run
-of phase ft, and read just after. The executor must launch fused_reduce, quantize, quant_reduce and
+The main path is phases 3, 3b, 3c, 4, 5, 5m and ft: every launch count
+is zeroed just before the executor, the families, the planner, each
+served run, each full-width training run (the MoE one too), the
+`sync_bucketed` runs and each run of phase ft, and read just after. The executor must launch fused_reduce, quantize, quant_reduce and
 dequantize (it runs the compressed wires), the families dequantize;
 grouped_reduce and quant_reduce_requant have no caller on the main path
 (nor in the JAX package) and show 0 launches, timed in phase 2 at their
@@ -221,7 +245,8 @@ kernel, `ops.ATTENTION_LAUNCHES`); each training run must launch
 fused_reduce exactly steps × (its all-gathers × the all-gather's fold
 phases + its reduce-scatters × the reduce-scatter's) and no other
 kernel (the training forward runs torch ops, as the
-reference's runs XLA ops), with no guard demotion anywhere and no guard
+reference's runs XLA ops; the MoE run adds its exchanges' fold phases),
+with no guard demotion anywhere and no guard
 failure but the one phase ft injects (the guard raises rather than
 demote: a failure ends the run, or in phase ft's loop a restore). The last lines are the per-kernel JSON (launches
 on the main path; time, plain time, bound and yardstick of the wrapper
@@ -281,6 +306,13 @@ REFERENCE_RUN = {"gemma2-27b": (2, 48, 64), "gemma3-4b": (2, 40, 48),
 TRAIN = dict(arch="stablelm-12b", layers=2, steps=3, seq_len=128,
              global_batch=8, lr=1e-3, local_ranks=8)
 TRAIN_FALL_LRS = (1e-4,)
+# MoE training (phase 5m): deepseek-moe-16b at full width, its depth cut
+# from 28 to 2 layers (the one cut: the run peaks at 52.7 GiB at 2; each
+# layer more adds ≈ 18 GB of state and gradient rows and widens the
+# largest leaf's gather, ≈ 76 GB at 3), 8 local ranks, the reference
+# TrainConfig's sequence and global batch, lr 1e-4
+TRAIN_MOE = dict(arch="deepseek-moe-16b", layers=2, steps=3, seq_len=128,
+                 global_batch=8, lr=1e-4, local_ranks=8)
 # the per-leaf trainer's other sync labels, at the first of TRAIN_FALL_LRS
 TRAIN_FLAT = ("ring", "rhd", "cps", "hcps", "gentree", "auto")
 TRAIN_SMOKE_STEPS = 3            # smoke-size f32 steps, card against CPU
@@ -2424,7 +2456,8 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
     weight a token forward, 4 backward, plus attention's QK and PV, over
     the bf16 tensor core rate); AdamW at 22 bytes a parameter (bf16
     weight and gradient read, f32 m and v read, all four written back but
-    the gradient)."""
+    the gradient). A MoE layer's products count its router, shared
+    experts and top_k routed experts a token."""
     P = sum(int(t.numel()) for t in shards)       # padded, all ranks
     elem = shards[0].element_size()
     dtype = shards[0].dtype
@@ -2453,7 +2486,8 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
         scatter = sum(schedule_bytes(cs, int(t.numel()), dtype,
                                      family_steps(cs, "reduce_scatter"))
                       for t in shards)
-    matmul = P - cfg.vocab * cfg.d_model - (2 * cfg.n_layers + 1) \
+    active = cfg.active_params_count() if cfg.n_experts else P
+    matmul = active - cfg.vocab * cfg.d_model - (2 * cfg.n_layers + 1) \
         * cfg.d_model                            # no embed, no norms
     tokens = seq_len * batch // n
     attn = (4 * tokens * seq_len * cfg.n_heads * cfg.head_dim
@@ -2493,7 +2527,8 @@ def train_run(api, params, n, lr: float, steps: int, seq_len: int,
                                   **kw)
     data = SyntheticLM(DataConfig(vocab=api.cfg.vocab, seq_len=seq_len,
                                   global_batch=global_batch, seed=seed))
-    out = {"losses": [], "gnorms": [], "step_s": [], "phase_ms": []}
+    out = {"losses": [], "gnorms": [], "step_s": [], "phase_ms": [],
+           "ep_exchanges": []}
     for s in range(steps):
         t0 = time.perf_counter()
         batch = {k: torch.as_tensor(np.asarray(v), device=where).long()
@@ -2504,6 +2539,7 @@ def train_run(api, params, n, lr: float, steps: int, seq_len: int,
         out["losses"].append(loss)
         out["gnorms"].append(gnorm)
         out["phase_ms"].append(phase_ms(m))
+        out["ep_exchanges"].append(m.get("ep_exchanges"))
     out.update(state=state, plans=step.plans, step=step)
     return out
 
@@ -3183,6 +3219,335 @@ def phase_train_all(dev) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# MoE training
+# ---------------------------------------------------------------------------
+class ExchangeRecorder:
+    """Spies on the EP exchange (`core.sync._ep_run`, both directions of
+    `ep_exchange`): per call its operand's shape and dtype, the
+    fused_reduce launches inside it and, on a card, CUDA events around
+    it (`ms` waits for the last)."""
+
+    def __init__(self):
+        from repro_torch.core import sync
+        self.sync = sync
+        self.real = sync._ep_run
+        self.calls: list[dict] = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ops
+        rec = self
+
+        def spy(x, axis_name, schedule, mesh):
+            on_card = x.is_cuda
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
+                if on_card else None
+            before = ops.LAUNCHES["fused_reduce"]
+            if ev:
+                ev[0].record()
+            out = rec.real(x, axis_name, schedule, mesh)
+            if ev:
+                ev[1].record()
+            rec.calls.append({"shape": tuple(x.shape), "dtype": x.dtype,
+                              "launches": ops.LAUNCHES["fused_reduce"]
+                              - before, "events": ev})
+            return out
+        self.sync._ep_run = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.sync._ep_run = self.real
+
+    def ms(self) -> list[float]:
+        import torch
+        if not self.calls or self.calls[-1]["events"] is None:
+            return []
+        torch.cuda.synchronize()
+        return [c["events"][0].elapsed_time(c["events"][1])
+                for c in self.calls]
+
+
+class RouteRecorder:
+    """Spies on `layers.moe_route`: per call (a rank's tokens in one MoE
+    layer, in the forward or its recompute) the slots the one-block
+    dispatch drops (past each expert's capacity over the call's tokens)
+    and the smallest margin between a token's k-th and (k+1)-th router
+    probability. It calls the real router."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.mod = layers
+        self.real = layers.moe_route
+        self.calls: list[tuple[int, float]] = []
+
+    def __enter__(self):
+        import torch
+        rec = self
+
+        def spy(p, xt, k):
+            probs, topv, topi = rec.real(p, xt, k)
+            E = probs.shape[-1]
+            cap = rec.mod.moe_capacity(xt.shape[0], k, E, 1.25)
+            counts = torch.bincount(topi.reshape(-1), minlength=E)
+            top = probs.detach().sort(dim=-1, descending=True).values
+            rec.calls.append((int((counts - cap).clamp(min=0).sum()),
+                              float((top[:, k - 1] - top[:, k]).min())))
+            return probs, topv, topi
+        self.mod.moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_route = self.real
+
+    def per_step(self, steps: int, layers: int, ranks: int
+                 ) -> tuple[list[int], float]:
+        """(slots dropped in each step's forward, the smallest margin),
+        checking that each step ran its layers' routes twice (forward
+        and recompute) with the same drops."""
+        per = layers * ranks
+        if len(self.calls) != 2 * per * steps:
+            fail(f"moe train: {len(self.calls)} router calls, expected "
+                 f"{2 * per * steps} (forward and recompute)")
+        drops = []
+        for s in range(steps):
+            block = self.calls[2 * per * s:2 * per * (s + 1)]
+            fwd = sum(d for d, _ in block[:per])
+            if fwd != sum(d for d, _ in block[per:]):
+                fail(f"moe train: step {s + 1} recompute routed otherwise")
+            drops.append(fwd)
+        return drops, min(m for _, m in self.calls)
+
+
+def exchange_folds(step) -> int:
+    """fused_reduce launches of one EP exchange: the planned all-to-all's
+    fold phases, once a group of the other axes (none for the flat
+    copy)."""
+    cs = step.ep_schedule
+    if cs is None:
+        return 0
+    n = dict(step.mesh)[step.ep[0]]
+    groups = math.prod(s for _, s in step.mesh) // n
+    return groups * sum(len(st.folds) for st in family_steps(
+        cs.inner, "all_to_all"))
+
+
+def moe_launches(step, leaves: int, steps: int, exchanges: int) -> dict:
+    """Exact fused_reduce launches of a per-leaf MoE run: the gathers'
+    and reduce-scatters' (`level_launches`) and the exchanges'."""
+    base = level_launches(step, leaves, steps)
+    ex = exchanges * exchange_folds(step)
+    return {"sync": base.get("fused_reduce", 0), "exchange": ex,
+            "fused_reduce": base.get("fused_reduce", 0) + ex}
+
+
+def phase_train_moe(dev) -> dict:
+    """Phase 5m: the MoE trainer at full width, then the smoke-size one on
+    the card against the CPU (module docstring). Returns the full-width
+    run's kernel launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import PHASES
+    from repro_torch.models import layers
+    from repro_torch.models.registry import build
+
+    t_phase = time.perf_counter()
+    tr = TRAIN_MOE
+    full_cfg = get_config(tr["arch"])
+    cfg = dataclasses.replace(full_cfg, n_layers=tr["layers"])
+    n, steps, L = tr["local_ranks"], tr["steps"], cfg.n_layers
+    sync = SyncConfig(strategy="plan", bucket_bytes=0)
+    torch.empty(1, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    api = build(cfg)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             torch.bfloat16, dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with ExchangeRecorder() as ex, RouteRecorder() as routes:
+        res = train_run(api, params, n, tr["lr"], steps, tr["seq_len"],
+                        tr["global_batch"], sync=sync)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    del params
+    peak = torch.cuda.max_memory_allocated(dev)
+    step = res["step"]
+    shards = res["state"]["params"]
+    losses, gnorms = res["losses"], res["gnorms"]
+    (plan,) = step.plans
+    cs = plan.schedule.inner
+    label = "train [MoE, EP plan]"
+    if step.ep != ("data", n) or step.ep_schedule is None:
+        fail(f"{label}: the step's EP is {step.ep}, schedule "
+             f"{step.ep_schedule}")
+    e_cs = step.ep_schedule
+    per_step = {"forward": 2 * L, "recompute": 2 * L, "backward": 2 * L}
+    if res["ep_exchanges"] != [per_step] * steps:
+        fail(f"{label}: exchanges {res['ep_exchanges']}, expected "
+             f"{per_step} a step")
+    n_ex = 6 * L * steps
+    want = moe_launches(step, len(shards), steps, n_ex)
+    ex_launches = sum(c["launches"] for c in ex.calls)
+    drops, margin = routes.per_step(steps, L, n)
+    E, k = cfg.n_experts, cfg.top_k
+    tokens = tr["seq_len"] * tr["global_batch"] // n
+    cap = layers.moe_capacity(tokens, k, E, 1.25)
+    log(f"{label}: {cfg.name} layers={L} (cut from {full_cfg.n_layers}) "
+        f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} experts {E} "
+        f"top {k} shared {cfg.n_shared_experts} d_ff_expert "
+        f"{cfg.d_ff_expert} vocab={cfg.vocab}; "
+        f"{sum(t.numel() for t in shards) / 1e6:.1f} M parameters (padded)"
+        f" in {len(shards)} leaves; {n} local ranks, seq {tr['seq_len']}, "
+        f"global batch {tr['global_batch']}, lr {tr['lr']}; EP over "
+        f"{step.ep} ({E // n} experts a rank, capacity {cap} a rank's "
+        f"{tokens} tokens); sync plan {cs.describe()}; exchange "
+        f"{e_cs.inner.describe()}; losses {losses}; gnorms {gnorms}; "
+        f"slots dropped a step {drops} of {n * L * tokens * k}; smallest "
+        f"top-k margin {margin:.3e}; wall {wall:.1f} s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"{label}: non-finite loss or gnorm: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall at lr {tr['lr']}: {losses}")
+    log(f"{label}: fused_reduce launches {counts['fused_reduce']}: "
+        f"gathers and reduce-scatters {counts['fused_reduce'] - ex_launches}"
+        f" (expected {want['sync']}), exchanges {ex_launches} = {n_ex} "
+        f"exchanges ({steps} steps x {L} layers x (2 forward + 2 recompute"
+        f" + 2 backward)) x {exchange_folds(step)} fold phases (expected "
+        f"{want['exchange']}); launches {json.dumps(counts)}; guard "
+        f"{json.dumps(plan.schedule.stats)}; exchange guard "
+        f"{json.dumps(e_cs.stats)}")
+    if (counts["fused_reduce"] != want["fused_reduce"]
+            or ex_launches != want["exchange"] or len(ex.calls) != n_ex):
+        fail(f"{label}: fused_reduce {counts['fused_reduce']} (exchanges "
+             f"{ex_launches} in {len(ex.calls)} calls), expected {want} in "
+             f"{n_ex} calls")
+    for name, c in counts.items():
+        if name != "fused_reduce" and c:
+            fail(f"{label} launched {name} {c} time(s)")
+    for sc in (plan.schedule, e_cs):
+        if sc.demotions or sc.stats["failures"]:
+            fail(f"{label}: guard {sc.stats}, {sc.demotions} demotion(s)")
+    ex_ms = ex.ms()
+    buf = ex.calls[0]
+    ex_bytes = 2 * math.prod(buf["shape"]) * buf["dtype"].itemsize
+    sched_b = schedule_bytes(e_cs.inner, math.prod(buf["shape"][1:]),
+                             buf["dtype"], family_steps(e_cs.inner,
+                                                        "all_to_all"))
+    step_ms = statistics.median(res["step_s"][1:]) * 1e3
+    parts = {kk: statistics.median(pm[kk] for pm in res["phase_ms"][1:])
+             for kk in PHASES}
+    bounds = train_bounds(cfg, cs, shards, n, tr["seq_len"],
+                          tr["global_batch"], step, plan)
+    ex_step = sum(ex_ms[len(ex_ms) // steps:2 * len(ex_ms) // steps])
+    x = torch.randn(buf["shape"], device=dev).to(buf["dtype"])
+    with FoldRecorder() as folds:
+        alone = device_ms(lambda: collectives.all_to_all(
+            x, "data", schedule=e_cs))
+    # fused_reduce at the exchange's landing shape (gathered form, the
+    # schedule's first landing table)
+    src_shape, src_dtype, table, out_shape, out_dtype = next(iter(
+        folds.calls.values()))
+    r = measure(fused_reduce_into_case(src_shape, src_dtype, table,
+                                       out_shape, out_dtype, dev))
+    log_rows([("fused_reduce", f"EP exchange landing: into B="
+               f"{table.rows.shape[0]} K={table.rows.shape[1]} L="
+               f"{src_shape[1]} {src_dtype}->{out_dtype}", r)])
+    if r["max_abs_err"] != 0.0:
+        fail(f"fused_reduce at the exchange's landing differs from its "
+             f"plain version by {r['max_abs_err']}")
+    log(f"{label}: step time median of steps 2-{steps} {step_ms:.1f} ms "
+        f"(first {res['step_s'][0] * 1e3:.1f} ms; steps "
+        f"{[round(v * 1e3, 1) for v in res['step_s']]}); device parts "
+        + ", ".join(f"{kk} {parts[kk]:.2f} ms (bound {bounds[kk]:.2f})"
+                    for kk in PHASES)
+        + f"; one rank's forward and backward bound: bytes "
+        f"{bounds['rank_bytes_ms']:.3f} ms, products "
+        f"{bounds['rank_flops_ms']:.3f} ms; exchanges: "
+        f"{len(ex_ms) // steps} a step of {buf['shape']} {buf['dtype']} "
+        f"({math.prod(buf['shape'][1:]) * buf['dtype'].itemsize / 2**20:.2f}"
+        f" MiB a rank), device ms a step (step 2) {ex_step:.3f}, each "
+        f"median {statistics.median(ex_ms):.4f} (min {min(ex_ms):.4f}, max "
+        f"{max(ex_ms):.4f}) against the in+out bound "
+        f"{bound_ms(ex_bytes):.4f} and the schedule's byte bound "
+        f"{bound_ms(sched_b):.4f}; alone {alone:.4f} ms")
+    del res, shards, step, x, folds
+    torch.cuda.empty_cache()
+    for mesh, mlabel in ((n, "EP over data (8)"),
+                         (TRAIN_MESH, "(pod 2, data 4), EP over pod (2)")):
+        phase_train_moe_reference(dev, mesh, mlabel)
+    log(f"phase moe train: wall {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_train_moe_reference(dev, mesh, label: str) -> None:
+    """The MoE trainer at smoke size in f32 on the card against the same
+    code on the CPU, per leaf, from one state and the same batches, on
+    the local mesh `mesh`: TRAIN_SMOKE_STEPS steps, per-step loss and
+    gnorm within 1e-4 relative, the same slots dropped on both, the
+    final shards as `shard_drift` says, fused_reduce launched exactly
+    (`moe_launches`) on the card and nothing on the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+
+    t0 = time.perf_counter()
+    api = build(smoke_config(get_config(TRAIN_MOE["arch"])))
+    params = api.init_params(torch.Generator().manual_seed(0), torch.float32,
+                             "cpu")
+    lr, steps = TRAIN["lr"], TRAIN_SMOKE_STEPS
+    sync = SyncConfig(strategy="plan", bucket_bytes=0)
+    runs, drops, counts = {}, {}, {}
+    for where in ("cpu", dev):
+        ops.reset_launches()
+        with RouteRecorder() as routes:
+            runs[str(where)] = train_run(api, _to(params, where), mesh, lr,
+                                         steps, 32, TRAIN["global_batch"],
+                                         sync=sync,
+                                         param_dtype=torch.float32)
+        counts[str(where)] = dict(ops.LAUNCHES)
+        drops[str(where)] = routes.per_step(steps, api.cfg.n_layers, 8)
+    card, cpu = runs[str(dev)], runs["cpu"]
+    step = card["step"]
+    want = moe_launches(step, len(card["state"]["params"]), steps,
+                        6 * api.cfg.n_layers * steps)
+    metric_err = max(abs(g - c) / abs(c) for kk in ("losses", "gnorms")
+                     for g, c in zip(card[kk], cpu[kk]))
+    far, total, worst = shard_drift([t.cpu() for t in card["state"]["params"]],
+                                    cpu["state"]["params"], lr, steps)
+    log(f"train [MoE smoke, {label}]: f32 {steps} steps card vs CPU, EP "
+        f"{step.ep}, exchange {step.ep_schedule.inner.describe()}: losses "
+        f"{card['losses']} / {cpu['losses']}, gnorms {card['gnorms']} / "
+        f"{cpu['gnorms']}; rel err {metric_err:.2e}; slots dropped a step "
+        f"{drops[str(dev)][0]} / {drops['cpu'][0]}, smallest top-k margin "
+        f"{drops[str(dev)][1]:.3e} / {drops['cpu'][1]:.3e}; final shards: "
+        f"{far} of {total} elements past 1e-4 of their leaf's largest "
+        f"|value|, the farthest {worst:.3f} of 2·lr·steps; card launches "
+        f"{counts[str(dev)]['fused_reduce']} (expected {want}); wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (metric_err <= 1e-4 and far <= 1e-4 * total and worst <= 1.0):
+        fail(f"the card's smoke-size MoE trainer [{label}] disagrees with "
+             f"the CPU run: {metric_err:.2e}, {far} of {total} shard "
+             f"elements, {worst:.3f}")
+    if drops[str(dev)][0] != drops["cpu"][0]:
+        fail(f"MoE smoke [{label}]: drops {drops}")
+    if counts[str(dev)]["fused_reduce"] != want["fused_reduce"] or any(
+            c for kk, c in counts[str(dev)].items() if kk != "fused_reduce"):
+        fail(f"MoE smoke [{label}]: card launches {counts[str(dev)]}, "
+             f"expected {want}")
+    if any(counts["cpu"].values()):
+        fail(f"MoE smoke [{label}]: the CPU run launched {counts['cpu']}")
+
+
+# ---------------------------------------------------------------------------
 # the checkpointed trainer
 # ---------------------------------------------------------------------------
 class CheckpointRecorder:
@@ -3674,6 +4039,10 @@ def main() -> int:
                     help="build the kernels, run phase 5's per-leaf run at "
                     "the first of TRAIN_FALL_LRS and phase ft, then stop: "
                     "no result line")
+    ap.add_argument("--moe-train", action="store_true",
+                    help="build the kernels and run phase 5m (MoE training "
+                    "at full width, then smoke-size card against CPU) "
+                    "alone, then stop: no result line")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree (default: this checkout's "
                     "src), e.g. another commit's unpacked beside it, to "
@@ -3724,6 +4093,10 @@ def main() -> int:
         phase_serve_all(dev, ShapeRecorder(), t0)
         log(f"phase serve done at {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.moe_train:
+        phase_train_moe(dev)
+        log(f"phase moe train done at {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.ft:
         r = phase_train(dev, TRAIN_FALL_LRS[0], True)
         phase_ft(dev, {"losses": r["losses"],
@@ -3748,6 +4121,9 @@ def main() -> int:
     log(f"phase serve done at {time.perf_counter() - t0:.1f} s")
     trained, baseline = phase_train_all(dev)
     log(f"phase train done at {time.perf_counter() - t0:.1f} s")
+    for name, n in phase_train_moe(dev).items():
+        trained[name] += n
+    log(f"phase moe train done at {time.perf_counter() - t0:.1f} s")
     for name, n in phase_ft(dev, baseline).items():
         trained[name] += n
     log(f"phase ft done at {time.perf_counter() - t0:.1f} s")

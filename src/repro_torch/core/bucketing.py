@@ -517,17 +517,26 @@ class Zero3Bucket:
         rows = mat.unflatten(-1, (-1, self.width))
         return rows[..., self.offsets[j]:self.offsets[j] + self.chunks[j]]
 
-    def write(self, mat: torch.Tensor, j: int, src: torch.Tensor) -> None:
+    def write(self, mat: torch.Tensor, j: int, src: torch.Tensor,
+              start: int = 0) -> None:
         """Member j's flat leaf (..., numel) into its columns of `mat`,
-        row-major; the padding past numel is left as it is."""
+        row-major; the padding past numel is left as it is. With `start`,
+        src is the leaf's elements [start, start + len) alone."""
         dst = self.columns(mat, j)
         c = self.chunks[j]
-        full, part = divmod(int(src.shape[-1]), c)
+        pos, end, done = int(start), int(start) + int(src.shape[-1]), 0
+        row, col = divmod(pos, c)
+        if col and pos < end:              # up to the next row of chunks
+            h = min(c - col, end - pos)
+            dst[..., row, col:col + h].copy_(src[..., :h])
+            pos, done = pos + h, h
+        row, full = pos // c, (end - pos) // c
         if full:
-            dst[..., :full, :].copy_(src[..., :full * c].unflatten(
-                -1, (full, c)))
-        if part:
-            dst[..., full, :part].copy_(src[..., full * c:])
+            dst[..., row:row + full, :].copy_(
+                src[..., done:done + full * c].unflatten(-1, (full, c)))
+            pos, done = pos + full * c, done + full * c
+        if pos < end:
+            dst[..., pos // c, :end - pos].copy_(src[..., done:])
 
     def read(self, mat: torch.Tensor, j: int) -> torch.Tensor:
         """A new (..., numel) tensor: member j's flat leaf from its

@@ -19,6 +19,7 @@ scatter-add). The bucketed path is `core.bucketing.sync_bucketed`.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -230,6 +231,19 @@ class EPContext:
     # None ⇒ collectives.all_to_all's one copy
     schedule: object | None = None
 
+    def index(self, mesh: Sequence[tuple[str, int]], r: int) -> int:
+        """The index along this axis of rank r, the row-major index on
+        the local mesh's (axis, size) pairs `mesh`: the expert group it
+        owns."""
+        names = [a for a, _ in mesh]
+        sizes = [int(s) for _, s in mesh]
+        if self.axis not in names or sizes[names.index(self.axis)] \
+                != self.size:
+            raise ValueError(f"the EP axis ({self.axis!r}, {self.size}) is "
+                             f"not an axis of the local mesh {list(mesh)}")
+        stride = math.prod(sizes[names.index(self.axis) + 1:])
+        return r // stride % self.size
+
 
 _EP_CONTEXT: list = [None]
 
@@ -265,6 +279,52 @@ def ep_all_to_all(x: torch.Tensor, axis_name: str, *, mesh=None
     sched = ctx.schedule if ctx is not None and ctx.axis == axis_name \
         else None
     return collectives.all_to_all(x, axis_name, schedule=sched, mesh=mesh)
+
+
+# exchanges `ep_exchange` ran, by direction: "forward" counts the forward
+# pass and every recompute of it under activation checkpointing,
+# "backward" the cotangent exchanges
+EP_EXCHANGES = {"forward": 0, "backward": 0}
+
+
+def _ep_run(x: torch.Tensor, axis_name: str, schedule, mesh) -> torch.Tensor:
+    """One exchange of `x` (no autograd): the planned schedule or the flat
+    copy program."""
+    return collectives.all_to_all(x, axis_name, schedule=schedule, mesh=mesh)
+
+
+class _EPExchange(torch.autograd.Function):
+    """The owner-major AllToAll as an autograd op. Rank d's chunk j goes
+    to rank j as chunk d: a permutation that is its own inverse, so the
+    transpose of the exchange is the exchange, as the reference's
+    `lax.all_to_all` / planned schedule transposes. Both directions run
+    the schedule resolved at the forward call (the trainer's EPContext),
+    so a backward outside the context still takes the planned path."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, schedule, mesh):
+        ctx.axis_name, ctx.schedule, ctx.mesh = axis_name, schedule, mesh
+        EP_EXCHANGES["forward"] += 1
+        return _ep_run(x, axis_name, schedule, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        EP_EXCHANGES["backward"] += 1
+        return (_ep_run(g.contiguous(), ctx.axis_name, ctx.schedule,
+                        ctx.mesh), None, None, None)
+
+
+def ep_exchange(x: torch.Tensor, axis_name: str, *, mesh=None
+                ) -> torch.Tensor:
+    """`ep_all_to_all`, differentiable: the MoE layer's dispatch and
+    combine in a training graph. The forward and the backward each run
+    the active EPContext's planned schedule (launching `fused_reduce`)
+    when it matches `axis_name`, else the flat copy program; a CUDA
+    tensor never takes another path."""
+    ctx = _EP_CONTEXT[0]
+    sched = ctx.schedule if ctx is not None and ctx.axis == axis_name \
+        else None
+    return _EPExchange.apply(x.contiguous(), axis_name, sched, mesh)
 
 
 def _quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

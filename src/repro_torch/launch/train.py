@@ -13,8 +13,10 @@ dimensions are the mesh axes), as the decode AllReduce of
 
 Scope: the reference's manual engine over the data-parallel axes of a
 local mesh, one axis (`("data", n)`) or several (e.g. `[("pod", 2),
-("data", 4)]`, the paper's hierarchical structure), for the dense
-family, with every `SyncConfig` strategy of the reference: "plan"
+("data", 4)]`, the paper's hierarchical structure), for the dense and
+MoE families (MoE with the reference's expert-parallel dispatch over the
+first live axis, its exchange the planned all-to-all under "plan"),
+with every `SyncConfig` strategy of the reference: "plan"
 bucketed by default on one axis (GenModel picks the bucket,
 `core.bucketing`), per leaf with `bucket_bytes=0` or on several axes;
 the flat labels psum, ring, rhd, cps and hcps, "gentree" (the planner's
@@ -22,8 +24,8 @@ label for each axis) and "auto" (psum) per leaf, through
 `core.collectives`; a wire the plan binds (bf16, fp8, int8). These raise
 `NotImplementedError` and are never replaced by another path: the
 `auto` (pjit) engine (ROADMAP §1 items 4b and 6) and the schedule probe
-`observe_sync_probe` (item 4b); MoE training (item 4) and the recurrent
-families' (item 6); `compress` in the trainer (item 9).
+`observe_sync_probe` (item 4b); the recurrent families' training (item
+6); `compress` in the trainer (item 9).
 
 With a checkpoint directory the run goes through the reference's
 `FaultTolerantLoop` (`runtime.ft`): a checkpoint every `ckpt_every`
@@ -37,6 +39,8 @@ checkpoints and corrupted collective payloads.
     python -m repro_torch.launch.train --engine manual --sync ring --smoke
     python -m repro_torch.launch.train --engine manual --sync plan --smoke \
         --steps 30 --ckpt-dir ckpt --faults seed=7,steps=30,device_loss=0.1
+    python -m repro_torch.launch.train --engine manual --sync plan --smoke \
+        --arch deepseek-moe-16b
 
 train the smoke-size stablelm-12b on the card; `--device cpu` runs them
 on the CPU. Without `--smoke` the model is the full configuration.
@@ -55,7 +59,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import collectives
-from repro_torch.core.sync import AxisPlan, SyncConfig, resolve_axis_plans
+from repro_torch.core.sync import (AxisPlan, SyncConfig, expert_parallel,
+                                   resolve_axis_plans)
 from repro_torch.models.registry import ModelAPI
 from repro_torch.models.tree import (stack_layers, tree_from_items,
                                      tree_items, unstack_layers)
@@ -208,6 +213,126 @@ def _bucket_plan(n: int, sync: SyncConfig, total_bytes: float):
     return bp, None
 
 
+def _ep_schedule(axis: str, n: int, sync: SyncConfig, total_bytes: float):
+    """The reference's `ep_sched`: the lowered family="all_to_all"
+    schedule of the EP axis from `PlannerService.get_family_executable`
+    at the model's bytes in f32 units, guarded unless `sync.guard` is
+    off; None (the flat exchange, as the reference's `lax.all_to_all`)
+    where it does not lower, which is logged."""
+    from repro_torch.core.lower import LoweringError, guard_schedule
+    from repro_torch.planner.service import default_service
+
+    svc = default_service()
+    try:
+        sched = svc.get_family_executable("all_to_all", axis, n,
+                                          total_bytes / 4.0 or 1.0,
+                                          params=sync.params).schedule
+    except LoweringError as e:
+        _log.warning("the EP all-to-all plan does not lower (%s): the "
+                     "exchange runs the flat copy, as the reference's "
+                     "lax.all_to_all", e)
+        return None
+    if sched is not None and sync.guard:
+        sched = guard_schedule(sched,
+                               telemetry=getattr(svc, "telemetry", None))
+    return sched
+
+
+# the routed experts' leaves: a rank reads its EP slice of each
+EXPERT_LEAVES = (("layers", "moe", "wg"), ("layers", "moe", "wi"),
+                 ("layers", "moe", "wo"))
+
+
+def ep_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
+                      batch: dict, mesh, put: Callable, *,
+                      lossy: bool = False
+                      ) -> tuple[list[torch.Tensor], dict[str, int]]:
+    """The expert-parallel forward and backward of every rank of the
+    local mesh `mesh` (the live (axis, size) pairs, or an int n) in one
+    graph, under the active `expert_parallel` context: the reference's
+    `value_and_grad(loss_fn(moe_dispatch="ep"))` on each device, which
+    runs each MoE layer's exchange over all devices at once.
+
+    `full` is the gathered leaves in the reference's order, stacked (L,
+    ...) layer leaves (one shared copy, or under a lossy wire (n, ...)
+    rows, row r rank r's). Each rank reads its own detached leaves, one
+    a layer for the layer leaves, and of the routed experts only its EP
+    slice [i·E/size, (i+1)·E/size) (i its index along the context's
+    axis), so no rank's graph holds a gradient of the others' experts.
+    `transformer.loss_fn_ep` runs the ranks layer by layer (each layer
+    checkpointed over all ranks), and one backward of the sum of their
+    losses gives each rank's leaves the cotangent of the reference's
+    per-device `value_and_grad`. Each gradient lands where autograd
+    accumulates it: a post-accumulate hook calls `put(r, i, g, off)`
+    (rank r, leaf i, the flat gradient g of its elements [off, off +
+    len)) and frees it, so at most the gradients in flight are live, not
+    the n ranks' whole sets. The rows of the other experts are written
+    zero (the transpose of the reference's `dynamic_slice`). Returns the ranks' detached losses and the
+    exchanges this call ran: {"forward", "recompute", "backward"}."""
+    from repro_torch.core import sync
+
+    cfg = api.cfg
+    ctx = sync.ep_context()
+    if ctx is None:
+        raise ValueError("ep_loss_and_grads runs under expert_parallel")
+    pairs = _mesh_of(mesh)
+    n = math.prod(s for _, s in pairs)
+    E, L = cfg.n_experts, cfg.n_layers
+    el = E // ctx.size
+    paths = [p for p, _ in tree_items(api.params_spec())]
+    pending: set = set()       # (r, i, off) of each leaf not landed yet
+
+    def hook(r: int, i: int, off: int):
+        def land(t: torch.Tensor) -> None:
+            put(r, i, t.grad.reshape(-1), off)
+            t.grad = None
+            pending.discard((r, i, off))
+        return land
+
+    def leaf(r: int, i: int, off: int, v: torch.Tensor) -> torch.Tensor:
+        t = v.detach().requires_grad_(True)
+        t.register_post_accumulate_grad_hook(hook(r, i, off))
+        pending.add((r, i, off))
+        return t
+
+    params, leaves = [], []
+    for r in range(n):
+        e0 = ctx.index(pairs, r) * el
+        top, per_layer = [], [[] for _ in range(L)]
+        for i, (path, f) in enumerate(zip(paths, full)):
+            src = f[r] if lossy else f
+            if path[0] != "layers":
+                top.append((path, leaf(r, i, 0, src)))
+                continue
+            per = src[0].numel()
+            for l in range(L):
+                v, off = src[l], l * per
+                if path in EXPERT_LEAVES:
+                    row = per // E
+                    v, off = v[e0:e0 + el], off + e0 * row
+                    for a, b in ((l * per, off),
+                                 (off + el * row, (l + 1) * per)):
+                        if b > a:
+                            put(r, i, src.new_zeros(()).expand(b - a), a)
+                per_layer[l].append((path[1:], leaf(r, i, off, v)))
+        leaves += [t for _, t in top] + [t for items in per_layer
+                                         for _, t in items]
+        params.append({**tree_from_items(top), "layers": [
+            tree_from_items(items) for items in per_layer]})
+    batches = [_rank_batch(batch, r, n) for r in range(n)]
+    ex = sync.EP_EXCHANGES
+    f0, b0 = ex["forward"], ex["backward"]
+    losses = api.loss_fn_ep(params, batches, mesh=pairs, remat=True)
+    f1 = ex["forward"]
+    torch.autograd.backward(torch.stack(losses).sum(), inputs=leaves)
+    if pending:
+        raise RuntimeError(f"no gradient reached {len(pending)} leaf parts "
+                           f"(rank, leaf, offset), e.g. {min(pending)}")
+    return [x.detach() for x in losses], {
+        "forward": f1 - f0, "recompute": ex["forward"] - f1,
+        "backward": ex["backward"] - b0}
+
+
 def make_manual_train_step(api: ModelAPI, mesh,
                            opt_cfg: AdamWConfig = AdamWConfig(), *,
                            sync: SyncConfig = SyncConfig(strategy="plan",
@@ -235,7 +360,16 @@ def make_manual_train_step(api: ModelAPI, mesh,
          rows are kept and rank r's forward reads row r;
       2. each rank r (row-major mesh index) runs `api.loss_fn(remat=True)`
          on its rows of the batch, and its gradients, in the parameters'
-         dtype, land in row r of the tensors the reduce-scatter runs on;
+         dtype, land in row r of the tensors the reduce-scatter runs on.
+         A MoE model whose E experts split over the first live axis (size
+         > 1 dividing E: the reference's `use_ep`) runs every rank at once
+         instead, under `expert_parallel` over that axis with
+         `moe_dispatch="ep"` (`ep_loss_and_grads`): the exchange is the
+         guarded, lowered family="all_to_all" schedule of
+         `PlannerService.get_family_executable` under "plan" (a wire
+         leaves it in the parameters' dtype, as the reference's), the
+         flat copy program under the other labels; otherwise MoE runs
+         the per-rank loop with its sorted (grouped) dispatch;
       3. the gradients are reduce-scattered with the plans in reverse
          mesh order and divided by n in their dtype;
       4. AdamW runs per rank on that rank's shards, as inside the
@@ -282,11 +416,14 @@ def make_manual_train_step(api: ModelAPI, mesh,
     `step.wire` the wire's name or None, `step.bucket_plan` the
     `PlannerService.BucketPlan` or None, `step.gather_buckets` /
     `step.scatter_buckets` the two halves' `Zero3Bucket`s (empty per
-    leaf).
+    leaf), `step.ep` the EP (axis, size) or None, `step.ep_schedule` its
+    exchange's schedule (None: the flat copy).
 
     metrics: "loss", the mean of the ranks' losses; "gnorm", the mean of
     the ranks' shard norms (the reference's `pmean`s); on a card,
-    "events", CUDA events at the bounds of `PHASES` (`phase_ms`)."""
+    "events", CUDA events at the bounds of `PHASES` (`phase_ms`); on the
+    EP path "ep_exchanges", the step's exchanges {"forward", "recompute",
+    "backward"}."""
     from repro_torch.core.bucketing import (zero3_gather_bucketed,
                                             zero3_layout,
                                             zero3_scatter_bucket)
@@ -294,13 +431,9 @@ def make_manual_train_step(api: ModelAPI, mesh,
 
     dev = resolve_device(device)
     cfg = api.cfg
-    if cfg.n_experts:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: the trainer takes the dense family; MoE training "
-            "(expert-parallel dispatch) is ROADMAP §1 item 4")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the trainer takes the dense family; the "
+            f"{cfg.name}: the trainer takes the dense and MoE families; the "
             f"{cfg.family!r} family's training is ROADMAP §1 item 6")
     check_plan_config(sync)
     if sync.compress is not None:
@@ -316,12 +449,21 @@ def make_manual_train_step(api: ModelAPI, mesh,
     paths = [p for p, _ in specs]
     numels = [math.prod(t.shape) for _, t in specs]
     shapes = [tuple(t.shape) for _, t in specs]
+    # a MoE router stays f32 in any parameter dtype
+    dtypes = [t.dtype for _, t in specs]
+    itemsizes = [t.element_size() for _, t in specs]
     shard_sizes = [-(-m // n) for m in numels]
-    itemsize = torch.empty((), dtype=param_dtype).element_size()
+    total_bytes = sum(m * i for m, i in zip(numels, itemsizes))
+    # the reference's use_ep: experts over the first live axis
+    ep_axis, ep_n = live[0] if live else (None, 1)
+    use_ep = (cfg.n_experts > 1 and ep_n > 1
+              and cfg.n_experts % ep_n == 0)
+    ep_sched = (_ep_schedule(ep_axis, ep_n, sync, total_bytes)
+                if use_ep and sync.strategy == "plan" else None)
     bplan = None
     if sync.strategy == "plan" and sync.bucket_bytes != 0:
         if len(live) == 1:
-            bplan, why = _bucket_plan(n, sync, sum(numels) * itemsize)
+            bplan, why = _bucket_plan(n, sync, total_bytes)
         else:
             why = (f"{len(live)} live mesh axes: the bucket row layout is "
                    "one axis's")
@@ -352,11 +494,10 @@ def make_manual_train_step(api: ModelAPI, mesh,
     gather_buckets = scatter_buckets = []
     if bplan is not None:
         k = plans[0].schedule.blocks_per_shard
-        dts, its = [param_dtype] * len(numels), [itemsize] * len(numels)
-        gather_buckets = zero3_layout(numels, dts, its, max(
+        gather_buckets = zero3_layout(numels, dtypes, itemsizes, max(
             1, bplan.bucket_bytes // n), n, k, by_shard=True)
-        scatter_buckets = zero3_layout(numels, dts, its, bplan.bucket_bytes,
-                                       n, k)
+        scatter_buckets = zero3_layout(numels, dtypes, itemsizes,
+                                       bplan.bucket_bytes, n, k)
     slot = {i: (b, j) for b, bk in enumerate(scatter_buckets)
             for j, i in enumerate(bk.indices)}
     tracer = default_tracer()
@@ -391,17 +532,22 @@ def make_manual_train_step(api: ModelAPI, mesh,
 
     def grad_buffers(shards: list[torch.Tensor]) -> tuple[list, Callable]:
         """The tensors rank r's gradients land in, and the function that
-        writes rank r's gradient of leaf i there."""
+        writes rank r's gradient of leaf i there (of its elements [off,
+        off + len) alone where `off` is given)."""
         if bplan is None:
             bufs = [torch.empty((n, m), dtype=s.dtype, device=s.device)
                     for m, s in zip(numels, shards)]
-            return bufs, lambda r, i, g: bufs[i][r].copy_(g.reshape(-1))
+
+            def put(r, i, g, off=0):
+                g = g.reshape(-1)
+                bufs[i][r, off:off + g.numel()].copy_(g)
+            return bufs, put
         bufs = [bk.matrix(n, shards[0].device) for bk in scatter_buckets]
 
-        def put(r, i, g):
+        def put(r, i, g, off=0):
             if i in slot:                 # an empty leaf is in no bucket
                 b, j = slot[i]
-                scatter_buckets[b].write(bufs[b][r], j, g.reshape(-1))
+                scatter_buckets[b].write(bufs[b][r], j, g.reshape(-1), off)
         return bufs, put
 
     def reduce_scatter(bufs: list) -> list[torch.Tensor]:
@@ -428,19 +574,23 @@ def make_manual_train_step(api: ModelAPI, mesh,
                                                 shard_sizes]:
             raise ValueError(f"state shards {[tuple(s.shape) for s in shards]}"
                              f" are not {cfg.name}'s (n, shard) leaves")
-        if bplan is not None and any(s.dtype != param_dtype
-                                     for s in shards):
-            raise ValueError(f"the bucket plan is priced for {param_dtype} "
-                             f"shards; the state holds "
+        if bplan is not None and [s.dtype for s in shards] != dtypes:
+            raise ValueError(f"the bucket plan is priced for "
+                             f"{sorted({str(d) for d in dtypes})} shards; "
+                             f"the state holds "
                              f"{sorted({str(s.dtype) for s in shards})}")
         events = [mark()]
         with tracer.span("train/gather", leaves=len(shards)):
             full = gather(shards)
         events.append(mark())
         bufs, put = grad_buffers(shards)
-        losses = []
-        with tracer.span("train/forward_backward", ranks=n):
-            for r in range(n):
+        losses, exchanges = [], None
+        with tracer.span("train/forward_backward", ranks=n, ep=use_ep):
+            if use_ep:
+                with expert_parallel(ep_axis, ep_n, ep_sched):
+                    losses, exchanges = ep_loss_and_grads(
+                        api, full, batch, live, put, lossy=lossy)
+            for r in range(0 if use_ep else n):
                 leaves = [(f[r] if lossy else f).detach().requires_grad_(True)
                           for f in full]
                 params = unstack_layers(tree_from_items(zip(paths, leaves)))
@@ -482,6 +632,8 @@ def make_manual_train_step(api: ModelAPI, mesh,
                        "gnorm": torch.stack(gnorms).mean()}
         if dev.type == "cuda":
             metrics["events"] = events
+        if exchanges is not None:
+            metrics["ep_exchanges"] = exchanges
         return state, metrics
 
     step.plans = plans
@@ -490,6 +642,8 @@ def make_manual_train_step(api: ModelAPI, mesh,
     step.bucket_plan = bplan
     step.gather_buckets = gather_buckets
     step.scatter_buckets = scatter_buckets
+    step.ep = (ep_axis, ep_n) if use_ep else None
+    step.ep_schedule = ep_sched
     return step
 
 
@@ -636,6 +790,12 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
             else f"axis {pl.axis} {pl.strategy}"
             + (f" factors {pl.factors}" if pl.factors else "")
             for pl in step_fn.plans))
+    if step_fn.ep is not None:
+        cs = step_fn.ep_schedule
+        on_log(f"planner: expert-parallel over axis {step_fn.ep[0]} "
+               f"({step_fn.ep[1]} ranks, {cfg.n_experts // step_fn.ep[1]} "
+               "routed experts a rank), exchange "
+               + (cs.describe() if cs is not None else "flat copy"))
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=tc.seq_len,
                                   global_batch=tc.global_batch,
                                   seed=tc.seed))

@@ -18,7 +18,9 @@ whose skipped KV tiles stand in for the banded slice.
 
 The MoE layer has no kernel in the reference either: its router and
 expert products are XLA ops, here torch ops (`bmm`), in the reference's
-order and dtypes.
+order and dtypes. Its expert-parallel dispatch (`moe_ep`) runs every rank
+of the local mesh at once, since each rank's capacity buffer crosses the
+others' in one exchange (`core.sync.ep_exchange`).
 
 Training takes other layers: no kernel has a backward (the reference's
 Pallas kernels have none, and its training forward never calls them), so
@@ -29,7 +31,8 @@ torch ops, f32 where the reference is f32. `transformer.forward` and
 """
 from __future__ import annotations
 
-from typing import Any
+import math
+from typing import Any, Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -384,27 +387,152 @@ def moe_drops(topi: torch.Tensor, cfg: ModelConfig,
     return int((counts - cap).clamp(min=0).sum())
 
 
+def _moe_ep_block(xts: Sequence[torch.Tensor], topis: Sequence[torch.Tensor],
+                  topvs: Sequence[torch.Tensor], ws: Sequence[Params],
+                  ep_n: int, E: int, capacity_factor: float,
+                  exchange: Callable[[torch.Tensor], torch.Tensor]
+                  ) -> list[torch.Tensor]:
+    """The reference's `_moe_ep_block` on every rank of the local mesh at
+    once: xts[r] (n, D) rank r's tokens, topis / topvs[r] (n, k) their
+    routing, ws[r] rank r's E/ep_n local experts ({"wi", "wg", "wo"},
+    (E/ep_n, ...)); `exchange` the AllToAll over the EP axis of the
+    (ranks, E·cap·D) stack of the ranks' buffers. Per rank, as the
+    reference on its device: capacity over its own n tokens (no
+    `moe_groups` blocking); a stable argsort of the flat expert ids; a
+    slot's rank in its expert's run, kept below cap; dropped slots
+    written to a spill row at E·cap; the buffer owner-major, (ep_n,
+    e_local·cap·D), so that chunk j goes to the owner of experts [j·e_local,
+    (j+1)·e_local); the exchange; the owner's (e_local, ep_n·cap, D)
+    SiLU-gated products (one `bmm` a product); the exchange back into
+    the buffer layout; the combine by gathers in f32, weighted by topv.
+    Returns the (n, D) f32 outputs, rank by rank."""
+    n, D = xts[0].shape
+    k = topis[0].shape[-1]
+    el = E // ep_n
+    cap = moe_capacity(n, k, E, capacity_factor)
+    nk = n * k
+    ar = torch.arange(nk, device=xts[0].device)
+    sends, combine = [], []
+    for xt, topi in zip(xts, topis):
+        e_flat = topi.reshape(-1)
+        order = torch.argsort(e_flat, stable=True)
+        sorted_e = e_flat[order]
+        counts = torch.bincount(e_flat, minlength=E)
+        starts = torch.cumsum(counts, 0) - counts
+        rank = ar - starts[sorted_e]
+        keep = rank < cap
+        buf_idx = torch.where(keep, sorted_e * cap + rank, E * cap)
+        buf = xt.new_zeros((E * cap + 1, D)).index_put(
+            (buf_idx,), xt[order // k])
+        sends.append(buf[:E * cap].reshape(-1))
+        # slot j sits at sorted position inv[j]
+        inv = torch.empty_like(order).scatter_(0, order, ar)
+        combine.append((buf_idx[inv], keep[inv]))
+    recv = exchange(torch.stack(sends))       # row r: the ranks' rows for r
+    back = []
+    for r, w in enumerate(ws):
+        eb = recv[r].reshape(ep_n, el, cap, D).transpose(0, 1).reshape(
+            el, ep_n * cap, D)
+        y = _experts(w, eb)                   # (e_local, ep_n·cap, D)
+        back.append(y.reshape(el, ep_n, cap, D).transpose(0, 1).reshape(-1))
+    got = exchange(torch.stack(back))         # row r: r's buffer layout
+    outs = []
+    for r, (slot_buf, slot_keep) in enumerate(combine):
+        rows = got[r].reshape(E * cap, D)[slot_buf.clamp(max=E * cap - 1)]
+        rows = torch.where(slot_keep[:, None], rows.float(), 0.0)
+        outs.append(torch.einsum("nkd,nk->nd", rows.reshape(n, k, D),
+                                 topvs[r].float()))
+    return outs
+
+
+def moe_ep(ps: Sequence[Params], xs: Sequence[torch.Tensor],
+           cfg: ModelConfig, *, mesh: Sequence[tuple[str, int]],
+           capacity_factor: float = 1.25) -> list[torch.Tensor]:
+    """The reference's `moe(dispatch="ep")` inside its trainer, on every
+    rank of the local mesh at once: `mesh` its live (axis, size) pairs
+    (ranks in row-major order), ps[r] rank r's MoE leaves, xs[r] its (B,
+    T, D) activations. Under the active `core.sync.EPContext` (the
+    trainer's `expert_parallel`, whose axis must split the E experts)
+    rank r, at index i along the context's axis, runs experts [i·E/size,
+    (i+1)·E/size): `ps[r]["wi"]` / `"wg"` / `"wo"` are its full (E, ...)
+    gathered copy, sliced here as the reference's `dynamic_slice`, or
+    that slice already. The tokens go through `_moe_ep_block` and the
+    differentiable exchange `core.sync.ep_exchange` (the context's
+    planned all-to-all, or the flat copy program). The shared experts
+    are one MLP a rank, added in f32; each output is cast to its
+    input's dtype."""
+    from repro_torch.core import sync
+
+    E, k = cfg.n_experts, cfg.top_k
+    ctx = sync.ep_context()
+    if ctx is None or ctx.size <= 1 or E % ctx.size:
+        raise ValueError(f"moe_ep runs under an EP context whose axis "
+                         f"splits the {E} experts; got {ctx}")
+    mesh = [(str(a), int(s)) for a, s in mesh]
+    sizes = [s for _, s in mesh]
+    if len(ps) != len(xs) or len(ps) != math.prod(sizes):
+        raise ValueError(f"moe_ep: {len(ps)} ranks' leaves and {len(xs)} "
+                         f"activations on a mesh of {mesh}")
+    el = E // ctx.size
+    xts, topis, topvs, ws = [], [], [], []
+    for r, (p, x) in enumerate(zip(ps, xs)):
+        xt = x.reshape(-1, x.shape[-1])
+        _, topv, topi = moe_route(p, xt, k)
+        xts.append(xt)
+        topis.append(topi)
+        topvs.append(topv)
+        e0 = ctx.index(mesh, r) * el
+        ws.append({w: p[w] if p[w].shape[0] == el else p[w][e0:e0 + el]
+                   for w in ("wi", "wg", "wo")})
+    lead = sizes if len(sizes) > 1 else [len(ps)]
+    kw = {"mesh": mesh} if len(sizes) > 1 else {}
+
+    def exchange(t: torch.Tensor) -> torch.Tensor:
+        return sync.ep_exchange(t.reshape(*lead, -1), ctx.axis,
+                                **kw).reshape(t.shape)
+    outs = _moe_ep_block(xts, topis, topvs, ws, ctx.size, E,
+                         capacity_factor, exchange)
+    res = []
+    for p, x, xt, out in zip(ps, xs, xts, outs):
+        if cfg.n_shared_experts:
+            out = out + mlp(p["shared"], xt).float()
+        res.append(out.to(x.dtype).reshape(x.shape))
+    return res
+
+
 def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         dispatch: str = "sorted", capacity_factor: float = 1.25
         ) -> torch.Tensor:
     """x: (B, T, D) → (B, T, D), the reference's `moe`. dispatch:
     "sorted" (capacity-bounded sorted pack; with cfg.moe_groups > 1
     dividing the tokens, G blocks each with its own capacity, else one
-    block) or "dense" (every expert on every token, masked by the top-k
-    gate). The shared experts are one MLP, added in f32; the output is
-    cast to x's dtype. "ep" and "local" (the shard_map and
-    expert-parallel dispatches) are not ported."""
-    if dispatch in ("ep", "local") or (dispatch == "sorted"
-                                       and cfg.moe_local):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE dispatch {dispatch!r}"
-            f"{' with moe_local' if cfg.moe_local else ''} needs the "
-            "trainer's expert-parallel mesh (ROADMAP §1 item 4)")
-    if dispatch not in ("sorted", "dense"):
+    block), "dense" (every expert on every token, masked by the top-k
+    gate), "ep" or "local". The shared experts are one MLP, added in
+    f32; the output is cast to x's dtype.
+
+    "ep" and "local" (and "sorted" with cfg.moe_local) are the
+    reference's expert-parallel and shard_map dispatches. Where its
+    `_moe_ep` finds no EP context and its `_moe_local_shardmap` no
+    GSPMD mesh context, each runs `_moe_sorted_block`: one block, no
+    `moe_groups`. The port has no GSPMD engine, so on one rank that is
+    their function in every context but the trainer's EP context with
+    experts split over its axis, where one rank alone cannot exchange:
+    the trainer runs every rank at once through `moe_ep`, and this
+    raises. Neither is a fallback from a device or a kernel: neither
+    dispatch has a kernel."""
+    if dispatch not in ("sorted", "dense", "ep", "local"):
         raise ValueError(f"unknown MoE dispatch {dispatch!r}")
     B, T, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n = B * T
+    if dispatch == "ep":
+        from repro_torch.core import sync
+        ctx = sync.ep_context()
+        if ctx is not None and ctx.size > 1 and E % ctx.size == 0:
+            raise ValueError(
+                f"{cfg.name}: dispatch 'ep' under an EP context of "
+                f"{ctx.size} ranks exchanges between ranks; run every rank "
+                "at once with layers.moe_ep")
     xt = x.reshape(n, D)
     _, topv, topi = moe_route(p, xt, k)
     if dispatch == "dense":
@@ -414,7 +542,8 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         y = _experts(p, xe)                                 # (E, n, D)
         out = torch.einsum("end,ne->nd", y.float(), gate)
     else:
-        G = moe_blocks(cfg, n)
+        one_block = dispatch in ("ep", "local") or cfg.moe_local
+        G = 1 if one_block else moe_blocks(cfg, n)
         out = _moe_sorted(p, xt.reshape(G, n // G, D),
                           topi.reshape(G, n // G, k),
                           topv.reshape(G, n // G, k), E,

@@ -3,8 +3,9 @@
 `build(cfg)` returns a ModelAPI exposing init / prefill / decode / cache
 over the transformer (families "dense" and "moe"), the RWKV6 model
 (family "ssm") or the Hymba hybrid (family "hybrid"), and the training
-`forward` / `loss_fn` of the dense transformer. MoE training (ROADMAP §1
-item 4), the recurrent families' training forward (item 6) and the
+`forward` / `loss_fn` of the transformer (both families; `loss_fn_ep`, the
+MoE family's expert-parallel loss of every rank of a local mesh at once).
+The recurrent families' training forward (ROADMAP §1 item 6) and the
 reference registry's encoder-decoder family are not ported yet.
 """
 from __future__ import annotations
@@ -28,6 +29,8 @@ class ModelAPI:
     init_cache: Callable         # (batch, seq, dtype, device) -> cache
     loss_fn: Callable            # (params, batch, remat=) -> scalar
     forward: Callable            # (params, batch, remat=) -> logits
+    # (per-rank params, per-rank batches, mesh=, remat=) -> per-rank losses
+    loss_fn_ep: Callable | None = None
 
     def params_spec(self, dtype=torch.bfloat16) -> dict:
         """The reference's parameter tree as meta tensors (shapes and
@@ -38,14 +41,12 @@ class ModelAPI:
                                              "meta"))
 
 
-def _no_training(cfg: ModelConfig, what: str | None = None,
-                 item: int = 6) -> Callable:
-    what = what or f"the {cfg.family!r} family's training forward"
-
+def _no_training(cfg: ModelConfig) -> Callable:
     def refuse(*args, **kw):
         raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet (ROADMAP §1 item "
-            f"{item}); only the dense family trains")
+            f"{cfg.name}: the {cfg.family!r} family's training forward is "
+            "not ported yet (ROADMAP §1 item 6); the dense and MoE "
+            "families train")
     return refuse
 
 
@@ -64,6 +65,8 @@ def _dense_api(cfg: ModelConfig) -> ModelAPI:
             params, cfg, batch, **kw),
         forward=lambda params, batch, **kw: transformer.forward(
             params, cfg, batch["tokens"], **kw),
+        loss_fn_ep=(lambda params, batches, **kw: transformer.loss_fn_ep(
+            params, cfg, batches, **kw)) if cfg.n_experts else None,
     )
 
 
@@ -108,10 +111,4 @@ def build(cfg: ModelConfig) -> ModelAPI:
         return _rwkv_api(cfg)
     if cfg.family == "hybrid":
         return _hybrid_api(cfg)
-    if cfg.n_experts:
-        # MoE serves through the transformer's API and does not train
-        refuse = _no_training(cfg, "MoE training (the expert-parallel "
-                              "dispatch in the trainer)", item=4)
-        return dataclasses.replace(_dense_api(cfg), loss_fn=refuse,
-                                   forward=refuse)
     return _dense_api(cfg)

@@ -1,5 +1,5 @@
 """Decoder-only transformer, dense and MoE: init, training forward and
-loss (dense), KV cache, prefill, decode.
+loss, KV cache, prefill, decode.
 
 Mirrors the dense and MoE families of the reference
 `models/transformer.py`: a MoE layer (`layers.moe`) stands where the
@@ -12,20 +12,26 @@ The KV cache keeps the reference's (L, B, Hkv, S, hd) layout and is
 updated in place by `decode_step`.
 
 `forward` and `loss_fn` are the training path: differentiable torch ops
-throughout (`layers.train_rmsnorm`, `layers.train_attention`), each layer
-under activation checkpointing when `remat` is set, as the reference's
-`jax.checkpoint` body. Prefill and decode serve through the kernels.
+throughout (`layers.train_rmsnorm`, `layers.train_attention`, the MoE
+layer's torch ops), each layer under activation checkpointing when
+`remat` is set, as the reference's `jax.checkpoint` body. `forward_ep` /
+`loss_fn_ep` run every rank of the trainer's local mesh layer by layer
+in one graph, for the expert-parallel dispatch (`layers.moe_ep`), whose
+exchange needs every rank's buffer at once. Prefill and decode serve
+through the kernels.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from .config import ModelConfig
 from .layers import (Params, _attend, _check_supported, _qkv,
                      attention_decode, dense_init, embed, init_attention,
-                     init_mlp, init_moe, mlp, moe, rmsnorm, train_attention,
-                     train_rmsnorm)
+                     init_mlp, init_moe, mlp, moe, moe_ep, rmsnorm,
+                     train_attention, train_rmsnorm)
 
 
 def _check_served(cfg: ModelConfig) -> None:
@@ -38,10 +44,6 @@ def _check_served(cfg: ModelConfig) -> None:
 
 def _check_trained(cfg: ModelConfig) -> None:
     _check_served(cfg)
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training (expert-parallel dispatch in the "
-            "trainer) is not ported yet (ROADMAP §1 item 4)")
 
 
 def _ffn(lp: Params, cfg: ModelConfig, z: torch.Tensor,
@@ -100,38 +102,93 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # forward (training)
 # ---------------------------------------------------------------------------
+def _train_attn(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int,
+                positions: torch.Tensor) -> torch.Tensor:
+    return x + train_attention(lp["attn"], train_rmsnorm(x, lp["ln1"]), cfg,
+                               window=window, positions=positions)
+
+
 def _train_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int,
-                 positions: torch.Tensor) -> torch.Tensor:
-    x = x + train_attention(lp["attn"], train_rmsnorm(x, lp["ln1"]), cfg,
-                            window=window, positions=positions)
-    return x + mlp(lp["mlp"], train_rmsnorm(x, lp["ln2"]))
+                 positions: torch.Tensor, moe_dispatch: str = "sorted"
+                 ) -> torch.Tensor:
+    x = _train_attn(cfg, lp, x, window, positions)
+    return x + _ffn(lp, cfg, train_rmsnorm(x, lp["ln2"]), moe_dispatch)
+
+
+def _train_block_ep(cfg: ModelConfig, lps: Sequence[Params],
+                    xs: Sequence[torch.Tensor], window: int,
+                    positions: torch.Tensor, mesh) -> list[torch.Tensor]:
+    """One layer on every rank of `mesh`: each rank's attention, then one
+    `moe_ep` over all of them."""
+    xs = [_train_attn(cfg, lp, x, window, positions)
+          for lp, x in zip(lps, xs)]
+    fs = moe_ep([lp["moe"] for lp in lps],
+                [train_rmsnorm(x, lp["ln2"]) for lp, x in zip(lps, xs)],
+                cfg, mesh=mesh)
+    return [x + f for x, f in zip(xs, fs)]
+
+
+def _embed_in(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+              ) -> torch.Tensor:
+    x = embed(params["embed"], tokens)
+    if cfg.family == "dense" and cfg.tie_embeddings:
+        x = x * (cfg.d_model ** 0.5)
+    return x
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            remat: bool = True) -> torch.Tensor:
+            moe_dispatch: str = "sorted", remat: bool = True
+            ) -> torch.Tensor:
     """tokens (B, T) → logits (B, T, V), differentiable. A tied embedding
-    is scaled by √d_model here, as the reference's `forward` does (its
-    `prefill` and `decode_step` do not). Dense only."""
+    is scaled by √d_model in the dense family, as the reference's
+    `forward` does (its `prefill` and `decode_step` do not). A MoE layer
+    dispatches by `moe_dispatch` ("sorted", "dense", "ep", "local"; see
+    `layers.moe`: on one rank "ep" is the sorted block without groups)."""
     _check_trained(cfg)
-    x = embed(params["embed"], tokens)
-    if cfg.tie_embeddings:
-        x = x * (cfg.d_model ** 0.5)
+    x = _embed_in(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i, lp in enumerate(params["layers"]):
         w = cfg.window_for_layer(i)
         if remat:
             x = checkpoint(_train_block, cfg, lp, x, w, positions,
-                           use_reentrant=False)
+                           moe_dispatch, use_reentrant=False)
         else:
-            x = _train_block(cfg, lp, x, w, positions)
+            x = _train_block(cfg, lp, x, w, positions, moe_dispatch)
     return _logits(params, cfg, x, norm=train_rmsnorm)
 
 
-def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
-            remat: bool = True) -> torch.Tensor:
-    """Mean next-token NLL of the f32 log-softmax of batch["tokens"]'s
-    logits at batch["labels"], weighted by batch["mask"] where given."""
-    logits = forward(params, cfg, batch["tokens"], remat=remat)
+def forward_ep(params: Sequence[Params], cfg: ModelConfig,
+               tokens: Sequence[torch.Tensor], *, mesh,
+               remat: bool = True) -> list[torch.Tensor]:
+    """The reference's `forward(moe_dispatch="ep")` of every rank of the
+    local mesh `mesh` (an int n, or the live (axis, size) pairs, ranks in
+    row-major order) in one graph, layer by layer: params[r] and
+    tokens[r] are rank r's leaves and (B, T) tokens; each MoE layer runs
+    `layers.moe_ep` over all ranks under the active EPContext. With
+    `remat` each layer is checkpointed over all ranks at once, the
+    exchanges inside, as the reference's `jax.checkpoint` layer body: the
+    backward recomputes each layer in full (early stop off), so a
+    layer's exchanges run in the forward, again in the recompute and
+    once each as a transpose. Returns the ranks' logits."""
+    _check_trained(cfg)
+    if not cfg.n_experts:
+        raise ValueError(f"{cfg.name}: forward_ep runs the MoE family")
+    xs = [_embed_in(p, cfg, t) for p, t in zip(params, tokens)]
+    positions = torch.arange(xs[0].shape[1], device=xs[0].device)[None, :]
+    for i in range(cfg.n_layers):
+        lps = [p["layers"][i] for p in params]
+        w = cfg.window_for_layer(i)
+        if remat:
+            with set_checkpoint_early_stop(False):
+                xs = checkpoint(_train_block_ep, cfg, lps, xs, w, positions,
+                                mesh, use_reentrant=False)
+        else:
+            xs = _train_block_ep(cfg, lps, xs, w, positions, mesh)
+    return [_logits(p, cfg, x, norm=train_rmsnorm)
+            for p, x in zip(params, xs)]
+
+
+def _nll(logits: torch.Tensor, batch: dict) -> torch.Tensor:
     labels = batch["labels"].long()
     lp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
@@ -139,6 +196,28 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
     if mask is None:
         mask = torch.ones_like(nll)
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
+            moe_dispatch: str = "sorted", remat: bool = True
+            ) -> torch.Tensor:
+    """Mean next-token NLL of the f32 log-softmax of batch["tokens"]'s
+    logits at batch["labels"], weighted by batch["mask"] where given."""
+    return _nll(forward(params, cfg, batch["tokens"],
+                        moe_dispatch=moe_dispatch, remat=remat), batch)
+
+
+def loss_fn_ep(params: Sequence[Params], cfg: ModelConfig,
+               batches: Sequence[dict], *, mesh, remat: bool = True
+               ) -> list[torch.Tensor]:
+    """Every rank's `loss_fn` under the expert-parallel dispatch, in one
+    graph (`forward_ep`); one backward of their sum gives each rank's
+    leaves the cotangent the reference's per-device `value_and_grad`
+    gives them, the exchanges' transposes carrying the other ranks'
+    share."""
+    logits = forward_ep(params, cfg, [b["tokens"] for b in batches],
+                        mesh=mesh, remat=remat)
+    return [_nll(lg, b) for lg, b in zip(logits, batches)]
 
 
 # ---------------------------------------------------------------------------

@@ -670,7 +670,7 @@ def test_fp8_smoke_trainer_on_card_matches_cpu(dev):
         assert ops.LAUNCHES[name] > before[name]
 
 
-def _smoke_trainer_card_vs_cpu(dev, sync, mesh=8):
+def _smoke_trainer_card_vs_cpu(dev, sync, mesh=8, arch="stablelm-12b"):
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch import train
@@ -678,7 +678,7 @@ def _smoke_trainer_card_vs_cpu(dev, sync, mesh=8):
     from repro_torch.models.registry import build
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    api = build(smoke_config(get_config("stablelm-12b")))
+    api = build(smoke_config(get_config(arch)))
     shards = train.shard_params_zero3(api.init_params(
         torch.Generator().manual_seed(0), torch.float32, "cpu"), mesh)
     data = SyntheticLM(DataConfig(vocab=api.cfg.vocab, seq_len=32,
@@ -711,6 +711,54 @@ def _smoke_trainer_card_vs_cpu(dev, sync, mesh=8):
         total += d.numel()
         assert d.max() <= 2 * 1e-3 * 3
     assert far <= 1e-4 * total
+
+
+@pytest.mark.parametrize("mesh", [8, [("pod", 2), ("data", 4)]],
+                         ids=["one-axis", "two-level"])
+def test_moe_smoke_trainer_on_card_matches_cpu(dev, mesh):
+    """The same for deepseek-moe-16b's smoke model per leaf, its MoE
+    layers expert-parallel over the first live axis ("data", or "pod" on
+    the two-level mesh), the exchange the planned all-to-all."""
+    from repro_torch.core.sync import SyncConfig
+    before = ops.LAUNCHES["fused_reduce"]
+    _smoke_trainer_card_vs_cpu(dev, SyncConfig(strategy="plan",
+                                               bucket_bytes=0),
+                               mesh=mesh, arch="deepseek-moe-16b")
+    assert ops.LAUNCHES["fused_reduce"] > before
+
+
+@pytest.mark.parametrize("planned", [False, True], ids=["flat", "plan"])
+@pytest.mark.parametrize("mesh", [[("data", 8)], [("pod", 2), ("data", 4)]],
+                         ids=["one-axis", "two-level"])
+def test_ep_exchange_on_card_equals_cpu(dev, mesh, planned):
+    """`ep_exchange` forward and backward on the card equal the CPU's bit
+    for bit (it moves data, adds nothing), in bf16; under a planned
+    schedule each direction launches fused_reduce once a fold phase and
+    group."""
+    from repro_torch.core import sync
+    from repro_torch.planner.service import PlannerService
+
+    axis, n = mesh[0]
+    lead = [s for _, s in mesh]
+    kw = {"mesh": mesh} if len(mesh) > 1 else {}
+    sched = (PlannerService().get_family_executable(
+        "all_to_all", axis, n, 1e6).schedule if planned else None)
+    x = _rand((*lead, 4096), 40, "cpu").to(torch.bfloat16)
+    g = _rand((*lead, 4096), 41, "cpu").to(torch.bfloat16)
+    out = {}
+    for where in ("cpu", dev):
+        xi = x.to(where).requires_grad_(True)
+        before = ops.LAUNCHES["fused_reduce"]
+        with sync.expert_parallel(axis, n, sched):
+            y = sync.ep_exchange(xi, axis, **kw)
+            (dx,) = torch.autograd.grad(y, xi, g.to(where))
+        launched = ops.LAUNCHES["fused_reduce"] - before
+        out[str(where)] = (y.detach().cpu(), dx.cpu(), launched)
+    folds = 0 if sched is None else (8 // n) * sum(
+        len(st.folds) for st in sched.ag)
+    assert out["cpu"][2] == 0 and out[str(dev)][2] == 2 * folds
+    assert torch.equal(out["cpu"][0], out[str(dev)][0])
+    assert torch.equal(out["cpu"][1], out[str(dev)][1])
 
 
 @pytest.mark.parametrize("wire", [None, "bf16", "fp8", "int8"])

@@ -18,8 +18,13 @@ package's, on the CPU at smoke size, f32.
   logits and the KV cache within 1e-4 of the largest |value|, equal
   tokens.
 - `params_from_jax` carries the MoE leaves as they are.
-- What is not ported raises naming ROADMAP §1 item 4: the "ep" and
-  "local" dispatches, MoE's `forward` / `loss_fn` and the trainer.
+- The "ep" and "local" dispatches, and "sorted" with `moe_local`, outside
+  an EP context: the reference's `_moe_sorted_block` (one block, no
+  `moe_groups`) on 256 tokens, against the reference's `moe` with the
+  same dispatch and against `_moe_sorted_block` itself, within 1e-5.
+- MoE trains: the API's `forward` / `loss_fn` and `make_manual_train_step`
+  build and run (`test_torch_moe_train.py` holds them against the
+  reference).
 """
 import dataclasses
 
@@ -292,27 +297,72 @@ def test_port_init_has_the_reference_leaves(models):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported
+# the dispatches outside an EP context, and training
 # ---------------------------------------------------------------------------
+def _reference_sorted_block(weights, x, cfg):
+    """The reference's `_moe_sorted_block` on its own router's top k, plus
+    the shared experts, in x's dtype."""
+    xt = jnp.asarray(x.reshape(-1, x.shape[-1]))
+    p = jax.tree.map(jnp.asarray, weights)
+    probs = jax.nn.softmax(xt @ p["router"], axis=-1)
+    topv, topi = jax.lax.top_k(probs, cfg.top_k)
+    topv = topv / (topv.sum(-1, keepdims=True) + 1e-9)
+    out = jlayers._moe_sorted_block(xt, topi, topv, p, cfg.n_experts,
+                                    cfg.top_k, cfg.d_model, 1.25)
+    out = out + jlayers.mlp(p["shared"], xt).astype(jnp.float32)
+    return np.asarray(out).reshape(x.shape)
+
+
 @pytest.mark.parametrize("dispatch", ["ep", "local"])
 def test_expert_parallel_dispatch_raises(weights, dispatch):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _both(weights, _x(2, 8, weights["router"].shape[0]), dispatch)
+    """Outside an EP context (and with no GSPMD mesh, which the port does
+    not have) "ep" and "local" are the reference's sorted block without
+    groups: 256 tokens in one block, not the smoke config's 16 groups."""
+    x = _x(4, 64, weights["router"].shape[0])
+    got, want, cfg = _both(weights, x, dispatch)
+    assert cfg.moe_groups == 16
+    assert _rel(got, want) <= LAYER_RTOL
+    assert _rel(got, _reference_sorted_block(weights, x, cfg)) <= LAYER_RTOL
+    grouped, _, _ = _both(weights, x, "sorted")
+    assert _rel(grouped, want) > 1e-3
 
 
 def test_moe_local_config_raises(weights):
-    cfg = dataclasses.replace(smoke_config(get_config(ARCH)), moe_local=True)
-    x = torch.from_numpy(_x(2, 8, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        layers.moe(_torch_tree(weights), x, cfg)
+    """`moe_local` turns "sorted" into the reference's shard_map dispatch,
+    which without a mesh is the sorted block without groups."""
+    x = _x(4, 64, weights["router"].shape[0])
+    got, want, cfg = _both(weights, x, "sorted", moe_local=True)
+    assert cfg.moe_local
+    assert _rel(got, want) <= LAYER_RTOL
+    assert _rel(got, _reference_sorted_block(weights, x, cfg)) <= LAYER_RTOL
 
 
 def test_moe_does_not_train():
+    """MoE trains now: the API's `forward` / `loss_fn`, `transformer.forward`
+    and the ZeRO-3 step on 8 ranks (expert-parallel over "data") build
+    and run at smoke size on the CPU."""
     api = build(smoke_config(get_config(ARCH)))
-    for fn in (api.forward, api.loss_fn):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            fn({}, {})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        transformer.forward({}, api.cfg, torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        train.make_manual_train_step(api, 8, device="cpu")
+    params = api.init_params(torch.Generator().manual_seed(0),
+                             torch.float32)
+    tokens = torch.randint(0, api.cfg.vocab, (2, 8),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    logits = api.forward(params, batch)
+    assert logits.shape == (2, 8, api.cfg.vocab)
+    assert torch.equal(logits, transformer.forward(params, api.cfg, tokens))
+    w = params["layers"][0]["moe"]["wi"].requires_grad_(True)
+    loss = api.loss_fn(params, batch)
+    assert loss.ndim == 0 and torch.isfinite(loss)
+    loss.backward()
+    assert w.grad is not None and w.grad.abs().sum() > 0
+    w.requires_grad_(False)
+    step = train.make_manual_train_step(api, 8, device="cpu",
+                                        param_dtype=torch.float32)
+    assert step.ep == ("data", 8)
+    shards = train.shard_params_zero3(params, 8)
+    state = {"params": shards, "opt": train.adamw_init(shards)}
+    batch = {k: torch.randint(0, api.cfg.vocab, (8, 16),
+                              generator=torch.Generator().manual_seed(2))
+             for k in ("tokens", "labels")}
+    _, m = step(state, batch)
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["gnorm"])
