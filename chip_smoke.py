@@ -8,13 +8,15 @@
     python3 chip_smoke.py --flat
     python3 chip_smoke.py --ft
     python3 chip_smoke.py --moe-train
+    python3 chip_smoke.py --recurrent-train
 
 The second and third forms build the kernels and run the attention rows
 or the recurrence rows of phase 2 alone (of another source tree with
 --src: two commits timed on one card in turn), the fourth the planner
 phase (3c) alone, the fifth the flat collectives phase (3b2) alone, the
 sixth phase 5's per-leaf run at the first of TRAIN_FALL_LRS and phase
-ft, the seventh phase 5m alone; none prints a result line.
+ft, the seventh phase 5m alone, the eighth phase 5r alone; none prints a
+result line.
 Phases, each of which fails the run (non-zero exit, no result line) on
 any error:
 
@@ -200,6 +202,24 @@ any error:
                 TRAIN_MESH ("pod" is the EP axis): per-step loss and
                 gnorm within 1e-4, equal drops, exact launches (none on
                 the CPU);
+  5r. recurrent train — the recurrent families' training
+                (`phase_train_recurrent`): rwkv6-1.6b, then hymba-1.5b,
+                through the ZeRO-3 trainer at full width and full depth
+                (24 and 32 layers; TRAIN_RECURRENT), random bf16 weights,
+                8 local ranks, seq 128, global batch 8, 3 steps at lr
+                1e-4 (the loss must fall), per leaf with
+                `SyncConfig(strategy="plan", bucket_bytes=0)`; their
+                recurrences run as torch ops (the chunked WKV, the
+                chunk-checkpointed SSM scan). Prints the losses, step
+                time and its parts beside `train_bounds`, the peak
+                memory, and checks the exact fused_reduce launches
+                (`level_launches`) and that wkv, ssm_scan, rmsnorm and
+                flash_attention launch 0 times; then one rank's forward
+                and backward under torch.profiler (kernels, device busy
+                share, top kernels), and the smoke-size trainer (48
+                tokens) in f32 on the card against the CPU: per-step
+                loss and gnorm within 1e-4, exact launches (none on the
+                CPU);
   ft       — checkpoints and fault tolerance: `run_training` with a
                 checkpoint directory (FaultTolerantLoop; checkpoints
                 under build/, removed after). (a) phase 5's per-leaf run
@@ -225,9 +245,10 @@ any error:
                 restarts, a checkpoint fallback, a guarded failure, no
                 degraded level left, no demotion, exact launches.
 
-The main path is phases 3, 3b, 3c, 4, 5, 5m and ft: every launch count
-is zeroed just before the executor, the families, the planner, each
-served run, each full-width training run (the MoE one too), the
+The main path is phases 3, 3b, 3c, 4, 5, 5m, 5r and ft: every launch
+count is zeroed just before the executor, the families, the planner,
+each served run, each full-width training run (the MoE and recurrent
+ones too), the
 `sync_bucketed` runs and each run of phase ft, and read just after. The executor must launch fused_reduce, quantize, quant_reduce and
 dequantize (it runs the compressed wires), the families dequantize;
 grouped_reduce and quant_reduce_requant have no caller on the main path
@@ -313,6 +334,12 @@ TRAIN_FALL_LRS = (1e-4,)
 # TrainConfig's sequence and global batch, lr 1e-4
 TRAIN_MOE = dict(arch="deepseek-moe-16b", layers=2, steps=3, seq_len=128,
                  global_batch=8, lr=1e-4, local_ranks=8)
+# recurrent training (phase 5r): rwkv6-1.6b, then hymba-1.5b, at full width
+# and full depth (24 and 32 layers; "layers" None keeps the configuration's),
+# the trainer's shapes, lr 1e-4, per leaf
+TRAIN_RECURRENT = dict(archs=("rwkv6-1.6b", "hymba-1.5b"), layers=None,
+                       steps=3, seq_len=128, global_batch=8, lr=1e-4,
+                       local_ranks=8)
 # the per-leaf trainer's other sync labels, at the first of TRAIN_FALL_LRS
 TRAIN_FLAT = ("ring", "rhd", "cps", "hcps", "gentree", "auto")
 TRAIN_SMOKE_STEPS = 3            # smoke-size f32 steps, card against CPU
@@ -2492,6 +2519,8 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
     tokens = seq_len * batch // n
     attn = (4 * tokens * seq_len * cfg.n_heads * cfg.head_dim
             * cfg.n_layers)                      # QK and PV, forward
+    if cfg.family in ("ssm", "hybrid"):
+        attn = recurrent_flops(cfg, tokens, seq_len)
     flops = 6 * tokens * matmul + 3 * attn
     fb_bytes = 2 * P * elem
     rank = max(bound_ms(fb_bytes), flops / BF16_FLOPS * 1e3)
@@ -2499,6 +2528,23 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
             "reduce_scatter": bound_ms(scatter), "adamw": bound_ms(22 * P),
             "rank_bytes_ms": bound_ms(fb_bytes),
             "rank_flops_ms": flops / BF16_FLOPS * 1e3}
+
+
+def recurrent_flops(cfg, tokens: int, seq_len: int) -> int:
+    """Forward operations of a recurrent model's token mixers over `tokens`
+    tokens of `seq_len`-token rows, all layers: RWKV6's chunked WKV (a
+    chunk of C = the largest divisor of the row up to 32: a token's state
+    term and update, 2·K·V each, and its C pairs, 2·(K + V) each), or
+    Hymba's attention (QK and PV) plus its scan (6 a state a step: the
+    decay's product, the input, the update and the read-out)."""
+    H, hd, L = cfg.n_heads, cfg.head_dim, cfg.n_layers
+    if cfg.family == "ssm":
+        C = next(c for c in range(min(32, seq_len), 0, -1)
+                 if seq_len % c == 0)
+        return tokens * H * (4 * hd * hd + 2 * C * 2 * hd) * L
+    di = cfg.ssm_expand * cfg.d_model
+    return (4 * tokens * seq_len * H * hd + 6 * tokens * di * cfg.ssm_state
+            ) * L
 
 
 def train_run(api, params, n, lr: float, steps: int, seq_len: int,
@@ -3548,6 +3594,226 @@ def phase_train_moe_reference(dev, mesh, label: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# recurrent training
+# ---------------------------------------------------------------------------
+MODEL_KERNELS = ("wkv", "ssm_scan", "rmsnorm", "flash_attention")
+
+
+def phase_train_recurrent(dev) -> dict:
+    """Phase 5r: each of TRAIN_RECURRENT's models through the ZeRO-3
+    trainer at full width, then its smoke-size trainer on the card against
+    the CPU (module docstring). Returns the full-width runs' kernel
+    launches, summed."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import PHASES
+    from repro_torch.models.registry import build
+
+    t_phase = time.perf_counter()
+    tr = TRAIN_RECURRENT
+    n, steps = tr["local_ranks"], tr["steps"]
+    sync = SyncConfig(strategy="plan", bucket_bytes=0)
+    total: dict = {}
+    for arch in tr["archs"]:
+        full_cfg = get_config(arch)
+        cfg = (full_cfg if tr["layers"] is None
+               else dataclasses.replace(full_cfg, n_layers=tr["layers"]))
+        torch.empty(1, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        api = build(cfg)
+        params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 torch.bfloat16, dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = train_run(api, params, n, tr["lr"], steps, tr["seq_len"],
+                        tr["global_batch"], sync=sync)
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        by_kernel = dict(ops.ATTENTION_LAUNCHES)
+        del params
+        peak = torch.cuda.max_memory_allocated(dev)
+        step = res["step"]
+        shards = res["state"]["params"]
+        losses, gnorms = res["losses"], res["gnorms"]
+        (plan,) = step.plans
+        cs = plan.schedule.inner
+        label = f"train [recurrent, {arch}]"
+        largest = max(shards, key=lambda t: t.numel())
+        log(f"{label}: layers={cfg.n_layers} (of {full_cfg.n_layers}) "
+            f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+            f"head_dim={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab}"
+            + (f" ssm {cfg.ssm_expand * cfg.d_model} x {cfg.ssm_state}"
+               f" windows {cfg.window_pattern}"
+               if cfg.family == "hybrid" else "")
+            + f"; {sum(t.numel() for t in shards) / 1e6:.1f} M parameters "
+            f"(padded) in {len(shards)} leaves, the largest "
+            f"{largest.numel() / 1e6:.1f} M; {n} local ranks, seq "
+            f"{tr['seq_len']}, global batch {tr['global_batch']}, lr "
+            f"{tr['lr']}; sync plan {cs.describe()}; losses {losses}; "
+            f"gnorms {gnorms}; wall {wall:.1f} s; peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            fail(f"{label}: non-finite loss or gnorm: {losses} {gnorms}")
+        if not losses[-1] < losses[0]:
+            fail(f"{label}: the loss did not fall at lr {tr['lr']}: "
+                 f"{losses}")
+        want = level_launches(step, len(shards), steps)
+        log(f"{label}: launches {json.dumps(counts)} (expected {want}: "
+            f"{steps} steps x {len(shards)} leaves x the gather's and "
+            f"reduce-scatter's fold phases); attention kernels "
+            f"{json.dumps(by_kernel)}; guard "
+            f"{json.dumps(plan.schedule.stats)}")
+        if {k: c for k, c in counts.items() if c} != want:
+            fail(f"{label}: launches {counts}, expected {want}")
+        if any(counts[k] for k in MODEL_KERNELS) or any(by_kernel.values()):
+            fail(f"{label}: the training step launched a model kernel: "
+                 f"{counts} {by_kernel}")
+        if plan.schedule.demotions or plan.schedule.stats["failures"]:
+            fail(f"{label}: guard {plan.schedule.stats}, "
+                 f"{plan.schedule.demotions} demotion(s)")
+        step_ms = statistics.median(res["step_s"][1:]) * 1e3
+        parts = {kk: statistics.median(pm[kk] for pm in res["phase_ms"][1:])
+                 for kk in PHASES}
+        bounds = train_bounds(cfg, cs, shards, n, tr["seq_len"],
+                              tr["global_batch"], step, plan)
+        log(f"{label}: step time median of steps 2-{steps} {step_ms:.1f} ms "
+            f"(first {res['step_s'][0] * 1e3:.1f} ms; steps "
+            f"{[round(v * 1e3, 1) for v in res['step_s']]}); device parts "
+            + ", ".join(f"{kk} {parts[kk]:.2f} ms (bound {bounds[kk]:.2f})"
+                        for kk in PHASES)
+            + f"; sum {sum(parts.values()):.2f} ms; one rank's forward and "
+            f"backward bound: bytes {bounds['rank_bytes_ms']:.3f} ms, "
+            f"products {bounds['rank_flops_ms']:.3f} ms")
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c
+        del res, shards, step, largest
+        torch.cuda.empty_cache()
+        recurrent_profile(dev, api, tr["seq_len"])
+        phase_train_recurrent_reference(dev, arch)
+    log(f"phase recurrent train: wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def recurrent_profile(dev, api, seq_len: int) -> None:
+    """Where one rank's forward and backward goes: `api`'s model at the
+    trainer's shapes (one row of `seq_len` tokens, random bf16 weights,
+    remat on), one warm-up pass, then one under torch.profiler. Prints
+    the wall time, the kernels launched, the device's busy time (the
+    union of kernel, copy and set intervals in the trace) and its share
+    of the wall time, and the kernels that take most device time."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = api.cfg
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             torch.bfloat16, dev)
+    leaves = [t.requires_grad_(True) for t in _tensors(params)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (1, seq_len + 1), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def fwd_bwd():
+        loss = api.loss_fn(params, batch, remat=True)
+        torch.autograd.grad(loss, leaves)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "train_trace.json"
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+    del params, leaves
+    torch.cuda.empty_cache()
+    dev_events = [e for e in trace.get("traceEvents", [])
+                  if e.get("ph") == "X" and e.get("cat") in
+                  ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in dev_events if e["cat"] == "kernel"]
+    label = f"train profile: {cfg.name}, one rank's forward and backward"
+    if not kernels:
+        log(f"{label}: wall {wall_us / 1e3:.1f} ms; the trace holds no "
+            f"kernel: device time not measured")
+        return
+    busy = _busy_us((e["ts"], e["ts"] + e["dur"]) for e in dev_events)
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        row = by_name.setdefault(e["name"], [0.0, 0])
+        row[0] += e["dur"]
+        row[1] += 1
+    log(f"{label}: wall {wall_us / 1e3:.1f} ms (profiled), {len(kernels)} "
+        f"kernels, device busy {busy / 1e3:.2f} ms ({busy / wall_us:.1%} "
+        f"of wall), {wall_us / len(kernels):.1f} us of wall a kernel")
+    for name, (us, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:5]:
+        log(f"{label}: {us / 1e3:.2f} ms in {count} x {name[:90]}")
+
+
+def phase_train_recurrent_reference(dev, arch: str) -> None:
+    """`arch`'s trainer at smoke size in f32 on the card against the same
+    code on the CPU, per leaf on 8 ranks, from one state and the same
+    batches (48 tokens: two WKV chunks of 24, three SSM chunks of 16,
+    past the smoke window of 32): TRAIN_SMOKE_STEPS steps, per-step loss
+    and gnorm within 1e-4 relative, the final shards as `shard_drift`
+    says, fused_reduce alone launched exactly (`level_launches`) on the
+    card and nothing on the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+
+    t0 = time.perf_counter()
+    api = build(smoke_config(get_config(arch)))
+    params = api.init_params(torch.Generator().manual_seed(0), torch.float32,
+                             "cpu")
+    lr, steps = TRAIN["lr"], TRAIN_SMOKE_STEPS
+    sync = SyncConfig(strategy="plan", bucket_bytes=0)
+    runs, counts = {}, {}
+    for where in ("cpu", dev):
+        ops.reset_launches()
+        runs[str(where)] = train_run(api, _to(params, where), 8, lr, steps,
+                                     48, TRAIN["global_batch"], sync=sync,
+                                     param_dtype=torch.float32)
+        counts[str(where)] = {k: c for k, c in ops.LAUNCHES.items() if c}
+    card, cpu = runs[str(dev)], runs["cpu"]
+    want = level_launches(card["step"], len(card["state"]["params"]), steps)
+    metric_err = max(abs(g - c) / abs(c) for kk in ("losses", "gnorms")
+                     for g, c in zip(card[kk], cpu[kk]))
+    far, total, worst = shard_drift([t.cpu() for t in card["state"]["params"]],
+                                    cpu["state"]["params"], lr, steps)
+    log(f"train [recurrent smoke, {arch}]: f32 {steps} steps card vs CPU: "
+        f"losses {card['losses']} / {cpu['losses']}, gnorms "
+        f"{card['gnorms']} / {cpu['gnorms']}; rel err {metric_err:.2e}; "
+        f"final shards: {far} of {total} elements past 1e-4 of their "
+        f"leaf's largest |value|, the farthest {worst:.3f} of 2·lr·steps; "
+        f"card launches {counts[str(dev)]} (expected {want}); wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (metric_err <= 1e-4 and far <= 1e-4 * total and worst <= 1.0):
+        fail(f"the card's smoke-size {arch} trainer disagrees with the CPU "
+             f"run: {metric_err:.2e}, {far} of {total} shard elements, "
+             f"{worst:.3f}")
+    if counts[str(dev)] != want:
+        fail(f"{arch} smoke: card launches {counts[str(dev)]}, expected "
+             f"{want}")
+    if counts["cpu"]:
+        fail(f"{arch} smoke: the CPU run launched {counts['cpu']}")
+
+
+# ---------------------------------------------------------------------------
 # the checkpointed trainer
 # ---------------------------------------------------------------------------
 class CheckpointRecorder:
@@ -4043,6 +4309,10 @@ def main() -> int:
                     help="build the kernels and run phase 5m (MoE training "
                     "at full width, then smoke-size card against CPU) "
                     "alone, then stop: no result line")
+    ap.add_argument("--recurrent-train", action="store_true",
+                    help="build the kernels and run phase 5r (rwkv6-1.6b "
+                    "and hymba-1.5b training at full width, then smoke-size "
+                    "card against CPU) alone, then stop: no result line")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree (default: this checkout's "
                     "src), e.g. another commit's unpacked beside it, to "
@@ -4097,6 +4367,10 @@ def main() -> int:
         phase_train_moe(dev)
         log(f"phase moe train done at {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.recurrent_train:
+        phase_train_recurrent(dev)
+        log(f"phase recurrent train done at {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.ft:
         r = phase_train(dev, TRAIN_FALL_LRS[0], True)
         phase_ft(dev, {"losses": r["losses"],
@@ -4124,6 +4398,9 @@ def main() -> int:
     for name, n in phase_train_moe(dev).items():
         trained[name] += n
     log(f"phase moe train done at {time.perf_counter() - t0:.1f} s")
+    for name, n in phase_train_recurrent(dev).items():
+        trained[name] += n
+    log(f"phase recurrent train done at {time.perf_counter() - t0:.1f} s")
     for name, n in phase_ft(dev, baseline).items():
         trained[name] += n
     log(f"phase ft done at {time.perf_counter() - t0:.1f} s")

@@ -13,19 +13,20 @@ dimensions are the mesh axes), as the decode AllReduce of
 
 Scope: the reference's manual engine over the data-parallel axes of a
 local mesh, one axis (`("data", n)`) or several (e.g. `[("pod", 2),
-("data", 4)]`, the paper's hierarchical structure), for the dense and
-MoE families (MoE with the reference's expert-parallel dispatch over the
-first live axis, its exchange the planned all-to-all under "plan"),
-with every `SyncConfig` strategy of the reference: "plan"
-bucketed by default on one axis (GenModel picks the bucket,
-`core.bucketing`), per leaf with `bucket_bytes=0` or on several axes;
-the flat labels psum, ring, rhd, cps and hcps, "gentree" (the planner's
-label for each axis) and "auto" (psum) per leaf, through
+("data", 4)]`, the paper's hierarchical structure), for the dense, MoE,
+RWKV6 and hybrid families (MoE with the reference's expert-parallel
+dispatch over the first live axis, its exchange the planned all-to-all
+under "plan"; the recurrent families through their differentiable torch
+recurrences, `models.recurrence`), with every `SyncConfig` strategy of
+the reference: "plan" bucketed by default on one axis (GenModel picks
+the bucket, `core.bucketing`), per leaf with `bucket_bytes=0` or on
+several axes; the flat labels psum, ring, rhd, cps and hcps, "gentree"
+(the planner's label for each axis) and "auto" (psum) per leaf, through
 `core.collectives`; a wire the plan binds (bf16, fp8, int8). These raise
 `NotImplementedError` and are never replaced by another path: the
-`auto` (pjit) engine (ROADMAP §1 items 4b and 6) and the schedule probe
-`observe_sync_probe` (item 4b); the recurrent families' training (item
-6); `compress` in the trainer (item 9).
+`auto` (pjit) engine and the schedule probe `observe_sync_probe`, which
+need the multi-process executor (ROADMAP §1 item 8); `compress` in the
+trainer (item 9).
 
 With a checkpoint directory the run goes through the reference's
 `FaultTolerantLoop` (`runtime.ft`): a checkpoint every `ckpt_every`
@@ -41,9 +42,12 @@ checkpoints and corrupted collective payloads.
         --steps 30 --ckpt-dir ckpt --faults seed=7,steps=30,device_loss=0.1
     python -m repro_torch.launch.train --engine manual --sync plan --smoke \
         --arch deepseek-moe-16b
+    python -m repro_torch.launch.train --engine manual --sync plan --smoke \
+        --arch rwkv6-1.6b          # or hymba-1.5b
 
-train the smoke-size stablelm-12b on the card; `--device cpu` runs them
-on the CPU. Without `--smoke` the model is the full configuration.
+train smoke-size models (stablelm-12b by default) on the card;
+`--device cpu` runs them on the CPU. Without `--smoke` the model is the
+full configuration.
 `run_training(tc, mesh=[("pod", 2), ("data", 4)])` trains over the
 two-level mesh.
 """
@@ -431,10 +435,6 @@ def make_manual_train_step(api: ModelAPI, mesh,
 
     dev = resolve_device(device)
     cfg = api.cfg
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: the trainer takes the dense and MoE families; the "
-            f"{cfg.family!r} family's training is ROADMAP §1 item 6")
     check_plan_config(sync)
     if sync.compress is not None:
         raise NotImplementedError(
@@ -665,7 +665,7 @@ def observe_sync_probe(*args, **kw):
     multi-process executor."""
     raise NotImplementedError(
         "observe_sync_probe: timing an axis's schedule needs one device "
-        "a rank, the multi-process executor (ROADMAP §1 item 4b)")
+        "a rank, the multi-process executor (ROADMAP §1 item 8)")
 
 
 # ---------------------------------------------------------------------------
@@ -677,7 +677,7 @@ class TrainConfig:
     steps: int = 50
     seq_len: int = 128
     global_batch: int = 8
-    engine: str = "auto"            # auto (ROADMAP §1 items 4, 6) | manual
+    engine: str = "auto"            # auto (ROADMAP §1 item 8) | manual
     sync: str = "auto"         # auto|psum|ring|rhd|cps|hcps|gentree|plan
     # backward-overlapped bucket issuance (DESIGN.md §15): the gradient
     # buckets reduce last first; False keeps forward order
@@ -690,7 +690,7 @@ class TrainConfig:
     seed: int = 0
     log_every: int = 10
     # the reference probes the schedule after training and feeds the
-    # planner; on the local mesh that is item 4b, so it is off here and
+    # planner; on the local mesh that is item 8, so it is off here and
     # True raises
     observe_sync: bool = False
     # export a Chrome trace of the run's spans / the metrics registry
@@ -717,7 +717,7 @@ def _check_train_scope(tc: TrainConfig) -> None:
         raise NotImplementedError(
             f"engine={tc.engine!r}: the single-program sharded engine needs "
             "the multi-process executor and DTensor placements (ROADMAP §1 "
-            "items 4b and 6); the port runs engine='manual'")
+            "item 8); the port runs engine='manual'")
     from repro_torch.core.sync import SYNC_STRATEGIES
     if tc.sync not in SYNC_STRATEGIES:
         raise ValueError(f"unknown sync strategy {tc.sync!r}; one of "

@@ -3,21 +3,29 @@ branch in parallel on the same input, normalizes each branch's output and
 averages them (arXiv:2411.13676; meta-tokens omitted, as in the
 reference).
 
-Mirrors the reference `models/hybrid_model.py` (serving path: no loss, no
-rematerialisation). `params["layers"]` is a list of per-layer dicts run by
-a Python loop; each layer's sliding window is `cfg.window_for_layer(i)`.
-The decode state is the KV cache in the reference's (L, B, Hkv, S, hd)
-layout plus the per-layer (B, Di, N) SSM state, updated in place by
-`decode_step`.
+Mirrors the reference `models/hybrid_model.py`. `params["layers"]` is a
+list of per-layer dicts run by a Python loop; each layer's sliding window
+is `cfg.window_for_layer(i)`. The decode state is the KV cache in the
+reference's (L, B, Hkv, S, hd) layout plus the per-layer (B, Di, N) SSM
+state, updated in place by `decode_step`.
+
+`forward` and `loss_fn` are the training path: differentiable torch ops
+(`layers.train_attention`, `recurrence.train_mamba_ssm`, the
+chunk-checkpointed scan, `layers.train_rmsnorm`), each layer under
+activation checkpointing when `remat` is set, as the reference's
+`jax.checkpoint` body. Prefill and decode serve through the kernels.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (Params, _attend, _qkv, attention_decode, dense_init,
-                     embed, init_attention, init_mlp, mlp, rmsnorm)
-from .recurrence import init_mamba, mamba_ssm
+                     embed, init_attention, init_mlp, mlp, rmsnorm,
+                     train_attention, train_rmsnorm)
+from .recurrence import init_mamba, mamba_ssm, train_mamba_ssm
+from .transformer import _nll
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
@@ -58,11 +66,47 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     }
 
 
-def _combine(lp: Params, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+def _combine(lp: Params, a: torch.Tensor, s: torch.Tensor, norm=rmsnorm
+             ) -> torch.Tensor:
     """Mean of the two branches, each RMS-normalized, summed in f32."""
-    a = rmsnorm(a, lp["ln_attn"])
-    s = rmsnorm(s, lp["ln_ssm"])
+    a = norm(a, lp["ln_attn"])
+    s = norm(s, lp["ln_ssm"])
     return ((a.float() + s.float()) * 0.5).to(a.dtype)
+
+
+def _train_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int,
+                 positions: torch.Tensor, ssm_chunk: int) -> torch.Tensor:
+    z = train_rmsnorm(x, lp["ln1"])
+    a = train_attention(lp["attn"], z, cfg, window=window,
+                        positions=positions)
+    s, _ = train_mamba_ssm(lp["ssm"], z, cfg, chunk=ssm_chunk)
+    x = x + _combine(lp, a, s, norm=train_rmsnorm)
+    return x + mlp(lp["mlp"], train_rmsnorm(x, lp["ln2"]))
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            remat: bool = True, ssm_chunk: int = 16) -> torch.Tensor:
+    """tokens (B, T) → logits (B, T, V), differentiable; the SSM scan
+    checkpointed in chunks of `ssm_chunk`."""
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for i, lp in enumerate(params["layers"]):
+        w = cfg.window_for_layer(i)
+        if remat:
+            x = checkpoint(_train_layer, cfg, lp, x, w, positions, ssm_chunk,
+                           use_reentrant=False)
+        else:
+            x = _train_layer(cfg, lp, x, w, positions, ssm_chunk)
+    x = train_rmsnorm(x, params["ln_f"])
+    return x @ params["lm_head"]
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
+            remat: bool = True, ssm_chunk: int = 16) -> torch.Tensor:
+    """Mean next-token NLL of the f32 log-softmax of batch["tokens"]'s
+    logits at batch["labels"], weighted by batch["mask"] where given."""
+    return _nll(forward(params, cfg, batch["tokens"], remat=remat,
+                        ssm_chunk=ssm_chunk), batch)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,

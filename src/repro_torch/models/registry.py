@@ -1,12 +1,12 @@
 """Uniform model API over the ported families.
 
 `build(cfg)` returns a ModelAPI exposing init / prefill / decode / cache
-over the transformer (families "dense" and "moe"), the RWKV6 model
-(family "ssm") or the Hymba hybrid (family "hybrid"), and the training
-`forward` / `loss_fn` of the transformer (both families; `loss_fn_ep`, the
-MoE family's expert-parallel loss of every rank of a local mesh at once).
-The recurrent families' training forward (ROADMAP §1 item 6) and the
-reference registry's encoder-decoder family are not ported yet.
+and the training `forward` / `loss_fn` over the transformer (families
+"dense" and "moe"; `loss_fn_ep`, the MoE family's expert-parallel loss of
+every rank of a local mesh at once), the RWKV6 model (family "ssm") or
+the Hymba hybrid (family "hybrid"), with the reference registry's return
+shapes: `forward` gives the logits. The reference registry's
+encoder-decoder family is not ported yet.
 """
 from __future__ import annotations
 
@@ -41,15 +41,6 @@ class ModelAPI:
                                              "meta"))
 
 
-def _no_training(cfg: ModelConfig) -> Callable:
-    def refuse(*args, **kw):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family's training forward is "
-            "not ported yet (ROADMAP §1 item 6); the dense and MoE "
-            "families train")
-    return refuse
-
-
 def _dense_api(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
@@ -82,8 +73,10 @@ def _rwkv_api(cfg: ModelConfig) -> ModelAPI:
         # the recurrent state does not depend on the sequence length
         init_cache=lambda b, s, dtype=torch.bfloat16, device="cpu":
             rwkv_model.init_state(cfg, b, dtype, device),
-        loss_fn=_no_training(cfg),
-        forward=_no_training(cfg),
+        loss_fn=lambda params, batch, **kw: rwkv_model.loss_fn(
+            params, cfg, batch, **kw),
+        forward=lambda params, batch, **kw: rwkv_model.forward(
+            params, cfg, batch["tokens"], **kw)[0],
     )
 
 
@@ -98,8 +91,10 @@ def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
             params, cfg, cache, batch["tokens"]),
         init_cache=lambda b, s, dtype=torch.bfloat16, device="cpu":
             hybrid_model.init_cache(cfg, b, s, dtype, device),
-        loss_fn=_no_training(cfg),
-        forward=_no_training(cfg),
+        loss_fn=lambda params, batch, **kw: hybrid_model.loss_fn(
+            params, cfg, batch, **kw),
+        forward=lambda params, batch, **kw: hybrid_model.forward(
+            params, cfg, batch["tokens"], **kw),
     )
 
 

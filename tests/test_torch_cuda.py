@@ -727,6 +727,54 @@ def test_moe_smoke_trainer_on_card_matches_cpu(dev, mesh):
     assert ops.LAUNCHES["fused_reduce"] > before
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_recurrent_smoke_trainer_on_card_matches_cpu(dev, arch):
+    """The same for the recurrent families' smoke models per leaf: their
+    training recurrences are torch ops, on the card as on the CPU."""
+    from repro_torch.core.sync import SyncConfig
+    _smoke_trainer_card_vs_cpu(dev, SyncConfig(strategy="plan",
+                                               bucket_bytes=0), arch=arch)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_recurrent_training_launches_no_model_kernel(dev, arch):
+    """A recurrent family's training step on the card launches fused_reduce
+    (its gathers and reduce-scatters) and no wkv, ssm_scan, rmsnorm or
+    flash_attention (no kernel has a backward); its prefill, on the same
+    weights, still launches the recurrence kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    api = build(smoke_config(get_config(arch)))
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             torch.float32, dev)
+    shards = train.shard_params_zero3(params, 8)
+    step = train.make_manual_train_step(
+        api, 8, AdamWConfig(lr=1e-3), sync=SyncConfig(strategy="plan",
+                                                      bucket_bytes=0),
+        device=dev, param_dtype=torch.float32)
+    batch = {k: torch.as_tensor(v, device=dev).long() for k, v in
+             SyntheticLM(DataConfig(vocab=api.cfg.vocab, seq_len=32,
+                                    global_batch=8, seed=0)
+                         ).batch_at(0).items()}
+    model = ("wkv", "ssm_scan", "rmsnorm", "flash_attention")
+    before = dict(ops.LAUNCHES)
+    _, m = step({"params": shards, "opt": adamw_init(shards)}, batch)
+    assert np.isfinite(float(m["loss"]))
+    assert ops.LAUNCHES["fused_reduce"] > before["fused_reduce"]
+    assert all(ops.LAUNCHES[k] == before[k] for k in model)
+    kernel = "wkv" if arch == "rwkv6-1.6b" else "ssm_scan"
+    with torch.no_grad():
+        api.prefill(params, {"tokens": batch["tokens"][:2]}, cache_len=32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == before[kernel] + api.cfg.n_layers
+
+
 @pytest.mark.parametrize("planned", [False, True], ids=["flat", "plan"])
 @pytest.mark.parametrize("mesh", [[("data", 8)], [("pod", 2), ("data", 4)]],
                          ids=["one-axis", "two-level"])
