@@ -55,7 +55,10 @@ any error:
                 decode against 4,360 of 4,416 cache slots, the 4096
                 window masking) and gemma3-4b's (prefill of 1,152,
                 decode against 1,160 of 1,168, the 1024 window
-                masking), the decode kernel at long context
+                masking), qwen2-vl-7b's GQA group 7, mixtral-8x22b's
+                group 6 and whisper-large-v3's head dim 64 (its
+                encoder non-causal at 32 frames and at 1,500), the
+                decode kernel at long context
                 (stablelm-12b's heads without a softcap, so SDPA times
                 the same function; a batch of four rows of 4,360, 0,
                 300 and 4,416 keys; four queries a head in f32 and
@@ -115,9 +118,13 @@ any error:
   4. serve    — `repro_torch.launch.serve` on stablelm-12b, rwkv6-1.6b,
                 hymba-1.5b, gemma2-27b, qwen3-32b (qk_norm, head dim
                 80), gemma3-4b (five 1024-window layers to one global,
-                head dim 256) and deepseek-moe-16b (64 routed experts,
-                top 6, 2 shared; the sorted dispatch in 16 groups) in
-                turn, each at full size (random bf16 weights), batch 4,
+                head dim 256), deepseek-moe-16b (64 routed experts,
+                top 6, 2 shared; the sorted dispatch in 16 groups),
+                qwen2-vl-7b (embeddings in, M-RoPE), whisper-large-v3
+                (32 frames of stub audio through the encoder) and
+                mixtral-8x22b (8 experts top 2, window 4096; its depth
+                cut from 56 to SERVE_LAYERS' 14, the one cut) in turn,
+                each at full width (random bf16 weights), batch 4,
                 prompt 32, 32 new tokens, cache 128, 8 local ranks;
                 after each, a few decode steps of the same model under
                 torch.profiler (device busy share, kernels per step,
@@ -125,12 +132,19 @@ any error:
                 (batch 1, prompt 4,352, 8 new tokens, cache 4,416) and
                 one long gemma3-4b request (batch 1, prompt 1,152, 8
                 new, cache 1,168), so the local layers' window masks in
-                prefill and decode; each model is freed before the
-                next; then each model's smoke-size version in f32 on the
-                card against the same code on the CPU (gemma2-27b on a
-                48-token prompt and gemma3-4b on a 40-token one, longer
-                than their smoke windows; deepseek-moe-16b on 4 × 64
-                tokens, whose grouped dispatch drops slots on both);
+                prefill and decode; one whisper-large-v3 request on
+                1,500 frames (30 s of audio; batch 4, prompt 32, 8 new)
+                through the model API, its encoder non-causal on the
+                bf16 prefill kernel at 1,500 keys; each model is freed
+                before the next; then each model's smoke-size version
+                in f32 on the card against the same code on the CPU
+                (gemma2-27b on a 48-token prompt, gemma3-4b on a
+                40-token one and mixtral-8x22b on 4 × 40, longer than
+                their smoke windows; deepseek-moe-16b on 4 × 64 tokens
+                and mixtral-8x22b's 160, whose grouped dispatch drops
+                slots on both; qwen2-vl-7b at head dim 32 with three
+                distinct position streams, so M-RoPE's h and w
+                sections turn; whisper-large-v3 on 12 seeded frames);
   5. train    — the ZeRO-3 trainer (`repro_torch.launch.train.
                 make_manual_train_step`, 8 local ranks) on stablelm-12b
                 at full width, its depth cut to 2 layers (TRAIN), random
@@ -254,11 +268,14 @@ dequantize (it runs the compressed wires), the families dequantize;
 grouped_reduce and quant_reduce_requant have no caller on the main path
 (nor in the JAX package) and show 0 launches, timed in phase 2 at their
 2^26 shape; every served run must launch fused_reduce (the
-decode AllReduce folds through it) and exactly the model kernels its
+decode AllReduce folds through it; the whisper request through the
+model API runs no self-check and none) and exactly the model kernels its
 forwards (prefill and each decode step) run: rmsnorm once per norm (2 a
-dense or MoE layer, 2 more with qk_norm, 3 an RWKV6 layer, 4 a Hymba
-layer, and the final norm),
-flash_attention once per attention layer, wkv once per RWKV6 layer and
+dense, MoE or vlm layer, 2 more with qk_norm, 3 an RWKV6 layer, 4 a Hymba
+layer, and the final norm; 3 a whisper decoder layer, and in its prefill
+2 an encoder layer and the encoder's final norm),
+flash_attention once per attention layer (whisper's encoder layers in
+its prefill), wkv once per RWKV6 layer and
 ssm_scan once per Hymba layer (`expected_launches`), and each
 flash_attention launch on the CUDA kernel its shape selects (the
 prompt's on the bf16 prefill kernel, each decode step's on the decode
@@ -299,7 +316,15 @@ FAMILIES = ("reduce_scatter", "allgather", "all_to_all", "p2p")
 SERVE = dict(batch=4, prompt_len=32, max_new=32, cache_len=128,
              local_ranks=8)
 SERVE_ARCHS = ("stablelm-12b", "rwkv6-1.6b", "hymba-1.5b", "gemma2-27b",
-               "qwen3-32b", "gemma3-4b", "deepseek-moe-16b")
+               "qwen3-32b", "gemma3-4b", "deepseek-moe-16b", "qwen2-vl-7b",
+               "whisper-large-v3", "mixtral-8x22b")
+# the one served configuration cut in depth: mixtral-8x22b at full width,
+# its 56 layers cut to the deepest that stays under 70 GiB of peak on the
+# card. A layer is 2.504 B parameters (24 expert matrices of 6144 x
+# 16384 and 88 M of attention), 5.008 GB in bf16; the embeddings 0.81 GB;
+# drawing one (8, 6144, 16384) expert leaf holds it in f32 (3.22 GB) as
+# well: 14 layers reckon at 66.05 GiB held, ≈ 69.1 GiB at peak
+SERVE_LAYERS = {"mixtral-8x22b": 14}
 # one long request after the batch: its prompt is longer than gemma2-27b's
 # 4096 window, so the local layers mask in prefill and decode
 LONG = dict(arch="gemma2-27b", batch=1, prompt_len=4352, max_new=8,
@@ -307,19 +332,34 @@ LONG = dict(arch="gemma2-27b", batch=1, prompt_len=4352, max_new=8,
 # and one past gemma3-4b's 1024 window (its local layers, five in six)
 LONG_GEMMA3 = dict(arch="gemma3-4b", batch=1, prompt_len=1152, max_new=8,
                    cache_len=1168, local_ranks=8)
+# whisper-large-v3 on 30 s of audio (N_AUDIO_FRAMES = 1,500 frames of stub
+# embeddings) through the model API: its encoder's non-causal attention
+# at (4, 20/20, 1500, 1500, 64) on the bf16 prefill kernel
+WHISPER_LONG = dict(arch="whisper-large-v3", batch=4, prompt_len=32,
+                    max_new=8, cache_len=48)
 # per family, what one forward launches per layer: its norms (ln1 and
 # ln2; RWKV6 adds ln_x, Hymba ln_attn and ln_ssm; qk_norm two more), its
 # attention and its recurrence kernel; the final norm comes on top. The
 # MoE layer (router, expert products) launches none of the ten kernels.
-NORMS_PER_LAYER = {"dense": 2, "moe": 2, "ssm": 3, "hybrid": 4}
-ATTENTION_PER_LAYER = {"dense": 1, "moe": 1, "ssm": 0, "hybrid": 1}
+# The encoder-decoder ("audio") has a rule of its own (`expected_launches`):
+# its prefill runs the encoder too, and cross-attention is torch ops.
+NORMS_PER_LAYER = {"dense": 2, "moe": 2, "vlm": 2, "ssm": 3, "hybrid": 4}
+ATTENTION_PER_LAYER = {"dense": 1, "moe": 1, "vlm": 1, "ssm": 0,
+                       "hybrid": 1}
 RECURRENCE = {"ssm": "wkv", "hybrid": "ssm_scan"}
 PROFILE_STEPS = 4                # decode steps traced after serving
 # (batch, prompt, cache) of the smoke-size model held card against CPU:
-# gemma2-27b and gemma3-4b past their smoke windows; deepseek-moe-16b's
-# 256 tokens through the grouped dispatch (16 groups), where slots drop
+# gemma2-27b, gemma3-4b and mixtral-8x22b past their smoke windows;
+# deepseek-moe-16b's 256 tokens and mixtral-8x22b's 160 through the
+# grouped dispatch (16 groups), where slots drop
 REFERENCE_RUN = {"gemma2-27b": (2, 48, 64), "gemma3-4b": (2, 40, 48),
-                 "deepseek-moe-16b": (4, 64, 72)}
+                 "deepseek-moe-16b": (4, 64, 72),
+                 "mixtral-8x22b": (4, 40, 48)}
+# smoke-size overrides of that run: qwen2-vl-7b at head dim 32, where the
+# rotary half reaches M-RoPE's h and w sections (at the smoke 16 every
+# lane takes the t stream); its three position streams are drawn apart
+REFERENCE_CFG = {"qwen2-vl-7b": {"d_head": 32}}
+REFERENCE_FRAMES = 12            # whisper's stub frames in that run
 # the trainer: stablelm-12b at full width with its depth cut from 40 to 2
 # layers (the one cut), 8 local ranks, the reference TrainConfig's
 # sequence, global batch and lr; then the same run at each lr of
@@ -1124,7 +1164,7 @@ def log_rows(rows) -> None:
 
 RAGGED = [33, 47, 60, 128]        # decode key counts of 4 batch rows
 # attention grid: what, (B, Hq, Hkv, Tq, Tk, D), dtype, window, softcap,
-# per-row key counts
+# per-row key counts, and (where a row ends with it) causal=False
 FLASH_GRID = [
     ("stablelm-12b prefill", (4, 32, 8, 32, 32, 160), "bf16", 0, 0.0, None),
     ("stablelm-12b decode", (4, 32, 8, 1, 128, 160), "bf16", 0, 0.0,
@@ -1211,11 +1251,32 @@ FLASH_GRID = [
      0.0, [1160]),
     ("gemma3-4b long decode global", (1, 8, 4, 1, 1168, 256), "bf16", 0,
      0.0, [1160]),
+    # the served shapes of qwen2-vl-7b (GQA group 7), mixtral-8x22b (group
+    # 6, its 4096 window) and whisper-large-v3 (group 1, head dim 64): the
+    # encoder's non-causal prefill at the served 32 frames and at 1,500
+    # (30 s of audio), the decoder's causal prefill and its decode
+    ("qwen2-vl-7b prefill", (4, 28, 4, 32, 32, 128), "bf16", 0, 0.0, None),
+    ("qwen2-vl-7b decode", (4, 28, 4, 1, 128, 128), "bf16", 0, 0.0,
+     RAGGED),
+    ("mixtral-8x22b prefill", (4, 48, 8, 32, 32, 128), "bf16", 4096, 0.0,
+     None),
+    ("mixtral-8x22b decode", (4, 48, 8, 1, 128, 128), "bf16", 4096, 0.0,
+     RAGGED),
+    ("whisper-large-v3 encoder", (4, 20, 20, 32, 32, 64), "bf16", 0, 0.0,
+     None, False),
+    ("whisper-large-v3 encoder 1500 frames", (4, 20, 20, 1500, 1500, 64),
+     "bf16", 0, 0.0, None, False),
+    ("whisper-large-v3 decoder prefill", (4, 20, 20, 32, 32, 64), "bf16", 0,
+     0.0, None),
+    ("whisper-large-v3 decode", (4, 20, 20, 1, 128, 64), "bf16", 0, 0.0,
+     RAGGED),
 ]
 # rmsnorm widths: stablelm-12b, rwkv6-1.6b (d and ln_x), hymba-1.5b,
-# gemma2-27b, the smoke models, gemma3-4b, and the head dims qk_norm
-# would take at gemma3-4b and qwen3-32b
-RMSNORM_WIDTHS = (5120, 2048, 1600, 4608, 64, 2560, 256, 80)
+# gemma2-27b, the smoke models, gemma3-4b, the head dims qk_norm would
+# take at gemma3-4b and qwen3-32b, whisper-large-v3, qwen2-vl-7b and
+# mixtral-8x22b
+RMSNORM_WIDTHS = (5120, 2048, 1600, 4608, 64, 2560, 256, 80, 1280, 3584,
+                  6144)
 # qwen3-32b's qk_norm rows as the layer passes them: (B, H, T, 80) head
 # transposes of the (B, T, H·80) projections, q's 64 heads and k's 8, at
 # prefill (T 32) and decode (T 1)
@@ -1243,11 +1304,15 @@ def model_kernel_grid(dev, *, attention_only: bool = False) -> list:
                  f"{r['max_rel_err']:.2e} of the largest |value| "
                  f"(tolerance {tolerance(name, r):.2e})")
 
-    for what, (B, Hq, Hkv, Tq, Tk, D), dt, window, softcap, n in FLASH_GRID:
+    for what, (B, Hq, Hkv, Tq, Tk, D), dt, window, softcap, n, *causal \
+            in FLASH_GRID:
+        causal = causal[0] if causal else True
         check("flash_attention",
-              f"{what} {(B, Hq, Hkv, Tq, Tk, D)} w={window} cap={softcap:g}",
+              f"{what} {(B, Hq, Hkv, Tq, Tk, D)} w={window} cap={softcap:g}"
+              + ("" if causal else " non-causal"),
               flash_case(B, Hq, Hkv, Tq, Tk, D, dtypes[dt], dev,
-                         window=window, softcap=softcap, kv_len=n))
+                         window=window, softcap=softcap, kv_len=n,
+                         causal=causal))
         torch.cuda.empty_cache()
     if attention_only:
         return rows
@@ -2162,16 +2227,35 @@ def phase_planner(dev) -> dict:
     return counts
 
 
+def attention_launches(cfg, forwards: int) -> dict:
+    """flash_attention launches by CUDA kernel in `forwards` forwards of
+    `cfg` in bf16, the first a prefill of more than 4 tokens (on the
+    prefill kernel), the rest decode steps (on the decode kernel): one an
+    attention layer; the encoder-decoder's prefill adds its encoder's
+    layers (its cross-attention is torch ops)."""
+    layers = ATTENTION_PER_LAYER.get(cfg.family, 1) * cfg.n_layers
+    return {"flash_decode_kernel": layers * (forwards - 1),
+            "flash_tc_kernel": layers + cfg.n_encoder_layers,
+            "flash_tf32_kernel": 0}
+
+
 def expected_launches(cfg, forwards: int) -> dict:
-    """Launches of each model kernel in `forwards` forwards of `cfg`:
-    rmsnorm per norm (qk_norm's two a layer included), flash_attention
-    per attention layer, the family's recurrence kernel per layer, and
-    the other recurrence never."""
+    """Launches of each model kernel in `forwards` forwards of `cfg`, the
+    first a prefill: rmsnorm per norm (qk_norm's two a layer included),
+    flash_attention per attention layer, the family's recurrence kernel
+    per layer, and the other recurrence never. The encoder-decoder
+    ("audio"): a decoder layer's ln1, ln_x and ln2 and its self-attention
+    each forward, the final norm, and in the prefill each encoder layer's
+    ln1 and ln2 and attention and the encoder's final norm."""
     fam = cfg.family
+    attention = sum(attention_launches(cfg, forwards).values())
+    if fam == "audio":
+        return {"rmsnorm": forwards * (3 * cfg.n_layers + 1)
+                + 2 * cfg.n_encoder_layers + 1,
+                "flash_attention": attention, "wkv": 0, "ssm_scan": 0}
     norms = NORMS_PER_LAYER[fam] + 2 * bool(cfg.qk_norm)
     want = {"rmsnorm": forwards * (norms * cfg.n_layers + 1),
-            "flash_attention":
-                forwards * ATTENTION_PER_LAYER[fam] * cfg.n_layers}
+            "flash_attention": attention}
     for family, kernel in RECURRENCE.items():
         want[kernel] = forwards * cfg.n_layers if fam == family else 0
     return want
@@ -2197,7 +2281,9 @@ def phase_serve(dev, recorder, sc: dict) -> dict:
     cfg = res["config"]
     tm = res["timings"]
     log(f"serve: {cfg.name} family={cfg.family} layers={cfg.n_layers} "
-        f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        + (f"encoder layers={cfg.n_encoder_layers} "
+           if cfg.n_encoder_layers else "")
+        + f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
         f"d_ff={cfg.d_ff} vocab={cfg.vocab}; batch {sc['batch']} prompt "
         f"{sc['prompt_len']} new {sc['max_new']} cache {sc['cache_len']}; "
         f"launches {json.dumps(counts)}; attention kernels "
@@ -2218,9 +2304,7 @@ def phase_serve(dev, recorder, sc: dict) -> dict:
                  f"time(s), expected {want}")
     # the prompt's forward on the bf16 prefill kernel, each decode step's
     # on the decode kernel: one launch an attention layer each
-    layers = ATTENTION_PER_LAYER[cfg.family] * cfg.n_layers
-    want = {"flash_decode_kernel": layers * (sc["max_new"] - 1),
-            "flash_tc_kernel": layers, "flash_tf32_kernel": 0}
+    want = attention_launches(cfg, sc["max_new"])
     if by_kernel != want:
         fail(f"serving {arch} ran attention kernels {by_kernel}, expected "
              f"{want}")
@@ -2265,43 +2349,46 @@ def _tensors(tree):
 
 
 def phase_decode_profile(dev, arch: str) -> None:
-    """Where a decode step's time goes: the full-size model `arch`,
-    prefilled, two warm-up steps, then PROFILE_STEPS greedy steps under
-    torch.profiler. Prints per step: the wall time (under the profiler),
-    the kernels launched, the device's busy time (the union of kernel,
-    copy and set intervals in the trace) and its share of the wall time,
-    the weight-read bound (every weight but the embedding read once, over
-    the memory rate: a MoE model's sorted decode runs every expert's
-    capacity buffer, so it reads every routed expert), and the kernels
-    that take most device time."""
+    """Where a decode step's time goes: the full-size model `arch` (its
+    depth cut as SERVE_LAYERS says), prefilled, two warm-up steps, then
+    PROFILE_STEPS greedy steps under torch.profiler. Prints per step: the
+    wall time (under the profiler), the kernels launched, the device's
+    busy time (the union of kernel, copy and set intervals in the trace)
+    and its share of the wall time, the weight-read bound (every weight a
+    decode step reads, read once, over the memory rate: all but the
+    embedding and an encoder's; a MoE model's sorted decode runs every
+    expert's capacity buffer, so it reads every routed expert), and the
+    kernels that take most device time."""
+    import dataclasses
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompt_batch, step_batch
     from repro_torch.models.registry import build
 
     cfg = get_config(arch)
+    if arch in SERVE_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
     api = build(cfg)
     params = api.init_params(torch.Generator(device=dev).manual_seed(0),
                              torch.bfloat16, dev)
     weight_bytes = sum(t.numel() * t.element_size()
                        for t in _tensors({k: v for k, v in params.items()
-                                          if k != "embed"}))
-    gen = torch.Generator(device=dev).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab,
-                           (SERVE["batch"], SERVE["prompt_len"]),
-                           generator=gen, device=dev)
+                                          if k not in ("embed", "encoder",
+                                                       "ln_enc")}))
+    batch = prompt_batch(cfg, SERVE["batch"], SERVE["prompt_len"],
+                         torch.Generator(device=dev).manual_seed(1))
 
     def step(cache, tok):
         logits, cache = api.decode_step(params, cache,
-                                        {"tokens": tok[:, None]})
+                                        step_batch(cfg, params, tok))
         return cache, logits[:, -1].float().argmax(dim=-1)
 
     with torch.inference_mode():
-        logits, cache = api.prefill(params, {"tokens": tokens},
-                                    SERVE["cache_len"])
+        logits, cache = api.prefill(params, batch, SERVE["cache_len"])
         tok = logits[:, -1].float().argmax(dim=-1)
         for _ in range(2):
             cache, tok = step(cache, tok)
@@ -2348,7 +2435,7 @@ def phase_decode_profile(dev, arch: str) -> None:
         for name, us in top:
             log(f"decode profile: {arch}: {us / PROFILE_STEPS / 1e3:.3f} ms "
                 f"per step in {name[:100]}")
-    del params, cache, logits
+    del params, cache, logits, batch
     torch.cuda.empty_cache()
 
 
@@ -2391,43 +2478,136 @@ class MoeRecorder:
         self.mod.moe = self.real
 
 
-def phase_model_reference(dev, arch: str) -> None:
-    """The smoke-size model of `arch` in f32 on the card (its kernels)
-    against the same code on the CPU (their plain versions): prefill of
-    a (batch, prompt) of REFERENCE_RUN (default 2 × 8, cache 16) + 4
-    greedy decode steps, logits within 1e-4 of the largest |logit|,
-    identical tokens. A MoE model prints its dropped slots and smallest
-    top-k margin on each side, and must drop slots on both."""
+def phase_whisper_long(dev, recorder) -> dict:
+    """whisper-large-v3 at full size on N_AUDIO_FRAMES frames of stub
+    audio (30 s), through the model API (WHISPER_LONG: batch 4, prompt
+    32, 8 new tokens): prefill, then greedy decode. The encoder's
+    attention runs the bf16 prefill kernel non-causal at (4, 20/20,
+    1500, 1500, 64). Exact launches (`expected_launches`, by CUDA kernel
+    `attention_launches`), finite logits, tokens in range; prints the
+    prefill and decode times (host clock to a synchronize) and the peak
+    memory. Returns the kernel launches of the run."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.encdec import N_AUDIO_FRAMES
+    from repro_torch.models.registry import build
+
+    sc = WHISPER_LONG
+    cfg = get_config(sc["arch"])
+    api = build(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B = sc["batch"]
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, sc["prompt_len"]),
+                                     generator=gen, device=dev),
+             "frames": torch.randn((B, N_AUDIO_FRAMES, cfg.d_model),
+                                   generator=gen, device=dev).to(
+                                       torch.bfloat16)}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with recorder, torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, batch, sc["cache_len"])
+        tok = logits[:, -1].float().argmax(dim=-1)
+        outs, finite = [tok.cpu()], bool(torch.isfinite(logits).all())
+        prefill_s = time.perf_counter() - t0
+        steps = []
+        for _ in range(sc["max_new"] - 1):
+            t0 = time.perf_counter()
+            logits, cache = api.decode_step(params, cache,
+                                            {"tokens": tok[:, None]})
+            tok = logits[:, -1].float().argmax(dim=-1)
+            outs.append(tok.cpu())
+            finite &= bool(torch.isfinite(logits).all())
+            steps.append(time.perf_counter() - t0)
+    counts = dict(ops.LAUNCHES)
+    by_kernel = dict(ops.ATTENTION_LAUNCHES)
+    toks = torch.stack(outs, dim=1)
+    log(f"serve long: {cfg.name} batch {B} frames {N_AUDIO_FRAMES} prompt "
+        f"{sc['prompt_len']} new {sc['max_new']} cache {sc['cache_len']}; "
+        f"launches {json.dumps(counts)}; attention kernels "
+        f"{json.dumps(by_kernel)}; prefill {prefill_s * 1e3:.1f} ms, decode "
+        f"first {steps[0] * 1e3:.1f} ms, median "
+        f"{statistics.median(steps) * 1e3:.1f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    want = {**expected_launches(cfg, sc["max_new"]), "fused_reduce": 0}
+    for kernel, n in want.items():
+        if counts[kernel] != n:
+            fail(f"the long {cfg.name} request launched {kernel} "
+                 f"{counts[kernel]} time(s), expected {n}")
+    if by_kernel != attention_launches(cfg, sc["max_new"]):
+        fail(f"the long {cfg.name} request ran attention kernels "
+             f"{by_kernel}, expected {attention_launches(cfg, sc['max_new'])}")
+    if not finite or toks.shape != (B, sc["max_new"]) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab:
+        fail(f"the long {cfg.name} request gave non-finite logits or tokens "
+             f"of shape {tuple(toks.shape)} in [{toks.min()}, {toks.max()}]")
+    del params, cache, logits, batch
+    torch.cuda.empty_cache()
+    return {**counts, **by_kernel}
+
+
+def reference_batch(cfg, B: int, T: int) -> dict:
+    """The smoke-size run's prompt batch on the CPU, from seeded
+    generators: (B, T) token ids; for the vlm family N(0, 1) embeddings
+    and three position streams drawn apart in [0, 2048); for the audio
+    family REFERENCE_FRAMES N(0, 1) frames beside the tokens."""
+    import torch
+    gen = torch.Generator().manual_seed(1)
+    if cfg.family == "vlm":
+        return {"embeds": torch.randn((B, T, cfg.d_model), generator=gen),
+                "mrope_positions": torch.randint(0, 2048, (3, B, T),
+                                                 generator=gen)}
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, T), generator=gen)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, REFERENCE_FRAMES, cfg.d_model),
+                                      generator=gen)
+    return batch
+
+
+def phase_model_reference(dev, arch: str) -> None:
+    """The smoke-size model of `arch` (with REFERENCE_CFG's overrides) in
+    f32 on the card (its kernels) against the same code on the CPU (their
+    plain versions): prefill of a (batch, prompt) of REFERENCE_RUN
+    (default 2 × 8, cache 16; `reference_batch`) + 4 greedy decode
+    steps, logits within 1e-4 of the largest |logit|, identical tokens. A
+    MoE model prints its dropped slots and smallest top-k margin on each
+    side, and must drop slots on both."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import step_batch
     from repro_torch.models.config import smoke_config
     from repro_torch.models.registry import build
 
-    api = build(smoke_config(get_config(arch)))
+    api = build(dataclasses.replace(smoke_config(get_config(arch)),
+                                    **REFERENCE_CFG.get(arch, {})))
     params = api.init_params(torch.Generator().manual_seed(0), torch.float32,
                              "cpu")
     B, T, cache_len = REFERENCE_RUN.get(arch, (2, 8, 16))
-    tokens = torch.randint(0, api.cfg.vocab, (B, T),
-                           generator=torch.Generator().manual_seed(1))
+    batch = reference_batch(api.cfg, B, T)
     runs, routes = {}, {}
     for where in ("cpu", dev):
         p = _to(params, where)
         with torch.inference_mode(), MoeRecorder() as moe:
-            logits, cache = api.prefill(p, {"tokens": tokens.to(where)},
-                                        cache_len)
+            logits, cache = api.prefill(p, _to(batch, where), cache_len)
             outs, toks = [logits.cpu()], []
             for _ in range(4):
                 tok = logits[:, -1].argmax(dim=-1)
                 toks.append(tok.cpu())
                 logits, cache = api.decode_step(p, cache,
-                                                {"tokens": tok[:, None]})
+                                                step_batch(api.cfg, p, tok))
                 outs.append(logits.cpu())
         runs[str(where)] = (torch.stack(outs), torch.stack(toks))
         routes[str(where)] = moe.calls
     (lc, tc), (lg, tg) = runs["cpu"], runs[str(dev)]
     err = float((lg - lc).abs().max() / lc.abs().max())
-    log(f"model: {arch} smoke-size f32, prompt {T}, logits card vs CPU "
-        f"rel err "
+    log(f"model: {arch} smoke-size f32, head dim {api.cfg.head_dim}, "
+        f"batch {B}, prompt {T}, logits card vs CPU rel err "
         f"{err:.2e}, tokens equal {bool(torch.equal(tc, tg))}")
     if api.cfg.n_experts:
         for where, calls in routes.items():
@@ -4208,14 +4388,15 @@ def _case_at(wrapper, args, kw, dev):
 
 
 def phase_serve_all(dev, recorder, t0: float) -> dict:
-    """Phase 4: each of SERVE_ARCHS served and its decode profiled, the
-    long requests, then each smoke-size model card against CPU; returns
-    the kernel launches of the served runs, summed."""
+    """Phase 4: each of SERVE_ARCHS served (depth cut as SERVE_LAYERS
+    says) and its decode profiled, the long requests (the whisper one
+    through the model API), then each smoke-size model card against CPU;
+    returns the kernel launches of the served runs, summed."""
     from repro_torch.kernels import ops
     served = dict.fromkeys([*TOLERANCE, *ops.ATTENTION_LAUNCHES], 0)
     for arch in SERVE_ARCHS:
-        for name, n in phase_serve(dev, recorder,
-                                   {**SERVE, "arch": arch}).items():
+        sc = {**SERVE, "arch": arch, "n_layers": SERVE_LAYERS.get(arch)}
+        for name, n in phase_serve(dev, recorder, sc).items():
             served[name] += n
         phase_decode_profile(dev, arch)
         log(f"phase serve {arch} done at {time.perf_counter() - t0:.1f} s")
@@ -4224,8 +4405,13 @@ def phase_serve_all(dev, recorder, t0: float) -> dict:
             served[name] += n
         log(f"phase serve long {sc['arch']} done at "
             f"{time.perf_counter() - t0:.1f} s")
+    for name, n in phase_whisper_long(dev, recorder).items():
+        served[name] += n
+    log(f"phase serve long {WHISPER_LONG['arch']} done at "
+        f"{time.perf_counter() - t0:.1f} s")
     for arch in SERVE_ARCHS:
         phase_model_reference(dev, arch)
+    log(f"phase serve smoke models done at {time.perf_counter() - t0:.1f} s")
     return served
 
 

@@ -7,9 +7,9 @@ from __future__ import annotations
 
 import importlib
 
-# The configurations of the ported model families (dense, MoE, RWKV6,
-# Hymba hybrid); the reference's other architectures join as their
-# families are ported.
+# All ten of the reference's configurations: the dense and MoE
+# transformers, RWKV6, the Hymba hybrid, the vision-language transformer
+# (M-RoPE, embeddings as input) and the encoder-decoder.
 ARCHS = [
     "stablelm_12b",
     "rwkv6_1_6b",
@@ -18,6 +18,9 @@ ARCHS = [
     "qwen3_32b",
     "gemma3_4b",
     "deepseek_moe_16b",
+    "mixtral_8x22b",
+    "qwen2_vl_7b",
+    "whisper_large_v3",
 ]
 
 

@@ -15,13 +15,22 @@ server. Every ported family serves the same way: the dense transformer
 (stablelm-12b; gemma2-27b with alternating local and global layers and
 soft-capped logits; qwen3-32b with qk_norm; gemma3-4b with five local
 layers to one global), the MoE transformer (deepseek-moe-16b, the sorted
-dispatch), RWKV6 (rwkv6-1.6b, whose decode state is its recurrent state)
-and the Hymba hybrid (hymba-1.5b, a KV cache plus SSM states).
+dispatch; mixtral-8x22b, 8 experts top 2 and a 4096 window on every
+layer), the vision-language transformer (qwen2-vl-7b: the prompt is
+embeddings from a stubbed vision frontend with M-RoPE's t/h/w position
+streams, a decode step the embedding rows of its token), RWKV6
+(rwkv6-1.6b, whose decode state is its recurrent state), the Hymba
+hybrid (hymba-1.5b, a KV cache plus SSM states) and the encoder-decoder
+(whisper-large-v3: 32 frames of stub audio embeddings beside the
+prompt). The prompt batches are the reference server's
+(`prompt_batch`).
 
     python -m repro_torch.launch.serve --arch rwkv6-1.6b
+    python -m repro_torch.launch.serve --arch mixtral-8x22b --n-layers 14
 
-builds the full-size model with random weights on the card; `--smoke`
-shrinks it, `--device cpu` runs on the CPU.
+builds the full-size model with random weights on the card; `--n-layers`
+cuts its (decoder) depth, as mixtral-8x22b's 56 layers need on one card;
+`--smoke` shrinks it, `--device cpu` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -51,6 +60,46 @@ class ServeConfig:
     # axis of one (local_ranks, batch·d_model) tensor on `device`
     local_ranks: int = 8
     device: str = "cuda"
+    # port-only: the configuration's (decoder) layers cut to this many
+    # (`dataclasses.replace`, as `TrainConfig.n_layers`); None keeps them
+    n_layers: int | None = None
+
+
+AUDIO_FRAMES = 32    # the reference server's frames of stub audio
+
+
+def prompt_batch(cfg, batch: int, prompt_len: int, gen: torch.Generator
+                 ) -> dict:
+    """A prompt batch as the reference's `serve` builds it, drawn from
+    `gen` (on the serving device): (batch, prompt_len) token ids; for the
+    vlm family instead N(0, 1) embeddings (batch, prompt_len, d_model) in
+    bf16 and three equal `arange(prompt_len)` M-RoPE position streams;
+    for the audio family AUDIO_FRAMES N(0, 1) frame embeddings in bf16
+    beside the tokens."""
+    dev = gen.device
+    if cfg.family == "vlm":
+        pos = torch.arange(prompt_len, device=dev)
+        return {"embeds": torch.randn((batch, prompt_len, cfg.d_model),
+                                      generator=gen, device=dev).to(
+                                          torch.bfloat16),
+                "mrope_positions": pos.expand(3, batch, prompt_len)}
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                           device=dev)
+    if cfg.family == "audio":
+        return {"tokens": tokens,
+                "frames": torch.randn((batch, AUDIO_FRAMES, cfg.d_model),
+                                      generator=gen, device=dev).to(
+                                          torch.bfloat16)}
+    return {"tokens": tokens}
+
+
+def step_batch(cfg, params: dict, tok: torch.Tensor) -> dict:
+    """A decode step's batch of the (B,) tokens just chosen: their ids,
+    or for the vlm family their embedding rows (B, 1, d_model), as the
+    reference's server feeds them (no M-RoPE streams)."""
+    if cfg.family == "vlm":
+        return {"embeds": params["embed"][tok[:, None]]}
+    return {"tokens": tok[:, None]}
 
 
 def _sync(dev: torch.device) -> None:
@@ -66,6 +115,8 @@ def serve(sc: ServeConfig, smoke: bool = False, on_log=print) -> dict:
     cfg = get_config(sc.arch)
     if smoke:
         cfg = smoke_config(cfg)
+    if sc.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=int(sc.n_layers))
     api = build(cfg)
     timings: dict[str, float] = {}
 
@@ -124,8 +175,7 @@ def serve(sc: ServeConfig, smoke: bool = False, on_log=print) -> dict:
     _sync(dev)
     timings["init_s"] = time.perf_counter() - t0
     pgen = torch.Generator(device=dev).manual_seed(sc.seed + 1)
-    prompts = torch.randint(0, cfg.vocab, (sc.batch, sc.prompt_len),
-                            generator=pgen, device=dev)
+    prompts = prompt_batch(cfg, sc.batch, sc.prompt_len, pgen)
 
     tracer = default_tracer()
     metrics = default_metrics()
@@ -133,8 +183,7 @@ def serve(sc: ServeConfig, smoke: bool = False, on_log=print) -> dict:
         t0 = time.perf_counter()
         with tracer.span("serve/prefill", batch=sc.batch,
                          prompt_len=sc.prompt_len):
-            logits, cache = api.prefill(params, {"tokens": prompts},
-                                        sc.cache_len)
+            logits, cache = api.prefill(params, prompts, sc.cache_len)
             tok = logits[:, -1].float().argmax(dim=-1)
         out = [tok.cpu().numpy()]
         timings["prefill_s"] = time.perf_counter() - t0
@@ -145,8 +194,8 @@ def serve(sc: ServeConfig, smoke: bool = False, on_log=print) -> dict:
         for i in range(sc.max_new - 1):
             t0 = time.perf_counter()
             with tracer.span("serve/decode", token=i + 1):
-                logits, cache = api.decode_step(params, cache,
-                                                {"tokens": tok[:, None]})
+                logits, cache = api.decode_step(
+                    params, cache, step_batch(cfg, params, tok))
                 tok = logits[:, -1].float().argmax(dim=-1)
             decode_ctr.inc()
             out.append(tok.cpu().numpy())      # waits for the device
@@ -169,17 +218,22 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-12b",
                     help="stablelm-12b, gemma2-27b, qwen3-32b, gemma3-4b, "
-                    "deepseek-moe-16b, rwkv6-1.6b or hymba-1.5b")
+                    "deepseek-moe-16b, mixtral-8x22b, qwen2-vl-7b, "
+                    "rwkv6-1.6b, hymba-1.5b or whisper-large-v3")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--local-ranks", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced smoke-size configuration")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the (decoder) depth to this many layers, "
+                    "e.g. 14 of mixtral-8x22b's 56 on one card")
     args = ap.parse_args()
     serve(ServeConfig(arch=args.arch, batch=args.batch,
                       max_new=args.max_new, local_ranks=args.local_ranks,
-                      device=args.device), smoke=args.smoke)
+                      device=args.device, n_layers=args.n_layers),
+          smoke=args.smoke)
 
 
 if __name__ == "__main__":

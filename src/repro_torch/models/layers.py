@@ -1,7 +1,7 @@
 """Dense transformer layers as plain functions over tensors: RMSNorm in
-the `(1 + w)` form, RoPE, GQA attention (full sequence and one-token
-decode against a KV cache), SwiGLU MLP, the MoE layer (sorted and dense
-dispatch), and the initializer.
+the `(1 + w)` form, RoPE and M-RoPE, GQA attention (full sequence and
+one-token decode against a KV cache), SwiGLU MLP, the MoE layer (sorted
+and dense dispatch), and the initializer.
 
 These mirror the reference `models/layers.py` op for op, with its
 layouts: activations (B, T, D), heads (B, H, T, hd), weights (in, out).
@@ -51,11 +51,12 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...],
                scale: float | None = None, dtype=torch.bfloat16,
                device: str | torch.device = "cpu") -> torch.Tensor:
     """N(0, 1)·scale with scale = fan_in^-1/2 unless given, drawn in f32
-    from `gen` (which must live on `device`) and cast to `dtype`."""
+    from `gen` (which must live on `device`) and cast to `dtype`. Scaled
+    in place, so a leaf's draw holds one f32 copy of it, not two."""
     fan_in = shape[-2] if len(shape) > 1 else shape[0]
     scale = scale if scale is not None else fan_in ** -0.5
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +96,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Sequence[int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, H, T, D); positions: (3, B, T),
+    one position stream per (t, h, w) section of the rotary dims. Section
+    s owns freqs[start:start + sections[s]] of the D/2 frequencies; the
+    section ids are cut or padded (with the last) to D/2, as the
+    reference's `jnp.repeat(..., total_repeat_length=D/2)`: at a head dim
+    below 2·sum(sections) the later sections drop out."""
+    half = x.shape[-1] // 2
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))
+    sec_id = torch.cat([sec_id, sec_id[-1:].expand(half)])[:half]
+    pos = positions[sec_id].movedim(0, -1)               # (B, T, half)
+    ang = pos[:, None].float() * freqs                   # (B, 1, T, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -118,14 +141,19 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.mrope_sections is not None or cfg.attn_kv_block:
+    if cfg.attn_kv_block:
         raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and the KV-block attention scan are not "
-            "ported yet")
+            f"{cfg.name}: the KV-block attention scan is not ported yet "
+            "(ROADMAP §1 item 7)")
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
-         positions: torch.Tensor | None, norm=rmsnorm):
+         positions: torch.Tensor | None, norm=rmsnorm,
+         mrope_positions: torch.Tensor | None = None):
+    """q (B, H, T, hd), k and v (B, Hkv, T, hd) of x, qk_norm'd where the
+    config says so, then rotated: by M-RoPE where the config has sections
+    and `mrope_positions` (3, B, T) are given, else by RoPE at
+    `positions`, as the reference's branch order."""
     B, T, _ = x.shape
     hd = cfg.head_dim
     q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, hd).transpose(1, 2)
@@ -134,7 +162,12 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.qk_norm:
         q = norm(q, p["q_norm"])
         k = norm(k, p["k_norm"])
-    if positions is not None:
+    if cfg.mrope_sections is not None and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+    elif positions is not None:
         q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
         k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
     return q, k, v
@@ -154,6 +187,7 @@ def _attend(q, k, v, cfg: ModelConfig, *, window: int = 0,
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               window: int = 0, causal: bool = True,
               positions: torch.Tensor | None = None,
+              mrope_positions: torch.Tensor | None = None,
               block_q: int = 512) -> torch.Tensor:
     """Full-sequence attention (prefill). `block_q` is accepted for the
     reference's signature; the kernel and its plain version tile the
@@ -162,7 +196,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     T = x.shape[1]
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _qkv(p, x, cfg, positions, mrope_positions=mrope_positions)
     out = _attend(q, k, v, cfg, window=window, causal=causal)
     return out @ p["wo"]
 
@@ -188,6 +222,7 @@ def _sdpa_block(q, k, v, mask, scale: float, softcap: float,
 def train_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     window: int = 0, causal: bool = True,
                     positions: torch.Tensor | None = None,
+                    mrope_positions: torch.Tensor | None = None,
                     block_q: int = 512) -> torch.Tensor:
     """Full-sequence attention for training, differentiable: the
     reference's q-block `attention` (its banded path for a window
@@ -197,7 +232,8 @@ def train_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
-    q, k, v = _qkv(p, x, cfg, positions, norm=train_rmsnorm)
+    q, k, v = _qkv(p, x, cfg, positions, norm=train_rmsnorm,
+                   mrope_positions=mrope_positions)
     hd = cfg.head_dim
     rep = cfg.n_heads // cfg.n_kv_heads
     if rep > 1:
@@ -235,7 +271,9 @@ def train_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 def attention_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: torch.Tensor,
                      cfg: ModelConfig, *, window: int = 0,
-                     kv_len: torch.Tensor | None = None) -> torch.Tensor:
+                     kv_len: torch.Tensor | None = None,
+                     mrope_positions: torch.Tensor | None = None
+                     ) -> torch.Tensor:
     """One-token decode. x: (B, 1, D); cache_{k,v}: (B, Hkv, S, hd);
     pos: (B,) current write position; kv_len: pos + 1, where the caller
     has formed it once for all layers. Writes the new K/V into the cache
@@ -244,7 +282,8 @@ def attention_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     _check_supported(cfg)
     B = x.shape[0]
     hd = cfg.head_dim
-    q, k_new, v_new = _qkv(p, x, cfg, pos[:, None])
+    q, k_new, v_new = _qkv(p, x, cfg, pos[:, None],
+                           mrope_positions=mrope_positions)
     rows = torch.arange(B, device=x.device)
     cache_k[rows, :, pos] = k_new[:, :, 0]
     cache_v[rows, :, pos] = v_new[:, :, 0]

@@ -2,11 +2,14 @@
 
 `build(cfg)` returns a ModelAPI exposing init / prefill / decode / cache
 and the training `forward` / `loss_fn` over the transformer (families
-"dense" and "moe"; `loss_fn_ep`, the MoE family's expert-parallel loss of
-every rank of a local mesh at once), the RWKV6 model (family "ssm") or
-the Hymba hybrid (family "hybrid"), with the reference registry's return
-shapes: `forward` gives the logits. The reference registry's
-encoder-decoder family is not ported yet.
+"dense", "moe" and "vlm"; `loss_fn_ep`, the MoE family's expert-parallel
+loss of every rank of a local mesh at once), the RWKV6 model (family
+"ssm"), the Hymba hybrid (family "hybrid") or the encoder-decoder
+(family "audio"), with the reference registry's return shapes and batch
+keys: `forward` gives the logits; a vlm batch carries "embeds" (and, at
+prefill, "mrope_positions") where the others carry "tokens", an audio
+prefill "frames" beside "tokens". The vlm and audio families serve only:
+their `forward` / `loss_fn` raise (ROADMAP §1 item 6e).
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Callable
 
 import torch
 
-from . import hybrid_model, rwkv_model, transformer
+from . import encdec, hybrid_model, rwkv_model, transformer
 from .config import ModelConfig
 from .tree import stack_layers
 
@@ -47,9 +50,12 @@ def _dense_api(cfg: ModelConfig) -> ModelAPI:
         init_params=lambda gen, dtype=torch.bfloat16, device="cpu":
             transformer.init_params(gen, cfg, dtype, device),
         prefill=lambda params, batch, cache_len: transformer.prefill(
-            params, cfg, batch["tokens"], cache_len=cache_len),
+            params, cfg, batch.get("tokens"), cache_len=cache_len,
+            embeds=batch.get("embeds"),
+            mrope_positions=batch.get("mrope_positions")),
         decode_step=lambda params, cache, batch: transformer.decode_step(
-            params, cfg, cache, batch["tokens"]),
+            params, cfg, cache, batch.get("tokens"),
+            embeds=batch.get("embeds")),
         init_cache=lambda b, s, dtype=torch.bfloat16, device="cpu":
             transformer.init_cache(cfg, b, s, dtype, device),
         loss_fn=lambda params, batch, **kw: transformer.loss_fn(
@@ -98,12 +104,34 @@ def _hybrid_api(cfg: ModelConfig) -> ModelAPI:
     )
 
 
+def _encdec_api(cfg: ModelConfig) -> ModelAPI:
+    return ModelAPI(
+        cfg=cfg,
+        init_params=lambda gen, dtype=torch.bfloat16, device="cpu":
+            encdec.init_params(gen, cfg, dtype, device),
+        prefill=lambda params, batch, cache_len: encdec.prefill(
+            params, cfg, batch["tokens"], frames=batch["frames"],
+            cache_len=cache_len),
+        decode_step=lambda params, cache, batch: encdec.decode_step(
+            params, cfg, cache, batch["tokens"]),
+        init_cache=lambda b, s, dtype=torch.bfloat16, device="cpu":
+            encdec.init_cache(cfg, b, s, dtype, device),
+        loss_fn=lambda params, batch, **kw: encdec.loss_fn(
+            params, cfg, batch, **kw),
+        forward=lambda params, batch, **kw: encdec.forward(
+            params, cfg, batch["tokens"], frames=batch["frames"], **kw),
+    )
+
+
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet")
+            f"{cfg.name}: family {cfg.family!r} is not ported")
     if cfg.family == "ssm":
         return _rwkv_api(cfg)
     if cfg.family == "hybrid":
         return _hybrid_api(cfg)
+    if cfg.family == "audio":
+        return _encdec_api(cfg)
+    # dense / moe / vlm share the decoder stack
     return _dense_api(cfg)

@@ -1,14 +1,19 @@
-"""Decoder-only transformer, dense and MoE: init, training forward and
-loss, KV cache, prefill, decode.
+"""Decoder-only transformer, dense, MoE and vision-language: init,
+training forward and loss, KV cache, prefill, decode.
 
-Mirrors the dense and MoE families of the reference
+Mirrors the dense, MoE and vlm families of the reference
 `models/transformer.py`: a MoE layer (`layers.moe`) stands where the
 dense layer's MLP does, in prefill and decode, with the reference's
-`moe_dispatch`. The reference stacks every layer's parameters on a
-leading (L,) axis and scans; here `params["layers"]` is a list of
-per-layer dicts run by a Python loop (`convert.params_from_jax` unstacks
-the reference's layout).
-The KV cache keeps the reference's (L, B, Hkv, S, hd) layout and is
+`moe_dispatch`. The vlm family (qwen2-vl-7b) takes embeddings in place of
+token ids (`embeds`, from a stubbed vision frontend) and rotates by
+M-RoPE where the prefill is given (t, h, w) position streams
+(`mrope_positions`); its decode takes the embedding rows of the last
+token and, as the reference's, plain RoPE at the cache position. The vlm
+family is served only: its training waits for ROADMAP §1 item 6e. The
+reference stacks every layer's parameters on a leading (L,) axis and
+scans; here `params["layers"]` is a list of per-layer dicts run by a
+Python loop (`convert.params_from_jax` unstacks the reference's
+layout). The KV cache keeps the reference's (L, B, Hkv, S, hd) layout and is
 updated in place by `decode_step`.
 
 `forward` and `loss_fn` are the training path: differentiable torch ops
@@ -35,15 +40,19 @@ from .layers import (Params, _attend, _check_supported, _qkv,
 
 
 def _check_served(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: the dense and MoE families are ported here (got "
-            f"family={cfg.family!r}, n_experts={cfg.n_experts})")
+            f"{cfg.name}: the dense, MoE and vlm families are ported here "
+            f"(got family={cfg.family!r}, n_experts={cfg.n_experts})")
     _check_supported(cfg)
 
 
 def _check_trained(cfg: ModelConfig) -> None:
     _check_served(cfg)
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: the vlm family is served, not trained yet "
+            "(ROADMAP §1 item 6e)")
 
 
 def _ffn(lp: Params, cfg: ModelConfig, z: torch.Tensor,
@@ -233,13 +242,22 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     }
 
 
-def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache_len: int, moe_dispatch: str = "sorted"
-            ) -> tuple[torch.Tensor, dict]:
-    """Forward over the prompt (B, T), recording K/V into a fresh cache of
-    `cache_len` slots. Returns (last-token logits (B, 1, V), cache)."""
+def _embed_or(params: Params, tokens: torch.Tensor | None,
+              embeds: torch.Tensor | None) -> torch.Tensor:
+    """The rows of `tokens`, or `embeds` as they are where given."""
+    return embed(params["embed"], tokens) if embeds is None else embeds
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor | None,
+            *, cache_len: int, embeds: torch.Tensor | None = None,
+            mrope_positions: torch.Tensor | None = None,
+            moe_dispatch: str = "sorted") -> tuple[torch.Tensor, dict]:
+    """Forward over the prompt (B, T) — or its embeddings `embeds` (B, T,
+    D), M-RoPE'd at `mrope_positions` (3, B, T) where the config has
+    sections — recording K/V into a fresh cache of `cache_len` slots.
+    Returns (last-token logits (B, 1, V), cache)."""
     _check_served(cfg)
-    x = embed(params["embed"], tokens)
+    x = _embed_or(params, tokens, embeds)
     B, T, _ = x.shape
     if T > cache_len:
         raise ValueError(f"prompt of {T} tokens exceeds cache_len "
@@ -248,7 +266,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     cache = init_cache(cfg, B, cache_len, x.dtype, x.device)
     for i, lp in enumerate(params["layers"]):
         z = rmsnorm(x, lp["ln1"])
-        q, k, v = _qkv(lp["attn"], z, cfg, positions)
+        q, k, v = _qkv(lp["attn"], z, cfg, positions,
+                       mrope_positions=mrope_positions)
         cache["k"][i, :, :, :T] = k
         cache["v"][i, :, :, :T] = v
         h = _attend(q, k, v, cfg, window=cfg.window_for_layer(i))
@@ -259,11 +278,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor, *, moe_dispatch: str = "sorted"
-                ) -> tuple[torch.Tensor, dict]:
-    """One decode step. tokens: (B, 1). Returns (logits (B, 1, V), the
-    cache, updated in place)."""
-    x = embed(params["embed"], tokens)
+                tokens: torch.Tensor | None, *,
+                embeds: torch.Tensor | None = None,
+                moe_dispatch: str = "sorted") -> tuple[torch.Tensor, dict]:
+    """One decode step. tokens: (B, 1), or embeds (B, 1, D) where given.
+    Returns (logits (B, 1, V), the cache, updated in place)."""
+    x = _embed_or(params, tokens, embeds)
     pos = cache["pos"]
     kv_len = pos + 1
     for i, lp in enumerate(params["layers"]):

@@ -2,10 +2,11 @@
 
 The reference keeps a model's parameters as one nested dict whose layer
 leaves are stacked on a leading (L,) axis, and visits the leaves in
-`jax.tree` order: keys sorted, depth first. The port serves from a list
-of per-layer dicts (`params["layers"]`). These helpers give the
-reference's order and its stacked layout, for the trainer's ZeRO-3
-shards and for `ModelAPI.params_spec`.
+`jax.tree` order: keys sorted, depth first. The port serves from lists
+of per-layer dicts (`params["layers"]`; the encoder-decoder's
+`params["encoder"]` and `params["decoder"]`, `LAYER_KEYS`). These
+helpers give the reference's order and its stacked layout, for the
+trainer's ZeRO-3 shards and for `ModelAPI.params_spec`.
 """
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ from typing import Any, Iterable
 import torch
 
 Path = tuple[str, ...]
+# the keys whose value is a list of per-layer dicts in the port's layout
+# and one stacked (L, ...) tree in the reference's
+LAYER_KEYS = ("layers", "encoder", "decoder")
 
 
 def tree_items(tree: Any, prefix: Path = ()) -> list[tuple[Path, Any]]:
@@ -38,23 +42,30 @@ def tree_from_items(items: Iterable[tuple[Path, Any]]) -> dict:
     return out
 
 
-def stack_layers(params: dict) -> dict:
-    """The port's params (a list of per-layer dicts under "layers") in the
-    reference's layout: every layer leaf stacked on a leading (L,) axis
-    (`torch.stack`, so the stacked leaves are copies)."""
-    per_layer = [tree_items(lp) for lp in params["layers"]]
-    return {**params, "layers": tree_from_items(
+def _stack(layers: list[dict]) -> dict:
+    per_layer = [tree_items(lp) for lp in layers]
+    return tree_from_items(
         (group[0][0], torch.stack([leaf for _, leaf in group]))
-        for group in zip(*per_layer, strict=True))}
+        for group in zip(*per_layer, strict=True))
+
+
+def _unstack(stacked: dict) -> list[dict]:
+    items = [(path, leaf.unbind(0)) for path, leaf in tree_items(stacked)]
+    return [tree_from_items((path, views[i]) for path, views in items)
+            for i in range(len(items[0][1]))]
+
+
+def stack_layers(params: dict) -> dict:
+    """The port's params (lists of per-layer dicts under LAYER_KEYS) in
+    the reference's layout: every layer leaf stacked on a leading (L,)
+    axis (`torch.stack`, so the stacked leaves are copies)."""
+    return {k: _stack(v) if k in LAYER_KEYS else v
+            for k, v in params.items()}
 
 
 def unstack_layers(tree: dict) -> dict:
     """The reference's layout → the port's: each stacked (L, ...) layer
     leaf as L views, one a layer, so autograd sums the layers' gradients
     into the stacked leaf."""
-    items = [(path, leaf.unbind(0)) for path, leaf in
-             tree_items(tree["layers"])]
-    n_layers = len(items[0][1])
-    return {**tree, "layers": [
-        tree_from_items((path, views[i]) for path, views in items)
-        for i in range(n_layers)]}
+    return {k: _unstack(v) if k in LAYER_KEYS else v
+            for k, v in tree.items()}

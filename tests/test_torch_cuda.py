@@ -491,7 +491,9 @@ def _row_rel(got, want):
 # template bound and between them (72: a multiple of 8, not of 16), GQA
 # groups 1, 4 and 5, ragged key counts with a row that sees none,
 # windows narrower than a key tile, softcap on and off, no causal mask,
-# and K/V rows whose stride is no multiple of 16 bytes (element staging)
+# and K/V rows whose stride is no multiple of 16 bytes (element staging);
+# groups 7 and 6 at head dim 128 (qwen2-vl-7b's 28/4, mixtral-8x22b's
+# 48/8) and whisper-large-v3's non-causal encoder on 1,500 frames
 @pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,window,softcap,kv_len,causal,pad", [
     (2, 4, 4, 5, 5, 64, 0, 0.0, None, True, 0),
     (2, 8, 2, 17, 40, 72, 0, 50.0, [40, 17], True, 0),
@@ -504,7 +506,12 @@ def _row_rel(got, want):
     (1, 25, 5, 33, 200, 64, 24, 0.0, [180], True, 0),
     (1, 4, 2, 20, 50, 64, 0, 0.0, None, False, 0),
     (2, 8, 2, 33, 60, 72, 8, 0.0, [60, 33], True, 4),
-    (1, 4, 4, 9, 30, 18, 0, 0.0, None, True, 0)])
+    (1, 4, 4, 9, 30, 18, 0, 0.0, None, True, 0),
+    (2, 28, 4, 33, 60, 128, 0, 0.0, [60, 33], True, 0),
+    (1, 28, 4, 130, 130, 128, 0, 0.0, None, True, 0),
+    (2, 48, 8, 40, 40, 128, 16, 0.0, None, True, 0),
+    (1, 48, 8, 70, 200, 128, 4096, 0.0, [200], False, 0),
+    (1, 20, 20, 1500, 1500, 64, 0, 0.0, None, False, 0)])
 def test_flash_attention_prefill_edges(dev, B, Hq, Hkv, Tq, Tk, D, window,
                                        softcap, kv_len, causal, pad):
     q = _rand((B, Tq, Hq, D), 21, dev).to(torch.bfloat16).transpose(1, 2)
@@ -1063,14 +1070,23 @@ def test_smoke_trainer_survives_device_loss_on_card(dev, tmp_path):
 
 # the served head dims the decode kernel had not run before: qwen3-32b's
 # 80 (padded to its 128 template) and gemma3-4b's 256, with a window and
-# without, ragged key counts with a row that sees none, f32 and bf16
+# without, ragged key counts with a row that sees none, f32 and bf16;
+# then the GQA groups 7 (qwen2-vl-7b) and 6 (mixtral-8x22b, its window)
+# at head dim 128, one query a head (7 and 6 rows a key head) and four
+# (28 and 24 rows, past the 8 rows a block), and whisper-large-v3's
+# group 1 at head dim 64
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,window,kv_len", [
     (4, 64, 8, 1, 128, 80, 0, [33, 47, 60, 128]),
     (2, 64, 8, 1, 300, 80, 24, [300, 0]),
     (4, 8, 4, 1, 128, 256, 1024, [33, 47, 60, 128]),
     (1, 8, 4, 1, 1168, 256, 1024, [1160]),
-    (2, 8, 4, 4, 1168, 256, 0, [1160, 7])])
+    (2, 8, 4, 4, 1168, 256, 0, [1160, 7]),
+    (4, 28, 4, 1, 128, 128, 0, [33, 47, 60, 128]),
+    (2, 28, 4, 4, 300, 128, 24, [300, 0]),
+    (4, 48, 8, 1, 128, 128, 4096, [33, 47, 60, 128]),
+    (2, 48, 8, 4, 4416, 128, 4096, [4360, 5]),
+    (4, 20, 20, 1, 128, 64, 0, [33, 47, 60, 128])])
 def test_flash_attention_decode_at_served_head_dims(dev, dtype, B, Hq, Hkv,
                                                     Tq, Tk, D, window,
                                                     kv_len):
@@ -1149,6 +1165,71 @@ def test_smoke_model_on_card_matches_cpu(dev, arch, run):
                 outs.append(logits.cpu())
         launched = ops.LAUNCHES["flash_attention"] - before
         assert launched == (5 * api.cfg.n_layers if where == dev else 0)
+        runs[str(where)] = (torch.stack(outs), torch.stack(toks))
+    (lc, tc), (lg, tg) = runs["cpu"], runs[str(dev)]
+    assert torch.isfinite(lg).all()
+    assert float((lg - lc).abs().max() / lc.abs().max()) <= 1e-4
+    assert torch.equal(tc, tg)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "qwen2-vl-7b",
+                                  "mixtral-8x22b"])
+def test_smoke_family_on_card_matches_cpu(dev, arch):
+    """The smoke-size whisper-large-v3 (12 seeded frames through the
+    non-causal encoder), qwen2-vl-7b (head dim 32, where M-RoPE's h and w
+    sections turn, three distinct position streams, embeddings in) and
+    mixtral-8x22b (4 × 40 tokens, past its 32-key window, through the
+    16-group dispatch) in f32 on the card against the same code on the
+    CPU: prefill and 4 greedy decode steps, logits within 1e-4 of the
+    largest |logit|, the same tokens, every attention on the card a
+    kernel launch (whisper's prefill its encoder's layers too)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import step_batch
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+
+    kw = {"d_head": 32} if arch == "qwen2-vl-7b" else {}
+    cfg = dataclasses.replace(smoke_config(get_config(arch)), **kw)
+    api = build(cfg)
+    params = api.init_params(torch.Generator().manual_seed(0),
+                             torch.float32, "cpu")
+    B, T, cache_len = (4, 40, 48) if arch == "mixtral-8x22b" else (2, 8, 16)
+    gen = torch.Generator().manual_seed(1)
+    if cfg.family == "vlm":
+        batch = {"embeds": torch.randn((B, T, cfg.d_model), generator=gen),
+                 "mrope_positions": torch.randint(0, 2048, (3, B, T),
+                                                  generator=gen)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, T),
+                                         generator=gen)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, 12, cfg.d_model), generator=gen)
+
+    def to(tree, where):
+        if isinstance(tree, dict):
+            return {k: to(v, where) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, where) for v in tree]
+        return tree.to(where)
+
+    runs = {}
+    for where in ("cpu", dev):
+        p = to(params, where)
+        before = ops.LAUNCHES["flash_attention"]
+        with torch.inference_mode():
+            logits, cache = api.prefill(p, to(batch, where), cache_len)
+            outs, toks = [logits.cpu()], []
+            for _ in range(4):
+                tok = logits[:, -1].argmax(dim=-1)
+                toks.append(tok.cpu())
+                logits, cache = api.decode_step(p, cache,
+                                                step_batch(cfg, p, tok))
+                outs.append(logits.cpu())
+        launched = ops.LAUNCHES["flash_attention"] - before
+        assert launched == (5 * cfg.n_layers + cfg.n_encoder_layers
+                            if where == dev else 0)
         runs[str(where)] = (torch.stack(outs), torch.stack(toks))
     (lc, tc), (lg, tg) = runs["cpu"], runs[str(dev)]
     assert torch.isfinite(lg).all()
