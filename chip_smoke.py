@@ -9,14 +9,15 @@
     python3 chip_smoke.py --ft
     python3 chip_smoke.py --moe-train
     python3 chip_smoke.py --recurrent-train
+    python3 chip_smoke.py --family-train
 
 The second and third forms build the kernels and run the attention rows
 or the recurrence rows of phase 2 alone (of another source tree with
 --src: two commits timed on one card in turn), the fourth the planner
 phase (3c) alone, the fifth the flat collectives phase (3b2) alone, the
 sixth phase 5's per-leaf run at the first of TRAIN_FALL_LRS and phase
-ft, the seventh phase 5m alone, the eighth phase 5r alone; none prints a
-result line.
+ft, the seventh phase 5m alone, the eighth phase 5r alone, the ninth
+phase 5f alone; none prints a result line.
 Phases, each of which fails the run (non-zero exit, no result line) on
 any error:
 
@@ -210,7 +211,9 @@ any error:
                 reduce-scatters' fold phases, plus the exchanges' (2 a
                 MoE layer in the forward, 2 in its recompute, 2 in the
                 backward, each the schedule's fold phases), counted
-                apart; no other kernel. Then the smoke-size trainer (8
+                apart; no other kernel; the peak under TRAIN_PEAK_GIB
+                (the full-width body is phase 5r's and 5f's,
+                `train_full_width`). Then the smoke-size trainer (8
                 experts, top 2, 1 shared) in f32 on the card against the
                 CPU, per leaf, EP over one axis (8 ranks) and over
                 TRAIN_MESH ("pod" is the EP axis): per-step loss and
@@ -234,6 +237,31 @@ any error:
                 tokens) in f32 on the card against the CPU: per-step
                 loss and gnorm within 1e-4, exact launches (none on the
                 CPU);
+  5f. family train — the last three configurations' training
+                (`phase_train_family`, TRAIN_FAMILY): qwen2-vl-7b at full
+                width, its depth cut to 3 of 28 layers, on 8 local ranks
+                (its stub embeddings in f32 and three M-RoPE streams, as
+                the trainer's pipeline gives them); whisper-large-v3
+                uncut (32 encoder and 32 decoder layers, 32 stub frames)
+                on 8 ranks; mixtral-8x22b at full width, its depth cut to
+                1 of 56, on 4 ranks (8 experts top 2, window 4096;
+                expert-parallel over the 4, two experts a rank, the
+                exchange the guarded planned all-to-all), each from
+                random bf16 weights, seq 128, global batch 8, 3 steps at
+                lr 1e-4 (the loss must fall), per leaf with
+                `SyncConfig(strategy="plan", bucket_bytes=0)`. Prints the
+                losses, the step time and its parts beside
+                `train_bounds` (whisper's counting its encoder and
+                cross-attention), the peak memory beside its reckoning
+                (under TRAIN_PEAK_GIB, or the run fails), and checks the
+                exact fused_reduce launches (`level_launches`; mixtral's
+                with its exchanges', `moe_launches`) and that wkv,
+                ssm_scan, rmsnorm and flash_attention launch 0 times;
+                then each model's smoke-size trainer (48 tokens; qwen2-vl
+                at head dim 32 with its streams drawn apart; mixtral past
+                its smoke window, EP over 8) in f32 on the card against
+                the CPU: per-step loss and gnorm within 1e-4, the same
+                slots dropped, exact launches (none on the CPU);
   ft       — checkpoints and fault tolerance: `run_training` with a
                 checkpoint directory (FaultTolerantLoop; checkpoints
                 under build/, removed after). (a) phase 5's per-leaf run
@@ -259,10 +287,10 @@ any error:
                 restarts, a checkpoint fallback, a guarded failure, no
                 degraded level left, no demotion, exact launches.
 
-The main path is phases 3, 3b, 3c, 4, 5, 5m, 5r and ft: every launch
-count is zeroed just before the executor, the families, the planner,
-each served run, each full-width training run (the MoE and recurrent
-ones too), the
+The main path is phases 3, 3b, 3c, 4, 5, 5m, 5r, 5f and ft: every
+launch count is zeroed just before the executor, the families, the
+planner, each served run, each full-width training run (the MoE,
+recurrent and phase 5f ones too), the
 `sync_bucketed` runs and each run of phase ft, and read just after. The executor must launch fused_reduce, quantize, quant_reduce and
 dequantize (it runs the compressed wires), the families dequantize;
 grouped_reduce and quant_reduce_requant have no caller on the main path
@@ -380,6 +408,22 @@ TRAIN_MOE = dict(arch="deepseek-moe-16b", layers=2, steps=3, seq_len=128,
 TRAIN_RECURRENT = dict(archs=("rwkv6-1.6b", "hymba-1.5b"), layers=None,
                        steps=3, seq_len=128, global_batch=8, lr=1e-4,
                        local_ranks=8)
+# the last three configurations' training (phase 5f), per leaf at lr
+# 1e-4: (arch, depth or None for the configuration's, local ranks). The
+# reckoning (`family_reckon_bytes`): the ZeRO-3 state (10 B a parameter),
+# the ranks' bf16 gradient rows (2n B) and one gathered copy (2 B), with
+# ≈ 11-12 GiB above that at peak (phases 5 and 5m). qwen2-vl-7b at depth 3
+# of 28: 1.789 G parameters, 46.7 GiB (at depth 4, 2.022 G and 52.7 GiB,
+# the run peaked at 69.05 GiB with expandable segments, and under the
+# default allocator failed the first 545 M leaf's 7.11 GiB reduce-scatter
+# stage with 60.94 GiB allocated and 15.79 GiB reserved in fragments);
+# whisper-large-v3 uncut: 2.020 G, 52.7 GiB; mixtral-8x22b at depth 1 of
+# 56 (2.907 G) does not fit on 8 ranks (75.8 GiB before any temporary),
+# on 4 it reckons 54.1 GiB, EP over the 4 with two experts a rank
+TRAIN_FAMILY = dict(runs=(("qwen2-vl-7b", 3, 8), ("whisper-large-v3", None, 8),
+                          ("mixtral-8x22b", 1, 4)),
+                    steps=3, seq_len=128, global_batch=8, lr=1e-4)
+TRAIN_PEAK_GIB = 70.0  # full-width training (5m, 5r, 5f) peaks under this
 # the per-leaf trainer's other sync labels, at the first of TRAIN_FALL_LRS
 TRAIN_FLAT = ("ring", "rhd", "cps", "hcps", "gentree", "auto")
 TRAIN_SMOKE_STEPS = 3            # smoke-size f32 steps, card against CPU
@@ -2664,7 +2708,9 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
     the bf16 tensor core rate); AdamW at 22 bytes a parameter (bf16
     weight and gradient read, f32 m and v read, all four written back but
     the gradient). A MoE layer's products count its router, shared
-    experts and top_k routed experts a token."""
+    experts and top_k routed experts a token. Where the activations are
+    f32 (a vlm's embeddings; whisper's encoder, `encdec_flops`) the
+    products take the f32 rate."""
     P = sum(int(t.numel()) for t in shards)       # padded, all ranks
     elem = shards[0].element_size()
     dtype = shards[0].dtype
@@ -2701,13 +2747,42 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
             * cfg.n_layers)                      # QK and PV, forward
     if cfg.family in ("ssm", "hybrid"):
         attn = recurrent_flops(cfg, tokens, seq_len)
-    flops = 6 * tokens * matmul + 3 * attn
+    flops, f32_flops = 6 * tokens * matmul + 3 * attn, 0
+    if cfg.family == "vlm":
+        flops, f32_flops = 0, flops
+    elif cfg.family == "audio":
+        flops, f32_flops = encdec_flops(cfg, tokens, seq_len, batch // n)
     fb_bytes = 2 * P * elem
-    rank = max(bound_ms(fb_bytes), flops / BF16_FLOPS * 1e3)
+    flops_ms = (flops / BF16_FLOPS + f32_flops / F32_FLOPS) * 1e3
+    rank = max(bound_ms(fb_bytes), flops_ms)
     return {"gather": bound_ms(gather), "forward_backward": n * rank,
             "reduce_scatter": bound_ms(scatter), "adamw": bound_ms(22 * P),
-            "rank_bytes_ms": bound_ms(fb_bytes),
-            "rank_flops_ms": flops / BF16_FLOPS * 1e3}
+            "rank_bytes_ms": bound_ms(fb_bytes), "rank_flops_ms": flops_ms}
+
+
+def encdec_flops(cfg, tokens: int, seq_len: int, rows: int
+                 ) -> tuple[int, int]:
+    """(bf16, f32) operations of one rank's forward and backward through
+    the encoder-decoder (3 × the forward's; the products 2 a weight a
+    token): its `rows` rows of AUDIO_FRAMES stub frames through the
+    encoder, in f32 (the frames are f32); its `tokens` decoder tokens
+    (rows of `seq_len`) through the decoder's products in bf16, and the
+    cross-attention K/V products of the encoder states in f32; every
+    attention's QK and PV (the encoder's, the decoder's causal and its
+    cross-attention over the frames) in f32."""
+    from repro_torch.launch.train import AUDIO_FRAMES
+    d, f, H, Hkv, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim)
+    te = rows * AUDIO_FRAMES                     # encoder tokens
+    attn_w = d * hd * (2 * H + 2 * Hkv)          # wq, wk, wv, wo
+    mlp_w = 3 * d * f
+    enc = cfg.n_encoder_layers * (2 * te * (attn_w + mlp_w)
+                                  + 4 * te * AUDIO_FRAMES * H * hd)
+    dec = (cfg.n_layers * 2 * tokens * (attn_w + mlp_w + 2 * d * H * hd)
+           + 2 * tokens * d * cfg.vocab)         # + xattn wq, wo; lm_head
+    cross = cfg.n_layers * (2 * te * 2 * d * Hkv * hd    # xattn wk, wv
+                            + 4 * tokens * (seq_len + AUDIO_FRAMES) * H * hd)
+    return 3 * dec, 3 * (enc + cross)
 
 
 def recurrent_flops(cfg, tokens: int, seq_len: int) -> int:
@@ -2728,18 +2803,22 @@ def recurrent_flops(cfg, tokens: int, seq_len: int) -> int:
 
 
 def train_run(api, params, n, lr: float, steps: int, seq_len: int,
-              global_batch: int, seed: int = 0, sync=None, param_dtype=None):
+              global_batch: int, seed: int = 0, sync=None, param_dtype=None,
+              edit=None):
     """`steps` steps of `make_manual_train_step` on `api` from `params`
     (the port's per-layer tree, on the device the run takes) on the local
     mesh `n` (a rank count, or (axis, size) pairs), with `sync`
     (default: the step's own, the per-leaf path) and shards of
-    `param_dtype` (default bf16): the state, per-step losses, gnorms,
+    `param_dtype` (default bf16), on the trainer's pipeline
+    (`train.data_config`: stub embeddings, M-RoPE streams and frames
+    where the model takes them), each step's numpy batch passed through
+    `edit(batch, step)` where given: the state, per-step losses, gnorms,
     host-clock step times (each ending in the loss's copy to the host),
     device times of the step's parts, and the step."""
-    import numpy as np
     import torch
-    from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.launch.train import (make_manual_train_step, phase_ms,
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import (batch_tensors, data_config,
+                                          make_manual_train_step, phase_ms,
                                           shard_params_zero3)
     from repro_torch.optim import AdamWConfig, adamw_init
 
@@ -2751,15 +2830,15 @@ def train_run(api, params, n, lr: float, steps: int, seq_len: int,
     step = make_manual_train_step(api, n, AdamWConfig(lr=lr), device=where,
                                   param_dtype=param_dtype or torch.bfloat16,
                                   **kw)
-    data = SyntheticLM(DataConfig(vocab=api.cfg.vocab, seq_len=seq_len,
-                                  global_batch=global_batch, seed=seed))
+    data = SyntheticLM(data_config(api.cfg, seq_len, global_batch, seed))
     out = {"losses": [], "gnorms": [], "step_s": [], "phase_ms": [],
            "ep_exchanges": []}
     for s in range(steps):
         t0 = time.perf_counter()
-        batch = {k: torch.as_tensor(np.asarray(v), device=where).long()
-                 for k, v in data.batch_at(s).items()}
-        state, m = step(state, batch)
+        batch = data.batch_at(s)
+        if edit is not None:
+            batch = edit(batch, s)
+        state, m = step(state, batch_tensors(batch, where))
         loss, gnorm = float(m["loss"]), float(m["gnorm"])
         out["step_s"].append(time.perf_counter() - t0)
         out["losses"].append(loss)
@@ -3567,210 +3646,66 @@ def moe_launches(step, leaves: int, steps: int, exchanges: int) -> dict:
 
 
 def phase_train_moe(dev) -> dict:
-    """Phase 5m: the MoE trainer at full width, then the smoke-size one on
-    the card against the CPU (module docstring). Returns the full-width
-    run's kernel launches."""
+    """Phase 5m: the MoE trainer at full width (`train_full_width`), its
+    exchange timed alone and its landing fold as a kernel row, then the
+    smoke-size trainer on the card against the CPU (module docstring).
+    Returns the full-width run's kernel launches."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import collectives
-    from repro_torch.core.sync import SyncConfig
-    from repro_torch.kernels import ops
-    from repro_torch.launch.train import PHASES
-    from repro_torch.models import layers
-    from repro_torch.models.registry import build
 
     t_phase = time.perf_counter()
     tr = TRAIN_MOE
     full_cfg = get_config(tr["arch"])
     cfg = dataclasses.replace(full_cfg, n_layers=tr["layers"])
-    n, steps, L = tr["local_ranks"], tr["steps"], cfg.n_layers
-    sync = SyncConfig(strategy="plan", bucket_bytes=0)
-    torch.empty(1, device=dev)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    api = build(cfg)
-    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
-                             torch.bfloat16, dev)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    with ExchangeRecorder() as ex, RouteRecorder() as routes:
-        res = train_run(api, params, n, tr["lr"], steps, tr["seq_len"],
-                        tr["global_batch"], sync=sync)
-    wall = time.perf_counter() - t0
-    counts = dict(ops.LAUNCHES)
-    del params
-    peak = torch.cuda.max_memory_allocated(dev)
-    step = res["step"]
-    shards = res["state"]["params"]
-    losses, gnorms = res["losses"], res["gnorms"]
-    (plan,) = step.plans
-    cs = plan.schedule.inner
     label = "train [MoE, EP plan]"
-    if step.ep != ("data", n) or step.ep_schedule is None:
-        fail(f"{label}: the step's EP is {step.ep}, schedule "
-             f"{step.ep_schedule}")
-    e_cs = step.ep_schedule
-    per_step = {"forward": 2 * L, "recompute": 2 * L, "backward": 2 * L}
-    if res["ep_exchanges"] != [per_step] * steps:
-        fail(f"{label}: exchanges {res['ep_exchanges']}, expected "
-             f"{per_step} a step")
-    n_ex = 6 * L * steps
-    want = moe_launches(step, len(shards), steps, n_ex)
-    ex_launches = sum(c["launches"] for c in ex.calls)
-    drops, margin = routes.per_step(steps, L, n)
-    E, k = cfg.n_experts, cfg.top_k
-    tokens = tr["seq_len"] * tr["global_batch"] // n
-    cap = layers.moe_capacity(tokens, k, E, 1.25)
-    log(f"{label}: {cfg.name} layers={L} (cut from {full_cfg.n_layers}) "
-        f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} experts {E} "
-        f"top {k} shared {cfg.n_shared_experts} d_ff_expert "
-        f"{cfg.d_ff_expert} vocab={cfg.vocab}; "
-        f"{sum(t.numel() for t in shards) / 1e6:.1f} M parameters (padded)"
-        f" in {len(shards)} leaves; {n} local ranks, seq {tr['seq_len']}, "
-        f"global batch {tr['global_batch']}, lr {tr['lr']}; EP over "
-        f"{step.ep} ({E // n} experts a rank, capacity {cap} a rank's "
-        f"{tokens} tokens); sync plan {cs.describe()}; exchange "
-        f"{e_cs.inner.describe()}; losses {losses}; gnorms {gnorms}; "
-        f"slots dropped a step {drops} of {n * L * tokens * k}; smallest "
-        f"top-k margin {margin:.3e}; wall {wall:.1f} s; peak memory "
-        f"{peak / 2**30:.2f} GiB")
-    if not all(math.isfinite(x) for x in losses + gnorms):
-        fail(f"{label}: non-finite loss or gnorm: {losses} {gnorms}")
-    if not losses[-1] < losses[0]:
-        fail(f"{label}: the loss did not fall at lr {tr['lr']}: {losses}")
-    log(f"{label}: fused_reduce launches {counts['fused_reduce']}: "
-        f"gathers and reduce-scatters {counts['fused_reduce'] - ex_launches}"
-        f" (expected {want['sync']}), exchanges {ex_launches} = {n_ex} "
-        f"exchanges ({steps} steps x {L} layers x (2 forward + 2 recompute"
-        f" + 2 backward)) x {exchange_folds(step)} fold phases (expected "
-        f"{want['exchange']}); launches {json.dumps(counts)}; guard "
-        f"{json.dumps(plan.schedule.stats)}; exchange guard "
-        f"{json.dumps(e_cs.stats)}")
-    if (counts["fused_reduce"] != want["fused_reduce"]
-            or ex_launches != want["exchange"] or len(ex.calls) != n_ex):
-        fail(f"{label}: fused_reduce {counts['fused_reduce']} (exchanges "
-             f"{ex_launches} in {len(ex.calls)} calls), expected {want} in "
-             f"{n_ex} calls")
-    for name, c in counts.items():
-        if name != "fused_reduce" and c:
-            fail(f"{label} launched {name} {c} time(s)")
-    for sc in (plan.schedule, e_cs):
-        if sc.demotions or sc.stats["failures"]:
-            fail(f"{label}: guard {sc.stats}, {sc.demotions} demotion(s)")
-    ex_ms = ex.ms()
-    buf = ex.calls[0]
-    ex_bytes = 2 * math.prod(buf["shape"]) * buf["dtype"].itemsize
-    sched_b = schedule_bytes(e_cs.inner, math.prod(buf["shape"][1:]),
-                             buf["dtype"], family_steps(e_cs.inner,
-                                                        "all_to_all"))
-    step_ms = statistics.median(res["step_s"][1:]) * 1e3
-    parts = {kk: statistics.median(pm[kk] for pm in res["phase_ms"][1:])
-             for kk in PHASES}
-    bounds = train_bounds(cfg, cs, shards, n, tr["seq_len"],
-                          tr["global_batch"], step, plan)
-    ex_step = sum(ex_ms[len(ex_ms) // steps:2 * len(ex_ms) // steps])
-    x = torch.randn(buf["shape"], device=dev).to(buf["dtype"])
-    with FoldRecorder() as folds:
-        alone = device_ms(lambda: collectives.all_to_all(
-            x, "data", schedule=e_cs))
-    # fused_reduce at the exchange's landing shape (gathered form, the
-    # schedule's first landing table)
-    src_shape, src_dtype, table, out_shape, out_dtype = next(iter(
-        folds.calls.values()))
-    r = measure(fused_reduce_into_case(src_shape, src_dtype, table,
-                                       out_shape, out_dtype, dev))
-    log_rows([("fused_reduce", f"EP exchange landing: into B="
-               f"{table.rows.shape[0]} K={table.rows.shape[1]} L="
-               f"{src_shape[1]} {src_dtype}->{out_dtype}", r)])
-    if r["max_abs_err"] != 0.0:
-        fail(f"fused_reduce at the exchange's landing differs from its "
-             f"plain version by {r['max_abs_err']}")
-    log(f"{label}: step time median of steps 2-{steps} {step_ms:.1f} ms "
-        f"(first {res['step_s'][0] * 1e3:.1f} ms; steps "
-        f"{[round(v * 1e3, 1) for v in res['step_s']]}); device parts "
-        + ", ".join(f"{kk} {parts[kk]:.2f} ms (bound {bounds[kk]:.2f})"
-                    for kk in PHASES)
-        + f"; one rank's forward and backward bound: bytes "
-        f"{bounds['rank_bytes_ms']:.3f} ms, products "
-        f"{bounds['rank_flops_ms']:.3f} ms; exchanges: "
-        f"{len(ex_ms) // steps} a step of {buf['shape']} {buf['dtype']} "
-        f"({math.prod(buf['shape'][1:]) * buf['dtype'].itemsize / 2**20:.2f}"
-        f" MiB a rank), device ms a step (step 2) {ex_step:.3f}, each "
-        f"median {statistics.median(ex_ms):.4f} (min {min(ex_ms):.4f}, max "
-        f"{max(ex_ms):.4f}) against the in+out bound "
-        f"{bound_ms(ex_bytes):.4f} and the schedule's byte bound "
-        f"{bound_ms(sched_b):.4f}; alone {alone:.4f} ms")
-    del res, shards, step, x, folds
-    torch.cuda.empty_cache()
-    for mesh, mlabel in ((n, "EP over data (8)"),
+
+    def exchange_alone(res, ex):
+        e_cs = res["step"].ep_schedule
+        ex_ms = ex.ms()
+        buf = ex.calls[0]
+        ex_bytes = 2 * math.prod(buf["shape"]) * buf["dtype"].itemsize
+        sched_b = schedule_bytes(e_cs.inner, math.prod(buf["shape"][1:]),
+                                 buf["dtype"], family_steps(e_cs.inner,
+                                                            "all_to_all"))
+        steps = tr["steps"]
+        ex_step = sum(ex_ms[len(ex_ms) // steps:2 * len(ex_ms) // steps])
+        x = torch.randn(buf["shape"], device=dev).to(buf["dtype"])
+        with FoldRecorder() as folds:
+            alone = device_ms(lambda: collectives.all_to_all(
+                x, "data", schedule=e_cs))
+        # fused_reduce at the exchange's landing shape (gathered form, the
+        # schedule's first landing table)
+        src_shape, src_dtype, table, out_shape, out_dtype = next(iter(
+            folds.calls.values()))
+        r = measure(fused_reduce_into_case(src_shape, src_dtype, table,
+                                           out_shape, out_dtype, dev))
+        log_rows([("fused_reduce", f"EP exchange landing: into B="
+                   f"{table.rows.shape[0]} K={table.rows.shape[1]} L="
+                   f"{src_shape[1]} {src_dtype}->{out_dtype}", r)])
+        if r["max_abs_err"] != 0.0:
+            fail(f"fused_reduce at the exchange's landing differs from its "
+                 f"plain version by {r['max_abs_err']}")
+        mib = math.prod(buf["shape"][1:]) * buf["dtype"].itemsize / 2**20
+        log(f"{label}: exchanges {len(ex_ms) // steps} a step of "
+            f"{buf['shape']} {buf['dtype']} ({mib:.2f} MiB a rank), device "
+            f"ms a step (step 2) {ex_step:.3f}, each median "
+            f"{statistics.median(ex_ms):.4f} (min {min(ex_ms):.4f}, max "
+            f"{max(ex_ms):.4f}) against the in+out bound "
+            f"{bound_ms(ex_bytes):.4f} and the schedule's byte bound "
+            f"{bound_ms(sched_b):.4f}; alone {alone:.4f} ms; exchange guard "
+            f"{json.dumps(e_cs.stats)}")
+
+    counts = train_full_width(dev, cfg, full_cfg.n_layers, tr["local_ranks"],
+                              tr, label, then=exchange_alone)
+    for mesh, mlabel in ((tr["local_ranks"], "EP over data (8)"),
                          (TRAIN_MESH, "(pod 2, data 4), EP over pod (2)")):
-        phase_train_moe_reference(dev, mesh, mlabel)
+        phase_train_smoke_reference(dev, tr["arch"], f"MoE smoke, {mlabel}",
+                                    mesh=mesh, seq_len=32)
     log(f"phase moe train: wall {time.perf_counter() - t_phase:.1f} s")
     return counts
-
-
-def phase_train_moe_reference(dev, mesh, label: str) -> None:
-    """The MoE trainer at smoke size in f32 on the card against the same
-    code on the CPU, per leaf, from one state and the same batches, on
-    the local mesh `mesh`: TRAIN_SMOKE_STEPS steps, per-step loss and
-    gnorm within 1e-4 relative, the same slots dropped on both, the
-    final shards as `shard_drift` says, fused_reduce launched exactly
-    (`moe_launches`) on the card and nothing on the CPU."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core.sync import SyncConfig
-    from repro_torch.kernels import ops
-    from repro_torch.models.config import smoke_config
-    from repro_torch.models.registry import build
-
-    t0 = time.perf_counter()
-    api = build(smoke_config(get_config(TRAIN_MOE["arch"])))
-    params = api.init_params(torch.Generator().manual_seed(0), torch.float32,
-                             "cpu")
-    lr, steps = TRAIN["lr"], TRAIN_SMOKE_STEPS
-    sync = SyncConfig(strategy="plan", bucket_bytes=0)
-    runs, drops, counts = {}, {}, {}
-    for where in ("cpu", dev):
-        ops.reset_launches()
-        with RouteRecorder() as routes:
-            runs[str(where)] = train_run(api, _to(params, where), mesh, lr,
-                                         steps, 32, TRAIN["global_batch"],
-                                         sync=sync,
-                                         param_dtype=torch.float32)
-        counts[str(where)] = dict(ops.LAUNCHES)
-        drops[str(where)] = routes.per_step(steps, api.cfg.n_layers, 8)
-    card, cpu = runs[str(dev)], runs["cpu"]
-    step = card["step"]
-    want = moe_launches(step, len(card["state"]["params"]), steps,
-                        6 * api.cfg.n_layers * steps)
-    metric_err = max(abs(g - c) / abs(c) for kk in ("losses", "gnorms")
-                     for g, c in zip(card[kk], cpu[kk]))
-    far, total, worst = shard_drift([t.cpu() for t in card["state"]["params"]],
-                                    cpu["state"]["params"], lr, steps)
-    log(f"train [MoE smoke, {label}]: f32 {steps} steps card vs CPU, EP "
-        f"{step.ep}, exchange {step.ep_schedule.inner.describe()}: losses "
-        f"{card['losses']} / {cpu['losses']}, gnorms {card['gnorms']} / "
-        f"{cpu['gnorms']}; rel err {metric_err:.2e}; slots dropped a step "
-        f"{drops[str(dev)][0]} / {drops['cpu'][0]}, smallest top-k margin "
-        f"{drops[str(dev)][1]:.3e} / {drops['cpu'][1]:.3e}; final shards: "
-        f"{far} of {total} elements past 1e-4 of their leaf's largest "
-        f"|value|, the farthest {worst:.3f} of 2·lr·steps; card launches "
-        f"{counts[str(dev)]['fused_reduce']} (expected {want}); wall "
-        f"{time.perf_counter() - t0:.1f} s")
-    if not (metric_err <= 1e-4 and far <= 1e-4 * total and worst <= 1.0):
-        fail(f"the card's smoke-size MoE trainer [{label}] disagrees with "
-             f"the CPU run: {metric_err:.2e}, {far} of {total} shard "
-             f"elements, {worst:.3f}")
-    if drops[str(dev)][0] != drops["cpu"][0]:
-        fail(f"MoE smoke [{label}]: drops {drops}")
-    if counts[str(dev)]["fused_reduce"] != want["fused_reduce"] or any(
-            c for kk, c in counts[str(dev)].items() if kk != "fused_reduce"):
-        fail(f"MoE smoke [{label}]: card launches {counts[str(dev)]}, "
-             f"expected {want}")
-    if any(counts["cpu"].values()):
-        fail(f"MoE smoke [{label}]: the CPU run launched {counts['cpu']}")
 
 
 # ---------------------------------------------------------------------------
@@ -3781,100 +3716,28 @@ MODEL_KERNELS = ("wkv", "ssm_scan", "rmsnorm", "flash_attention")
 
 def phase_train_recurrent(dev) -> dict:
     """Phase 5r: each of TRAIN_RECURRENT's models through the ZeRO-3
-    trainer at full width, then its smoke-size trainer on the card against
-    the CPU (module docstring). Returns the full-width runs' kernel
-    launches, summed."""
+    trainer at full width (`train_full_width`), one rank's pass profiled,
+    then its smoke-size trainer on the card against the CPU (module
+    docstring). Returns the full-width runs' kernel launches, summed."""
     import dataclasses
 
-    import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.sync import SyncConfig
-    from repro_torch.kernels import ops
-    from repro_torch.launch.train import PHASES
     from repro_torch.models.registry import build
 
     t_phase = time.perf_counter()
     tr = TRAIN_RECURRENT
-    n, steps = tr["local_ranks"], tr["steps"]
-    sync = SyncConfig(strategy="plan", bucket_bytes=0)
     total: dict = {}
     for arch in tr["archs"]:
         full_cfg = get_config(arch)
         cfg = (full_cfg if tr["layers"] is None
                else dataclasses.replace(full_cfg, n_layers=tr["layers"]))
-        torch.empty(1, device=dev)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        api = build(cfg)
-        params = api.init_params(torch.Generator(device=dev).manual_seed(0),
-                                 torch.bfloat16, dev)
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        res = train_run(api, params, n, tr["lr"], steps, tr["seq_len"],
-                        tr["global_batch"], sync=sync)
-        wall = time.perf_counter() - t0
-        counts = dict(ops.LAUNCHES)
-        by_kernel = dict(ops.ATTENTION_LAUNCHES)
-        del params
-        peak = torch.cuda.max_memory_allocated(dev)
-        step = res["step"]
-        shards = res["state"]["params"]
-        losses, gnorms = res["losses"], res["gnorms"]
-        (plan,) = step.plans
-        cs = plan.schedule.inner
-        label = f"train [recurrent, {arch}]"
-        largest = max(shards, key=lambda t: t.numel())
-        log(f"{label}: layers={cfg.n_layers} (of {full_cfg.n_layers}) "
-            f"d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
-            f"head_dim={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab}"
-            + (f" ssm {cfg.ssm_expand * cfg.d_model} x {cfg.ssm_state}"
-               f" windows {cfg.window_pattern}"
-               if cfg.family == "hybrid" else "")
-            + f"; {sum(t.numel() for t in shards) / 1e6:.1f} M parameters "
-            f"(padded) in {len(shards)} leaves, the largest "
-            f"{largest.numel() / 1e6:.1f} M; {n} local ranks, seq "
-            f"{tr['seq_len']}, global batch {tr['global_batch']}, lr "
-            f"{tr['lr']}; sync plan {cs.describe()}; losses {losses}; "
-            f"gnorms {gnorms}; wall {wall:.1f} s; peak memory "
-            f"{peak / 2**30:.2f} GiB")
-        if not all(math.isfinite(x) for x in losses + gnorms):
-            fail(f"{label}: non-finite loss or gnorm: {losses} {gnorms}")
-        if not losses[-1] < losses[0]:
-            fail(f"{label}: the loss did not fall at lr {tr['lr']}: "
-                 f"{losses}")
-        want = level_launches(step, len(shards), steps)
-        log(f"{label}: launches {json.dumps(counts)} (expected {want}: "
-            f"{steps} steps x {len(shards)} leaves x the gather's and "
-            f"reduce-scatter's fold phases); attention kernels "
-            f"{json.dumps(by_kernel)}; guard "
-            f"{json.dumps(plan.schedule.stats)}")
-        if {k: c for k, c in counts.items() if c} != want:
-            fail(f"{label}: launches {counts}, expected {want}")
-        if any(counts[k] for k in MODEL_KERNELS) or any(by_kernel.values()):
-            fail(f"{label}: the training step launched a model kernel: "
-                 f"{counts} {by_kernel}")
-        if plan.schedule.demotions or plan.schedule.stats["failures"]:
-            fail(f"{label}: guard {plan.schedule.stats}, "
-                 f"{plan.schedule.demotions} demotion(s)")
-        step_ms = statistics.median(res["step_s"][1:]) * 1e3
-        parts = {kk: statistics.median(pm[kk] for pm in res["phase_ms"][1:])
-                 for kk in PHASES}
-        bounds = train_bounds(cfg, cs, shards, n, tr["seq_len"],
-                              tr["global_batch"], step, plan)
-        log(f"{label}: step time median of steps 2-{steps} {step_ms:.1f} ms "
-            f"(first {res['step_s'][0] * 1e3:.1f} ms; steps "
-            f"{[round(v * 1e3, 1) for v in res['step_s']]}); device parts "
-            + ", ".join(f"{kk} {parts[kk]:.2f} ms (bound {bounds[kk]:.2f})"
-                        for kk in PHASES)
-            + f"; sum {sum(parts.values()):.2f} ms; one rank's forward and "
-            f"backward bound: bytes {bounds['rank_bytes_ms']:.3f} ms, "
-            f"products {bounds['rank_flops_ms']:.3f} ms")
+        counts = train_full_width(dev, cfg, full_cfg.n_layers,
+                                  tr["local_ranks"], tr,
+                                  f"train [recurrent, {arch}]")
         for k, c in counts.items():
             total[k] = total.get(k, 0) + c
-        del res, shards, step, largest
-        torch.cuda.empty_cache()
-        recurrent_profile(dev, api, tr["seq_len"])
-        phase_train_recurrent_reference(dev, arch)
+        recurrent_profile(dev, build(cfg), tr["seq_len"])
+        phase_train_smoke_reference(dev, arch, f"recurrent smoke, {arch}")
     log(f"phase recurrent train: wall {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -3941,14 +3804,211 @@ def recurrent_profile(dev, api, seq_len: int) -> None:
         log(f"{label}: {us / 1e3:.2f} ms in {count} x {name[:90]}")
 
 
-def phase_train_recurrent_reference(dev, arch: str) -> None:
-    """`arch`'s trainer at smoke size in f32 on the card against the same
-    code on the CPU, per leaf on 8 ranks, from one state and the same
-    batches (48 tokens: two WKV chunks of 24, three SSM chunks of 16,
-    past the smoke window of 32): TRAIN_SMOKE_STEPS steps, per-step loss
-    and gnorm within 1e-4 relative, the final shards as `shard_drift`
-    says, fused_reduce alone launched exactly (`level_launches`) on the
-    card and nothing on the CPU."""
+# ---------------------------------------------------------------------------
+# the last three configurations' training
+# ---------------------------------------------------------------------------
+def family_reckon_bytes(cfg, n: int) -> int:
+    """The per-leaf trainer's memory reckoning of `cfg` on n ranks (phases
+    5r and 5f print it beside the peak): the ZeRO-3 state
+    (`_state_bytes`), the ranks' bf16 gradient rows (n · 2 B a parameter)
+    and one gathered bf16 copy, before any temporary."""
+    import torch
+    from repro_torch.models.registry import build
+    from repro_torch.models.tree import tree_items
+    params = sum(math.prod(t.shape) for _, t in tree_items(
+        build(cfg).params_spec(torch.bfloat16)))
+    return _state_bytes(cfg, n) + (2 * n + 2) * params
+
+
+def train_full_width(dev, cfg, full_layers: int, n: int, tr: dict,
+                     label: str, then=None) -> dict:
+    """`cfg` (depth cut from `full_layers` where it differs) through the
+    ZeRO-3 trainer on n local ranks from random bf16 weights, `tr`'s
+    steps, seq, global batch and lr, per leaf with
+    `SyncConfig(strategy="plan", bucket_bytes=0)`, every launch count
+    zeroed just before and read just after. Checks finite losses falling
+    at that lr, a peak under TRAIN_PEAK_GIB, the exact fused_reduce
+    launches (`level_launches`; a MoE model's EP over "data" with its
+    exchanges', `moe_launches`), no model kernel and no guard failure;
+    prints them, the step time and its parts beside `train_bounds`. Then
+    `then(res, ex)`, where given, while the run's state is alive. Returns
+    the launches."""
+    import torch
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import AUDIO_FRAMES, PHASES
+    from repro_torch.models.layers import moe_capacity
+    from repro_torch.models.registry import build
+
+    steps = tr["steps"]
+    L = cfg.n_layers
+    sync = SyncConfig(strategy="plan", bucket_bytes=0)
+    torch.empty(1, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    api = build(cfg)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             torch.bfloat16, dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with ExchangeRecorder() as ex, RouteRecorder() as routes:
+        res = train_run(api, params, n, tr["lr"], steps, tr["seq_len"],
+                        tr["global_batch"], sync=sync)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    by_kernel = dict(ops.ATTENTION_LAUNCHES)
+    del params
+    peak = torch.cuda.max_memory_allocated(dev)
+    reserved = torch.cuda.max_memory_reserved(dev)
+    step = res["step"]
+    shards = res["state"]["params"]
+    losses, gnorms = res["losses"], res["gnorms"]
+    (plan,) = step.plans
+    cs = plan.schedule.inner
+    largest = max(shards, key=lambda t: t.numel())
+    reckon = family_reckon_bytes(cfg, n)
+    log(f"{label}: {cfg.family}, layers={L} (of {full_layers})"
+        + (f" + {cfg.n_encoder_layers} encoder layers, "
+           f"{AUDIO_FRAMES} stub frames"
+           if cfg.family == "audio" else "")
+        + f" d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"head_dim={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab}"
+        + (f" experts {cfg.n_experts} top {cfg.top_k} shared "
+           f"{cfg.n_shared_experts} d_ff_expert {cfg.d_ff_expert} windows "
+           f"{cfg.window_pattern}"
+           if cfg.n_experts else "")
+        + (f" M-RoPE sections {cfg.mrope_sections}"
+           if cfg.mrope_sections else "")
+        + (f" ssm {cfg.ssm_expand * cfg.d_model} x {cfg.ssm_state}"
+           f" windows {cfg.window_pattern}"
+           if cfg.family == "hybrid" else "")
+        + f"; {sum(t.numel() for t in shards) / 1e6:.1f} M parameters "
+        f"(padded) in {len(shards)} leaves, the largest "
+        f"{largest.numel() / 1e6:.1f} M; {n} local ranks, seq "
+        f"{tr['seq_len']}, global batch {tr['global_batch']}, lr "
+        f"{tr['lr']}; sync plan {cs.describe()}"
+        + (f"; EP over {step.ep}, exchange "
+           f"{step.ep_schedule.inner.describe()}" if step.ep else "")
+        + f"; losses {losses}; gnorms {gnorms}; wall {wall:.1f} s; peak "
+        f"memory {peak / 2**30:.2f} GiB (reckoned {reckon / 2**30:.2f} "
+        f"GiB before temporaries; {reserved / 2**30:.2f} GiB reserved)")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"{label}: non-finite loss or gnorm: {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall at lr {tr['lr']}: "
+             f"{losses}")
+    if peak / 2**30 >= TRAIN_PEAK_GIB:
+        fail(f"{label}: peak memory {peak / 2**30:.2f} GiB, not under "
+             f"{TRAIN_PEAK_GIB}")
+    if cfg.n_experts:
+        per_step = {"forward": 2 * L, "recompute": 2 * L,
+                    "backward": 2 * L}
+        if (step.ep != ("data", n) or step.ep_schedule is None
+                or res["ep_exchanges"] != [per_step] * steps):
+            fail(f"{label}: EP {step.ep}, schedule {step.ep_schedule}, "
+                 f"exchanges {res['ep_exchanges']}, expected {per_step} a "
+                 f"step over ('data', {n})")
+        n_ex = 6 * L * steps
+        want = {"fused_reduce": moe_launches(step, len(shards), steps,
+                                             n_ex)["fused_reduce"]}
+        ex_launches = sum(c["launches"] for c in ex.calls)
+        drops, margin = routes.per_step(steps, L, n)
+        ex_ms = ex.ms()
+        tokens = tr["seq_len"] * tr["global_batch"] // n
+        log(f"{label}: {n_ex} exchanges of {ex.calls[0]['shape']} "
+            f"{ex.calls[0]['dtype']}, {ex_launches} fused_reduce "
+            f"launches in them ({exchange_folds(step)} an exchange), "
+            f"device ms each median {statistics.median(ex_ms):.4f}; "
+            f"{cfg.n_experts // n} experts a rank, capacity "
+            f"{moe_capacity(tokens, cfg.top_k, cfg.n_experts, 1.25)} a "
+            f"rank's {tokens} tokens; slots dropped a step {drops} of "
+            f"{n * L * tokens * cfg.top_k}; smallest top-k margin "
+            f"{margin:.3e}")
+        if (len(ex.calls) != n_ex
+                or ex_launches != n_ex * exchange_folds(step)):
+            fail(f"{label}: {len(ex.calls)} exchanges launching "
+                 f"{ex_launches}, expected {n_ex} of "
+                 f"{exchange_folds(step)}")
+    else:
+        want = level_launches(step, len(shards), steps)
+        if ex.calls or routes.calls:
+            fail(f"{label}: {len(ex.calls)} exchanges, "
+                 f"{len(routes.calls)} routes in a model without MoE")
+    log(f"{label}: launches {json.dumps(counts)} (expected {want}: "
+        f"{steps} steps x {len(shards)} leaves x the gather's and "
+        f"reduce-scatter's fold phases"
+        + (" + the exchanges'" if step.ep else "")
+        + f"); attention kernels {json.dumps(by_kernel)}; guard "
+        f"{json.dumps(plan.schedule.stats)}")
+    if {k: c for k, c in counts.items() if c} != want:
+        fail(f"{label}: launches {counts}, expected {want}")
+    if any(counts[k] for k in MODEL_KERNELS) or any(by_kernel.values()):
+        fail(f"{label}: the training step launched a model kernel: "
+             f"{counts} {by_kernel}")
+    for sc in (plan.schedule, step.ep_schedule):
+        if sc is not None and (sc.demotions or sc.stats["failures"]):
+            fail(f"{label}: guard {sc.stats}, {sc.demotions} "
+                 "demotion(s)")
+    step_ms = statistics.median(res["step_s"][1:]) * 1e3
+    parts = {kk: statistics.median(pm[kk] for pm in res["phase_ms"][1:])
+             for kk in PHASES}
+    bounds = train_bounds(cfg, cs, shards, n, tr["seq_len"],
+                          tr["global_batch"], step, plan)
+    log(f"{label}: step time median of steps 2-{steps} {step_ms:.1f} ms "
+        f"(first {res['step_s'][0] * 1e3:.1f} ms; steps "
+        f"{[round(v * 1e3, 1) for v in res['step_s']]}); device parts "
+        + ", ".join(f"{kk} {parts[kk]:.2f} ms (bound {bounds[kk]:.2f})"
+                    for kk in PHASES)
+        + f"; sum {sum(parts.values()):.2f} ms; one rank's forward and "
+        f"backward bound: bytes {bounds['rank_bytes_ms']:.3f} ms, "
+        f"products {bounds['rank_flops_ms']:.3f} ms")
+    if then is not None:
+        then(res, ex)
+    del res, shards, step, largest
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_family(dev) -> dict:
+    """Phase 5f: each of TRAIN_FAMILY's models through the ZeRO-3 trainer
+    at full width (`train_full_width`), then its smoke-size trainer on
+    the card against the CPU (module docstring). Returns the full-width
+    runs' kernel launches, summed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    tr = TRAIN_FAMILY
+    total: dict = {}
+    for arch, layers, n in tr["runs"]:
+        full_cfg = get_config(arch)
+        cfg = (full_cfg if layers is None
+               else dataclasses.replace(full_cfg, n_layers=layers))
+        counts = train_full_width(dev, cfg, full_cfg.n_layers, n, tr,
+                                  f"train [family, {arch}]")
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c
+        phase_train_smoke_reference(dev, arch, f"family smoke, {arch}")
+    log(f"phase family train: wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def phase_train_smoke_reference(dev, arch: str, label: str, mesh=8,
+                                seq_len: int = 48) -> None:
+    """`arch`'s trainer at smoke size (REFERENCE_CFG's overrides) in f32
+    on the card against the same code on the CPU, per leaf on the local
+    mesh `mesh`, from one state and the same `seq_len`-token batches
+    (qwen2-vl's three position streams drawn apart in [0, 2048), so
+    M-RoPE's h and w sections turn): TRAIN_SMOKE_STEPS steps, per-step
+    loss and gnorm within 1e-4 relative, the final shards as
+    `shard_drift` says, the same MoE slots dropped on both,
+    fused_reduce alone launched exactly on the card (`level_launches`;
+    with an EP step's exchanges, `moe_launches`) and nothing on the
+    CPU."""
+    import dataclasses
+
+    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.sync import SyncConfig
@@ -3957,40 +4017,67 @@ def phase_train_recurrent_reference(dev, arch: str) -> None:
     from repro_torch.models.registry import build
 
     t0 = time.perf_counter()
-    api = build(smoke_config(get_config(arch)))
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              **REFERENCE_CFG.get(arch, {}))
+    api = build(cfg)
     params = api.init_params(torch.Generator().manual_seed(0), torch.float32,
                              "cpu")
     lr, steps = TRAIN["lr"], TRAIN_SMOKE_STEPS
+
+    def apart(batch, s):
+        if "mrope_positions" not in batch:
+            return batch
+        rng = np.random.default_rng(100 + s)
+        return {**batch, "mrope_positions": rng.integers(
+            0, 2048, batch["mrope_positions"].shape)}
     sync = SyncConfig(strategy="plan", bucket_bytes=0)
-    runs, counts = {}, {}
+    runs, counts, drops = {}, {}, {}
     for where in ("cpu", dev):
         ops.reset_launches()
-        runs[str(where)] = train_run(api, _to(params, where), 8, lr, steps,
-                                     48, TRAIN["global_batch"], sync=sync,
-                                     param_dtype=torch.float32)
+        with RouteRecorder() as routes:
+            runs[str(where)] = train_run(api, _to(params, where), mesh, lr,
+                                         steps, seq_len,
+                                         TRAIN["global_batch"], sync=sync,
+                                         param_dtype=torch.float32,
+                                         edit=apart)
         counts[str(where)] = {k: c for k, c in ops.LAUNCHES.items() if c}
+        drops[str(where)] = (routes.per_step(steps, cfg.n_layers, 8)
+                             if cfg.n_experts else ([], 0.0))
     card, cpu = runs[str(dev)], runs["cpu"]
-    want = level_launches(card["step"], len(card["state"]["params"]), steps)
+    step = card["step"]
+    leaves = len(card["state"]["params"])
+    want = ({"fused_reduce": moe_launches(step, leaves, steps, 6
+                                          * cfg.n_layers * steps)
+             ["fused_reduce"]} if step.ep
+            else level_launches(step, leaves, steps))
     metric_err = max(abs(g - c) / abs(c) for kk in ("losses", "gnorms")
                      for g, c in zip(card[kk], cpu[kk]))
     far, total, worst = shard_drift([t.cpu() for t in card["state"]["params"]],
                                     cpu["state"]["params"], lr, steps)
-    log(f"train [recurrent smoke, {arch}]: f32 {steps} steps card vs CPU: "
-        f"losses {card['losses']} / {cpu['losses']}, gnorms "
-        f"{card['gnorms']} / {cpu['gnorms']}; rel err {metric_err:.2e}; "
-        f"final shards: {far} of {total} elements past 1e-4 of their "
+    log(f"train [{label}]: f32 {steps} steps card vs CPU"
+        + (f", EP {step.ep}, exchange {step.ep_schedule.inner.describe()}"
+           if step.ep else "") + f": losses "
+        f"{card['losses']} / {cpu['losses']}, gnorms {card['gnorms']} / "
+        f"{cpu['gnorms']}; rel err {metric_err:.2e}"
+        + (f"; slots dropped a step {drops[str(dev)][0]} / "
+           f"{drops['cpu'][0]}, smallest top-k margin "
+           f"{drops[str(dev)][1]:.3e} / {drops['cpu'][1]:.3e}"
+           if cfg.n_experts else "")
+        + f"; final shards: {far} of {total} elements past 1e-4 of their "
         f"leaf's largest |value|, the farthest {worst:.3f} of 2·lr·steps; "
         f"card launches {counts[str(dev)]} (expected {want}); wall "
         f"{time.perf_counter() - t0:.1f} s")
     if not (metric_err <= 1e-4 and far <= 1e-4 * total and worst <= 1.0):
-        fail(f"the card's smoke-size {arch} trainer disagrees with the CPU "
-             f"run: {metric_err:.2e}, {far} of {total} shard elements, "
-             f"{worst:.3f}")
+        fail(f"the card's smoke-size {arch} trainer [{label}] disagrees "
+             f"with the CPU run: {metric_err:.2e}, {far} of {total} shard "
+             f"elements, {worst:.3f}")
+    if drops[str(dev)][0] != drops["cpu"][0]:
+        fail(f"{arch} smoke [{label}]: drops {drops}")
     if counts[str(dev)] != want:
-        fail(f"{arch} smoke: card launches {counts[str(dev)]}, expected "
-             f"{want}")
+        fail(f"{arch} smoke [{label}]: card launches {counts[str(dev)]}, "
+             f"expected {want}")
     if counts["cpu"]:
-        fail(f"{arch} smoke: the CPU run launched {counts['cpu']}")
+        fail(f"{arch} smoke [{label}]: the CPU run launched {counts['cpu']}")
 
 
 # ---------------------------------------------------------------------------
@@ -4499,6 +4586,11 @@ def main() -> int:
                     help="build the kernels and run phase 5r (rwkv6-1.6b "
                     "and hymba-1.5b training at full width, then smoke-size "
                     "card against CPU) alone, then stop: no result line")
+    ap.add_argument("--family-train", action="store_true",
+                    help="build the kernels and run phase 5f (qwen2-vl-7b, "
+                    "whisper-large-v3 and mixtral-8x22b training at full "
+                    "width, then smoke-size card against CPU) alone, then "
+                    "stop: no result line")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree (default: this checkout's "
                     "src), e.g. another commit's unpacked beside it, to "
@@ -4557,6 +4649,10 @@ def main() -> int:
         phase_train_recurrent(dev)
         log(f"phase recurrent train done at {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.family_train:
+        phase_train_family(dev)
+        log(f"phase family train done at {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.ft:
         r = phase_train(dev, TRAIN_FALL_LRS[0], True)
         phase_ft(dev, {"losses": r["losses"],
@@ -4587,6 +4683,9 @@ def main() -> int:
     for name, n in phase_train_recurrent(dev).items():
         trained[name] += n
     log(f"phase recurrent train done at {time.perf_counter() - t0:.1f} s")
+    for name, n in phase_train_family(dev).items():
+        trained[name] += n
+    log(f"phase family train done at {time.perf_counter() - t0:.1f} s")
     for name, n in phase_ft(dev, baseline).items():
         trained[name] += n
     log(f"phase ft done at {time.perf_counter() - t0:.1f} s")

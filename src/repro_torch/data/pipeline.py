@@ -8,6 +8,14 @@ The generator is a Zipf-ish unigram sampler with a Markov flavour (next
 token mixes a shifted copy of the current one) so the loss actually falls
 during the example training runs — pure-uniform tokens would pin loss at
 ln(V).
+
+A copy of the reference's `data/pipeline.py` with one deliberate
+difference: with `embed_dim` set the reference deletes "tokens" from the
+batch, whisper's audio stub included, whose `loss_fn` reads them (so the
+reference cannot train whisper through its `run_training`). Here
+"tokens" go only for the vlm stub (`frames` 0); the audio batch keeps
+the tokens drawn before, and every other array, drawn in the same order,
+equals the reference's.
 """
 from __future__ import annotations
 
@@ -62,7 +70,8 @@ class SyntheticLM:
                 (B, T, cfg.embed_dim)).astype(np.float32) * 0.02
             out["mrope_positions"] = np.broadcast_to(
                 np.arange(T, dtype=np.int32), (3, B, T)).copy()
-            del out["tokens"]
+            if not cfg.frames:
+                del out["tokens"]
         if cfg.frames:           # audio stub: frame embeddings
             out["frames"] = rng.standard_normal(
                 (B, cfg.frames, cfg.embed_dim)).astype(np.float32) * 0.02

@@ -17,7 +17,8 @@ local mesh, one axis (`("data", n)`) or several (e.g. `[("pod", 2),
 RWKV6 and hybrid families (MoE with the reference's expert-parallel
 dispatch over the first live axis, its exchange the planned all-to-all
 under "plan"; the recurrent families through their differentiable torch
-recurrences, `models.recurrence`), with every `SyncConfig` strategy of
+recurrences, `models.recurrence`; the vlm family on its embeddings and
+M-RoPE streams; the encoder-decoder), with every `SyncConfig` strategy of
 the reference: "plan" bucketed by default on one axis (GenModel picks
 the bucket, `core.bucketing`), per leaf with `bucket_bytes=0` or on
 several axes; the flat labels psum, ring, rhd, cps and hcps, "gentree"
@@ -44,6 +45,8 @@ checkpoints and corrupted collective payloads.
         --arch deepseek-moe-16b
     python -m repro_torch.launch.train --engine manual --sync plan --smoke \
         --arch rwkv6-1.6b          # or hymba-1.5b
+    python -m repro_torch.launch.train --engine manual --sync plan --smoke \
+        --arch qwen2-vl-7b         # or whisper-large-v3, mixtral-8x22b
 
 train smoke-size models (stablelm-12b by default) on the card;
 `--device cpu` runs them on the CPU. Without `--smoke` the model is the
@@ -66,14 +69,17 @@ from repro_torch.core import collectives
 from repro_torch.core.sync import (AxisPlan, SyncConfig, expert_parallel,
                                    resolve_axis_plans)
 from repro_torch.models.registry import ModelAPI
-from repro_torch.models.tree import (stack_layers, tree_from_items,
-                                     tree_items, unstack_layers)
+from repro_torch.models.tree import (LAYER_KEYS, stack_layers,
+                                     tree_from_items, tree_items,
+                                     unstack_layers)
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.trace import default_tracer
 
 # the step's parts, timed by CUDA events on a card (`phase_ms`)
 PHASES = ("gather", "forward_backward", "reduce_scatter", "adamw")
+# the audio stub's frames a row, as the reference's `run_training` draws
+AUDIO_FRAMES = 32
 
 _log = logging.getLogger(__name__)
 
@@ -106,12 +112,13 @@ def shard_params_zero3(params: dict, mesh) -> list[torch.Tensor]:
     leaf, n the product of the sizes, row r the rank whose mesh index is
     r in row-major order (on [("pod", 2), ("data", 4)] rank (p, d) holds
     row 4p + d), in the reference's leaf order. The port's per-layer
-    list under "layers" is stacked to (L, ...) leaves first (a tree
-    without that list is taken as stacked already); each leaf is
+    lists under `tree.LAYER_KEYS` ("layers"; the encoder-decoder's
+    "encoder" and "decoder") are stacked to (L, ...) leaves first (a
+    tree without such a list is taken as stacked already); each leaf is
     flattened and zero-padded to a multiple of n. The tensors are
     copies."""
     n = math.prod(s for _, s in _mesh_of(mesh))
-    if isinstance(params.get("layers"), list):
+    if any(isinstance(params.get(k), list) for k in LAYER_KEYS):
         params = stack_layers(params)
     return [_split(x, n) for _, x in tree_items(params)]
 
@@ -170,16 +177,43 @@ def _shard_of(numel: int, mesh, plans: Sequence[AxisPlan]) -> int:
 
 
 def _rank_batch(batch: dict, r: int, n: int) -> dict:
-    """Rank r's rows of the batch: [r·B/n, (r+1)·B/n) of each leaf whose
-    leading size B is a multiple of n above 1, the whole leaf otherwise
-    (the reference's `batch_specs` replicates such a leaf). On several
-    axes r is the row-major mesh index, as the reference's batch spec
-    over all data-parallel axes splits it."""
+    """Rank r's rows of the batch, as the reference's `batch_specs` splits
+    it: [r·B/n, (r+1)·B/n) of each leaf whose leading size B is a
+    multiple of n above 1, the whole leaf otherwise (replicated);
+    "mrope_positions" (3, B, T) on its batch axis 1 where B is a multiple
+    of n. On several axes r is the row-major mesh index, as the
+    reference's batch spec over all data-parallel axes splits it."""
     out = {}
     for k, v in batch.items():
+        if k == "mrope_positions":
+            B = v.shape[1]
+            out[k] = v[:, r * B // n:(r + 1) * B // n] if B % n == 0 else v
+            continue
         B = v.shape[0] if v.dim() else 0
         out[k] = (v[r * B // n:(r + 1) * B // n] if B > 1 and B % n == 0
                   else v)
+    return out
+
+
+def data_config(cfg, seq_len: int, global_batch: int, seed: int = 0):
+    """The `DataConfig` of the reference's `run_training` for `cfg`: its
+    stub embeddings as wide as the model where it takes embeddings, and
+    AUDIO_FRAMES frames a row for the audio family."""
+    from repro_torch.data import DataConfig
+    return DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                      global_batch=global_batch, seed=seed,
+                      embed_dim=cfg.d_model if cfg.embeds_input else 0,
+                      frames=AUDIO_FRAMES if cfg.family == "audio" else 0)
+
+
+def batch_tensors(batch: dict, device) -> dict:
+    """A `SyntheticLM` batch of numpy arrays as tensors on `device`: the
+    integer arrays (tokens, labels, M-RoPE positions) as int64, the
+    stub embeddings and frames in their f32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v), device=device)
+        out[k] = t if t.is_floating_point() else t.long()
     return out
 
 
@@ -271,8 +305,10 @@ def ep_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
     (rank r, leaf i, the flat gradient g of its elements [off, off +
     len)) and frees it, so at most the gradients in flight are live, not
     the n ranks' whole sets. The rows of the other experts are written
-    zero (the transpose of the reference's `dynamic_slice`). Returns the ranks' detached losses and the
-    exchanges this call ran: {"forward", "recompute", "backward"}."""
+    zero (the transpose of the reference's `dynamic_slice`), and so is
+    a part the loss does not reach (the reference's `value_and_grad`
+    gives it zeros). Returns the ranks' detached losses and the exchanges
+    this call ran: {"forward", "recompute", "backward"}."""
     from repro_torch.core import sync
 
     cfg = api.cfg
@@ -284,19 +320,19 @@ def ep_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
     E, L = cfg.n_experts, cfg.n_layers
     el = E // ctx.size
     paths = [p for p, _ in tree_items(api.params_spec())]
-    pending: set = set()       # (r, i, off) of each leaf not landed yet
+    pending: dict = {}         # (r, i, off) of each part not landed: numel
 
     def hook(r: int, i: int, off: int):
         def land(t: torch.Tensor) -> None:
             put(r, i, t.grad.reshape(-1), off)
             t.grad = None
-            pending.discard((r, i, off))
+            pending.pop((r, i, off))
         return land
 
     def leaf(r: int, i: int, off: int, v: torch.Tensor) -> torch.Tensor:
         t = v.detach().requires_grad_(True)
         t.register_post_accumulate_grad_hook(hook(r, i, off))
-        pending.add((r, i, off))
+        pending[(r, i, off)] = t.numel()
         return t
 
     params, leaves = [], []
@@ -329,12 +365,37 @@ def ep_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
     losses = api.loss_fn_ep(params, batches, mesh=pairs, remat=True)
     f1 = ex["forward"]
     torch.autograd.backward(torch.stack(losses).sum(), inputs=leaves)
-    if pending:
-        raise RuntimeError(f"no gradient reached {len(pending)} leaf parts "
-                           f"(rank, leaf, offset), e.g. {min(pending)}")
+    for (r, i, off), numel in pending.items():
+        put(r, i, full[i].new_zeros(()).expand(numel), off)
     return [x.detach() for x in losses], {
         "forward": f1 - f0, "recompute": ex["forward"] - f1,
         "backward": ex["backward"] - b0}
+
+
+def rank_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
+                        batch: dict, n: int, put: Callable, *,
+                        lossy: bool = False) -> list[torch.Tensor]:
+    """Each rank's forward and backward in turn, the reference's
+    per-device `value_and_grad(loss_fn(remat=True))`: rank r reads its
+    own detached copy of the gathered leaves `full` (the reference's
+    order, stacked (L, ...) layer leaves; under a lossy wire (n, ...)
+    rows, row r its copy) and its rows of the batch (`_rank_batch`), and
+    `put(r, i, g)` lands its gradient of leaf i, zeros for a leaf the
+    loss does not reach (a vlm's `embed`, where the reference's
+    `value_and_grad` gives zeros). Returns the ranks' detached losses."""
+    paths = [p for p, _ in tree_items(api.params_spec())]
+    losses = []
+    for r in range(n):
+        leaves = [(f[r] if lossy else f).detach().requires_grad_(True)
+                  for f in full]
+        params = unstack_layers(tree_from_items(zip(paths, leaves)))
+        loss = api.loss_fn(params, _rank_batch(batch, r, n), remat=True)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        for i, (t, g) in enumerate(zip(leaves, grads)):
+            put(r, i, t.new_zeros(()).expand(t.numel()) if g is None else g)
+        losses.append(loss.detach())
+        del leaves, params, loss, grads
+    return losses
 
 
 def make_manual_train_step(api: ModelAPI, mesh,
@@ -353,8 +414,9 @@ def make_manual_train_step(api: ModelAPI, mesh,
     lists of the same shapes in f32, "step"}} (`shard_params_zero3`,
     `adamw_init`), in the reference's leaf order, its shards in
     `param_dtype`, and is updated in place (the reference donates it).
-    `batch` is {"tokens", "labels"} of the global batch on `device`. Per
-    step:
+    `batch` is the global batch on `device` (`batch_tensors`): "tokens"
+    and "labels"; a vlm's "embeds" and "mrope_positions" in place of the
+    tokens; an audio model's "frames" beside them. Per step:
 
       1. the parameters are gathered with the plans' AllGathers, in mesh
          order; at full precision the n gathered rows must be equal
@@ -364,7 +426,9 @@ def make_manual_train_step(api: ModelAPI, mesh,
          rows are kept and rank r's forward reads row r;
       2. each rank r (row-major mesh index) runs `api.loss_fn(remat=True)`
          on its rows of the batch, and its gradients, in the parameters'
-         dtype, land in row r of the tensors the reduce-scatter runs on.
+         dtype, land in row r of the tensors the reduce-scatter runs on
+         (`rank_loss_and_grads`; zeros for a leaf the loss does not
+         reach).
          A MoE model whose E experts split over the first live axis (size
          > 1 dividing E: the reference's `use_ep`) runs every rank at once
          instead, under `expert_parallel` over that axis with
@@ -584,22 +648,15 @@ def make_manual_train_step(api: ModelAPI, mesh,
             full = gather(shards)
         events.append(mark())
         bufs, put = grad_buffers(shards)
-        losses, exchanges = [], None
+        exchanges = None
         with tracer.span("train/forward_backward", ranks=n, ep=use_ep):
             if use_ep:
                 with expert_parallel(ep_axis, ep_n, ep_sched):
                     losses, exchanges = ep_loss_and_grads(
                         api, full, batch, live, put, lossy=lossy)
-            for r in range(0 if use_ep else n):
-                leaves = [(f[r] if lossy else f).detach().requires_grad_(True)
-                          for f in full]
-                params = unstack_layers(tree_from_items(zip(paths, leaves)))
-                loss = api.loss_fn(params, _rank_batch(batch, r, n),
-                                   remat=True)
-                for i, g in enumerate(torch.autograd.grad(loss, leaves)):
-                    put(r, i, g)
-                losses.append(loss.detach())
-                del leaves, params, loss
+            else:
+                losses = rank_loss_and_grads(api, full, batch, n, put,
+                                             lossy=lossy)
         del full
         events.append(mark())
         with torch.no_grad():
@@ -759,7 +816,7 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
     import contextlib
 
     from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.data import SyntheticLM
     from repro_torch.models.config import smoke_config
     from repro_torch.models.registry import build
     from repro_torch.runtime.metrics import default_metrics
@@ -796,9 +853,8 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
                f"({step_fn.ep[1]} ranks, {cfg.n_experts // step_fn.ep[1]} "
                "routed experts a rank), exchange "
                + (cs.describe() if cs is not None else "flat copy"))
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=tc.seq_len,
-                                  global_batch=tc.global_batch,
-                                  seed=tc.seed))
+    data = SyntheticLM(data_config(cfg, tc.seq_len, tc.global_batch,
+                                   tc.seed))
     gen = torch.Generator(device=dev).manual_seed(tc.seed)
     shards = shard_params_zero3(api.init_params(gen, torch.bfloat16, dev),
                                 mesh)
@@ -816,9 +872,8 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
     def one_step(state: dict, s: int) -> dict:
         t0 = time.perf_counter()
         with tracer.span("train/step", step=s):
-            batch = {k: torch.as_tensor(np.asarray(v), device=dev).long()
-                     for k, v in data.batch_at(s).items()}
-            state, metrics = step_fn(state, batch)
+            state, metrics = step_fn(state,
+                                     batch_tensors(data.batch_at(s), dev))
             loss, gnorm = float(metrics["loss"]), float(metrics["gnorm"])
         dt = time.perf_counter() - t0
         step_hist.observe(dt)

@@ -18,17 +18,25 @@ decoder layer's q, k and v once (the reference projects K/V twice). The
 decode state is the self-attention cache plus each layer's
 cross-attention K/V of the encoder output, computed once at prefill.
 
-Serving only: `forward` and `loss_fn` raise until the family's training
-slice (ROADMAP §1 item 6e).
+`forward` and `loss_fn` are the training path, the reference's in
+differentiable torch ops (`layers.train_rmsnorm`, `layers.
+train_attention`: non-causal in the encoder, causal in the decoder;
+cross-attention as served), each encoder and decoder layer under
+activation checkpointing when `remat` is set, as the reference's
+`jax.checkpoint` bodies. The stub frames come in f32, so the encoder
+runs in f32 against widened bf16 weights (`layers.matmul`, the
+reference's promotion), and the decoder in the weights' dtype.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (Params, _attend, _qkv, attention, attention_decode,
-                     dense_init, embed, init_attention, init_mlp, mlp,
-                     rmsnorm)
+                     dense_init, embed, init_attention, init_mlp, matmul,
+                     mlp, rmsnorm, train_attention, train_rmsnorm)
+from .transformer import _nll
 
 N_AUDIO_FRAMES = 1500   # whisper: 30 s of audio → 1500 frames post-conv
 
@@ -99,9 +107,9 @@ def _cross_kv(xp: Params, enc: torch.Tensor, cfg: ModelConfig
     """The (B, Hkv, Te, hd) cross-attention K/V of the encoder states."""
     B, Te, _ = enc.shape
     hd = cfg.head_dim
-    k = (enc @ xp["wk"]).reshape(B, Te, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = (enc @ xp["wv"]).reshape(B, Te, cfg.n_kv_heads, hd).transpose(1, 2)
-    return k, v
+    k = matmul(enc, xp["wk"]).reshape(B, Te, cfg.n_kv_heads, hd)
+    v = matmul(enc, xp["wv"]).reshape(B, Te, cfg.n_kv_heads, hd)
+    return k.transpose(1, 2), v.transpose(1, 2)
 
 
 def _cross_attend(xp: Params, z: torch.Tensor, xk: torch.Tensor,
@@ -111,7 +119,7 @@ def _cross_attend(xp: Params, z: torch.Tensor, xk: torch.Tensor,
     as the reference's."""
     B, T, _ = z.shape
     hd = cfg.head_dim
-    q = (z @ xp["wq"]).reshape(B, T, cfg.n_heads, hd).transpose(1, 2)
+    q = matmul(z, xp["wq"]).reshape(B, T, cfg.n_heads, hd).transpose(1, 2)
     rep = cfg.n_heads // cfg.n_kv_heads
     k = xk.repeat_interleave(rep, dim=1) if rep > 1 else xk
     v = xv.repeat_interleave(rep, dim=1) if rep > 1 else xv
@@ -119,20 +127,66 @@ def _cross_attend(xp: Params, z: torch.Tensor, xk: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     o = o.to(z.dtype).transpose(1, 2).reshape(B, T, -1)
-    return o @ xp["wo"]
+    return matmul(o, xp["wo"])
+
+
+# ---------------------------------------------------------------------------
+# forward (training)
+# ---------------------------------------------------------------------------
+def _train_enc_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    x = x + train_attention(lp["attn"], train_rmsnorm(x, lp["ln1"]), cfg,
+                            causal=False, positions=positions)
+    return x + mlp(lp["mlp"], train_rmsnorm(x, lp["ln2"]))
+
+
+def _train_dec_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                     enc: torch.Tensor, positions: torch.Tensor
+                     ) -> torch.Tensor:
+    x = x + train_attention(lp["attn"], train_rmsnorm(x, lp["ln1"]), cfg,
+                            positions=positions)
+    xk, xv = _cross_kv(lp["xattn"], enc, cfg)
+    x = x + _cross_attend(lp["xattn"], train_rmsnorm(x, lp["ln_x"]), xk, xv,
+                          cfg)
+    return x + mlp(lp["mlp"], train_rmsnorm(x, lp["ln2"]))
+
+
+def _run(block, cfg: ModelConfig, layers: list, x: torch.Tensor,
+         *args, remat: bool) -> torch.Tensor:
+    for lp in layers:
+        x = (checkpoint(block, cfg, lp, x, *args, use_reentrant=False)
+             if remat else block(cfg, lp, x, *args))
+    return x
+
+
+def train_encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+                 remat: bool = True) -> torch.Tensor:
+    """The reference's `encode`, differentiable: frames (B, T_audio, D)
+    → encoder states, in the frames' dtype."""
+    positions = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    x = _run(_train_enc_block, cfg, params["encoder"], frames, positions,
+             remat=remat)
+    return train_rmsnorm(x, params["ln_enc"])
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            frames: torch.Tensor, **_kw) -> torch.Tensor:
-    raise NotImplementedError(
-        f"{cfg.name}: the encoder-decoder is served, not trained yet "
-        "(ROADMAP §1 item 6e)")
+            frames: torch.Tensor, remat: bool = True, **_kw) -> torch.Tensor:
+    """Teacher-forced training forward, differentiable: audio frames (B,
+    T_audio, D) and decoder tokens (B, T) → logits (B, T, V)."""
+    enc = train_encode(params, cfg, frames, remat=remat)
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = _run(_train_dec_block, cfg, params["decoder"], x, enc, positions,
+             remat=remat)
+    return matmul(train_rmsnorm(x, params["ln_f"]), params["lm_head"])
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict, **kw
             ) -> torch.Tensor:
-    return forward(params, cfg, batch["tokens"], frames=batch["frames"],
-                   **kw)
+    """Mean next-token NLL of batch["tokens"]' logits given
+    batch["frames"], at batch["labels"] (weighted by batch["mask"])."""
+    return _nll(forward(params, cfg, batch["tokens"], frames=batch["frames"],
+                        **kw), batch)
 
 
 def _self_cache(cfg: ModelConfig, batch: int, seq: int, dtype,

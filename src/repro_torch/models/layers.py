@@ -28,6 +28,10 @@ Pallas kernels have none, and its training forward never calls them), so
 `rmsnorm` and q-block `attention` written op for op in differentiable
 torch ops, f32 where the reference is f32. `transformer.forward` and
 `loss_fn` take them; prefill and decode keep the kernel wrappers.
+
+The products take the reference's type promotion (`matmul`): f32
+activations against bf16 weights (a vlm's embeddings, whisper's frames
+and encoder states) widen the weights to f32, as jnp's `@` does.
 """
 from __future__ import annotations
 
@@ -59,6 +63,15 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...],
     return x.mul_(scale).to(dtype)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the promoted dtype of the two, as jnp's `@` on mixed
+    dtypes: an f32 input against bf16 weights takes the weights widened."""
+    if x.dtype != w.dtype:
+        t = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(t), w.to(t)
+    return x @ w
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -81,8 +94,12 @@ def train_rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 # RoPE
 # ---------------------------------------------------------------------------
 def _rope_freqs(d: int, theta: float, device) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
-                                         device=device) / d))
+    """theta^(-2i/d) for i < d/2, rounded once to f32: the reference's
+    compiled program folds these constants whole, where f32 steps land
+    an ulp off in some lanes, which positions in the thousands turn into
+    angles 1e-4 apart."""
+    e = torch.arange(0, d, 2, dtype=torch.float64, device=device) / d
+    return (1.0 / theta ** e).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -156,9 +173,9 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     `positions`, as the reference's branch order."""
     B, T, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, hd).transpose(1, 2)
-    k = (x @ p["wk"]).reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = (x @ p["wv"]).reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = matmul(x, p["wq"]).reshape(B, T, cfg.n_heads, hd).transpose(1, 2)
+    k = matmul(x, p["wk"]).reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = matmul(x, p["wv"]).reshape(B, T, cfg.n_kv_heads, hd).transpose(1, 2)
     if cfg.qk_norm:
         q = norm(q, p["q_norm"])
         k = norm(k, p["k_norm"])
@@ -265,7 +282,7 @@ def train_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         outs.append((o / (l + 1e-30)).to(x.dtype))
     out = torch.cat(outs, dim=2)
     out = out.transpose(1, 2).reshape(B, T, cfg.n_heads * hd)
-    return out @ p["wo"]
+    return matmul(out, p["wo"])
 
 
 def attention_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
@@ -307,7 +324,7 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dtype=torch.bfloat16,
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+    return matmul(F.silu(matmul(x, p["wg"])) * matmul(x, p["wi"]), p["wo"])
 
 
 # ---------------------------------------------------------------------------

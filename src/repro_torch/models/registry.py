@@ -6,10 +6,9 @@ and the training `forward` / `loss_fn` over the transformer (families
 loss of every rank of a local mesh at once), the RWKV6 model (family
 "ssm"), the Hymba hybrid (family "hybrid") or the encoder-decoder
 (family "audio"), with the reference registry's return shapes and batch
-keys: `forward` gives the logits; a vlm batch carries "embeds" (and, at
-prefill, "mrope_positions") where the others carry "tokens", an audio
-prefill "frames" beside "tokens". The vlm and audio families serve only:
-their `forward` / `loss_fn` raise (ROADMAP §1 item 6e).
+keys: `forward` gives the logits; a vlm batch carries "embeds" and
+"mrope_positions" (decode: "embeds" alone) where the others carry
+"tokens", an audio batch "frames" beside "tokens".
 """
 from __future__ import annotations
 
@@ -61,7 +60,8 @@ def _dense_api(cfg: ModelConfig) -> ModelAPI:
         loss_fn=lambda params, batch, **kw: transformer.loss_fn(
             params, cfg, batch, **kw),
         forward=lambda params, batch, **kw: transformer.forward(
-            params, cfg, batch["tokens"], **kw),
+            params, cfg, batch.get("tokens"), embeds=batch.get("embeds"),
+            mrope_positions=batch.get("mrope_positions"), **kw),
         loss_fn_ep=(lambda params, batches, **kw: transformer.loss_fn_ep(
             params, cfg, batches, **kw)) if cfg.n_experts else None,
     )

@@ -8,10 +8,12 @@ dense layer's MLP does, in prefill and decode, with the reference's
 token ids (`embeds`, from a stubbed vision frontend) and rotates by
 M-RoPE where the prefill is given (t, h, w) position streams
 (`mrope_positions`); its decode takes the embedding rows of the last
-token and, as the reference's, plain RoPE at the cache position. The vlm
-family is served only: its training waits for ROADMAP §1 item 6e. The
-reference stacks every layer's parameters on a leading (L,) axis and
-scans; here `params["layers"]` is a list of per-layer dicts run by a
+token and, as the reference's, plain RoPE at the cache position; its
+training forward takes the embeddings and position streams as the
+reference's does, its f32 embeddings keeping the residual stream in
+f32 (`layers.matmul` widens the bf16 weights at each product), and its
+unused `embed` gets no gradient. The reference stacks every layer's
+parameters on a leading (L,) axis and scans; here `params["layers"]` is a list of per-layer dicts run by a
 Python loop (`convert.params_from_jax` unstacks the reference's
 layout). The KV cache keeps the reference's (L, B, Hkv, S, hd) layout and is
 updated in place by `decode_step`.
@@ -35,7 +37,7 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from .config import ModelConfig
 from .layers import (Params, _attend, _check_supported, _qkv,
                      attention_decode, dense_init, embed, init_attention,
-                     init_mlp, init_moe, mlp, moe, moe_ep, rmsnorm,
+                     init_mlp, init_moe, matmul, mlp, moe, moe_ep, rmsnorm,
                      train_attention, train_rmsnorm)
 
 
@@ -45,14 +47,6 @@ def _check_served(cfg: ModelConfig) -> None:
             f"{cfg.name}: the dense, MoE and vlm families are ported here "
             f"(got family={cfg.family!r}, n_experts={cfg.n_experts})")
     _check_supported(cfg)
-
-
-def _check_trained(cfg: ModelConfig) -> None:
-    _check_served(cfg)
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm family is served, not trained yet "
-            "(ROADMAP §1 item 6e)")
 
 
 def _ffn(lp: Params, cfg: ModelConfig, z: torch.Tensor,
@@ -101,7 +95,7 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
             norm=rmsnorm) -> torch.Tensor:
     x = norm(x, params["ln_f"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head
+    logits = matmul(x, head)
     if cfg.final_softcap > 0:
         logits = (torch.tanh(logits.float() / cfg.final_softcap)
                   * cfg.final_softcap).to(logits.dtype)
@@ -112,15 +106,18 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
 # forward (training)
 # ---------------------------------------------------------------------------
 def _train_attn(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor,
+                mrope_positions: torch.Tensor | None = None) -> torch.Tensor:
     return x + train_attention(lp["attn"], train_rmsnorm(x, lp["ln1"]), cfg,
-                               window=window, positions=positions)
+                               window=window, positions=positions,
+                               mrope_positions=mrope_positions)
 
 
 def _train_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int,
-                 positions: torch.Tensor, moe_dispatch: str = "sorted"
-                 ) -> torch.Tensor:
-    x = _train_attn(cfg, lp, x, window, positions)
+                 positions: torch.Tensor,
+                 mrope_positions: torch.Tensor | None = None,
+                 moe_dispatch: str = "sorted") -> torch.Tensor:
+    x = _train_attn(cfg, lp, x, window, positions, mrope_positions)
     return x + _ffn(lp, cfg, train_rmsnorm(x, lp["ln2"]), moe_dispatch)
 
 
@@ -145,24 +142,30 @@ def _embed_in(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     return x
 
 
-def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor | None,
+            *, embeds: torch.Tensor | None = None,
+            mrope_positions: torch.Tensor | None = None,
             moe_dispatch: str = "sorted", remat: bool = True
             ) -> torch.Tensor:
-    """tokens (B, T) → logits (B, T, V), differentiable. A tied embedding
+    """tokens (B, T) — or embeddings `embeds` (B, T, D) as they are, in
+    their dtype, M-RoPE'd at `mrope_positions` (3, B, T) where the config
+    has sections — → logits (B, T, V), differentiable. A tied embedding
     is scaled by √d_model in the dense family, as the reference's
     `forward` does (its `prefill` and `decode_step` do not). A MoE layer
     dispatches by `moe_dispatch` ("sorted", "dense", "ep", "local"; see
     `layers.moe`: on one rank "ep" is the sorted block without groups)."""
-    _check_trained(cfg)
-    x = _embed_in(params, cfg, tokens)
+    _check_served(cfg)
+    x = _embed_in(params, cfg, tokens) if embeds is None else embeds
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i, lp in enumerate(params["layers"]):
         w = cfg.window_for_layer(i)
         if remat:
             x = checkpoint(_train_block, cfg, lp, x, w, positions,
-                           moe_dispatch, use_reentrant=False)
+                           mrope_positions, moe_dispatch,
+                           use_reentrant=False)
         else:
-            x = _train_block(cfg, lp, x, w, positions, moe_dispatch)
+            x = _train_block(cfg, lp, x, w, positions, mrope_positions,
+                             moe_dispatch)
     return _logits(params, cfg, x, norm=train_rmsnorm)
 
 
@@ -179,7 +182,7 @@ def forward_ep(params: Sequence[Params], cfg: ModelConfig,
     backward recomputes each layer in full (early stop off), so a
     layer's exchanges run in the forward, again in the recompute and
     once each as a transpose. Returns the ranks' logits."""
-    _check_trained(cfg)
+    _check_served(cfg)
     if not cfg.n_experts:
         raise ValueError(f"{cfg.name}: forward_ep runs the MoE family")
     xs = [_embed_in(p, cfg, t) for p, t in zip(params, tokens)]
@@ -210,9 +213,12 @@ def _nll(logits: torch.Tensor, batch: dict) -> torch.Tensor:
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,
             moe_dispatch: str = "sorted", remat: bool = True
             ) -> torch.Tensor:
-    """Mean next-token NLL of the f32 log-softmax of batch["tokens"]'s
-    logits at batch["labels"], weighted by batch["mask"] where given."""
-    return _nll(forward(params, cfg, batch["tokens"],
+    """Mean next-token NLL of the f32 log-softmax of the logits of
+    batch["tokens"] (or of batch["embeds"] at batch["mrope_positions"])
+    at batch["labels"], weighted by batch["mask"] where given."""
+    return _nll(forward(params, cfg, batch.get("tokens"),
+                        embeds=batch.get("embeds"),
+                        mrope_positions=batch.get("mrope_positions"),
                         moe_dispatch=moe_dispatch, remat=remat), batch)
 
 

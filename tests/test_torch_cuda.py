@@ -677,19 +677,22 @@ def test_fp8_smoke_trainer_on_card_matches_cpu(dev):
         assert ops.LAUNCHES[name] > before[name]
 
 
-def _smoke_trainer_card_vs_cpu(dev, sync, mesh=8, arch="stablelm-12b"):
+def _smoke_trainer_card_vs_cpu(dev, sync, mesh=8, arch="stablelm-12b",
+                               seq_len=32, **cfg_kw):
+    import dataclasses
+
     from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.data import SyntheticLM
     from repro_torch.launch import train
     from repro_torch.models.config import smoke_config
     from repro_torch.models.registry import build
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    api = build(smoke_config(get_config(arch)))
+    api = build(dataclasses.replace(smoke_config(get_config(arch)),
+                                    **cfg_kw))
     shards = train.shard_params_zero3(api.init_params(
         torch.Generator().manual_seed(0), torch.float32, "cpu"), mesh)
-    data = SyntheticLM(DataConfig(vocab=api.cfg.vocab, seq_len=32,
-                                  global_batch=8, seed=0))
+    data = SyntheticLM(train.data_config(api.cfg, seq_len, 8))
     runs = {}
     for where in ("cpu", dev):
         params = [s.to(where, copy=True) for s in shards]
@@ -702,9 +705,8 @@ def _smoke_trainer_card_vs_cpu(dev, sync, mesh=8, arch="stablelm-12b"):
             assert len(step.scatter_buckets) >= 3
         metrics = []
         for s in range(3):
-            batch = {k: torch.as_tensor(v, device=where).long()
-                     for k, v in data.batch_at(s).items()}
-            state, m = step(state, batch)
+            state, m = step(state, train.batch_tensors(data.batch_at(s),
+                                                       where))
             metrics.append([float(m["loss"]), float(m["gnorm"])])
         runs[str(where)] = (np.array(metrics),
                             [p.cpu() for p in state["params"]])
@@ -780,6 +782,67 @@ def test_recurrent_training_launches_no_model_kernel(dev, arch):
         api.prefill(params, {"tokens": batch["tokens"][:2]}, cache_len=32)
     torch.cuda.synchronize()
     assert ops.LAUNCHES[kernel] == before[kernel] + api.cfg.n_layers
+
+
+# the last three configurations' smoke models: qwen2-vl at head dim 32,
+# where M-RoPE's h and w sections turn; 48 tokens, past mixtral's smoke
+# window of 32
+FAMILY_TRAIN = {"qwen2-vl-7b": {"d_head": 32}, "whisper-large-v3": {},
+                "mixtral-8x22b": {}}
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_TRAIN))
+def test_family_smoke_trainer_on_card_matches_cpu(dev, arch):
+    """The same for qwen2-vl-7b (its f32 stub embeddings and M-RoPE
+    streams), whisper-large-v3 (its f32 stub frames through the
+    non-causal encoder) and mixtral-8x22b (expert-parallel over the 8
+    ranks) per leaf."""
+    from repro_torch.core.sync import SyncConfig
+    _smoke_trainer_card_vs_cpu(dev, SyncConfig(strategy="plan",
+                                               bucket_bytes=0), arch=arch,
+                               seq_len=48, **FAMILY_TRAIN[arch])
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_TRAIN))
+def test_family_training_launches_no_model_kernel(dev, arch):
+    """A training step of these families on the card launches fused_reduce
+    alone (its gathers, reduce-scatters and mixtral's exchanges), no
+    rmsnorm or flash_attention (no kernel has a backward); their prefill,
+    on the same weights, still launches both."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    api = build(dataclasses.replace(smoke_config(get_config(arch)),
+                                    **FAMILY_TRAIN[arch]))
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             torch.float32, dev)
+    shards = train.shard_params_zero3(params, 8)
+    step = train.make_manual_train_step(
+        api, 8, AdamWConfig(lr=1e-3), sync=SyncConfig(strategy="plan",
+                                                      bucket_bytes=0),
+        device=dev, param_dtype=torch.float32)
+    batch = train.batch_tensors(SyntheticLM(train.data_config(
+        api.cfg, 32, 8)).batch_at(0), dev)
+    model = ("wkv", "ssm_scan", "rmsnorm", "flash_attention")
+    before = dict(ops.LAUNCHES)
+    _, m = step({"params": shards, "opt": adamw_init(shards)}, batch)
+    assert np.isfinite(float(m["loss"]))
+    assert ops.LAUNCHES["fused_reduce"] > before["fused_reduce"]
+    assert all(ops.LAUNCHES[k] == before[k] for k in model)
+    prompt = {k: (v[:, :2] if k == "mrope_positions" else v[:2])
+              for k, v in batch.items() if k != "labels"}
+    with torch.no_grad():
+        api.prefill(params, prompt, cache_len=32)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] > before["rmsnorm"]
+    assert ops.LAUNCHES["flash_attention"] > before["flash_attention"]
 
 
 @pytest.mark.parametrize("planned", [False, True], ids=["flat", "plan"])

@@ -24,8 +24,9 @@ Each runs a prompt and 4 greedy decode steps on the reference's weights
 Then: `serve` with `ServeConfig(n_layers=…)` and the `serve` CLI at
 smoke size on the CPU for the three; whisper's `params_spec` against the
 reference's and the `stack_layers` / `unstack_layers` round trip; the
-training entry points of the vlm and audio families refuse (ROADMAP §1
-item 6e).
+training entry points of the vlm and audio families give a finite loss
+and a gradient for every leaf (their training against the reference's
+is `test_torch_family_train.py`).
 """
 import dataclasses
 import os
@@ -51,7 +52,8 @@ from repro_torch.launch.serve import ServeConfig, serve
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import smoke_config
 from repro_torch.models.registry import build
-from repro_torch.models.tree import stack_layers, tree_items, unstack_layers
+from repro_torch.models.tree import (stack_layers, tree_from_items,
+                                     tree_items, unstack_layers)
 
 RTOL = 1e-4
 STEPS = 4
@@ -329,15 +331,27 @@ def test_stack_layers_keeps_the_decoder_only_layout():
 
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "qwen2-vl-7b"])
 def test_served_only_families_refuse_training(arch):
+    """The former refusals (ROADMAP §1 item 6e) lifted: `forward` gives
+    finite logits and `loss_fn` a finite loss whose gradient reaches
+    every leaf (qwen2-vl's tokens through its `embed`)."""
     _, cfg, _, params = _weights(arch, {})
     api = build(cfg)
-    batch = _inputs(cfg)
-    batch = {"tokens": torch.from_numpy(batch["tokens"]),
-             "labels": torch.from_numpy(batch["tokens"]),
-             "frames": torch.zeros((2, FRAMES, cfg.d_model))}
-    for fn in (api.forward, api.loss_fn):
-        with pytest.raises(NotImplementedError, match="item 6e"):
-            fn(params, batch)
+    inp = _inputs(cfg)
+    batch = {"tokens": torch.from_numpy(inp["tokens"]),
+             "labels": torch.from_numpy(inp["tokens"])}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(inp["frames"])
+    B, T = batch["tokens"].shape
+    logits = api.forward(params, batch)
+    assert logits.shape == (B, T, cfg.vocab)
+    assert torch.isfinite(logits).all()
+    items = tree_items(stack_layers(params))
+    leaves = [t.requires_grad_(True) for _, t in items]
+    loss = api.loss_fn(unstack_layers(tree_from_items(
+        (p, t) for (p, _), t in zip(items, leaves))), batch)
+    assert torch.isfinite(loss) and loss.ndim == 0
+    for (path, _), g in zip(items, torch.autograd.grad(loss, leaves)):
+        assert torch.isfinite(g).all() and g.any(), path
 
 
 def test_mixtral_trains_at_smoke_size():
