@@ -10,6 +10,7 @@
     python3 chip_smoke.py --moe-train
     python3 chip_smoke.py --recurrent-train
     python3 chip_smoke.py --family-train
+    python3 chip_smoke.py --census
 
 The second and third forms build the kernels and run the attention rows
 or the recurrence rows of phase 2 alone (of another source tree with
@@ -17,7 +18,11 @@ or the recurrence rows of phase 2 alone (of another source tree with
 phase (3c) alone, the fifth the flat collectives phase (3b2) alone, the
 sixth phase 5's per-leaf run at the first of TRAIN_FALL_LRS and phase
 ft, the seventh phase 5m alone, the eighth phase 5r alone, the ninth
-phase 5f alone; none prints a result line.
+phase 5f alone, the tenth phase census alone (the dry run beside it);
+none prints a result line. The full run and --census start the dry run
+(`python -m repro_torch.launch.dryrun --all` on the meta device, no card
+visible) in a process of its own at the start, beside the card's
+phases.
 Phases, each of which fails the run (non-zero exit, no result line) on
 any error:
 
@@ -285,9 +290,24 @@ any error:
                 corrupted payload at a guarded gather, against the same
                 run without faults: the final state bit for bit, 3
                 restarts, a checkpoint fallback, a guarded failure, no
-                degraded level left, no demotion, exact launches.
+                degraded level left, no demotion, exact launches;
+  census   — the step census and the dry run (`phase_census`): phase 5's
+                per-leaf stablelm-12b step on the card inside
+                `launch.analysis.census(8)`, its collectives (one
+                all-gather and one reduce-scatter a leaf, the two
+                metrics' pmeans) and their per-rank payloads exactly as
+                `level_bytes` pads the leaves, its launches those of the
+                step before; its FLOPs beside `train_bounds`' product
+                count, its peak live bytes beside
+                `torch.cuda.max_memory_allocated()`, the step's time with
+                and without the census; one full-width stablelm-12b
+                decode step censused (kernel calls equal to launches);
+                one smoke-size decode step of each CENSUS_DECODE_ARCHS
+                model on the card and on the CPU with equal kernel work;
+                and the dry run's 35 supported cells, one line each, its
+                wall time.
 
-The main path is phases 3, 3b, 3c, 4, 5, 5m, 5r, 5f and ft: every
+The main path is phases 3, 3b, 3c, 4, 5, 5m, 5r, 5f, ft and census: every
 launch count is zeroed just before the executor, the families, the
 planner, each served run, each full-width training run (the MoE,
 recurrent and phase 5f ones too), the
@@ -326,6 +346,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -424,6 +445,14 @@ TRAIN_FAMILY = dict(runs=(("qwen2-vl-7b", 3, 8), ("whisper-large-v3", None, 8),
                           ("mixtral-8x22b", 1, 4)),
                     steps=3, seq_len=128, global_batch=8, lr=1e-4)
 TRAIN_PEAK_GIB = 70.0  # full-width training (5m, 5r, 5f) peaks under this
+# phase census: the smoke-size models whose decode step's kernel work the
+# card and the CPU must count alike; the dry run's output directory and
+# the most it may take from its start (it runs beside every earlier
+# phase)
+CENSUS_DECODE_ARCHS = ("stablelm-12b", "gemma2-27b", "rwkv6-1.6b",
+                       "hymba-1.5b")
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+DRYRUN_BUDGET_S = 900.0
 # the per-leaf trainer's other sync labels, at the first of TRAIN_FALL_LRS
 TRAIN_FLAT = ("ring", "rhd", "cps", "hcps", "gentree", "auto")
 TRAIN_SMOKE_STEPS = 3            # smoke-size f32 steps, card against CPU
@@ -2757,7 +2786,8 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
     rank = max(bound_ms(fb_bytes), flops_ms)
     return {"gather": bound_ms(gather), "forward_backward": n * rank,
             "reduce_scatter": bound_ms(scatter), "adamw": bound_ms(22 * P),
-            "rank_bytes_ms": bound_ms(fb_bytes), "rank_flops_ms": flops_ms}
+            "rank_bytes_ms": bound_ms(fb_bytes), "rank_flops_ms": flops_ms,
+            "rank_flops": flops + f32_flops}
 
 
 def encdec_flops(cfg, tokens: int, seq_len: int, rows: int
@@ -4502,6 +4532,239 @@ def phase_serve_all(dev, recorder, t0: float) -> dict:
     return served
 
 
+# ---------------------------------------------------------------------------
+# the census and the dry run
+# ---------------------------------------------------------------------------
+def start_dryrun(src: Path) -> subprocess.Popen:
+    """`python -m repro_torch.launch.dryrun --all` on the meta device, in
+    a process of its own with no card visible (CUDA_VISIBLE_DEVICES
+    empty), one CPU thread at the lowest priority (the card's phases are
+    host-bound too), its JSON into DRYRUN_DIR; it runs beside the card's
+    phases, and phase census waits for it. Killed at exit if it is still
+    running."""
+    import atexit
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    out = open(DRYRUN_DIR / "dryrun.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--json", str(DRYRUN_DIR / "dryrun.json")], env=env, stdout=out,
+        stderr=subprocess.STDOUT, cwd=str(ROOT),
+        preexec_fn=lambda: os.nice(19))
+    proc.started = time.perf_counter()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+    atexit.register(stop)
+    return proc
+
+
+def census_leaf_payloads(step, numels, elem: int) -> int:
+    """Per-rank payload bytes of one per-leaf step's all-gathers (the same
+    for its reduce-scatters) on one axis, by `level_bytes`' reckoning:
+    each leaf padded to its plan's multiple (a schedule's block count, a
+    flat label's `_pad_multiple`)."""
+    from repro_torch.core import collectives as C
+    (pl,) = step.plans
+    n = dict(step.mesh)[pl.axis]
+    mult = (pl.schedule.num_blocks if pl.strategy == "plan"
+            else C._pad_multiple(n, pl.strategy))
+    return sum(-(-m // mult) * mult for m in numels) * elem
+
+
+def phase_census(dev, dryrun) -> dict:
+    """Phase census (`repro_torch.launch.analysis`). (a) Phase 5's
+    per-leaf stablelm-12b step (TRAIN: full width, 2 layers, 8 ranks) on
+    the card: two steps without a census, then one inside `census(8)`:
+    its collectives must be one all-gather and one reduce-scatter a leaf
+    and the two metrics' pmeans, their per-rank payloads each leaf padded
+    as `level_bytes` pads it, exactly; the launches of the censused step
+    must equal the step's before; prints the census's FLOPs a rank
+    against `train_bounds`' product count, its peak live bytes (plus what
+    was allocated before) against `torch.cuda.max_memory_allocated()`,
+    and the step's time without and with the census. (b) One decode step
+    of the served stablelm-12b at full width (SERVE's batch and cache)
+    on the card, censused: its kernel work beside its FLOPs and bytes;
+    and one decode step of each CENSUS_DECODE_ARCHS model at smoke size
+    in f32 on the card and on the CPU: the kernel work (calls, FLOPs,
+    bytes) must be equal. (c) The dry run on the meta device
+    (`start_dryrun`, running since the start): waits for it, fails if it
+    failed, prints one line a cell. Returns the launch counts of (a) and
+    (b)'s card runs."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import all_cells, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analysis
+    from repro_torch.launch.dryrun import cell_line
+    from repro_torch.launch.serve import step_batch
+    from repro_torch.launch.train import (batch_tensors, data_config,
+                                          make_manual_train_step,
+                                          shard_params_zero3)
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.models.tree import tree_items
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    totals = {k: 0 for k in ops.LAUNCHES}
+    tr = TRAIN
+    cfg = dataclasses.replace(get_config(tr["arch"]), n_layers=tr["layers"])
+    n = tr["local_ranks"]
+    api = build(cfg)
+    torch.cuda.empty_cache()
+    shards = shard_params_zero3(api.init_params(
+        torch.Generator(device=dev).manual_seed(0), torch.bfloat16, dev), n)
+    state = {"params": shards, "opt": adamw_init(shards)}
+    step = make_manual_train_step(api, n, AdamWConfig(lr=TRAIN_FALL_LRS[0]),
+                                  device=dev)
+    data = SyntheticLM(data_config(cfg, tr["seq_len"], tr["global_batch"]))
+    numels = [math.prod(t.shape) for _, t in tree_items(api.params_spec())]
+    times, launches = [], []
+    for s in range(3):
+        batch = batch_tensors(data.batch_at(s), dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        if s == 2:
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with (analysis.census(n) if s == 2 else contextlib.nullcontext()
+              ) as c:
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(ops.LAUNCHES))
+        for k, v in ops.LAUNCHES.items():
+            totals[k] += v
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = c.stats()
+    leaves = len(shards)
+    payload = census_leaf_payloads(step, numels, shards[0].element_size())
+    want_counts = {"all-gather": leaves, "reduce-scatter": leaves,
+                   "all-reduce": 2}
+    want_payload = {"all-gather": float(payload),
+                    "reduce-scatter": float(payload), "all-reduce": 8.0}
+    (plan,) = step.plans
+    bounds = train_bounds(cfg, plan.schedule.inner, shards, n, tr["seq_len"],
+                          tr["global_batch"], step, plan)
+    log(f"census [train]: {cfg.name} layers={cfg.n_layers}, {n} ranks, "
+        f"per leaf ({leaves} leaves); collectives {json.dumps(st.coll_counts)}"
+        f" payload a rank {json.dumps(st.coll_payload_by_kind)} against "
+        f"level_bytes' padded leaves {json.dumps(want_payload)}; wire bytes "
+        f"{json.dumps(st.coll_by_kind)}; FLOPs a rank {st.flops:.6e} against "
+        f"train_bounds' product count {bounds['rank_flops']:.6e} (ratio "
+        f"{st.flops / bounds['rank_flops']:.4f}); HBM bytes a rank "
+        f"{st.hbm_bytes:.6e}; kernel work {json.dumps(c.kernel_work())}; "
+        f"peak live bytes {c.peak_bytes / 2**30:.3f} GiB + {base / 2**30:.3f}"
+        f" GiB allocated before = {(c.peak_bytes + base) / 2**30:.3f} GiB "
+        f"against max_memory_allocated {peak / 2**30:.3f} GiB (margin "
+        f"{(peak - c.peak_bytes - base) / 2**30:+.3f} GiB); step time "
+        f"without the census {times[1]:.1f} ms (first {times[0]:.1f} ms), "
+        f"with it {times[2]:.1f} ms ({times[2] / times[1] - 1:+.1%}); "
+        f"loss {loss:.4f}; launches {json.dumps(launches)}")
+    if st.coll_counts != want_counts \
+            or st.coll_payload_by_kind != want_payload:
+        fail(f"census [train]: collectives {st.coll_counts} "
+             f"{st.coll_payload_by_kind}, expected {want_counts} "
+             f"{want_payload}")
+    if launches[2] != launches[1] or not math.isfinite(loss):
+        fail(f"census [train]: the censused step launched {launches[2]}, "
+             f"the step before {launches[1]}; loss {loss}")
+    del state, shards, step, m, c
+    torch.cuda.empty_cache()
+
+    # (b) decode steps
+    sv = build(get_config("stablelm-12b"))
+    params = sv.init_params(torch.Generator(device=dev).manual_seed(0),
+                            torch.bfloat16, dev)
+    B = SERVE["batch"]
+    tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        cache = sv.init_cache(B, SERVE["cache_len"], torch.bfloat16, dev)
+        cache["pos"].fill_(SERVE["prompt_len"])
+        ops.reset_launches()
+        with analysis.census() as c:
+            logits, cache = sv.decode_step(params, cache, {"tokens": tok})
+        torch.cuda.synchronize()
+    for k, v in ops.LAUNCHES.items():
+        totals[k] += v
+    st = c.stats()
+    log(f"census [decode]: stablelm-12b full width, batch {B}, cache "
+        f"{SERVE['cache_len']}: FLOPs {st.flops:.6e}, HBM bytes "
+        f"{st.hbm_bytes:.6e}, kernel work {json.dumps(c.kernel_work())}, "
+        f"launches {json.dumps(dict(ops.LAUNCHES))}")
+    got = c.kernel_work()
+    if got["rmsnorm"][0] != ops.LAUNCHES["rmsnorm"] \
+            or got["flash_attention"][0] != ops.LAUNCHES["flash_attention"]:
+        fail(f"census [decode]: kernel calls {got} against launches "
+             f"{ops.LAUNCHES}")
+    del params, cache, logits, c
+    torch.cuda.empty_cache()
+    for arch in CENSUS_DECODE_ARCHS:
+        api = build(smoke_config(get_config(arch)))
+        params = api.init_params(torch.Generator().manual_seed(0),
+                                 torch.float32, "cpu")
+        batch = reference_batch(api.cfg, 2, 8)
+        work = {}
+        for where in ("cpu", dev):
+            p = _to(params, where)
+            with torch.inference_mode():
+                logits, cache = api.prefill(p, _to(batch, where), 16)
+                tok = logits[:, -1].argmax(dim=-1)
+                b = step_batch(api.cfg, p, tok)
+                ops.reset_launches()
+                with analysis.census() as c:
+                    api.decode_step(p, cache, b)
+            if str(where) != "cpu":
+                for k, v in ops.LAUNCHES.items():
+                    totals[k] += v
+            work[str(where)] = c.kernel_work()
+        log(f"census [decode smoke {arch}]: kernel work card "
+            f"{json.dumps(work[str(dev)])}, CPU {json.dumps(work['cpu'])}")
+        if work["cpu"] != work[str(dev)] or not work["cpu"]:
+            fail(f"census [decode smoke {arch}]: the card's kernel work "
+                 f"differs from the CPU's")
+
+    # (c) the dry run
+    ended = dryrun.poll() is not None
+    t_wait = time.perf_counter()
+    left = max(1.0, DRYRUN_BUDGET_S - (t_wait - dryrun.started))
+    try:
+        rc = dryrun.wait(timeout=left)
+    except subprocess.TimeoutExpired:
+        fail(f"the dry run did not finish within {DRYRUN_BUDGET_S} s of "
+             f"its start; see {DRYRUN_DIR / 'dryrun.log'}")
+    if rc != 0:
+        fail(f"the dry run failed (exit {rc}); see "
+             f"{DRYRUN_DIR / 'dryrun.log'}")
+    doc = json.loads((DRYRUN_DIR / "dryrun.json").read_text())
+    cells = doc["results"]
+    for r in cells:
+        log(f"dryrun: [skip] {r['arch']} × {r['shape']}" if "skipped" in r
+            else "dryrun: " + cell_line(r))
+    ran = [r for r in cells if "hlo_flops" in r]
+    log(f"dryrun: {len(ran)} cells run on meta, "
+        f"{len(cells) - len(ran)} documented skips, "
+        f"{sum(r['run_s'] for r in ran):.1f} s of cell time; "
+        + ("it had ended before this phase" if ended else
+           f"this phase waited {time.perf_counter() - t_wait:.1f} s for "
+           f"it, {time.perf_counter() - dryrun.started:.1f} s from its "
+           "start"))
+    supported = sum(ok for *_, ok in all_cells())
+    if len(ran) != supported or any("error" in r for r in cells):
+        fail(f"the dry run ran {len(ran)} cells, expected {supported}")
+    log(f"phase census wall {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def kernels_line(dev, first, main_path, unlaunched) -> dict:
     """Per kernel: its launches on the main path (`main_path`, summed over
     its phases) and its measures at its first main-path launch (`first`),
@@ -4591,6 +4854,9 @@ def main() -> int:
                     "whisper-large-v3 and mixtral-8x22b training at full "
                     "width, then smoke-size card against CPU) alone, then "
                     "stop: no result line")
+    ap.add_argument("--census", action="store_true",
+                    help="build the kernels and run phase census alone "
+                    "(the dry run beside it), then stop: no result line")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the port's source tree (default: this checkout's "
                     "src), e.g. another commit's unpacked beside it, to "
@@ -4615,8 +4881,16 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    quick = (args.attention or args.recurrence or args.planner or args.flat
+             or args.serve or args.ft or args.moe_train
+             or args.recurrent_train or args.family_train)
+    dryrun = None if quick else start_dryrun(src)
     phase_build()
     log(f"phase build done at {time.perf_counter() - t0:.1f} s")
+    if args.census:
+        phase_census(dev, dryrun)
+        log(f"phase census done at {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.attention:
         log(f"attention grid of {src}")
         log_rows(model_kernel_grid(dev, attention_only=True))
@@ -4689,6 +4963,9 @@ def main() -> int:
     for name, n in phase_ft(dev, baseline).items():
         trained[name] += n
     log(f"phase ft done at {time.perf_counter() - t0:.1f} s")
+    for name, n in phase_census(dev, dryrun).items():
+        trained[name] += n
+    log(f"phase census done at {time.perf_counter() - t0:.1f} s")
     # each kernel is timed at its first launch on the main path: the
     # server's shapes where it launched the kernel, else the executor's,
     # else the families'

@@ -47,6 +47,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.launch import analysis
 from repro_torch.runtime.trace import default_tracer
 
 # ---------------------------------------------------------------------------
@@ -623,6 +624,22 @@ def _axis(x, axis_name, mesh):
     return sizes, dim, sizes[dim], math.prod(sizes)
 
 
+def _census_axis(a: dict, out, of: str = "x", scale: bool = False):
+    """(per-rank bytes, axis size) of a call on axis a["axis_name"]: of
+    the input a[of], or of `out` (a reduce-scatter's shard times the
+    axis: the padded operand; an all-gather's gathered result)."""
+    sizes, _, n, R = _axis(a["x"], a["axis_name"], a["mesh"])
+    t = a[of] if of != "out" else out
+    return analysis.rank_bytes(t, R) * (n if scale else 1), n
+
+
+def _census_psum(a: dict, out):
+    names, sizes = _mesh_sizes(a["x"], list(a["axis_names"]), a["mesh"])
+    n = math.prod(sizes[names.index(ax)] for ax in set(a["axis_names"]))
+    return analysis.rank_bytes(a["x"], math.prod(sizes)), n
+
+
+@analysis.collective("all-reduce", _census_axis)
 def allreduce(x: torch.Tensor, axis_name: str, strategy: str = "psum",
               factors: Sequence[int] | None = None, schedule=None, *,
               mesh=None) -> torch.Tensor:
@@ -663,6 +680,8 @@ def allreduce(x: torch.Tensor, axis_name: str, strategy: str = "psum",
     return full.reshape(x.shape)
 
 
+@analysis.collective("reduce-scatter", lambda a, out: _census_axis(
+    a, out, "out", scale=True))
 def reduce_scatter(x: torch.Tensor, axis_name: str, strategy: str = "psum",
                    factors: Sequence[int] | None = None, schedule=None, *,
                    mesh=None) -> torch.Tensor:
@@ -696,6 +715,8 @@ def reduce_scatter(x: torch.Tensor, axis_name: str, strategy: str = "psum",
     return out.reshape(*lead, -1)
 
 
+@analysis.collective("all-gather", lambda a, out: _census_axis(a, out,
+                                                          "out"))
 def all_gather(x: torch.Tensor, axis_name: str, strategy: str = "psum",
                factors: Sequence[int] | None = None, schedule=None, *,
                mesh=None) -> torch.Tensor:
@@ -726,6 +747,7 @@ def all_gather(x: torch.Tensor, axis_name: str, strategy: str = "psum",
     return out.reshape(*lead, -1)
 
 
+@analysis.collective("all-to-all", _census_axis)
 def all_to_all(x: torch.Tensor, axis_name: str, schedule=None, *,
                mesh=None) -> torch.Tensor:
     """AllToAll over the ranks' chunks: rank d's chunk j goes to rank j as
@@ -747,6 +769,7 @@ def all_to_all(x: torch.Tensor, axis_name: str, schedule=None, *,
     return out.reshape(x.shape)
 
 
+@analysis.collective("all-reduce", _census_psum)
 def psum(x: torch.Tensor, axis_names: Sequence[str], *, mesh=None
          ) -> torch.Tensor:
     """The sum over every axis of `axis_names` at once (the reference's
@@ -765,6 +788,7 @@ def psum(x: torch.Tensor, axis_names: Sequence[str], *, mesh=None
 _planned_fallback_warned = False
 
 
+@analysis.collective("all-reduce", _census_axis)
 def allreduce_planned(x: torch.Tensor, axis_name: str, *, service=None,
                       bucketing=None, precision: str | None = None,
                       tolerance: float | None = None,

@@ -46,6 +46,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.launch import analysis
 from repro_torch.runtime.trace import default_tracer
 
 from .plans import Plan
@@ -243,6 +244,8 @@ class CompiledSchedule:
                else X.clone(memory_format=torch.contiguous_format))
         return buf.reshape(self.n * self.num_blocks, -1)
 
+    @analysis.collective("all-reduce", lambda a, out: (
+        analysis.rank_bytes(a["X"], a["self"].n), a["self"].n))
     def run_local(self, X: torch.Tensor) -> torch.Tensor:
         """AllReduce on a local mesh: X is the (n, size) tensor of the n
         ranks' contributions (f32 or bf16, on any device); returns the
@@ -264,6 +267,8 @@ class CompiledSchedule:
         out = buf.reshape(self.n, -1)
         return out[:, :size] if out.shape[1] != size else out
 
+    @analysis.collective("reduce-scatter", lambda a, out: (
+        analysis.rank_bytes(out, 1), a["self"].n))
     def run_local_reduce_scatter(self, X: torch.Tensor, *,
                                  overwrite: bool = False) -> torch.Tensor:
         """ReduceScatter on a local mesh: X (n, size) as for `run_local`;
@@ -298,6 +303,8 @@ class CompiledSchedule:
         return (buf.view(n, n, k, -1).diagonal(dim1=0, dim2=1)
                 .permute(2, 0, 1).reshape(n, -1))
 
+    @analysis.collective("all-gather", lambda a, out: (
+        analysis.rank_bytes(out, a["self"].n), a["self"].n))
     def run_local_all_gather(self, S: torch.Tensor) -> torch.Tensor:
         """AllGather on a local mesh: S (n, shard), row i rank i's
         canonical shard (shard a multiple of blocks_per_shard); returns
@@ -320,6 +327,8 @@ class CompiledSchedule:
             self._run_steps_local(self.ag, buf, phase="ag")
         return buf.reshape(n, -1)
 
+    @analysis.collective("all-to-all", lambda a, out: (
+        analysis.rank_bytes(a["X"], a["self"].n), a["self"].n))
     def run_local_all_to_all(self, X: torch.Tensor) -> torch.Tensor:
         """AllToAll on a local mesh: X (n, size), size a multiple of
         num_blocks; returns (n, size) where, with k = num_blocks / n, rank
@@ -338,6 +347,8 @@ class CompiledSchedule:
             self._run_steps_local(self.ag, buf, phase="a2a")
         return buf.reshape(self.n, -1)
 
+    @analysis.collective("collective-permute", lambda a, out: (
+        analysis.rank_bytes(a["X"], a["self"].n), a["self"].n))
     def run_local_p2p(self, X: torch.Tensor) -> torch.Tensor:
         """Point-to-point exchange on a local mesh: X (n, size); each
         compiled (src, dst) edge replaces row dst with row src, rows with

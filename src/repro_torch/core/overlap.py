@@ -26,6 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.launch import analysis
 from repro_torch.runtime.metrics import default_metrics
 from repro_torch.runtime.trace import default_tracer
 
@@ -276,6 +277,10 @@ class MergedSchedule:
                   .permute(2, 0, 1).reshape(n, -1))
         return shards, buf_b.reshape(n, -1)
 
+    @analysis.collective(None, lambda a, out: [
+        ("reduce-scatter", analysis.rank_bytes(out[0], 1), out[0].shape[0]),
+        ("all-gather", analysis.rank_bytes(out[1], out[1].shape[0]),
+         out[1].shape[0])])
     def rs_ag(self, X: torch.Tensor, S: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
         """Merged launch: RS of `X` interleaved with AG of `S`. Returns

@@ -24,6 +24,8 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.launch import analysis
+
 from . import collectives
 from .cost_model import GPU_AXIS_BASIS, GenModelParams, best_flat_plan
 
@@ -314,6 +316,7 @@ class _EPExchange(torch.autograd.Function):
                         ctx.mesh), None, None, None)
 
 
+@analysis.collective("all-to-all", collectives._census_axis)
 def ep_exchange(x: torch.Tensor, axis_name: str, *, mesh=None
                 ) -> torch.Tensor:
     """`ep_all_to_all`, differentiable: the MoE layer's dispatch and
@@ -337,6 +340,7 @@ def _quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+@analysis.collective("all-reduce", collectives._census_axis)
 def allreduce_int8_cps(x: torch.Tensor, axis_name: str, *, mesh=None
                        ) -> torch.Tensor:
     """CPS AllReduce with the int8 wire (gradient compression): each rank

@@ -3,11 +3,16 @@
 A wrapper validates its inputs, then dispatches on where they lie: a CPU
 tensor goes to the plain version in `ref.py`; a CUDA tensor launches the
 kernel (built on first use by `build.py`) on PyTorch's current stream, or
-raises. There is no fallback from a failed build or launch to the plain
-version. Each wrapper counts its kernel launches in `LAUNCHES`; the plain
-path counts nothing. The kernels have no backward yet: on the card a
-wrapper raises when grad mode is on and an input requires grad (the
-CPU path stays differentiable), rather than cut the gradients.
+raises. A meta tensor (the dry run's, `launch.dryrun`) goes to the plain
+version too, whose ops carry the shapes; the recurrences, whose plain
+versions step token by token, make their outputs' shapes alone. Under
+`launch.analysis.census` each wrapper reports its kernel's work from the
+shapes (`_work_*`), whatever the device. There is no fallback from a
+failed build or launch to the plain version. Each wrapper counts its
+kernel launches in `LAUNCHES`; the plain path counts nothing. The
+kernels have no backward yet: on the card a wrapper raises when grad
+mode is on and an input requires grad (the CPU path stays
+differentiable), rather than cut the gradients.
 
 The recurrence kernels (`wkv`, `ssm_scan`) take f32 inputs that must be
 contiguous on every device, and return new output and final-state
@@ -34,6 +39,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.launch.analysis import KernelWork, kernel as _census
 
 from . import build, ref
 from .ref import QUANT_TILE, WIRE_QMAX, wire_dtype
@@ -73,6 +80,146 @@ DEQUANTIZE_MAX_ROWS = 65535
 _FLOATS = (torch.float32, torch.bfloat16)
 
 
+# ---------------------------------------------------------------------------
+# each wrapper's work from its shapes, for `launch.analysis.census`: the
+# FLOPs and bytes of the kernel table's bound column (each input read
+# once, each output written once; a reduce's adds count no FLOPs)
+# ---------------------------------------------------------------------------
+def _elem(t: torch.Tensor) -> int:
+    return t.element_size()
+
+
+def _work_fused_reduce(parts, *a, **k) -> KernelWork:
+    x, L = parts.shape[-2], parts.shape[-1]
+    batch = parts.numel() // max(x * L, 1)
+    return KernelWork(0.0, (x + 1) * L * batch * _elem(parts))
+
+
+def _work_grouped_reduce(parts, *a, **k) -> KernelWork:
+    x, L = parts.shape
+    return KernelWork(0.0, (x + 1) * L * _elem(parts))
+
+
+def _table_bytes(table: "RowTable") -> int:
+    return 8 * (table.rows.numel() + table.out_rows.numel()
+                + table.own_rows.numel())
+
+
+def _work_fused_reduce_into(src, table, out, *a, **k) -> KernelWork:
+    L = src.shape[-1]
+    return KernelWork(0.0, table.live * L * _elem(src)
+                      + (table.own_live + table.out_rows.numel()) * L
+                      * _elem(out) + _table_bytes(table))
+
+
+def _work_quantize(x, wire="float8_e4m3fn", tile=QUANT_TILE) -> KernelWork:
+    W, L = x.shape
+    nt = -(-L // tile)
+    return KernelWork(0.0, W * (4 * L + nt * tile + 4 * nt))
+
+
+def _work_dequantize(q, scales, tile=QUANT_TILE, out_len=None
+                     ) -> KernelWork:
+    W, Lp = q.shape
+    out_len = Lp if out_len is None else int(out_len)
+    nt = scales.shape[-1]
+    return KernelWork(0.0, W * (nt * tile + 4 * nt + 4 * out_len))
+
+
+def _work_dequantize_into(q, scales, table, out, tile=QUANT_TILE
+                          ) -> KernelWork:
+    L = out.shape[-1]
+    B = table.rows.shape[0]
+    return KernelWork(0.0, table.live * (L + 4 * -(-L // tile))
+                      + B * L * _elem(out) + 8 * (table.rows.numel() + B))
+
+
+def _work_quant_reduce_requant(q, scales, wire=None, tile=QUANT_TILE
+                               ) -> KernelWork:
+    K, Lp = q.shape
+    return KernelWork(0.0, (K + 1) * (Lp + 4 * (Lp // tile)))
+
+
+def _work_quant_reduce(q, scales, own=None, tile=QUANT_TILE, out_len=None
+                       ) -> KernelWork:
+    K, Lp = q.shape[-2], q.shape[-1]
+    batch = q.numel() // max(K * Lp, 1)
+    own_len = 0 if own is None else own.shape[-1]
+    return KernelWork(0.0, batch * (K * Lp + 4 * K * (Lp // tile)
+                                    + 4 * own_len + 4 * Lp))
+
+
+def _work_quant_reduce_into(q, scales, table, out, tile=QUANT_TILE
+                            ) -> KernelWork:
+    Lp, L = q.shape[-1], out.shape[-1]
+    return KernelWork(0.0, table.live * (Lp + 4 * (Lp // tile))
+                      + (table.own_live + table.out_rows.numel()) * L
+                      * _elem(out) + _table_bytes(table))
+
+
+def _work_wkv(r, k, v, logw, u, s0) -> KernelWork:
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    return KernelWork(B * H * T * K * (7 * V + 1),
+                      4 * (B * H * T * (3 * K + 2 * V) + H * K
+                           + 2 * B * H * K * V))
+
+
+def _work_ssm_scan(u, dt, b, c, log_a, s0) -> KernelWork:
+    B, T, Di = u.shape
+    N = b.shape[-1]
+    return KernelWork(B * T * Di * (7 * N + 1),
+                      4 * (3 * B * T * Di + 2 * B * T * N + Di * N
+                           + 2 * B * Di * N))
+
+
+def _work_rmsnorm(x, w, *a, **k) -> KernelWork:
+    return KernelWork(4 * x.numel(), 2 * x.numel() * _elem(x)
+                      + w.numel() * _elem(w))
+
+
+def _sum_min(a: int, b: int, w: int) -> int:
+    """Σ_{p=a}^{b} min(p + 1, w)."""
+    total = 0
+    top = min(b, w - 2)
+    if top >= a:
+        total += (a + 1 + top + 1) * (top - a + 1) // 2
+    lo = max(a, w - 1)
+    if b >= lo:
+        total += w * (b - lo + 1)
+    return total
+
+
+def attention_pairs(Tq: int, Tk: int, causal: bool, window: int
+                    ) -> tuple[int, int]:
+    """(query-key pairs one batch row's Tq queries see, key rows some
+    query of the row sees), from the shapes: the queries right-aligned to
+    all Tk keys (query i at position Tk − Tq + i), masked causally and by
+    the window, as the kernel masks them when no kv_len cuts the row."""
+    p0, p1 = Tk - Tq, Tk - 1
+    if causal:
+        pairs = (_sum_min(p0, p1, window) if window > 0
+                 else (p0 + 1 + p1 + 1) * Tq // 2)
+    else:
+        beyond = 0                     # Σ max(0, p − window + 1)
+        if window > 0 and p1 >= window:
+            a = max(p0, window)
+            beyond = (a - window + 1 + p1 - window + 1) * (p1 - a + 1) // 2
+        pairs = Tq * Tk - beyond
+    lo = max(0, p0 - window + 1) if window > 0 else 0
+    return pairs, Tk - lo
+
+
+def _work_flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                          scale=None, kv_len=None) -> KernelWork:
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    pairs, rows = attention_pairs(Tq, Tk, causal, window)
+    return KernelWork(4 * Hq * D * pairs * B,
+                      _elem(q) * (2 * B * Hq * Tq * D + 2 * B * rows * Hkv * D)
+                      + (0 if kv_len is None else 8 * B))
+
+
 def reset_launches() -> None:
     for counts in (LAUNCHES, ATTENTION_LAUNCHES):
         for k in counts:
@@ -80,11 +227,13 @@ def reset_launches() -> None:
 
 
 def _on_cuda(*tensors: torch.Tensor | None) -> bool:
-    """True for CUDA tensors on one card, False for CPU ones; raises on a
-    mix of devices (two cards included) or on any other device."""
+    """True for CUDA tensors on one card, False for CPU ones and for meta
+    ones (the dry run's, where the plain version carries the shapes);
+    raises on a mix of devices (two cards included) or on any other
+    device."""
     devices = {t.device for t in tensors if t is not None}
     kinds = {d.type for d in devices}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return False
     if kinds == {"cuda"} and len(devices) == 1:
         return True
@@ -122,6 +271,7 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+@_census("fused_reduce", _work_fused_reduce)
 def fused_reduce(parts: torch.Tensor) -> torch.Tensor:
     """(x, L) → (L,) or batched (B, x, L) → (B, L): the x operand rows
     summed in f32 and written in the input dtype (f32 or bf16)."""
@@ -151,6 +301,7 @@ def _grouped_reduce_depth(x: int, fan_in: int) -> int:
     return depth
 
 
+@_census("grouped_reduce", _work_grouped_reduce)
 def grouped_reduce(parts: torch.Tensor, fan_in: int) -> torch.Tensor:
     """(x, L) → (L,): the x operand rows summed in f32 as a tree of
     fan_in-ary adds (see `ref.grouped_reduce_ref`), written in the input
@@ -213,6 +364,8 @@ class RowTable:
     src_extent: int
     out_extent: int
     has_own: bool = False        # some batch row folds a partial
+    live: int = 0                # operand rows that are not -1
+    own_live: int = 0            # partial rows that are not -1
 
 
 def row_table(rows, out_rows, own_rows=None, device=None) -> RowTable:
@@ -241,7 +394,8 @@ def row_table(rows, out_rows, own_rows=None, device=None) -> RowTable:
         src_extent=int(rows.max(initial=-1)) + 1,
         out_extent=int(max(out_rows.max(initial=-1),
                            own_rows.max(initial=-1))) + 1,
-        has_own=bool((own_rows >= 0).any()))
+        has_own=bool((own_rows >= 0).any()), live=int((rows >= 0).sum()),
+        own_live=int((own_rows >= 0).sum()))
 
 
 def _check_table(table: RowTable, src: torch.Tensor, out: torch.Tensor,
@@ -259,6 +413,7 @@ def _check_table(table: RowTable, src: torch.Tensor, out: torch.Tensor,
                          f"{src.shape[0]} and {out.shape[0]} rows")
 
 
+@_census("fused_reduce", _work_fused_reduce_into)
 def fused_reduce_into(src: torch.Tensor, table: RowTable,
                       out: torch.Tensor) -> None:
     """Gathered fused reduce, in place, in one launch: for every batch
@@ -287,6 +442,7 @@ def fused_reduce_into(src: torch.Tensor, table: RowTable,
                              table.out_rows, B, src.shape[1])
 
 
+@_census("quantize", _work_quantize)
 def quantize(x: torch.Tensor, wire: str = "float8_e4m3fn",
              tile: int = QUANT_TILE) -> tuple[torch.Tensor, torch.Tensor]:
     """(W, L) f32 → (q (W, Lp) wire dtype, scales (W, nt) f32): per-tile
@@ -337,6 +493,7 @@ def _kind(dtype: torch.dtype) -> str:
     return "f32" if dtype == torch.float32 else "bf16"
 
 
+@_census("dequantize", _work_dequantize)
 def dequantize(q: torch.Tensor, scales: torch.Tensor,
                tile: int = QUANT_TILE,
                out_len: int | None = None) -> torch.Tensor:
@@ -373,6 +530,7 @@ def _launch_dequantize(q, scales, rows, out, out_rows, B):
     LAUNCHES["dequantize"] += 1
 
 
+@_census("dequantize", _work_dequantize_into)
 def dequantize_into(q: torch.Tensor, scales: torch.Tensor, table: RowTable,
                     out: torch.Tensor, tile: int = QUANT_TILE) -> None:
     """Gathered dequantize, in place, in one launch: for every batch row
@@ -407,6 +565,8 @@ def dequantize_into(q: torch.Tensor, scales: torch.Tensor, table: RowTable,
         _launch_dequantize(q, scales, table.rows, out, table.out_rows, B)
 
 
+@_census("quant_reduce_requant",
+         _work_quant_reduce_requant)
 def quant_reduce_requant(q: torch.Tensor, scales: torch.Tensor,
                          wire: str | None = None, tile: int = QUANT_TILE
                          ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -442,6 +602,7 @@ def quant_reduce_requant(q: torch.Tensor, scales: torch.Tensor,
     return q_out, s_out
 
 
+@_census("quant_reduce", _work_quant_reduce)
 def quant_reduce(q: torch.Tensor, scales: torch.Tensor,
                  own: torch.Tensor | None = None, tile: int = QUANT_TILE,
                  out_len: int | None = None) -> torch.Tensor:
@@ -500,6 +661,7 @@ def _launch_quant_reduce(q, scales, rows, K, own, own_rows, own_len, out,
     LAUNCHES["quant_reduce"] += 1
 
 
+@_census("quant_reduce", _work_quant_reduce_into)
 def quant_reduce_into(q: torch.Tensor, scales: torch.Tensor,
                       table: RowTable, out: torch.Tensor,
                       tile: int = QUANT_TILE) -> None:
@@ -588,6 +750,7 @@ def ssm_scan_layout(B: int, Di: int, N: int) -> tuple[int, int]:
     return lanes, channels
 
 
+@_census("wkv", _work_wkv)
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
         ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -608,6 +771,8 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "wkv", dict(r=r, k=k, v=v, logw=logw, u=u, s0=s0),
         dict(r=(B, H, T, K), k=(B, H, T, K), v=(B, H, T, V),
              logw=(B, H, T, K), u=(H, K), s0=(B, H, K, V)))
+    if r.is_meta:                     # the dry run's: shapes alone
+        return (r.new_empty((B, H, T, V)), r.new_empty((B, H, K, V)))
     if not cuda:
         return ref.wkv_ref(r, k, v, logw, u, s0)
     lib = build.load("wkv")
@@ -623,6 +788,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, s_fin
 
 
+@_census("ssm_scan", _work_ssm_scan)
 def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, log_a: torch.Tensor, s0: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -643,6 +809,8 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         "ssm_scan", dict(u=u, dt=dt, b=b, c=c, log_a=log_a, s0=s0),
         dict(u=(B, T, Di), dt=(B, T, Di), b=(B, T, N), c=(B, T, N),
              log_a=(Di, N), s0=(B, Di, N)))
+    if u.is_meta:                     # the dry run's: shapes alone
+        return (u.new_empty((B, T, Di)), u.new_empty((B, Di, N)))
     if not cuda:
         return ref.ssm_scan_ref(u, dt, b, c, log_a, s0)
     lib = build.load("ssm_scan")
@@ -682,6 +850,7 @@ def _row_layout(x: torch.Tensor) -> list[tuple[int, int]]:
     return [(1, 0)] * (3 - len(dims)) + dims
 
 
+@_census("rmsnorm", _work_rmsnorm)
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
             offset: float = 0.0) -> torch.Tensor:
     """x (..., D) · rsqrt(mean x² + eps) · (offset + w), in f32, as a new
@@ -724,6 +893,7 @@ def decode_splits(B: int, Hkv: int, Tk: int) -> int:
     return max(1, min(fit, Tk // DECODE_SPLIT_KEYS, DECODE_MAX_SPLITS))
 
 
+@_census("flash_attention", _work_flash_attention)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: float | None = None,

@@ -68,6 +68,7 @@ import torch
 from repro_torch.core import collectives
 from repro_torch.core.sync import (AxisPlan, SyncConfig, expert_parallel,
                                    resolve_axis_plans)
+from repro_torch.launch import analysis
 from repro_torch.models.registry import ModelAPI
 from repro_torch.models.tree import (LAYER_KEYS, stack_layers,
                                      tree_from_items, tree_items,
@@ -382,20 +383,28 @@ def rank_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
     rows, row r its copy) and its rows of the batch (`_rank_batch`), and
     `put(r, i, g)` lands its gradient of leaf i, zeros for a leaf the
     loss does not reach (a vlm's `embed`, where the reference's
-    `value_and_grad` gives zeros). Returns the ranks' detached losses."""
+    `value_and_grad` gives zeros). Returns the ranks' detached losses.
+
+    On the meta device (the dry run, `launch.dryrun`) the ranks run the
+    same shapes and compute no values, so rank 0's forward and backward
+    stand for all n: the census counts them n times
+    (`analysis.repeated`)."""
     paths = [p for p, _ in tree_items(api.params_spec())]
+    same = bool(full) and full[0].is_meta
     losses = []
-    for r in range(n):
-        leaves = [(f[r] if lossy else f).detach().requires_grad_(True)
-                  for f in full]
-        params = unstack_layers(tree_from_items(zip(paths, leaves)))
-        loss = api.loss_fn(params, _rank_batch(batch, r, n), remat=True)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        for i, (t, g) in enumerate(zip(leaves, grads)):
-            put(r, i, t.new_zeros(()).expand(t.numel()) if g is None else g)
-        losses.append(loss.detach())
-        del leaves, params, loss, grads
-    return losses
+    with analysis.repeated(n if same else 1):
+        for r in range(1 if same else n):
+            leaves = [(f[r] if lossy else f).detach().requires_grad_(True)
+                      for f in full]
+            params = unstack_layers(tree_from_items(zip(paths, leaves)))
+            loss = api.loss_fn(params, _rank_batch(batch, r, n), remat=True)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            for i, (t, g) in enumerate(zip(leaves, grads)):
+                put(r, i,
+                    t.new_zeros(()).expand(t.numel()) if g is None else g)
+            losses.append(loss.detach())
+            del leaves, params, loss, grads
+    return losses * n if same else losses
 
 
 def make_manual_train_step(api: ModelAPI, mesh,
@@ -587,7 +596,8 @@ def make_manual_train_step(api: ModelAPI, mesh,
             if lossy:
                 out.append(full.reshape(n, *shape))
                 continue
-            if not torch.equal(full[1:], full[:1].expand(n - 1, -1)):
+            if not full.is_meta and not torch.equal(
+                    full[1:], full[:1].expand(n - 1, -1)):
                 raise RuntimeError(f"leaf {'/'.join(path)}: the gathered "
                                    "rows of the ranks differ")
             out.append(full[0].reshape(shape).clone())
@@ -687,6 +697,9 @@ def make_manual_train_step(api: ModelAPI, mesh,
             events.append(mark())
             metrics = {"loss": torch.stack(losses).mean(),
                        "gnorm": torch.stack(gnorms).mean()}
+            # the two means are the reference's pmeans over the ranks
+            for m in (metrics["loss"], metrics["gnorm"]):
+                analysis.note_collective("all-reduce", m.element_size(), n)
         if dev.type == "cuda":
             metrics["events"] = events
         if exchanges is not None:

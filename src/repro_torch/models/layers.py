@@ -125,7 +125,7 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     freqs = _rope_freqs(x.shape[-1], theta, x.device)
     sec_id = torch.repeat_interleave(
         torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))
+        torch.tensor(sections, device=x.device), output_size=sum(sections))
     sec_id = torch.cat([sec_id, sec_id[-1:].expand(half)])[:half]
     pos = positions[sec_id].movedim(0, -1)               # (B, T, half)
     ang = pos[:, None].float() * freqs                   # (B, 1, T, half)
@@ -155,13 +155,6 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
         p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
         p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
     return p
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attn_kv_block:
-        raise NotImplementedError(
-            f"{cfg.name}: the KV-block attention scan is not ported yet "
-            "(ROADMAP §1 item 7)")
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -209,7 +202,6 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """Full-sequence attention (prefill). `block_q` is accepted for the
     reference's signature; the kernel and its plain version tile the
     queries themselves."""
-    _check_supported(cfg)
     T = x.shape[1]
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
@@ -242,10 +234,12 @@ def train_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     mrope_positions: torch.Tensor | None = None,
                     block_q: int = 512) -> torch.Tensor:
     """Full-sequence attention for training, differentiable: the
-    reference's q-block `attention` (its banded path for a window
-    narrower than the sequence, else every block against all keys),
-    each block one `_sdpa_block`."""
-    _check_supported(cfg)
+    reference's q-block `attention`, in its branch order: the banded path
+    for a causal window narrower than the sequence; with
+    `cfg.attn_kv_block` = bk where bk < Tk divides Tk, the online-softmax
+    scan over KV blocks (each q block against bk keys at a time, the
+    running max m, sum l and output in f32); else every q block against
+    all keys. Each rectangle is one `_sdpa_block`."""
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
@@ -261,6 +255,11 @@ def train_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if T % bq:
         bq = T
     banded = window > 0 and causal and Tk == T and window < T
+    bk = cfg.attn_kv_block
+    if not banded and bk and Tk % bk == 0 and bk < Tk:
+        out = _kv_block_scan(q, k, v, cfg, bq, bk, window, causal, x.dtype)
+        return matmul(out.transpose(1, 2).reshape(B, T, cfg.n_heads * hd),
+                      p["wo"])
     span = min(bq + (window // bq + 1) * bq, Tk) if banded else Tk
     ar = torch.arange(max(bq, span), device=x.device)
     outs = []
@@ -285,6 +284,47 @@ def train_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return matmul(out, p["wo"])
 
 
+def _kv_block_scan(q, k, v, cfg: ModelConfig, bq: int, bk: int,
+                   window: int, causal: bool, dtype) -> torch.Tensor:
+    """The reference's flash-in-XLA scan: (B, H, T, hd) queries, q block
+    by q block, against the (B, H, Tk, hd) keys bk at a time; each KV
+    block's `_sdpa_block` (re-masked after the exp: a whole block can be
+    masked) folds into the running (o, m, l) by the online softmax.
+    Returns (B, H, T, hd) in `dtype`."""
+    B, H, T, hd = q.shape
+    Tk = k.shape[2]
+    ar_q = torch.arange(bq, device=q.device)[:, None]
+    ar_k = torch.arange(bk, device=q.device)[None, :]
+    outs = []
+    for qi in range(T // bq):
+        qb = q[:, :, qi * bq:(qi + 1) * bq]
+        qpos = qi * bq + ar_q + (Tk - T)
+        o_acc = torch.zeros((B, H, bq, hd), dtype=torch.float32,
+                            device=q.device)
+        m_acc = torch.full((B, H, bq, 1), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+        l_acc = torch.zeros((B, H, bq, 1), dtype=torch.float32,
+                            device=q.device)
+        for ki in range(Tk // bk):
+            kpos = ki * bk + ar_k
+            mask = torch.ones((bq, bk), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= kpos <= qpos
+            if window > 0:
+                mask &= kpos > qpos - window
+            o, m, l = _sdpa_block(qb, k[:, :, ki * bk:(ki + 1) * bk],
+                                  v[:, :, ki * bk:(ki + 1) * bk], mask,
+                                  hd ** -0.5, cfg.attn_softcap)
+            m_new = torch.maximum(m_acc, m)
+            alpha = torch.exp(m_acc - m_new)
+            beta = torch.exp(m - m_new)
+            o_acc = o_acc * alpha + o * beta
+            l_acc = l_acc * alpha + l * beta
+            m_acc = m_new
+        outs.append((o_acc / (l_acc + 1e-30)).to(dtype))
+    return torch.cat(outs, dim=2)
+
+
 def attention_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: torch.Tensor,
                      cfg: ModelConfig, *, window: int = 0,
@@ -296,7 +336,6 @@ def attention_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     has formed it once for all layers. Writes the new K/V into the cache
     at `pos` IN PLACE (the cache is the caller's decode state) and
     returns the attention output (B, 1, D)."""
-    _check_supported(cfg)
     B = x.shape[0]
     hd = cfg.head_dim
     q, k_new, v_new = _qkv(p, x, cfg, pos[:, None],
@@ -473,7 +512,8 @@ def _moe_ep_block(xts: Sequence[torch.Tensor], topis: Sequence[torch.Tensor],
         e_flat = topi.reshape(-1)
         order = torch.argsort(e_flat, stable=True)
         sorted_e = e_flat[order]
-        counts = torch.bincount(e_flat, minlength=E)
+        counts = torch.zeros(E, dtype=torch.long, device=xt.device)
+        counts.scatter_add_(0, e_flat, torch.ones_like(e_flat))
         starts = torch.cumsum(counts, 0) - counts
         rank = ar - starts[sorted_e]
         keep = rank < cap

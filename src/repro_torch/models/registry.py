@@ -8,7 +8,9 @@ loss of every rank of a local mesh at once), the RWKV6 model (family
 (family "audio"), with the reference registry's return shapes and batch
 keys: `forward` gives the logits; a vlm batch carries "embeds" and
 "mrope_positions" (decode: "embeds" alone) where the others carry
-"tokens", an audio batch "frames" beside "tokens".
+"tokens", an audio batch "frames" beside "tokens". `train_specs`,
+`prefill_specs` and `decode_specs` are the reference's per-cell input
+specs as meta tensors, `params_spec` / `meta_params` the parameters so.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Callable
 import torch
 
 from . import encdec, hybrid_model, rwkv_model, transformer
-from .config import ModelConfig
+from .config import ModelConfig, ShapeConfig
 from .tree import stack_layers
 
 
@@ -39,8 +41,49 @@ class ModelAPI:
         dtypes, nothing allocated): its layout, the layer leaves stacked
         (L, ...), bf16 by default as the reference's `params_spec`.
         `models.tree.tree_items` visits it in the reference's order."""
-        return stack_layers(self.init_params(torch.Generator(), dtype,
-                                             "meta"))
+        return stack_layers(self.meta_params(dtype))
+
+    def meta_params(self, dtype=torch.bfloat16) -> dict:
+        """The parameters in the port's own layout (per-layer lists), as
+        meta tensors: what prefill and decode take, with no full-size
+        leaf drawn."""
+        return self.init_params(torch.Generator(), dtype, "meta")
+
+    # -- the reference's per-cell input specs, as meta tensors: its shapes
+    # and float dtypes; integer inputs int64, as `launch.train.
+    # batch_tensors` gives them ---------------------------------------------
+    def train_specs(self, shape: ShapeConfig) -> dict:
+        B, T = shape.global_batch, shape.seq_len
+        batch = {"labels": _meta((B, T), torch.long)}
+        return {**batch, **self._inputs(B, T)}
+
+    def prefill_specs(self, shape: ShapeConfig) -> dict:
+        return self._inputs(shape.global_batch, shape.seq_len)
+
+    def decode_specs(self, shape: ShapeConfig) -> dict:
+        """{"batch": one token a row (a vlm: its embedding row), "cache":
+        the family's cache of `shape.seq_len` slots}."""
+        B, S = shape.global_batch, shape.seq_len
+        batch = ({"embeds": _meta((B, 1, self.cfg.d_model), torch.bfloat16)}
+                 if self.cfg.family == "vlm"
+                 else {"tokens": _meta((B, 1), torch.long)})
+        return {"batch": batch,
+                "cache": self.init_cache(B, S, torch.bfloat16, "meta")}
+
+    def _inputs(self, B: int, T: int) -> dict:
+        cfg = self.cfg
+        if cfg.family == "vlm":
+            return {"embeds": _meta((B, T, cfg.d_model), torch.bfloat16),
+                    "mrope_positions": _meta((3, B, T), torch.long)}
+        batch = {"tokens": _meta((B, T), torch.long)}
+        if cfg.family == "audio":
+            batch["frames"] = _meta((B, encdec.N_AUDIO_FRAMES, cfg.d_model),
+                                    torch.bfloat16)
+        return batch
+
+
+def _meta(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _dense_api(cfg: ModelConfig) -> ModelAPI:

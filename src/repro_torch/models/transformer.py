@@ -35,10 +35,9 @@ import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from .config import ModelConfig
-from .layers import (Params, _attend, _check_supported, _qkv,
-                     attention_decode, dense_init, embed, init_attention,
-                     init_mlp, init_moe, matmul, mlp, moe, moe_ep, rmsnorm,
-                     train_attention, train_rmsnorm)
+from .layers import (Params, _attend, _qkv, attention_decode, dense_init,
+                     embed, init_attention, init_mlp, init_moe, matmul, mlp,
+                     moe, moe_ep, rmsnorm, train_attention, train_rmsnorm)
 
 
 def _check_served(cfg: ModelConfig) -> None:
@@ -46,7 +45,6 @@ def _check_served(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the dense, MoE and vlm families are ported here "
             f"(got family={cfg.family!r}, n_experts={cfg.n_experts})")
-    _check_supported(cfg)
 
 
 def _ffn(lp: Params, cfg: ModelConfig, z: torch.Tensor,

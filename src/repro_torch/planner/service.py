@@ -30,8 +30,9 @@ The serving slice of the reference `planner/service.py` (DESIGN.md §5):
     (DESIGN.md §12): a level at bandwidth factor f pays β/f on every
     pricing and execution path.
 
-A step plan priced from a collective census (`ModuleStats`) is not
-ported. Uncalibrated mesh-axis pricing defaults to the paper's GPU
+A step plan takes an explicit mix or a collective census
+(`launch.analysis.ModuleStats`, from `analysis.census()` of a torch
+step). Uncalibrated mesh-axis pricing defaults to the paper's GPU
 testbed with its NVLink row for the leaf class
 (`cost_model.GPU_AXIS_BASIS`).
 
@@ -1397,16 +1398,14 @@ class PlannerService:
 
     @staticmethod
     def _normalize_mix(mix) -> dict[str, tuple[int, float]]:
-        """Mix spec → {family: (count, per_call_size_floats)}: an explicit
-        mapping of family → (count, size_floats) / {"count": …,
-        "size_floats": …}. A `ModuleStats` census raises: the port has no
-        collective census of a torch step yet."""
+        """Mix spec → {family: (count, per_call_size_floats)}. Accepts a
+        `launch.analysis.ModuleStats` (the per-family payload / count
+        ledger a `census()` of a torch step fills) or an explicit mapping
+        of family → (count, size_floats) / {"count": …, "size_floats":
+        …}."""
         if hasattr(mix, "coll_counts") and hasattr(mix, "coll_by_kind"):
-            raise NotImplementedError(
-                "a step plan priced from a collective census (ModuleStats) "
-                "needs the port's collective census of a torch step "
-                "(ROADMAP.md §1 item 7); pass an explicit "
-                "{family: (count, size_floats)} mix")
+            from repro_torch.launch.analysis import mix_from_stats
+            mix = mix_from_stats(mix)
         out: dict[str, tuple[int, float]] = {}
         for fam, v in dict(mix).items():
             fam = FAMILY_ALIASES.get(fam, fam)
@@ -1433,10 +1432,10 @@ class PlannerService:
         GenModel (DESIGN.md §14) and hand back one leaf-axis executable
         per family.
 
-        `mix` is an explicit {family: (count, size_floats)} spec (a
-        `ModuleStats` census raises `NotImplementedError`: the port has
-        no collective census of a torch step yet). Per family the sweep
-        prices three regimes under each allowed wire precision:
+        `mix` is an explicit {family: (count, size_floats)} spec or a
+        `ModuleStats` census (`launch.analysis.census`, its payloads
+        over 4 bytes as the reference's `mix_from_stats`). Per family the
+        sweep prices three regimes under each allowed wire precision:
 
           * per-call — count independent launches at the call size (the
             naïve baseline a per-collective planner would quote);

@@ -2,7 +2,9 @@
 
 Entry points run on the card by default. Without a CUDA device they
 raise instead of carrying on elsewhere; the CPU runs only when a caller
-asks for it (`device="cpu"`), as the tests do.
+asks for it (`device="cpu"`), as the tests do. The meta device
+(`device="meta"`: shapes and dtypes, nothing computed) is the dry run's
+(`launch.dryrun`), also only on request.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             raise RuntimeError("no CUDA device is available; pass "
                                "device='cpu' to run on the CPU")
         return dev
-    if dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' or "
+                         "'meta'")
     return dev

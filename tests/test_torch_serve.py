@@ -180,10 +180,22 @@ def test_entry_points_need_cuda_unless_cpu():
 
 
 def test_kernel_wrappers_refuse_other_devices():
+    """A device other than the CPU, one card and the meta device (the dry
+    run's, where the plain version carries the shapes) is refused, and
+    so is a mix of devices."""
+    from types import SimpleNamespace
     with pytest.raises(ValueError):
-        ops.fused_reduce(torch.zeros((2, 8), device="meta"))
+        ops._on_cuda(SimpleNamespace(device=torch.device("xpu")))
     with pytest.raises(ValueError):
-        ops.quantize(torch.zeros((2, 8), device="meta"))
+        ops.quant_reduce(torch.zeros((2, 128), dtype=torch.int8),
+                         torch.zeros((2, 1), device="meta"))
+    with pytest.raises(ValueError):
+        ops.fused_reduce_into(torch.zeros((2, 8)), ops.row_table(
+            [[0]], [0]), torch.zeros((2, 8), device="meta"))
+    out = ops.fused_reduce(torch.zeros((2, 8), device="meta"))
+    assert out.is_meta and out.shape == (8,)
+    q, s = ops.quantize(torch.zeros((2, 8), device="meta"))
+    assert q.is_meta and q.shape == (2, 128) and s.shape == (2, 1)
 
 
 @pytest.mark.parametrize("source,refits", [("mesh", True),

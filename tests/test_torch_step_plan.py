@@ -14,7 +14,8 @@ without a tolerance or a pinned wire:
 - `schedules[family]`: the structure of the reference's schedule
   (rounds, folds, shards, placement), bound to the same wire;
 - a memory hit and a disk re-resolve return the same plan;
-- a `ModuleStats`-like census raises `NotImplementedError`.
+- a census (`ModuleStats`) of collective calls prices the reference's
+  plan for the same fields.
 
 Both packages price with the params passed to both (`PAPER_TABLE5`, or
 `GPU_AXIS_BASIS`, the port's uncalibrated axis basis).
@@ -204,9 +205,31 @@ def test_step_plan_memory_and_disk(tmp_path):
 
 
 def test_census_mix_is_not_ported():
-    class Census:            # the shape of a ModuleStats census
-        coll_counts = {"all-reduce": 2}
-        coll_by_kind = {"all-reduce": 8192.0}
+    """A census (`launch.analysis.census` of collective calls on the local
+    mesh: two all-reduces, a reduce-scatter and an all-gather of a
+    gradient, an all-to-all) prices the same step plan as the
+    reference's service on the same `ModuleStats` fields."""
+    import torch
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PlannerService().get_step_plan([("data", 8)], Census())
+    from repro.launch.hlo_analysis import ModuleStats as JStats
+    from repro_torch.core import collectives
+    from repro_torch.launch import analysis
+
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 3000)).astype(np.float32))
+    with analysis.census(8) as c:
+        for x in (g, g[:, :1000]):
+            collectives.allreduce(x, "data", "ring")
+        shard = collectives.reduce_scatter(g, "data", "psum")
+        collectives.all_gather(shard, "data", "psum")
+        collectives.all_to_all(g[:, :2048], "data")
+    stats = c.stats()
+    assert stats.coll_counts == {"all-reduce": 2, "reduce-scatter": 1,
+                                 "all-gather": 1, "all-to-all": 1}
+    jstats = JStats(**dataclasses.asdict(stats))
+    axes = [("data", 8)]
+    got = PlannerService().get_step_plan(axes, stats, params=PAPER_TABLE5)
+    want = JService().get_step_plan(axes, jstats, params=J_TABLE5)
+    _same_step_plan(got, want)
+    assert set(got.schedules) == set(want.schedules) == {
+        "allreduce", "reduce_scatter", "allgather", "all_to_all"}
