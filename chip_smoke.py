@@ -11,6 +11,7 @@
     python3 chip_smoke.py --recurrent-train
     python3 chip_smoke.py --family-train
     python3 chip_smoke.py --census
+    python3 chip_smoke.py --mp
 
 The second and third forms build the kernels and run the attention rows
 or the recurrence rows of phase 2 alone (of another source tree with
@@ -18,7 +19,8 @@ or the recurrence rows of phase 2 alone (of another source tree with
 phase (3c) alone, the fifth the flat collectives phase (3b2) alone, the
 sixth phase 5's per-leaf run at the first of TRAIN_FALL_LRS and phase
 ft, the seventh phase 5m alone, the eighth phase 5r alone, the ninth
-phase 5f alone, the tenth phase census alone (the dry run beside it);
+phase 5f alone, the tenth phase census alone (the dry run beside it),
+the eleventh phase mp alone;
 none prints a result line. The full run and --census start the dry run
 (`python -m repro_torch.launch.dryrun --all` on the meta device, no card
 visible) in a process of its own at the start, beside the card's
@@ -267,6 +269,32 @@ any error:
                 its smoke window, EP over 8) in f32 on the card against
                 the CPU: per-step loss and gnorm within 1e-4, the same
                 slots dropped, exact launches (none on the CPU);
+  mp       — the process mesh, one process a rank over
+                torch.distributed, every rank on this card with the gloo
+                backend (each round's bytes staged through pinned host
+                memory: its times are host staging, not links;
+                `phase_mp`). The parent frees its cached card memory,
+                and the ranks load the kernels phase 1 built. (b) the
+                trainer: stablelm-12b at full width, depth 2 of 40, 4
+                processes, sync plan per leaf, bucketed, and per leaf on
+                (pod 2, data 2), 3 steps at lr 1e-4, global batch 8, seq
+                128, each run first on the 4-rank local mesh in this
+                process: losses and gnorms equal to every digit (or
+                within MP_TRAIN_GAP, printed), the ranks' step-1
+                gathered copies equal (checksums), the loss falling,
+                each rank's launches equal to `dist_launches`, each
+                process's peak and their sum (under TRAIN_PEAK_GIB);
+                (a) the executor: 8 processes, GenTree, cps and ring on
+                single_switch(8) and symmetric_tree(2,4) and the
+                planner's all-to-all and p2p schedules at MP_SIZES, each
+                entry point in f32 and every wire: every rank's result
+                equal to `run_local`'s row on the card (checksums),
+                `run_local` within the wire's budget, each rank's
+                launches equal to `dist_launches`, the 2²⁴ AllReduces
+                timed; (c) `observe_sync_probe` (predicted against
+                observed) and `measure_dist_cps` on the same 8
+                processes; (d) with two cards or more, (a) and (c) again
+                over NCCL, one card a rank, else a line saying why not;
   ft       — checkpoints and fault tolerance: `run_training` with a
                 checkpoint directory (FaultTolerantLoop; checkpoints
                 under build/, removed after). (a) phase 5's per-leaf run
@@ -307,7 +335,8 @@ any error:
                 and the dry run's 35 supported cells, one line each, its
                 wall time.
 
-The main path is phases 3, 3b, 3c, 4, 5, 5m, 5r, 5f, ft and census: every
+The main path is phases 3, 3b, 3c, 4, 5, 5m, 5r, 5f, mp, ft and census
+(phase mp's launches those of every process, summed): every
 launch count is zeroed just before the executor, the families, the
 planner, each served run, each full-width training run (the MoE,
 recurrent and phase 5f ones too), the
@@ -445,6 +474,26 @@ TRAIN_FAMILY = dict(runs=(("qwen2-vl-7b", 3, 8), ("whisper-large-v3", None, 8),
                           ("mixtral-8x22b", 1, 4)),
                     steps=3, seq_len=128, global_batch=8, lr=1e-4)
 TRAIN_PEAK_GIB = 70.0  # full-width training (5m, 5r, 5f) peaks under this
+# phase mp, the process mesh (one process a rank, gloo through the host
+# on this card): (a) the executor's ranks, plans and sizes a rank; (b)
+# the trainer (stablelm-12b at full width, depth cut to 2 of 40; 4
+# processes: ≈ 13.6 GB each), its runs (label, mesh axes, sync) and the
+# largest relative gap allowed from the local mesh's losses and gnorms
+# should they not be equal; (c) the probe's size and the CPS curve; the
+# deadline of each spawn
+MP_RANKS = 8
+MP_SIZES = ((4 * 5120, "decode 4x5120"), (1 << 24, "gradient 2^24"))
+MP_PLANS = ("gentree", "cps", "ring")
+MP_TRAIN = dict(arch="stablelm-12b", layers=2, procs=4, steps=3, lr=1e-4,
+                seq_len=128, global_batch=8)
+MP_TRAIN_RUNS = (("per-leaf", (("data", 4),), {"bucket_bytes": 0}),
+                 ("bucketed", (("data", 4),), {"bucket_bytes": None}),
+                 ("(pod 2, data 2) per-leaf", (("pod", 2), ("data", 2)),
+                  {"bucket_bytes": 0}))
+MP_TRAIN_GAP = 1e-5
+MP_PROBE_FLOATS = 1 << 20
+MP_CPS = dict(ns=(2, 4, 8), sizes=(1 << 16, 1 << 20, 1 << 22))
+MP_TIMEOUT_S = 600.0
 # phase census: the smoke-size models whose decode step's kernel work the
 # card and the CPU must count alike; the dry run's output directory and
 # the most it may take from its start (it runs beside every earlier
@@ -2834,7 +2883,7 @@ def recurrent_flops(cfg, tokens: int, seq_len: int) -> int:
 
 def train_run(api, params, n, lr: float, steps: int, seq_len: int,
               global_batch: int, seed: int = 0, sync=None, param_dtype=None,
-              edit=None):
+              edit=None, digest: bool = False):
     """`steps` steps of `make_manual_train_step` on `api` from `params`
     (the port's per-layer tree, on the device the run takes) on the local
     mesh `n` (a rank count, or (axis, size) pairs), with `sync`
@@ -2844,7 +2893,8 @@ def train_run(api, params, n, lr: float, steps: int, seq_len: int,
     where the model takes them), each step's numpy batch passed through
     `edit(batch, step)` where given: the state, per-step losses, gnorms,
     host-clock step times (each ending in the loss's copy to the host),
-    device times of the step's parts, and the step."""
+    device times of the step's parts, and the step; with `digest` (a
+    process mesh `n`) step 1's gathered-copy checksum."""
     import torch
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.train import (batch_tensors, data_config,
@@ -2862,13 +2912,16 @@ def train_run(api, params, n, lr: float, steps: int, seq_len: int,
                                   **kw)
     data = SyntheticLM(data_config(api.cfg, seq_len, global_batch, seed))
     out = {"losses": [], "gnorms": [], "step_s": [], "phase_ms": [],
-           "ep_exchanges": []}
+           "ep_exchanges": [], "digest": None}
     for s in range(steps):
         t0 = time.perf_counter()
         batch = data.batch_at(s)
         if edit is not None:
             batch = edit(batch, s)
+        step.digest = digest and s == 0
         state, m = step(state, batch_tensors(batch, where))
+        if "digest" in m:
+            out["digest"] = m["digest"]
         loss, gnorm = float(m["loss"]), float(m["gnorm"])
         out["step_s"].append(time.perf_counter() - t0)
         out["losses"].append(loss)
@@ -4191,6 +4244,425 @@ def _state_bytes(cfg, n: int) -> int:
     return padded * (2 + 4 + 4) + 4
 
 
+# ---------------------------------------------------------------------------
+# Phase mp: the process mesh (one process a rank over torch.distributed)
+# ---------------------------------------------------------------------------
+def mp_schedules(n: int = MP_RANKS):
+    """Phase mp (a)'s cases for n ranks, built alike in the parent and in
+    every rank: (label, family, size, schedule) for GenTree, cps and ring
+    on single_switch(n) and, for an even n of 4 or more,
+    symmetric_tree(2, n / 2), at MP_SIZES (family "allreduce": its
+    allreduce, reduce_scatter and all_gather), and the planner's
+    all-to-all and p2p schedules (the flat ones, once a size)."""
+    from repro_torch.core.gentree import baseline_plan
+    from repro_torch.core.lower import lower_plan
+    from repro_torch.core.topology import single_switch, symmetric_tree
+    from repro_torch.planner.service import default_service
+
+    svc = default_service()
+    topos = [(f"single_switch({n})", single_switch(n))]
+    if n >= 4 and n % 2 == 0:
+        topos.append((f"symmetric_tree(2,{n // 2})",
+                      symmetric_tree(2, n // 2)))
+    out, seen = [], set()
+    for size, label in MP_SIZES:
+        for tname, topo in topos:
+            for plan in MP_PLANS:
+                cs = (svc.get_executable(topo, size * 4).schedule
+                      if plan == "gentree" else
+                      lower_plan(baseline_plan(plan, topo, float(size))))
+                out.append((f"{plan} {tname} {label}", "allreduce", size,
+                            cs))
+            for family in ("all_to_all", "p2p"):
+                cs = svc.get_family_executable(family, "x", n, size,
+                                               topo=topo).schedule
+                if (id(cs), size) not in seen:
+                    seen.add((id(cs), size))
+                    out.append((f"{family} {tname} {label}", family, size,
+                                cs))
+    return out
+
+
+def mp_row(size: int, seed: int, r: int, dev):
+    """Rank r's input of a phase-mp case: its own generator, so a rank
+    makes its row alone and the parent all of them."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed * 1009 + r)
+    return torch.randn(size, generator=g, device=dev)
+
+
+def mp_calls(family: str):
+    """The entry points a case runs, each (name, uses the previous
+    result): a reduce-scatter's shard feeds the all-gather."""
+    if family == "allreduce":
+        return (("allreduce", False), ("reduce_scatter", False),
+                ("all_gather", True))
+    return ((family, False),)
+
+
+MP_LOCAL = {"allreduce": "run_local",
+            "reduce_scatter": "run_local_reduce_scatter",
+            "all_gather": "run_local_all_gather",
+            "all_to_all": "run_local_all_to_all", "p2p": "run_local_p2p"}
+
+
+def mp_exec_worker(pm) -> dict:
+    """Phase mp (a) and (c) as one rank of the 8-process mesh: every case
+    of `mp_schedules` in f32 and each wire through the guard, each call's
+    result digest and its kernel launches beside `dist_launches`; the
+    f32 and fp8 AllReduces at the gradient size timed once more (the
+    slowest rank's host time to a synchronize, each call started
+    together); then `observe_sync_probe` and `measure_dist_cps`."""
+    import torch
+    from repro_torch.core.cost_model import PRECISIONS
+    from repro_torch.core.lower import guard_schedule
+    from repro_torch.kernels import ops
+    from repro_torch.core.transport import all_gather_rows
+    from repro_torch.launch.train import observe_sync_probe, params_digest
+    from repro_torch.planner.calibrate import measure_dist_cps
+    from repro_torch.planner.service import default_service
+
+    dev, ax = pm.device, pm.axis_names[0]
+    m = pm.index(ax)
+    everyone = pm.line(pm.axis_names)
+    ops.reset_launches()
+    out = {"digests": {}, "launches": {}, "expected": {}, "ms": {},
+           "demotions": 0}
+    for ci, (label, family, size, cs) in enumerate(mp_schedules(pm.size)):
+        x = mp_row(size, ci, pm.rank, dev)
+        for wire in (None, "bf16", "fp8", "int8"):
+            w = cs.with_wire(None if wire is None else PRECISIONS[wire])
+            sched = guard_schedule(w)
+            prev = None
+            for name, chained in mp_calls(family):
+                before = dict(ops.LAUNCHES)
+                got = getattr(sched, name)(prev if chained else x, ax, pm)
+                torch.cuda.synchronize()
+                key = (label, wire or "f32", name)
+                out["launches"][key] = {k: ops.LAUNCHES[k] - before[k]
+                                        for k in EXECUTOR_KERNELS}
+                out["expected"][key] = w.dist_launches(name, m)
+                out["digests"][key] = params_digest([got])
+                prev = got
+            if size >= 1 << 24 and family == "allreduce" \
+                    and wire in (None, "fp8"):
+                all_gather_rows(pm, everyone, x[:1])
+                t0 = time.perf_counter()
+                sched.allreduce(x, ax, pm)
+                torch.cuda.synchronize()
+                mine = torch.tensor(time.perf_counter() - t0,
+                                    dtype=torch.float64, device=dev)
+                out["ms"][(label, wire or "f32")] = 1e3 * float(
+                    all_gather_rows(pm, everyone, mine).max())
+            out["demotions"] += sched.demotions + sched.stats["failures"]
+            del prev, got
+        del x
+        torch.cuda.empty_cache()
+    lines = []
+    out["probe"] = observe_sync_probe(default_service(), pm, None,
+                                      MP_PROBE_FLOATS, lines.append)
+    out["probe_lines"] = lines
+    out["cps"] = [a.tolist() for a in measure_dist_cps(
+        MP_CPS["ns"], MP_CPS["sizes"], pm)]
+    out["totals"] = dict(ops.LAUNCHES)
+    out["transport"] = pm.transport
+    return out
+
+
+def mp_train_run(mesh, layers_cfg: dict, sync_kw: dict, dev,
+                 digest: bool = False) -> dict:
+    """MP_TRAIN's run on `mesh` (a rank count or (axis, size) pairs: the
+    local mesh; or a `ProcessMesh`), from the same seeded weights and
+    batches: `train_run`'s result, the launches, the peak device memory;
+    with `digest`, step 1's gathered-copy checksum."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build
+
+    cfg = get_config(layers_cfg["arch"])
+    import dataclasses
+    cfg = dataclasses.replace(cfg, n_layers=layers_cfg["layers"])
+    api = build(cfg)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    r = train_run(api, params, mesh, layers_cfg["lr"], layers_cfg["steps"],
+                  layers_cfg["seq_len"], layers_cfg["global_batch"],
+                  sync=SyncConfig(strategy="plan", **sync_kw),
+                  digest=digest)
+    torch.cuda.synchronize()
+    r["wall_s"] = time.perf_counter() - t0
+    r["launches"] = dict(ops.LAUNCHES)
+    r["peak"] = torch.cuda.max_memory_allocated()
+    return r
+
+
+def mp_train_launches(step, pm, steps: int, leaves: int) -> dict:
+    """The kernel launches one rank of a process mesh makes in `steps`
+    steps of the ZeRO-3 `step` at full precision: per leaf, a gather and
+    a reduce-scatter a leaf and a live axis; bucketed, one all-gather a
+    gather bucket and one reduce-scatter a scatter bucket; each
+    `dist_launches` at the rank's index on the plan's axis."""
+    out = {k: 0 for k in TOLERANCE}
+
+    def add(pl, entry, times):
+        for k, v in pl.schedule.dist_launches(
+                entry, pm.index(pl.axis)).items():
+            out[k] += v * times * steps
+    if step.bucket_plan is not None:
+        add(step.plans[0], "all_gather", len(step.gather_buckets))
+        add(step.plans[0], "reduce_scatter", len(step.scatter_buckets))
+        return out
+    for pl in step.plans:
+        add(pl, "all_gather", leaves)
+        add(pl, "reduce_scatter", leaves)
+    return out
+
+
+def mp_train_worker(pm, runs) -> list:
+    """Phase mp (b) as one rank of the 4-process mesh: the MP_TRAIN runs
+    `runs` (label, axes, sync), one on other axes than the mesh's on a
+    second process mesh over the same processes. Returns each run's
+    losses, gnorms, step times, step-1 digest, launches, peak and plans,
+    CPU objects only."""
+    import torch
+    from repro_torch.launch.mesh import init_process_mesh
+
+    out = []
+    for label, axes, sync_kw in runs:
+        mesh = pm if tuple(axes) == pm.axes else init_process_mesh(
+            axes, pm.backend, pm.device)
+        r = mp_train_run(mesh, MP_TRAIN, sync_kw, pm.device, digest=True)
+        out.append({"label": label, "losses": r["losses"],
+                    "expected": mp_train_launches(
+                        r["step"], mesh, MP_TRAIN["steps"],
+                        len(r["state"]["params"])),
+                    "gnorms": r["gnorms"], "step_s": r["step_s"],
+                    "phase_ms": r["phase_ms"], "digest": r["digest"],
+                    "launches": r["launches"], "peak": r["peak"],
+                    "wall_s": r["wall_s"],
+                    "plans": [pl.schedule.describe() if pl.schedule
+                              is not None else pl.strategy
+                              for pl in r["plans"]],
+                    "buckets": len(r["step"].scatter_buckets)})
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def mp_check_train(label: str, runs: list, want: dict, transport: str,
+                   totals: dict) -> None:
+    """Phase mp (b)'s checks of one trainer run against the same run on
+    the local mesh, and its lines; adds the ranks' launches to
+    `totals`."""
+    gap = max(max(abs(a - b) / max(abs(b), 1.0)
+                  for a, b in zip(r["losses"] + r["gnorms"],
+                                  want["losses"] + want["gnorms"]))
+              for r in runs)
+    peaks = [r["peak"] for r in runs]
+    log(f"mp train [{label}, {transport}]: {runs[0]['plans']}, "
+        f"{runs[0]['buckets']} scatter bucket(s); losses "
+        f"{runs[0]['losses']} gnorms {runs[0]['gnorms']}; local mesh "
+        f"losses {want['losses']} gnorms {want['gnorms']}; step s "
+        f"{[round(s, 3) for s in runs[0]['step_s']]} ({transport}; local "
+        f"mesh {[round(s, 3) for s in want['step_s']]}); step parts ms "
+        f"{runs[0]['phase_ms'][-1]}; peaks GiB "
+        f"{[round(p / 2**30, 2) for p in peaks]} sum "
+        f"{sum(peaks) / 2**30:.2f} (local mesh {want['peak'] / 2**30:.2f})")
+    same = all(r["losses"] == want["losses"]
+               and r["gnorms"] == want["gnorms"] for r in runs)
+    log(f"mp train [{label}, {transport}]: losses and gnorms "
+        + ("equal the local mesh's to every digit" if same else
+           f"differ from the local mesh's by up to {gap:.3e} (relative)"))
+    if not gap <= MP_TRAIN_GAP:
+        fail(f"mp train [{label}]: the process mesh's losses and gnorms "
+             f"differ from the local mesh's by {gap:.3e}, over "
+             f"{MP_TRAIN_GAP}")
+    if len({r["digest"] for r in runs}) != 1:
+        fail(f"mp train [{label}]: the ranks' step-1 gathered copies "
+             f"differ: {[r['digest'] for r in runs]}")
+    if not runs[0]["losses"][-1] < runs[0]["losses"][0]:
+        fail(f"mp train [{label}]: the loss did not fall")
+    if sum(peaks) > TRAIN_PEAK_GIB * 2**30:
+        fail(f"mp train [{label}]: the processes' peaks sum to "
+             f"{sum(peaks) / 2**30:.2f} GiB, over {TRAIN_PEAK_GIB}")
+    for rank, r in enumerate(runs):
+        if r["launches"] != r["expected"] \
+                or r["launches"]["fused_reduce"] <= 0:
+            fail(f"mp train [{label}] rank {rank}: launches "
+                 f"{r['launches']}, expected {r['expected']}")
+        for k, v in r["launches"].items():
+            totals[k] += v
+    log(f"mp train [{label}, {transport}]: fused_reduce launches a rank "
+        f"{[r['launches']['fused_reduce'] for r in runs]}, as "
+        "dist_launches counts them (the local mesh's run: "
+        f"{want['launches']['fused_reduce']}, one a fold phase for all "
+        "ranks at once)")
+
+
+def mp_exec_digests(dev, n: int) -> dict:
+    """Phase mp (a)'s answers: every `mp_schedules(n)` call's `run_local`
+    rows on this card, as `params_digest`s by (label, wire, entry,
+    rank); `run_local`'s AllReduce within each wire's budget of the
+    exact sum."""
+    import torch
+    from repro_torch.core.cost_model import PRECISIONS
+    from repro_torch.launch.train import params_digest
+
+    want = {}
+    for ci, (label, family, size, cs) in enumerate(mp_schedules(n)):
+        X = torch.stack([mp_row(size, ci, r, dev) for r in range(cs.n)])
+        exact = X.double().sum(dim=0)
+        scale = float(exact.abs().max())
+        for wire in (None, "bf16", "fp8", "int8"):
+            w = cs.with_wire(None if wire is None else PRECISIONS[wire])
+            prev = None
+            for name, chained in mp_calls(family):
+                got = getattr(w, MP_LOCAL[name])(prev if chained else X)
+                if name == "allreduce":
+                    err = float((got.double() - exact).abs().max()) / scale
+                    budget = (1e-6 if wire is None
+                              else PRECISIONS[wire].error_budget)
+                    if not err <= budget:
+                        fail(f"mp {label} wire={wire}: run_local rel err "
+                             f"{err:.3e} over {budget}")
+                for r in range(cs.n):
+                    want[(label, wire or "f32", name, r)] = params_digest(
+                        [got[r]])
+                prev = got
+            del prev, got
+        del X, exact
+    torch.cuda.empty_cache()
+    return want
+
+
+def mp_check_exec(ranks: list, want: dict, t0: float,
+                  totals: dict) -> None:
+    """Phase mp (a) and (c)'s checks and lines for one executor launch;
+    adds the ranks' launches to `totals`."""
+    transport = ranks[0]["transport"]
+    log(f"mp executor: {len(ranks)} processes, {transport}, wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r, res in enumerate(ranks):
+        if res["demotions"]:
+            fail(f"mp executor rank {r}: {res['demotions']} guard "
+                 "demotions or failures")
+        for key, d in res["digests"].items():
+            if d != want[key + (r,)]:
+                fail(f"mp executor {key} rank {r}: the result differs "
+                     f"from run_local's row")
+        for key, got in res["launches"].items():
+            exp = {k: res["expected"][key].get(k, 0) for k in got}
+            if got != exp:
+                fail(f"mp executor {key} rank {r}: launches {got}, "
+                     f"expected {exp}")
+        for k, v in res["totals"].items():
+            totals[k] += v
+    per_rank = [{k: v for k, v in res["totals"].items() if v}
+                for res in ranks]
+    log(f"mp executor ({transport}): {len(ranks[0]['digests'])} calls a "
+        f"rank equal run_local's rows bit for bit; launches a rank "
+        f"{json.dumps(per_rank)}")
+    what = ("host staging, not links" if transport != "nccl"
+            else "one card a rank")
+    for (label, wire), ms in ranks[0]["ms"].items():
+        log(f"mp executor {label} wire={wire}: allreduce {ms:.3f} ms "
+            f"({transport}: {what})")
+    for line in ranks[0]["probe_lines"]:
+        log(f"mp probe: {line}")
+    if len(ranks[0]["probe"]) != 2:
+        fail(f"mp probe: {len(ranks[0]['probe'])} observations of the one "
+             "live axis, expected 2 (two sizes)")
+    ns, sizes, times = ranks[0]["cps"]
+    log(f"mp CPS curve ({transport}): " + "; ".join(
+        f"n={int(n)} S={int(s)} {t * 1e3:.3f} ms"
+        for n, s, t in zip(ns, sizes, times)))
+
+
+def phase_mp(dev) -> dict:
+    """Phase mp: the process mesh, one process a rank. (b) MP_TRAIN_RUNS
+    on 4 processes and (a) + (c) on 8, every process on this card with
+    the gloo backend (each round's bytes staged through pinned host
+    memory: times of host staging, not links); then (d), on a machine of
+    two cards or more, (a) + (c) over NCCL on as many ranks as cards (up
+    to MP_RANKS), one card a rank, and with 4 cards or more the per-leaf
+    run of (b) over NCCL too; with one card a line saying why not. Frees the parent's cached card memory
+    first; the ranks load the kernels phase 1 built. Checks: every
+    trainer run against the same run on the 4-rank local mesh in this
+    process (losses and gnorms equal to every digit, or within
+    MP_TRAIN_GAP, printed; the ranks' step-1 gathered copies equal; the
+    loss falling; each rank's launches `dist_launches`'; the peaks,
+    summed under TRAIN_PEAK_GIB); every executor call's result on every
+    rank equal to `run_local`'s row on this card (digests), `run_local`
+    within the wire's budget, each rank's launches `dist_launches`'.
+    Returns the launches of every process, summed."""
+    import torch
+    from repro_torch.launch.mesh import launch
+
+    t_phase = time.perf_counter()
+    totals = {k: 0 for k in TOLERANCE}
+    cards = torch.cuda.device_count()
+    procs = MP_TRAIN["procs"]
+    nccl_runs = list(MP_TRAIN_RUNS[:1]) if cards >= procs else []
+    local = {}
+    for label, axes, sync_kw in MP_TRAIN_RUNS:
+        mesh = procs if len(axes) == 1 else [tuple(a) for a in axes]
+        r = mp_train_run(mesh, MP_TRAIN, sync_kw, dev)
+        local[label] = {"losses": r["losses"], "gnorms": r["gnorms"],
+                        "step_s": r["step_s"], "peak": r["peak"],
+                        "launches": r["launches"]}
+        for k, v in r["launches"].items():
+            totals[k] += v
+        del r
+        torch.cuda.empty_cache()
+    for backend, runs in (("gloo", MP_TRAIN_RUNS), ("nccl", nccl_runs)):
+        if not runs:
+            continue
+        torch.cuda.empty_cache()
+        log(f"mp: parent before spawning: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        t0 = time.perf_counter()
+        ranks = launch(mp_train_worker, [("data", procs)], backend=backend,
+                       device=dev if backend == "gloo" else "cuda",
+                       timeout_s=MP_TIMEOUT_S, args=(runs,))
+        transport = ("gloo through the host" if backend == "gloo"
+                     else "nccl")
+        log(f"mp train: {procs} processes, {transport}, wall "
+            f"{time.perf_counter() - t0:.1f} s")
+        for i, (label, _, _) in enumerate(runs):
+            mp_check_train(label, [r[i] for r in ranks], local[label],
+                           transport, totals)
+        del ranks
+    if not nccl_runs:
+        log(f"mp (d): the trainer over NCCL not run: this machine has "
+            f"{cards} card(s), NCCL needs one a rank ({procs})")
+    log(f"mp: trainers done at {time.perf_counter() - t_phase:.1f} s")
+
+    execs = [("gloo", MP_RANKS)]
+    if cards >= 2:
+        execs.append(("nccl", min(cards, MP_RANKS)))
+    else:
+        log(f"mp (d): the executor over NCCL not run: this machine has "
+            f"{cards} card(s), NCCL needs one a rank (2 or more)")
+    for backend, n in execs:
+        want = mp_exec_digests(dev, n)
+        t0 = time.perf_counter()
+        ranks = launch(mp_exec_worker, [("data", n)], backend=backend,
+                       device=dev if backend == "gloo" else "cuda",
+                       timeout_s=MP_TIMEOUT_S)
+        mp_check_exec(ranks, want, t0, totals)
+        del ranks, want
+    log(f"mp: launches of every process {json.dumps(totals)}")
+    log(f"phase mp wall {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def phase_ft(dev, baseline: dict) -> dict:
     """Phase ft: `run_training` with a checkpoint directory (the
     FaultTolerantLoop over the ZeRO-3 step; checkpoints under the ignored
@@ -4854,6 +5326,12 @@ def main() -> int:
                     "whisper-large-v3 and mixtral-8x22b training at full "
                     "width, then smoke-size card against CPU) alone, then "
                     "stop: no result line")
+    ap.add_argument("--mp", action="store_true",
+                    help="build the kernels and run phase mp (the process "
+                    "mesh: 8 and 4 processes on this card over gloo "
+                    "through the host; over NCCL too, one card a rank, "
+                    "where there are two cards or more) alone, then stop: "
+                    "no result line")
     ap.add_argument("--census", action="store_true",
                     help="build the kernels and run phase census alone "
                     "(the dry run beside it), then stop: no result line")
@@ -4883,7 +5361,7 @@ def main() -> int:
     t0 = time.perf_counter()
     quick = (args.attention or args.recurrence or args.planner or args.flat
              or args.serve or args.ft or args.moe_train
-             or args.recurrent_train or args.family_train)
+             or args.recurrent_train or args.family_train or args.mp)
     dryrun = None if quick else start_dryrun(src)
     phase_build()
     log(f"phase build done at {time.perf_counter() - t0:.1f} s")
@@ -4927,6 +5405,10 @@ def main() -> int:
         phase_train_family(dev)
         log(f"phase family train done at {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.mp:
+        phase_mp(dev)
+        log(f"phase mp done at {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.ft:
         r = phase_train(dev, TRAIN_FALL_LRS[0], True)
         phase_ft(dev, {"losses": r["losses"],
@@ -4960,6 +5442,9 @@ def main() -> int:
     for name, n in phase_train_family(dev).items():
         trained[name] += n
     log(f"phase family train done at {time.perf_counter() - t0:.1f} s")
+    for name, n in phase_mp(dev).items():
+        trained[name] += n
+    log(f"phase mp done at {time.perf_counter() - t0:.1f} s")
     for name, n in phase_ft(dev, baseline).items():
         trained[name] += n
     log(f"phase ft done at {time.perf_counter() - t0:.1f} s")

@@ -38,6 +38,11 @@ card (on several axes one a group of the other axes,
     the reference's);
   * `invalidate_schedules` — drops every lowered schedule and cached
     bucket plan of a service.
+
+On a process mesh (one process a rank, `core.transport`) `execute_buckets`
+and `sync_bucketed` run a rank's own leaves over its process groups, and
+`zero3_gather_bucketed` / `zero3_scatter_bucket` (`mesh=`) are the
+ZeRO-3 halves for one rank's shards.
 """
 from __future__ import annotations
 
@@ -49,6 +54,8 @@ import torch
 
 from repro_torch.runtime.metrics import default_metrics
 from repro_torch.runtime.trace import default_tracer
+
+from .transport import is_process_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +236,12 @@ def supports_halves(axis_plans) -> bool:
                for pl in axis_plans)
 
 
+def _lead(mesh) -> list[int]:
+    """The leading sizes of a local-mesh tensor on `mesh`; none on a
+    process mesh, where a rank's rows are its own (1, size)."""
+    return [] if is_process_mesh(mesh) else [s for _, s in mesh]
+
+
 def _rs_chain(rows: torch.Tensor, axis_plans, mesh
               ) -> tuple[torch.Tensor, list[int]]:
     """Hierarchical ReduceScatter of (R, size) mesh rows, the axes in the
@@ -236,7 +249,7 @@ def _rs_chain(rows: torch.Tensor, axis_plans, mesh
     pre-RS size a rank (the mirrored AG chain undoes the padding with
     them)."""
     from . import collectives
-    lead = [s for _, s in mesh]
+    lead = _lead(mesh)
     R = rows.shape[0]
     sizes = []
     for pl in axis_plans:
@@ -249,7 +262,7 @@ def _rs_chain(rows: torch.Tensor, axis_plans, mesh
 
 def _ag_chain(shard: torch.Tensor, axis_plans, sizes, mesh) -> torch.Tensor:
     from . import collectives
-    lead = [s for _, s in mesh]
+    lead = _lead(mesh)
     R = shard.shape[0]
     for pl, sz in zip(reversed(axis_plans), reversed(sizes)):
         shard = collectives.all_gather(
@@ -260,7 +273,7 @@ def _ag_chain(shard: torch.Tensor, axis_plans, sizes, mesh) -> torch.Tensor:
 
 def _allreduce_chain(rows: torch.Tensor, axis_plans, mesh) -> torch.Tensor:
     from . import collectives
-    lead = [s for _, s in mesh]
+    lead = _lead(mesh)
     for pl in axis_plans:
         rows = collectives.allreduce(rows.reshape(*lead, -1), pl.axis,
                                      "plan", schedule=pl.schedule,
@@ -289,17 +302,26 @@ def execute_buckets(leaves: Sequence[torch.Tensor],
     {sequential, merged} argmin chose it) runs each steady-state RS(k) +
     AG(k−1) pair as one interleaved launch. Without canonical halves
     each bucket runs its whole AllReduce. Spans: `bucket/rs`,
-    `bucket/ag`, `bucket/rs_ag`, `bucket/allreduce`."""
+    `bucket/ag`, `bucket/rs_ag`, `bucket/allreduce`.
+
+    On a process mesh (`mesh` a `core.transport.ProcessMesh`) each leaf is
+    this rank's own, the chain runs the schedules' process-mesh entry
+    points, and a merged issuance posts each step's rounds of both
+    halves as one exchange (`MergedSchedule.rs_ag_mesh`)."""
     out = list(leaves)
     if not buckets:
         return out
-    if mesh is None:
+    pm = is_process_mesh(mesh)
+    if pm:
+        n = 1
+    elif mesh is None:
         if len(axis_plans) != 1:
             raise ValueError(f"{len(axis_plans)} axis plans need the local "
                              "mesh their leaves lie on (mesh=)")
         mesh = [(axis_plans[0].axis, leaves[buckets[0].indices[0]].shape[0])]
-    mesh = [(str(a), int(s)) for a, s in mesh]
-    n = math.prod(s for _, s in mesh)
+    if not pm:
+        mesh = [(str(a), int(s)) for a, s in mesh]
+        n = math.prod(s for _, s in mesh)
     flats = []
     for bk in buckets:
         parts = [leaves[i].reshape(n, -1) for i in bk.indices]
@@ -323,22 +345,36 @@ def execute_buckets(leaves: Sequence[torch.Tensor],
     if merged is not None and pipeline and k > 1 and halves \
             and len(axis_plans) == 1:
         cs = axis_plans[0].schedule
+        if pm:
+            ax = axis_plans[0].axis
+
+            def rs1(X):
+                return cs.reduce_scatter(X[0], ax, mesh)[None]
+
+            def ag1(S):
+                return cs.all_gather(S[0], ax, mesh)[None]
+
+            def pair(X, S):
+                sh, full = merged.rs_ag_mesh(X[0], S[0], ax, mesh)
+                return sh[None], full[None]
+        else:
+            rs1, ag1, pair = (cs.run_local_reduce_scatter,
+                              cs.run_local_all_gather, merged.rs_ag)
         shards: list = [None] * k
         prev = None
         for i in order:
             if prev is None:
                 with tracer.span("bucket/rs", bucket=i,
                                  elements=int(flats[i].shape[1])):
-                    shards[i] = cs.run_local_reduce_scatter(flats[i])
+                    shards[i] = rs1(flats[i])
             else:
                 with tracer.span("bucket/rs_ag", bucket=i, drains=prev):
-                    shards[i], full = merged.rs_ag(flats[i], shards[prev])
+                    shards[i], full = pair(flats[i], shards[prev])
                 results[prev] = full[:, :flats[prev].shape[1]]
                 shards[prev] = None
             prev = i
         with tracer.span("bucket/ag", bucket=prev):
-            results[prev] = cs.run_local_all_gather(
-                shards[prev])[:, :flats[prev].shape[1]]
+            results[prev] = ag1(shards[prev])[:, :flats[prev].shape[1]]
     elif pipeline and k > 1 and halves:
         shards = [None] * k
         prev = None
@@ -397,16 +433,26 @@ def sync_bucketed(grads: Sequence[torch.Tensor],
     `stats`, when given, is filled with the plan's identity and modeled
     costs. Metrics: `sync_bucketed_total`, `sync_buckets_per_step`,
     `bucket_pipeline_occupancy`, `sync_bucketed_merged_issue_total`;
-    span `sync/bucketed`."""
+    span `sync/bucketed`.
+
+    On a process mesh (`mesh` a `core.transport.ProcessMesh`) `grads` are
+    this rank's own leaves and the buckets run over its process groups
+    (`execute_buckets`); the sums equal the local mesh's rows bit for
+    bit."""
     leaves = list(grads)
     live = [(a, int(n)) for a, n in axes if int(n) > 1]
-    mesh = live if mesh is None else [(str(a), int(s)) for a, s in mesh]
-    lead = tuple(s for _, s in mesh)
+    if is_process_mesh(mesh):
+        pairs = list(mesh.axes)
+    else:
+        mesh = live if mesh is None else [(str(a), int(s))
+                                          for a, s in mesh]
+        pairs = mesh
+    lead = tuple(_lead(mesh))
     R = math.prod(lead)
     for a, n in live:
-        if dict(mesh).get(a) != n:
+        if dict(pairs).get(a) != n:
             raise ValueError(f"axis {a!r} of size {n} is not in the mesh "
-                             f"{mesh}")
+                             f"{pairs}")
     for x in leaves:
         if tuple(x.shape[:len(lead)]) != lead:
             raise ValueError(f"sync_bucketed takes per-rank rows leading "
@@ -553,12 +599,14 @@ class Zero3Bucket:
             out[..., full * c:].copy_(src[..., full, :part])
         return out
 
-    def matrix(self, n: int, device) -> torch.Tensor:
+    def matrix(self, n: int, device, rows: int | None = None
+               ) -> torch.Tensor:
         """The bucket's (n ranks, n·width) tensor, written zero only where
         padding lies: past each member's numel in its columns, and the
-        columns past the chunks' sum."""
-        mat = torch.empty((n, n * self.width), dtype=self.dtype,
-                          device=device)
+        columns past the chunks' sum. `rows` other than n: that many rows
+        (1 for one rank of a process mesh)."""
+        mat = torch.empty((n if rows is None else rows, n * self.width),
+                          dtype=self.dtype, device=device)
         for j, numel in enumerate(self.numels):
             dst = self.columns(mat, j)
             full, part = divmod(numel, self.chunks[j])
@@ -572,8 +620,10 @@ class Zero3Bucket:
 
     def shards(self, shard: torch.Tensor) -> list[torch.Tensor]:
         """The members' (n, chunk) views of the (n, width) reduce-scatter
-        result: row i rank i's shard of each."""
-        return [shard[:, o:o + c] for o, c in zip(self.offsets, self.chunks)]
+        result: row i rank i's shard of each (of one rank's (width,)
+        shard, its (chunk,) views)."""
+        return [shard[..., o:o + c]
+                for o, c in zip(self.offsets, self.chunks)]
 
 
 def zero3_layout(numels: Sequence[int], dtypes: Sequence[object],
@@ -603,7 +653,8 @@ def zero3_layout(numels: Sequence[int], dtypes: Sequence[object],
 
 def zero3_gather_bucketed(shards: Sequence[torch.Tensor], specs, plan,
                           bucket_bytes: int, n: int, *,
-                          shared: bool = False) -> list[torch.Tensor]:
+                          shared: bool = False, mesh=None
+                          ) -> list[torch.Tensor]:
     """Bucketed parameter AllGather for the ZeRO-3 row layout.
 
     `shards[ℓ]` is leaf ℓ's (n, chunk_ℓ) shards, row i rank i's (the
@@ -619,14 +670,21 @@ def zero3_gather_bucketed(shards: Sequence[torch.Tensor], specs, plan,
     Returns each leaf as (n, *shape), row r rank r's gathered copy; or,
     with `shared`, one copy of shape `shape`, after checking bucket by
     bucket and rank by rank that the ranks' gathered rows are equal
-    (RuntimeError if not), since the ranks may then share it."""
+    (RuntimeError if not), since the ranks may then share it.
+
+    On a process mesh (`mesh` a `ProcessMesh`) `shards[ℓ]` is this
+    rank's (chunk_ℓ,) shard, each bucket is ONE `all_gather` over the
+    plan's axis of its process group, and the result is this rank's own
+    copy of each leaf, of shape `shape` (`shared` aside)."""
     cs = plan.schedule
     k = cs.blocks_per_shard
+    pm = mesh is not None
+    lead = () if pm else (n,)
     numels = [math.prod(shape) for shape, _ in specs]
     for s, m in zip(shards, numels):
-        if tuple(s.shape) != (n, -(-m // n)):
+        if tuple(s.shape) != (*lead, -(-m // n)):
             raise ValueError(f"shards of shape {tuple(s.shape)} are not "
-                             f"the ({n}, {-(-m // n)}) of a leaf of {m}")
+                             f"the {(*lead, -(-m // n))} of a leaf of {m}")
     layout = zero3_layout(numels, [s.dtype for s in shards],
                           [s.element_size() for s in shards],
                           max(1, int(bucket_bytes) // max(1, int(n))), n, k,
@@ -637,13 +695,14 @@ def zero3_gather_bucketed(shards: Sequence[torch.Tensor], specs, plan,
         parts = [shards[i] for i in bk.indices]
         used = sum(bk.chunks)
         if used < bk.width:
-            parts.append(parts[0].new_zeros((n, bk.width - used)))
-        row = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            parts.append(parts[0].new_zeros((*lead, bk.width - used)))
+        row = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
         with tracer.span("bucket/zero3_ag", bucket=bk.index,
                          leaves=len(bk.indices)):
-            full = cs.run_local_all_gather(row)
+            full = (cs.all_gather(row, plan.axis, mesh) if pm
+                    else cs.run_local_all_gather(row))
         del row, parts
-        if shared:
+        if shared and not pm:
             # a meta tensor (the dry run's) holds no values to compare
             for r in range(1, 1 if full.is_meta else n):
                 if not torch.equal(full[r], full[0]):
@@ -658,21 +717,27 @@ def zero3_gather_bucketed(shards: Sequence[torch.Tensor], specs, plan,
         del full
     for i, (shape, dtype) in enumerate(specs):
         if out[i] is None:          # empty leaf: nothing was gathered
-            lead = () if shared else (n,)
+            lead = () if shared or pm else (n,)
             out[i] = torch.zeros((*lead, *shape), dtype=dtype,
                                  device=shards[i].device)
     return out
 
 
-def zero3_scatter_bucket(mat: torch.Tensor, bk: Zero3Bucket, plan
-                         ) -> list[torch.Tensor]:
+def zero3_scatter_bucket(mat: torch.Tensor, bk: Zero3Bucket, plan,
+                         mesh=None) -> list[torch.Tensor]:
     """Reduce-scatter one bucket's (n ranks, n·width) tensor IN PLACE (it
     is the schedule's working buffer and is overwritten): one launch,
     span `bucket/zero3_rs`. Returns each member's (n, chunk) shard of the
-    ranks' sum, views of one (n, width) tensor."""
+    ranks' sum, views of one (n, width) tensor. On a process mesh
+    (`mesh`) `mat` is this rank's (n·width,) bucket vector, reduced over
+    the plan's axis of its process group, and the shards are its
+    (chunk,) views."""
     with default_tracer().span("bucket/zero3_rs", bucket=bk.index,
                                leaves=len(bk.indices)):
-        shard = plan.schedule.run_local_reduce_scatter(mat, overwrite=True)
+        shard = (plan.schedule.reduce_scatter(mat, plan.axis, mesh,
+                                              overwrite=True)
+                 if mesh is not None else
+                 plan.schedule.run_local_reduce_scatter(mat, overwrite=True))
     return bk.shards(shard)
 
 

@@ -36,6 +36,14 @@ Each strategy is compiled once per (mesh shape, axis, factors) into a
 Inputs: f32 or bf16 (the fold kernel's dtypes), any layout (made
 contiguous). Padding as the reference's: to a multiple of the axis size,
 or for non-power-of-two rhd of lcm(n, p) (`_pad_multiple`).
+
+On a process mesh (`mesh=` a `core.transport.ProcessMesh`, one process a
+rank) a tensor is this rank's own and an axis its process group: the
+program compiled for one group runs as this rank (`FlatProgram.
+run_dist`), each operation an exchange of the rows other ranks hold
+(`DistOp`) and then the same fold launch or copy, so the results equal
+the local mesh's rows bit for bit; on several axes the rank runs in its
+group of each, one group at a time as `_per_group` does.
 """
 from __future__ import annotations
 
@@ -49,6 +57,8 @@ import torch
 
 from repro_torch.launch import analysis
 from repro_torch.runtime.trace import default_tracer
+
+from .transport import exchange, is_process_mesh
 
 # ---------------------------------------------------------------------------
 # index helpers (copied from the reference)
@@ -165,6 +175,14 @@ class FlatOp:
     own: np.ndarray | None = None   # fold only
     _dev: dict = field(default_factory=dict, repr=False)
 
+    def dist(self, q: int, R: int, bufs: dict) -> "DistOp":
+        """Rank q's part of this operation among R ranks (cached)."""
+        key = ("dist", q, R)
+        d = self._dev.get(key)
+        if d is None:
+            d = self._dev[key] = _compile_dist(self, q, R, bufs)
+        return d
+
     def tables(self, device: torch.device):
         key = str(device)
         t = self._dev.get(key)
@@ -238,6 +256,195 @@ class FlatProgram:
                     dst.index_copy_(0, d_rows, src.index_select(0, s_rows))
         name, slot = self.out
         return bufs[name][slot]
+
+    def run_dist(self, x: torch.Tensor, mesh, line) -> torch.Tensor:
+        """Run as rank `line.index` of the program's R = `line.size` ranks
+        (a program compiled for one group) on a process mesh: x is this
+        rank's flat (L // div_x,) input; returns its result (L // div,).
+        Each operation is one exchange in `line` (the rows other ranks
+        hold arrive as payloads), then the same fold launch, or copy, on
+        this rank's rows, so the result equals row q of `run`."""
+        from repro_torch.kernels import ops as kops
+
+        q, R = line.index, line.size
+        L = x.numel() * self.bufs["x"][1]
+        bufs = {"x": x.reshape(1, -1)}
+        for name, (slots, div) in self.bufs.items():
+            if name != "x":
+                bufs[name] = torch.empty((slots, L // div), dtype=x.dtype,
+                                         device=x.device)
+        with default_tracer().span("collective/" + self.name, ranks=R,
+                                   lanes=L, folds=self.folds,
+                                   copies=self.copies, rank=q):
+            for op in self.ops:
+                d = op.dist(q, R, self.bufs)
+                lanes = L // op.rowdiv
+                src = bufs[op.src].view(-1, lanes)
+                dst = bufs[op.dst].view(-1, lanes)
+                idx = d.indices(x.device)
+                sends = [(p, (src if which == "src" else dst).index_select(
+                    0, idx[f"send{j}"])) for j, (p, which, _) in
+                    enumerate(d.sends)]
+                stage = torch.empty((d.n_stage, lanes), dtype=x.dtype,
+                                    device=x.device)
+                local = src.index_select(0, idx["local_src"])
+                if op.kind == "fold":
+                    stage[:local.shape[0]] = local
+                exchange(mesh, line, sends,
+                         [(p, stage[off:off + cnt])
+                          for p, off, cnt in d.recvs])
+                if op.kind == "fold":
+                    if d.out_local.size:
+                        kops.fused_reduce_into(stage, d.table(x.device),
+                                               dst)
+                    continue
+                dst.index_copy_(0, idx["local_dst"], local)
+                dst.index_copy_(0, idx["remote_dst"],
+                                stage.index_select(0, idx["remote_stage"]))
+        name, slot = self.out
+        return bufs[name][slot]
+
+
+@dataclass(eq=False)
+class DistOp:
+    """Rank q's part of one `FlatOp` on a process mesh. Its payloads: to
+    each peer the rows of `src` ("src") or `dst` ("dst", a partial) the
+    peer's results read; from each peer into staging rows [off, off +
+    cnt). A fold stages its local operand rows first (`local_src`), then
+    per peer its operand rows and the partials it reads there, as extra
+    last operands (the kernel adds a partial after the operands, so the
+    sum is the same); `out_local` / `own_local` are its result rows and
+    its local partials in `dst`. A copy writes its local rows
+    (`local_src` → `local_dst`) and its received ones (staging rows
+    `remote_stage` → `remote_dst`). Payload rows are sorted and unique,
+    so both ends of a payload agree on its order."""
+    sends: list                        # (peer, "src" | "dst", local rows)
+    recvs: list                        # (peer, staging offset, rows)
+    n_stage: int
+    local_src: np.ndarray
+    local_dst: np.ndarray | None = None
+    remote_stage: np.ndarray | None = None
+    remote_dst: np.ndarray | None = None
+    rows: np.ndarray | None = None     # fold: (B, x') staging rows
+    out_local: np.ndarray | None = None
+    own_local: np.ndarray | None = None
+    _dev: dict = field(default_factory=dict, repr=False)
+
+    def indices(self, device: torch.device) -> dict:
+        key = ("idx", str(device))
+        t = self._dev.get(key)
+        if t is None:
+            arrs = {f"send{j}": rows for j, (_, _, rows) in
+                    enumerate(self.sends)}
+            arrs["local_src"] = self.local_src
+            if self.local_dst is not None:
+                arrs.update(local_dst=self.local_dst,
+                            remote_stage=self.remote_stage,
+                            remote_dst=self.remote_dst)
+            t = self._dev[key] = {k: torch.as_tensor(v, dtype=torch.int64,
+                                                     device=device)
+                                  for k, v in arrs.items()}
+        return t
+
+    def table(self, device: torch.device):
+        key = ("table", str(device))
+        t = self._dev.get(key)
+        if t is None:
+            from repro_torch.kernels import ops as kops
+            t = self._dev[key] = kops.row_table(self.rows, self.out_local,
+                                                self.own_local, device)
+        return t
+
+
+def _owner_local(g: np.ndarray, per: int, R: int):
+    """(owning rank, local row) of global rows g of a buffer whose rank
+    rows hold `per` rows each: row (slot·R + q)·per + p is rank q's local
+    row slot·per + p."""
+    g = np.asarray(g, np.int64)
+    return (g // per) % R, (g // (per * R)) * per + g % per
+
+
+def _dist_needs(op: FlatOp, r: int, R: int, bufs: dict):
+    """The rows rank r's results of `op` read: operand rows by owner and,
+    for a fold, the partial rows other ranks hold, by owner (each sorted,
+    unique); and r's result positions."""
+    per_s = op.rowdiv // bufs[op.src][1]
+    per_d = op.rowdiv // bufs[op.dst][1]
+    own_d, _ = _owner_local(op.out, per_d, R)
+    mine = np.nonzero(own_d == r)[0]
+    rows = op.rows[mine] if op.kind == "fold" else op.rows[mine][:, None]
+    live = rows[rows >= 0]
+    who, _ = _owner_local(live, per_s, R)
+    ops_from = {p: np.unique(live[who == p]) for p in range(R)}
+    own_from = {p: np.zeros(0, np.int64) for p in range(R)}
+    if op.kind == "fold":
+        own = op.own[mine]
+        live_own = own[own >= 0]
+        who_o, _ = _owner_local(live_own, per_d, R)
+        for p in range(R):
+            if p != r:
+                own_from[p] = np.unique(live_own[who_o == p])
+    return mine, ops_from, own_from, per_s, per_d
+
+
+def _compile_dist(op: FlatOp, q: int, R: int, bufs: dict) -> DistOp:
+    mine, ops_from, own_from, per_s, per_d = _dist_needs(op, q, R, bufs)
+    sends = []
+    for p in range(R):
+        if p == q:
+            continue
+        _, ops_p, own_p, _, _ = _dist_needs(op, p, R, bufs)
+        for which, rows in (("src", ops_p[q]), ("dst", own_p[q])):
+            if rows.size:
+                sends.append((p, which, _owner_local(
+                    rows, per_s if which == "src" else per_d, R)[1]))
+    # staging: local operand rows, then per peer its operands and partials
+    pos: dict[tuple[str, int], int] = {}
+    recvs = []
+    off = 0
+    if op.kind == "fold":
+        for g in ops_from[q]:
+            pos[("src", int(g))] = off
+            off += 1
+    for p in range(R):
+        if p == q:
+            continue
+        for which, rows in (("src", ops_from[p]), ("dst", own_from[p])):
+            if rows.size:
+                recvs.append((p, off, int(rows.size)))
+                for g in rows:
+                    pos[(which, int(g))] = off
+                    off += 1
+    local_src = _owner_local(ops_from[q], per_s, R)[1]
+    _, out_local = _owner_local(op.out[mine], per_d, R)
+    if op.kind == "copy":
+        src_g = op.rows[mine]
+        who, _ = _owner_local(src_g, per_s, R)
+        here = who == q
+        first = {int(g): j for j, g in enumerate(ops_from[q])}
+        order = np.array([first[int(g)] for g in src_g[here]], np.int64)
+        return DistOp(sends=sends, recvs=recvs, n_stage=off,
+                      local_src=local_src[order] if order.size
+                      else np.zeros(0, np.int64),
+                      local_dst=out_local[here],
+                      remote_stage=np.array([pos[("src", int(g))]
+                                             for g in src_g[~here]],
+                                            np.int64),
+                      remote_dst=out_local[~here])
+    rows = np.vectorize(lambda g: pos[("src", int(g))] if g >= 0 else -1,
+                        otypes=[np.int64])(op.rows[mine]) \
+        if mine.size else np.zeros((0, op.rows.shape[1]), np.int64)
+    own = op.own[mine]
+    who_o, own_l = _owner_local(own, per_d, R)
+    remote = (own >= 0) & (who_o != q)
+    if remote.any():
+        extra = np.array([pos[("dst", int(g))] if rm else -1
+                          for g, rm in zip(own, remote)], np.int64)
+        rows = np.concatenate([rows, extra[:, None]], axis=1)
+    own_local = np.where((own >= 0) & ~remote, own_l, -1)
+    return DistOp(sends=sends, recvs=recvs, n_stage=off,
+                  local_src=local_src, rows=rows, out_local=out_local,
+                  own_local=own_local)
 
 
 def _row(R: int, bufdiv: int, rowdiv: int, slot, q, p) -> np.ndarray:
@@ -624,16 +831,109 @@ def _axis(x, axis_name, mesh):
     return sizes, dim, sizes[dim], math.prod(sizes)
 
 
+# ---------------------------------------------------------------------------
+# the process mesh: x is this rank's tensor, the axis its process group
+# (`is_process_mesh`, `core.transport`)
+# ---------------------------------------------------------------------------
+
+
+def _flat1(x: torch.Tensor, multiple: int = 1
+           ) -> tuple[torch.Tensor, int, bool]:
+    """`_flat` of one rank's tensor: (x flat, contiguous, zero-padded to
+    a multiple of `multiple`; the pad; whether it is a new tensor)."""
+    flat, pad, owned = _flat(x.reshape(1, -1), 1, multiple)
+    return flat.reshape(-1), pad, owned
+
+
+def _dist_program(strategy, half, n, factors=None, order=False):
+    fac = tuple(factors) if strategy == "hcps" else None
+    if strategy == "hcps" and fac is None:
+        raise ValueError("hcps needs fan-in factors")
+    return flat_program(strategy, half, (n,), (0,), fac, order=order)
+
+
+def _run_dist(prog: FlatProgram, flat: torch.Tensor, owned: bool, mesh,
+              line) -> torch.Tensor:
+    if prog.mutates_input and not owned:
+        flat = flat.clone()
+    return prog.run_dist(flat, mesh, line)
+
+
+def _dist_allreduce(x, axis_name, strategy, factors, schedule, mesh):
+    n = mesh.axis_size(axis_name)
+    if n == 1:
+        return x
+    if strategy == "plan":
+        if schedule is None:
+            raise ValueError("strategy='plan' needs a schedule")
+        return schedule.allreduce(x.reshape(-1), axis_name,
+                                  mesh).reshape(x.shape)
+    line = mesh.line(axis_name)
+    if strategy == "psum":
+        flat, _, owned = _flat1(x)
+        return _run_dist(_dist_program("psum", "allreduce", n), flat,
+                         owned, mesh, line).reshape(x.shape)
+    if strategy not in ("ring", "rhd", "cps", "hcps"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    flat, pad, owned = _flat1(x, _pad_multiple(n, strategy))
+    shard = _run_dist(_dist_program(strategy, "reduce_scatter", n, factors),
+                      flat, owned, mesh, line)
+    full = _dist_program(strategy, "all_gather", n, factors).run_dist(
+        shard, mesh, line)
+    if pad:
+        full = full[:-pad]
+    return full.reshape(x.shape)
+
+
+def _dist_reduce_scatter(x, axis_name, strategy, factors, schedule, mesh):
+    n = mesh.axis_size(axis_name)
+    if strategy == "plan":
+        if schedule is None:
+            raise ValueError("strategy='plan' needs a schedule")
+        return schedule.reduce_scatter(x.reshape(-1), axis_name, mesh)
+    if strategy not in ("psum", "auto", "ring", "rhd", "cps", "hcps"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    flat, _, owned = _flat1(x, _pad_multiple(n, strategy))
+    if n == 1:
+        return flat
+    return _run_dist(_dist_program(strategy, "reduce_scatter", n, factors,
+                                   order=True), flat, owned, mesh,
+                     mesh.line(axis_name))
+
+
+def _dist_all_gather(x, axis_name, strategy, factors, schedule, mesh):
+    n = mesh.axis_size(axis_name)
+    flat, _, _ = _flat1(x)
+    if strategy == "plan":
+        if schedule is None:
+            raise ValueError("strategy='plan' needs a schedule")
+        return schedule.all_gather(flat, axis_name, mesh)
+    if strategy not in ("psum", "auto", "ring", "rhd", "cps", "hcps"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    if n == 1:
+        return flat
+    return _dist_program(strategy, "all_gather", n, factors,
+                         order=True).run_dist(flat, mesh,
+                                              mesh.line(axis_name))
+
+
 def _census_axis(a: dict, out, of: str = "x", scale: bool = False):
     """(per-rank bytes, axis size) of a call on axis a["axis_name"]: of
     the input a[of], or of `out` (a reduce-scatter's shard times the
     axis: the padded operand; an all-gather's gathered result)."""
-    sizes, _, n, R = _axis(a["x"], a["axis_name"], a["mesh"])
     t = a[of] if of != "out" else out
+    if is_process_mesh(a["mesh"]):
+        n = a["mesh"].axis_size(a["axis_name"])
+        return analysis.rank_bytes(t, 1) * (n if scale else 1), n
+    sizes, _, n, R = _axis(a["x"], a["axis_name"], a["mesh"])
     return analysis.rank_bytes(t, R) * (n if scale else 1), n
 
 
 def _census_psum(a: dict, out):
+    if is_process_mesh(a["mesh"]):
+        pm = a["mesh"]
+        return analysis.rank_bytes(a["x"], 1), math.prod(
+            pm.axis_size(ax) for ax in pm.key(a["axis_names"]))
     names, sizes = _mesh_sizes(a["x"], list(a["axis_names"]), a["mesh"])
     n = math.prod(sizes[names.index(ax)] for ax in set(a["axis_names"]))
     return analysis.rank_bytes(a["x"], math.prod(sizes)), n
@@ -650,7 +950,16 @@ def allreduce(x: torch.Tensor, axis_name: str, strategy: str = "psum",
     `core.lower.CompiledSchedule` passed as `schedule` (`run_local`, the
     groups of other mesh axes side by side in its columns). The flat
     strategies pad to `_pad_multiple` and run their reduce-scatter and
-    all-gather halves (hcps in its native shard order)."""
+    all-gather halves (hcps in its native shard order).
+
+    On a process mesh (`core.transport.ProcessMesh`) x is this rank's
+    tensor and the axis its process group: the same programs run as
+    that rank (`FlatProgram.run_dist`, "plan" the schedule's
+    `allreduce`), and the result equals the local mesh's row bit for
+    bit."""
+    if is_process_mesh(mesh):
+        return _dist_allreduce(x, axis_name, strategy, factors, schedule,
+                               mesh)
     sizes, dim, n, R = _axis(x, axis_name, mesh)
     if n == 1:
         return x
@@ -691,7 +1000,11 @@ def reduce_scatter(x: torch.Tensor, axis_name: str, strategy: str = "psum",
     natural holders). Non-power-of-two rhd shards over its pow2 core
     (L / p a rank): ranks beyond it hold an UNREDUCED slice of their own
     input, which only `all_gather(..., "rhd")` makes whole. "plan" runs
-    `schedule.run_local_reduce_scatter` (a group at a time)."""
+    `schedule.run_local_reduce_scatter` (a group at a time). On a
+    process mesh, this rank's flat shard."""
+    if is_process_mesh(mesh):
+        return _dist_reduce_scatter(x, axis_name, strategy, factors,
+                                    schedule, mesh)
     sizes, dim, n, R = _axis(x, axis_name, mesh)
     lead = x.shape[:len(sizes)]
     if strategy == "plan":
@@ -725,7 +1038,11 @@ def all_gather(x: torch.Tensor, axis_name: str, strategy: str = "psum",
     n·chunk) on every rank. The shards are in natural order (rank i slice
     i), as `reduce_scatter` returns them; hcps un-reorders to its native
     holders before its doubling stages. rhd at n ≠ p gathers the core's
-    shards and copies them out to the extras."""
+    shards and copies them out to the extras. On a process mesh, x is
+    this rank's flat shard and the result its flat gathered vector."""
+    if is_process_mesh(mesh):
+        return _dist_all_gather(x, axis_name, strategy, factors, schedule,
+                                mesh)
     sizes, dim, n, R = _axis(x, axis_name, mesh)
     lead = x.shape[:len(sizes)]
     flat, _, _ = _flat(x, R)
@@ -755,7 +1072,19 @@ def all_to_all(x: torch.Tensor, axis_name: str, schedule=None, *,
     size must divide by the axis size. With `schedule` (a lowered
     `CompiledSchedule` of family "all_to_all") the exchange runs the
     plan's rounds (`run_local_all_to_all`, a group at a time); otherwise
-    one copy. Returns x's shape."""
+    one copy. Returns x's shape. On a process mesh x is this rank's
+    tensor."""
+    if is_process_mesh(mesh):
+        n = mesh.axis_size(axis_name)
+        flat, _, _ = _flat1(x)
+        if flat.numel() % n:
+            raise ValueError(f"all_to_all: {flat.numel()} elements a rank "
+                             f"do not split into {n} chunks")
+        if schedule is not None:
+            return schedule.all_to_all(flat, axis_name, mesh).reshape(
+                x.shape)
+        return flat_program("all_to_all", "", (n,), (0,)).run_dist(
+            flat, mesh, mesh.line(axis_name)).reshape(x.shape)
     sizes, dim, n, R = _axis(x, axis_name, mesh)
     flat, _, _ = _flat(x, R)
     if flat.shape[1] % n:
@@ -773,7 +1102,18 @@ def all_to_all(x: torch.Tensor, axis_name: str, schedule=None, *,
 def psum(x: torch.Tensor, axis_names: Sequence[str], *, mesh=None
          ) -> torch.Tensor:
     """The sum over every axis of `axis_names` at once (the reference's
-    `lax.psum(g, names)`): one fold of all their ranks a group."""
+    `lax.psum(g, names)`): one fold of all their ranks a group. On a
+    process mesh the group is this rank's line over those axes, its
+    ranks in row-major order."""
+    if is_process_mesh(mesh):
+        key = mesh.key(axis_names)
+        sizes = tuple(mesh.axis_size(a) for a in key)
+        if not key or math.prod(sizes) == 1:
+            return x
+        flat, _, owned = _flat1(x)
+        return _run_dist(flat_program("psum", "allreduce", sizes,
+                                      tuple(range(len(sizes)))),
+                         flat, owned, mesh, mesh.line(key)).reshape(x.shape)
     names, sizes = _mesh_sizes(x, list(axis_names), mesh)
     dims = tuple(sorted(names.index(a) for a in axis_names))
     if not dims or math.prod(sizes[d] for d in dims) == 1:
@@ -811,6 +1151,10 @@ def allreduce_planned(x: torch.Tensor, axis_name: str, *, service=None,
     launch error is caught."""
     from repro_torch.core.lower import LoweringError
     from repro_torch.planner.service import default_service
+    if is_process_mesh(mesh):
+        raise NotImplementedError(
+            "allreduce_planned over a process mesh: the serving path over "
+            "processes is ROADMAP §1 item 8")
     svc = service or default_service()
     if stats is None:
         stats = {}

@@ -34,9 +34,22 @@ Entry points, each with the reference's family check and canonical-shard
 rules: `run_local` (AllReduce), `run_local_reduce_scatter`,
 `run_local_all_gather`, `run_local_all_to_all` and `run_local_p2p`. The
 reference package's `run_numpy` and its shard_map entry points are what
-the equivalence tests hold them against. A collective over
-`torch.distributed` process groups (one card per rank) belongs to the
-trainer slice.
+the equivalence tests hold them against.
+
+The same schedule also runs on a *process mesh* (`core.transport`), one
+process a rank, with the reference's shard_map signatures: `allreduce`,
+`reduce_scatter`, `all_gather`, `all_to_all` and `p2p` take this rank's
+flat operand, an axis name and the `ProcessMesh`. The rank holds its own
+(num_blocks, chunk) buffer; a step's rounds are one `transport.exchange`
+in the axis's process group (each `PermRound` sends this
+rank's `send_blks` rows and receives into the step's staging slots; the
+rounds of one step read the buffer before any fold writes it, so they
+are posted together), and each fold phase in which the rank folds is
+one launch of the same gathered kernel on its row of the fold's table.
+The operands and the order of the adds are the local mesh's, so every
+rank's result equals `run_local`'s row bit for bit; the ranks together
+launch each kernel once per fold phase and folding rank
+(`dist_launches`).
 """
 from __future__ import annotations
 
@@ -50,6 +63,7 @@ from repro_torch.launch import analysis
 from repro_torch.runtime.trace import default_tracer
 
 from .plans import Plan
+from .transport import exchange
 
 
 class LoweringError(ValueError):
@@ -145,13 +159,63 @@ def _landing_table(fd: FoldPhase, nb: int, slots: int,
     from repro_torch.kernels import ops as kops
 
     def build(dev):
+        if not _is_landing(fd):
+            return None
         act = np.nonzero(fd.blk >= 0)[0].astype(np.int64)
         ops = fd.ops[act]
-        if fd.include_self[act].any() or ((ops >= 0).sum(axis=1) != 1).any():
-            return None
         return kops.row_table(act[:, None] * slots + ops.max(axis=1)[:, None],
                               act * nb + fd.blk[act], device=dev)
     return _device_tables(fd, device, build, kind="landing")
+
+
+def _is_landing(fd: FoldPhase) -> bool:
+    """The fold phase only lands copies: no folding rank adds a resident
+    partial, and each has one live operand."""
+    act = fd.blk >= 0
+    return not (fd.include_self[act].any()
+                or ((fd.ops[act] >= 0).sum(axis=1) != 1).any())
+
+
+def _dist_fold_table(fd: FoldPhase, m: int, device: torch.device,
+                     landing: bool):
+    """Rank m's row of the fold phase on its own (num_blocks, chunk)
+    buffer and (slots, lanes) staging rows: its operand slots (−1 =
+    masked), its target block, its resident partial where the IR adds
+    it; under `landing` the one live operand alone."""
+    from repro_torch.kernels import ops as kops
+
+    def build(dev):
+        blk = int(fd.blk[m])
+        if landing:
+            return kops.row_table([[int(fd.ops[m].max())]], [blk],
+                                  device=dev)
+        return kops.row_table(fd.ops[m][None], [blk],
+                              [blk if fd.include_self[m] else -1], dev)
+    return _device_tables(fd, device, build,
+                          kind=f"rank{m}{'/landing' if landing else ''}")
+
+
+def _dist_round(rd: PermRound, m: int):
+    """Rank m's part of a round: (peer, sent block rows) or None, and
+    (peer, first staging slot, rows) or None. A payload's live rows are
+    a prefix of the round's width."""
+    send = recv = None
+    for s, d in rd.perm:
+        if s == m:
+            blks = [int(b) for b in rd.send_blks[s] if b >= 0]
+            send = (d, blks)
+        if d == m:
+            cnt = int((rd.send_blks[s] >= 0).sum())
+            recv = (s, int(rd.recv_off[d]), cnt)
+    return send, recv
+
+
+def _rows(buf: torch.Tensor, blks: list[int]) -> torch.Tensor:
+    """buf's rows `blks` as one contiguous payload (a view where they
+    are consecutive)."""
+    if blks == list(range(blks[0], blks[0] + len(blks))):
+        return buf[blks[0]:blks[0] + len(blks)]
+    return buf[torch.tensor(blks, device=buf.device)]
 
 
 @dataclass(eq=False)
@@ -467,6 +531,257 @@ class CompiledSchedule:
                             kops.quant_reduce_into(
                                 stage_q.view(qdtype), stage_s,
                                 _fold_table(fd, nb, slots, dev), buf, tile)
+
+    # ---- process-mesh execution -------------------------------------------
+    def _check_axis(self, axis_name: str, mesh) -> int:
+        """This rank's index on `axis_name` of the process mesh, whose
+        group must hold `n` ranks."""
+        n = mesh.axis_size(axis_name)
+        if n != self.n:
+            raise LoweringError(
+                f"schedule {self.plan_name!r} compiled for {self.n} "
+                f"devices; mesh axis {axis_name!r} has {n}")
+        return mesh.index(axis_name)
+
+    def _rank_buffer(self, entry: str, x: torch.Tensor) -> torch.Tensor:
+        """A private (num_blocks, chunk) copy of this rank's flat x,
+        zero-padded to a multiple of num_blocks."""
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{entry} takes f32 or bf16; got {x.dtype}")
+        flat = x.reshape(-1)
+        pad = (-flat.numel()) % self.num_blocks
+        buf = (torch.nn.functional.pad(flat, (0, pad)) if pad
+               else flat.clone(memory_format=torch.contiguous_format))
+        return buf.reshape(self.num_blocks, -1)
+
+    @analysis.collective("all-reduce", lambda a, out: (
+        analysis.rank_bytes(a["x"], 1), a["self"].n))
+    def allreduce(self, x: torch.Tensor, axis_name: str,
+                  mesh) -> torch.Tensor:
+        """AllReduce of this rank's x over `axis_name` of the process mesh
+        `mesh` (the reference's shard_map `allreduce`): every rank gets
+        the sum, in x's shape. Equals `run_local`'s row of this rank."""
+        self._check_family("allreduce", ("allreduce",))
+        m = self._check_axis(axis_name, mesh)
+        buf = self._rank_buffer("allreduce", x)
+        with default_tracer().span("exec/allreduce", plan=self.plan_name,
+                                   n=self.n, blocks=self.num_blocks):
+            self._run_steps_dist(self.rs, buf, m, mesh, axis_name, "rs")
+            self._run_steps_dist(self.ag, buf, m, mesh, axis_name, "ag")
+        return buf.reshape(-1)[:x.numel()].reshape(x.shape)
+
+    @analysis.collective("reduce-scatter", lambda a, out: (
+        analysis.rank_bytes(out, 1), a["self"].n))
+    def reduce_scatter(self, x: torch.Tensor, axis_name: str, mesh, *,
+                       overwrite: bool = False) -> torch.Tensor:
+        """ReduceScatter of this rank's flat x: returns its canonical
+        shard, blocks [i·k, (i+1)·k) of the sum zero-padded to a multiple
+        of num_blocks (i its index on the axis). With `overwrite`, x is
+        the working buffer (contiguous, a multiple of num_blocks
+        elements) and the shard a view of it."""
+        self._check_family("reduce_scatter", ("allreduce", "reduce_scatter"))
+        k = self._check_shards("reduce_scatter")
+        m = self._check_axis(axis_name, mesh)
+        if overwrite:
+            if x.numel() % self.num_blocks or not x.is_contiguous():
+                raise LoweringError(
+                    f"an overwritable reduce-scatter operand must be "
+                    f"contiguous with a multiple of {self.num_blocks} "
+                    f"elements; got {tuple(x.shape)}, contiguous="
+                    f"{x.is_contiguous()}")
+            buf = x.view(self.num_blocks, -1)
+        else:
+            buf = self._rank_buffer("reduce_scatter", x)
+        with default_tracer().span("exec/reduce_scatter",
+                                   plan=self.plan_name, n=self.n):
+            self._run_steps_dist(self.rs, buf, m, mesh, axis_name, "rs")
+            if self.reorder is not None:
+                self._run_steps_dist([self.reorder], buf, m, mesh,
+                                     axis_name, "reorder")
+        return buf[m * k:(m + 1) * k].reshape(-1)
+
+    @analysis.collective("all-gather", lambda a, out: (
+        analysis.rank_bytes(out, 1), a["self"].n))
+    def all_gather(self, shard: torch.Tensor, axis_name: str,
+                   mesh) -> torch.Tensor:
+        """AllGather of this rank's canonical shard (a multiple of
+        blocks_per_shard elements): the concatenation of the ranks'
+        shards in axis order, flat."""
+        self._check_family("all_gather", ("allreduce", "allgather"))
+        k = self._check_shards("all_gather")
+        m = self._check_axis(axis_name, mesh)
+        if shard.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"all_gather takes f32 or bf16; got "
+                            f"{shard.dtype}")
+        if shard.numel() % k:
+            raise LoweringError(f"a shard of {shard.numel()} elements does "
+                                f"not split into {k} blocks")
+        chunk = shard.numel() // k
+        buf = torch.zeros((self.num_blocks, chunk), dtype=shard.dtype,
+                          device=shard.device)
+        buf[m * k:(m + 1) * k] = shard.reshape(k, chunk)
+        with default_tracer().span("exec/all_gather", plan=self.plan_name,
+                                   n=self.n):
+            if self.unorder is not None:
+                self._run_steps_dist([self.unorder], buf, m, mesh,
+                                     axis_name, "unorder")
+            self._run_steps_dist(self.ag, buf, m, mesh, axis_name, "ag")
+        return buf.reshape(-1)
+
+    @analysis.collective("all-to-all", lambda a, out: (
+        analysis.rank_bytes(a["x"], 1), a["self"].n))
+    def all_to_all(self, x: torch.Tensor, axis_name: str,
+                   mesh) -> torch.Tensor:
+        """AllToAll of this rank's x (its elements split into num_blocks
+        equal chunks): with k = num_blocks / n, chunks [s·k, (s+1)·k) of
+        the result are rank s's chunks [i·k, (i+1)·k); x's shape."""
+        self._check_family("all_to_all", ("all_to_all",))
+        m = self._check_axis(axis_name, mesh)
+        if x.numel() % self.num_blocks:
+            raise LoweringError(
+                f"all_to_all operand of {x.numel()} elements does not "
+                f"split into {self.num_blocks} equal chunks")
+        buf = self._rank_buffer("all_to_all", x)
+        with default_tracer().span("exec/all_to_all", plan=self.plan_name,
+                                   n=self.n, blocks=self.num_blocks):
+            self._run_steps_dist(self.ag, buf, m, mesh, axis_name, "a2a")
+        return buf.reshape(x.shape)
+
+    @analysis.collective("collective-permute", lambda a, out: (
+        analysis.rank_bytes(a["x"], 1), a["self"].n))
+    def p2p(self, x: torch.Tensor, axis_name: str, mesh) -> torch.Tensor:
+        """Point-to-point exchange: a rank with an incoming compiled edge
+        gets its sender's x, the others keep theirs; x's shape."""
+        self._check_family("p2p", ("p2p",))
+        m = self._check_axis(axis_name, mesh)
+        buf = self._rank_buffer("p2p", x)
+        with default_tracer().span("exec/p2p", plan=self.plan_name,
+                                   n=self.n):
+            self._run_steps_dist(self.ag, buf, m, mesh, axis_name, "p2p")
+        return buf.reshape(-1)[:x.numel()].reshape(x.shape)
+
+    def _run_steps_dist(self, steps: Sequence[ExecStep], buf: torch.Tensor,
+                        m: int, mesh, axis_name: str,
+                        phase: str = "steps") -> None:
+        """Run `steps` as rank m on its own (num_blocks, chunk) buffer,
+        in place: per step, its rounds in one exchange in the axis's
+        group, then its fold phases."""
+        line = mesh.line(axis_name)
+        tracer = default_tracer()
+        for si, st in enumerate(steps):
+            if not st.rounds and not st.folds:
+                continue
+            with tracer.span(f"exec/{phase}/step", step=si,
+                             rounds=len(st.rounds), folds=len(st.folds),
+                             plan=self.plan_name, rank=m):
+                sends, recvs, stages = self._dist_rounds(st, buf, m)
+                exchange(mesh, line, sends, recvs)
+                self._dist_folds(st, stages, buf, m)
+
+    def _dist_rounds(self, st: ExecStep, buf: torch.Tensor, m: int):
+        """Rank m's sends and receives of a step's rounds, and the staging
+        rows they land in: (slots, chunk) in buf's dtype; on a scaled wire
+        (slots, lanes) wire bytes and (slots, tiles) f32 scales, each sent
+        payload quantized first (one `quantize` launch a sent round); on
+        bf16 the payload cast."""
+        from repro_torch.kernels import ops as kops
+
+        slots = max(st.n_slots, 1)
+        chunk, dev = buf.shape[1], buf.device
+        wire = self.wire
+        tile = int(wire.scale_block or 0) if wire is not None else 0
+        if wire is None:
+            stages = (torch.empty((slots, chunk), dtype=buf.dtype,
+                                  device=dev),)
+        elif tile:
+            nt = -(-chunk // tile)
+            stages = (torch.empty((slots, nt * tile), dtype=torch.uint8,
+                                  device=dev),
+                      torch.empty((slots, nt), dtype=torch.float32,
+                                  device=dev))
+        else:
+            stages = (torch.empty((slots, chunk),
+                                  dtype=getattr(torch, wire.wire_dtype),
+                                  device=dev),)
+        sends, recvs = [], []
+        tracer = default_tracer()
+        for ri, rd in enumerate(st.rounds):
+            send, recv = _dist_round(rd, m)
+            with tracer.span("exec/round", round=ri,
+                             width=int(rd.send_blks.shape[1]),
+                             pairs=len(rd.perm), sends=send is not None,
+                             recvs=recv is not None):
+                if send is not None and send[1]:
+                    rows = _rows(buf, send[1])
+                    if wire is None:
+                        sends.append((send[0], rows))
+                    elif tile:
+                        q, s = kops.quantize(rows.float(), wire.wire_dtype,
+                                             tile)
+                        sends += [(send[0], q), (send[0], s)]
+                    else:
+                        sends.append((send[0], rows.to(stages[0].dtype)))
+                if recv is not None and recv[2]:
+                    p, off, cnt = recv
+                    recvs += [(p, t[off:off + cnt]) for t in stages]
+        return sends, recvs, stages
+
+    def _dist_folds(self, st: ExecStep, stages, buf: torch.Tensor,
+                    m: int) -> None:
+        """Rank m's fold phases of a step, one launch each where it folds:
+        `fused_reduce_into` (f32, bf16 and the bf16 wire), or on a scaled
+        wire `quant_reduce_into`, or `dequantize_into` where the phase
+        only lands copies (the local mesh's choice, phase by phase)."""
+        from repro_torch.kernels import ops as kops
+        from repro_torch.kernels.ref import wire_dtype
+
+        wire = self.wire
+        tile = int(wire.scale_block or 0) if wire is not None else 0
+        tracer = default_tracer()
+        for fi, fd in enumerate(st.folds):
+            if fd.blk[m] < 0:
+                continue
+            with tracer.span("exec/fold", fold=fi, fan=int(fd.ops.shape[1])):
+                if not tile:
+                    kops.fused_reduce_into(
+                        stages[0], _dist_fold_table(fd, m, buf.device,
+                                                    False), buf)
+                    continue
+                q = stages[0].view(wire_dtype(wire.wire_dtype))
+                landing = _is_landing(fd)
+                table = _dist_fold_table(fd, m, buf.device, landing)
+                if landing:
+                    kops.dequantize_into(q, stages[1], table, buf, tile)
+                else:
+                    kops.quant_reduce_into(q, stages[1], table, buf, tile)
+
+    def dist_launches(self, entry: str, m: int) -> dict[str, int]:
+        """The kernel launches rank m makes in one call of `entry`
+        ("allreduce", "reduce_scatter", "all_gather", "all_to_all",
+        "p2p") on a card: one a fold phase it folds in (the kernel the
+        wire selects) and, on a scaled wire, one `quantize` a round it
+        sends in."""
+        steps = {"allreduce": self.rs + self.ag,
+                 "reduce_scatter": self.rs + ([self.reorder]
+                                              if self.reorder else []),
+                 "all_gather": ([self.unorder] if self.unorder else [])
+                 + self.ag,
+                 "all_to_all": self.ag, "p2p": self.ag}[entry]
+        tile = int(self.wire.scale_block or 0) if self.wire else 0
+        out = {"fused_reduce": 0, "quantize": 0, "quant_reduce": 0,
+               "dequantize": 0}
+        for st in steps:
+            for rd in st.rounds:
+                send, _ = _dist_round(rd, m)
+                if tile and send is not None and send[1]:
+                    out["quantize"] += 1
+            for fd in st.folds:
+                if fd.blk[m] < 0:
+                    continue
+                kind = ("fused_reduce" if not tile else "dequantize"
+                        if _is_landing(fd) else "quant_reduce")
+                out[kind] += 1
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -961,7 +1276,9 @@ def _lower_movement_family(plan: Plan, mesh_of: Mapping[int, int],
 class GuardedSchedule:
     """Launch guard around a CompiledSchedule, for its local-mesh entry
     points (`run_local`, `run_local_reduce_scatter`,
-    `run_local_all_gather`, `run_local_all_to_all`, `run_local_p2p`).
+    `run_local_all_gather`, `run_local_all_to_all`, `run_local_p2p`) and
+    its process-mesh ones (`allreduce`, `reduce_scatter`, `all_gather`,
+    `all_to_all`, `p2p`), under the same rules.
 
     The guard counts launches (`stats`, `guarded_launches_total`). Before
     each launch it consults the armed fault injector
@@ -1014,7 +1331,8 @@ class GuardedSchedule:
         if tele is not None:
             tele.remeasure("guard_failure", info)
 
-    def _guarded(self, what: str, X: torch.Tensor, **kw) -> torch.Tensor:
+    def _guarded(self, what: str, X: torch.Tensor, *args,
+                 **kw) -> torch.Tensor:
         from repro_torch.runtime.faults import active_injector
         from repro_torch.runtime.metrics import default_metrics
 
@@ -1026,7 +1344,7 @@ class GuardedSchedule:
             inj = active_injector()
             if inj is not None:
                 inj.check_launch(f"{self.inner.plan_name}/{what}")
-            return getattr(self.inner, what)(X, **kw)
+            return getattr(self.inner, what)(X, *args, **kw)
         except Exception as e:
             self._note_failure(what, e)
             raise
@@ -1047,6 +1365,26 @@ class GuardedSchedule:
 
     def run_local_p2p(self, X: torch.Tensor) -> torch.Tensor:
         return self._guarded("run_local_p2p", X)
+
+    def allreduce(self, x: torch.Tensor, axis_name: str,
+                  mesh) -> torch.Tensor:
+        return self._guarded("allreduce", x, axis_name, mesh)
+
+    def reduce_scatter(self, x: torch.Tensor, axis_name: str, mesh, *,
+                       overwrite: bool = False) -> torch.Tensor:
+        return self._guarded("reduce_scatter", x, axis_name, mesh,
+                             overwrite=overwrite)
+
+    def all_gather(self, shard: torch.Tensor, axis_name: str,
+                   mesh) -> torch.Tensor:
+        return self._guarded("all_gather", shard, axis_name, mesh)
+
+    def all_to_all(self, x: torch.Tensor, axis_name: str,
+                   mesh) -> torch.Tensor:
+        return self._guarded("all_to_all", x, axis_name, mesh)
+
+    def p2p(self, x: torch.Tensor, axis_name: str, mesh) -> torch.Tensor:
+        return self._guarded("p2p", x, axis_name, mesh)
 
 
 def guard_schedule(schedule, *, telemetry=None):

@@ -32,6 +32,7 @@ from repro_torch.runtime.trace import default_tracer
 
 from .lower import (ExecStep, LoweringError, PermRound, _fold_table,
                     _round_tables)
+from .transport import exchange
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +293,77 @@ class MergedSchedule:
             "merged RS+AG launches through the overlap scheduler").inc()
         try:
             return self._merged(X, S)
+        except Exception as e:
+            self._note_failure(e)
+            raise
+
+
+    def _merged_mesh(self, x: torch.Tensor, s: torch.Tensor,
+                     axis_name: str, mesh) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+        """`_merged` as one rank of a process mesh: at full precision
+        each step's rounds of both constituents are posted as one
+        exchange, then both sides' folds run; with a wire-bound
+        constituent the steps interleave through each constituent's own
+        `_run_steps_dist`."""
+        a, b = self.rs_inner, self.ag_inner
+        m = a._check_axis(axis_name, mesh)
+        b._check_axis(axis_name, mesh)
+        buf_a = a._rank_buffer("rs_ag", x)
+        kb = b.blocks_per_shard
+        if s.numel() % kb:
+            raise LoweringError(f"a shard of {s.numel()} elements does not "
+                                f"split into {kb} blocks")
+        buf_b = torch.zeros((b.num_blocks, s.numel() // kb), dtype=s.dtype,
+                            device=s.device)
+        buf_b[m * kb:(m + 1) * kb] = s.reshape(kb, -1)
+        steps_a, steps_b = _rs_steps(a), _ag_steps(b)
+        line = mesh.line(axis_name)
+        tracer = default_tracer()
+        with tracer.span("overlap/rs_ag", plan=self.plan_name, n=self.n,
+                         round_pairs=self.info.round_pairs,
+                         coalesced=self.info.coalesced, rank=m):
+            for i in range(max(len(steps_a), len(steps_b))):
+                sides = [(a, buf_a, steps_a[i] if i < len(steps_a)
+                          else None, "rs"),
+                         (b, buf_b, steps_b[i] if i < len(steps_b)
+                          else None, "ag")]
+                sides = [sd for sd in sides if sd[2] is not None
+                         and (sd[2].rounds or sd[2].folds)]
+                if a.wire is not None or b.wire is not None:
+                    for sched, buf, st, phase in sides:
+                        sched._run_steps_dist([st], buf, m, mesh,
+                                              axis_name, phase)
+                    continue
+                with tracer.span("overlap/step", step=i):
+                    sends, recvs, stages = [], [], []
+                    for sched, buf, st, _ in sides:
+                        se, re, sg = sched._dist_rounds(st, buf, m)
+                        sends += se
+                        recvs += re
+                        stages.append(sg)
+                    exchange(mesh, line, sends, recvs)
+                    for (sched, buf, st, _), sg in zip(sides, stages):
+                        sched._dist_folds(st, sg, buf, m)
+        ka = a.blocks_per_shard
+        return buf_a[m * ka:(m + 1) * ka].reshape(-1), buf_b.reshape(-1)
+
+    @analysis.collective(None, lambda a, out: [
+        ("reduce-scatter", analysis.rank_bytes(out[0], 1), a["self"].n),
+        ("all-gather", analysis.rank_bytes(out[1], 1), a["self"].n)])
+    def rs_ag_mesh(self, x: torch.Tensor, s: torch.Tensor, axis_name: str,
+                   mesh) -> tuple[torch.Tensor, torch.Tensor]:
+        """The merged launch as one rank of a process mesh: this rank's
+        flat reduce-scatter operand `x` and all-gather shard `s` →
+        (its shard of the RS, its flat gathered vector), the values of
+        the constituents' `reduce_scatter` and `all_gather` in
+        sequence. Counted and guarded as `rs_ag`."""
+        self.stats["launches"] += 1
+        default_metrics().counter(
+            "overlap_merged_launches_total",
+            "merged RS+AG launches through the overlap scheduler").inc()
+        try:
+            return self._merged_mesh(x, s, axis_name, mesh)
         except Exception as e:
             self._note_failure(e)
             raise

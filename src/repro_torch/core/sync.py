@@ -15,6 +15,8 @@ dimensions are the mesh axes, row r of an axis rank r's gradient. Every
 sum on a CUDA tensor is a `fused_reduce` launch (the top-k AllReduce
 scatter-adds its sparse pairs with `index_add_`, as the reference's
 scatter-add). The bucketed path is `core.bucketing.sync_bucketed`.
+`sync_gradients` and `sync_bucketed` also run on a process mesh (one
+process a rank, `core.transport`).
 """
 from __future__ import annotations
 
@@ -446,12 +448,28 @@ def sync_gradients(grads, axes: Sequence[tuple[str, int]], cfg: SyncConfig,
 
     `stats`, when given, is filled with the resolved plans and their
     modeled costs (bucketed: the bucket plan's identity and quotes).
-    Span `sync/gradients` on the per-leaf path."""
-    mesh = list(axes) if mesh is None else list(mesh)
-    sizes = [int(s) for _, s in mesh]
-    R = 1
-    for s in sizes:
-        R *= s
+    Span `sync/gradients` on the per-leaf path.
+
+    On a process mesh (`mesh` a `core.transport.ProcessMesh`, one process a
+    rank) `grads` are this rank's own leaves; `axes` are the mesh's axes
+    in the order to reduce them (leaf-first, as above), each priced at
+    `axis_level` of its position there, and every sum runs over this
+    rank's process group of the axis. The results equal the local
+    mesh's rows bit for bit. `compress` raises there (item 8)."""
+    if collectives.is_process_mesh(mesh):
+        pm = dict(mesh.axes)
+        for a, n in axes:
+            if pm.get(a) != int(n):
+                raise ValueError(f"axis ({a!r}, {n}) is not an axis of the "
+                                 f"process mesh {list(mesh.axes)}")
+        if cfg.compress is not None:
+            raise NotImplementedError(
+                f"compress={cfg.compress!r} over a process mesh: the int8 "
+                "CPS AllReduce over processes is ROADMAP §1 item 8")
+        R = 1
+    else:
+        mesh = list(axes) if mesh is None else list(mesh)
+        R = math.prod(int(s) for _, s in mesh)
     if cfg.strategy == "auto":
         names = [a for a, n in axes if n > 1]
         return _tree_map(lambda g: collectives.psum(g, names, mesh=mesh),

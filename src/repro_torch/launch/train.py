@@ -25,9 +25,18 @@ several axes; the flat labels psum, ring, rhd, cps and hcps, "gentree"
 (the planner's label for each axis) and "auto" (psum) per leaf, through
 `core.collectives`; a wire the plan binds (bf16, fp8, int8). These raise
 `NotImplementedError` and are never replaced by another path: the
-`auto` (pjit) engine and the schedule probe `observe_sync_probe`, which
-need the multi-process executor (ROADMAP §1 item 8); `compress` in the
-trainer (item 9).
+`auto` (pjit) engine (ROADMAP §1 item 8); `compress` in the trainer
+(item 9); on the local mesh, the schedule probe `observe_sync_probe`.
+
+The same step runs with one process a rank on a process mesh
+(`core.transport.ProcessMesh`; `make_manual_train_step(api, mesh)` with
+such a mesh, `run_training(tc, mesh=...)`, or the CLI's `--nproc N
+--backend nccl|gloo`): each process holds its own shards and AdamW
+state and runs its own rank, the collectives go over its process
+groups, and its losses, gnorms and shards equal the local mesh's row
+of that rank bit for bit. There `observe_sync_probe` times each axis's
+schedule and feeds the planner; expert-parallel MoE, checkpoints and
+the fault loop raise (item 8).
 
 With a checkpoint directory the run goes through the reference's
 `FaultTolerantLoop` (`runtime.ft`): a checkpoint every `ckpt_every`
@@ -47,6 +56,8 @@ checkpoints and corrupted collective payloads.
         --arch rwkv6-1.6b          # or hymba-1.5b
     python -m repro_torch.launch.train --engine manual --sync plan --smoke \
         --arch qwen2-vl-7b         # or whisper-large-v3, mixtral-8x22b
+    python -m repro_torch.launch.train --engine manual --sync plan --smoke \
+        --nproc 4 --backend gloo --device cpu   # one process a rank
 
 train smoke-size models (stablelm-12b by default) on the card;
 `--device cpu` runs them on the CPU. Without `--smoke` the model is the
@@ -81,6 +92,9 @@ from repro_torch.runtime.trace import default_tracer
 PHASES = ("gather", "forward_backward", "reduce_scatter", "adamw")
 # the audio stub's frames a row, as the reference's `run_training` draws
 AUDIO_FRAMES = 32
+# the CLI's process mesh: the seconds its processes may run (and a
+# collective may wait) before they are killed
+CLI_MESH_TIMEOUT_S = 3600.0
 
 _log = logging.getLogger(__name__)
 
@@ -117,10 +131,17 @@ def shard_params_zero3(params: dict, mesh) -> list[torch.Tensor]:
     "encoder" and "decoder") are stacked to (L, ...) leaves first (a
     tree without such a list is taken as stacked already); each leaf is
     flattened and zero-padded to a multiple of n. The tensors are
-    copies."""
-    n = math.prod(s for _, s in _mesh_of(mesh))
+    copies.
+
+    On a process mesh (`core.transport.ProcessMesh`) the result is this
+    rank's row alone, a (shard,) tensor a leaf, made a leaf at a time."""
+    pm = collectives.is_process_mesh(mesh)
+    n = mesh.size if pm else math.prod(s for _, s in _mesh_of(mesh))
     if any(isinstance(params.get(k), list) for k in LAYER_KEYS):
         params = stack_layers(params)
+    if pm:
+        return [_split(x, n)[mesh.rank].clone()
+                for _, x in tree_items(params)]
     return [_split(x, n) for _, x in tree_items(params)]
 
 
@@ -131,15 +152,18 @@ def _gather_leaf(shards: torch.Tensor, numel: int,
     `_scatter_leaf`'s reduce-scatter per strategy, the hcps un-reorder
     included. On several axes (`mesh`, the live (axis, size) pairs) the
     plans gather in mesh order, as the reference's do, so rank (p, d)'s
-    shard lands at chunk d·P + p of the gathered vector, not 4p + d."""
-    n = shards.shape[0]
-    full = shards if mesh is None else shards.reshape(
+    shard lands at chunk d·P + p of the gathered vector, not 4p + d.
+    On a process mesh (`mesh` a `ProcessMesh`) this rank's (shard,) →
+    its (numel,) copy, gathered over its process groups."""
+    pm = collectives.is_process_mesh(mesh)
+    full = shards if mesh is None or pm else shards.reshape(
         *(s for _, s in mesh), -1)
     for pl in plans:
         full = collectives.all_gather(full, pl.axis, pl.strategy,
                                       factors=pl.factors,
                                       schedule=pl.schedule, mesh=mesh)
-    return full.reshape(n, -1)[:, :numel]
+    return full[:numel] if pm else full.reshape(shards.shape[0],
+                                                -1)[:, :numel]
 
 
 def _scatter_leaf(grads: torch.Tensor, plans: Sequence[AxisPlan],
@@ -147,15 +171,16 @@ def _scatter_leaf(grads: torch.Tensor, plans: Sequence[AxisPlan],
     """(n, numel) per-rank gradients → (n, shard): row i rank i's shard
     of their sum, zero-padded to the plans' multiples; on several axes
     (`mesh`) the plans reduce-scatter in reverse mesh order, the exact
-    inverse of `_gather_leaf`."""
-    n = grads.shape[0]
-    out = grads if mesh is None else grads.reshape(
+    inverse of `_gather_leaf`. On a process mesh this rank's (numel,)
+    gradient → its (shard,) of the sum."""
+    pm = collectives.is_process_mesh(mesh)
+    out = grads if mesh is None or pm else grads.reshape(
         *(s for _, s in mesh), -1)
     for pl in reversed(plans):
         out = collectives.reduce_scatter(out, pl.axis, pl.strategy,
                                          factors=pl.factors,
                                          schedule=pl.schedule, mesh=mesh)
-    return out.reshape(n, -1)
+    return out if pm else out.reshape(grads.shape[0], -1)
 
 
 def _shard_of(numel: int, mesh, plans: Sequence[AxisPlan]) -> int:
@@ -375,7 +400,9 @@ def ep_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
 
 def rank_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
                         batch: dict, n: int, put: Callable, *,
-                        lossy: bool = False) -> list[torch.Tensor]:
+                        lossy: bool = False,
+                        ranks: Sequence[int] | None = None
+                        ) -> list[torch.Tensor]:
     """Each rank's forward and backward in turn, the reference's
     per-device `value_and_grad(loss_fn(remat=True))`: rank r reads its
     own detached copy of the gathered leaves `full` (the reference's
@@ -388,12 +415,15 @@ def rank_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
     On the meta device (the dry run, `launch.dryrun`) the ranks run the
     same shapes and compute no values, so rank 0's forward and backward
     stand for all n: the census counts them n times
-    (`analysis.repeated`)."""
+    (`analysis.repeated`).
+
+    `ranks` runs those ranks alone (a process mesh's own rank, whose
+    `full` is its own copy); their losses are returned."""
     paths = [p for p, _ in tree_items(api.params_spec())]
-    same = bool(full) and full[0].is_meta
+    same = bool(full) and full[0].is_meta and ranks is None
     losses = []
     with analysis.repeated(n if same else 1):
-        for r in range(1 if same else n):
+        for r in (ranks if ranks is not None else range(1 if same else n)):
             leaves = [(f[r] if lossy else f).detach().requires_grad_(True)
                       for f in full]
             params = unstack_layers(tree_from_items(zip(paths, leaves)))
@@ -500,13 +530,28 @@ def make_manual_train_step(api: ModelAPI, mesh,
     the ranks' shard norms (the reference's `pmean`s); on a card,
     "events", CUDA events at the bounds of `PHASES` (`phase_ms`); on the
     EP path "ep_exchanges", the step's exchanges {"forward", "recompute",
-    "backward"}."""
+    "backward"}.
+
+    On a process mesh (`mesh` a `core.transport.ProcessMesh`, one process
+    a rank; `device` is the mesh's) the step is rank r's row of the
+    above, with rank r's shards alone in `state` ((shard,) a leaf,
+    `shard_params_zero3(params, mesh)`): the gathers and reduce-scatters
+    run over its process groups in the same orders, it runs its own
+    forward and backward, its copy is its own under any wire, and
+    "loss" and "gnorm" are the means of the ranks' values in rank order,
+    gathered through the transport. Refused there, naming ROADMAP item
+    8: a MoE model whose experts split over the first live axis
+    (expert-parallel dispatch over processes).
+
+    With `step.digest` set, metrics "digest" is `params_digest` of the
+    gathered copy, for comparing the ranks' copies."""
     from repro_torch.core.bucketing import (zero3_gather_bucketed,
                                             zero3_layout,
                                             zero3_scatter_bucket)
     from repro_torch.core.sync import check_plan_config
+    from repro_torch.core.transport import all_gather_rows
 
-    dev = resolve_device(device)
+    pm = mesh if collectives.is_process_mesh(mesh) else None
     cfg = api.cfg
     check_plan_config(sync)
     if sync.compress is not None:
@@ -514,10 +559,26 @@ def make_manual_train_step(api: ModelAPI, mesh,
             f"compress={sync.compress!r} in the ZeRO-3 trainer: the "
             "reference compresses only in sync_gradients, and a lossy "
             "wire in the trainer is ROADMAP §1 item 9")
-    live = [(a, s) for a, s in _mesh_of(mesh) if s > 1]
-    n = math.prod(s for _, s in live)
-    # one live axis: (n, ...) rows as they are; several: the local mesh
-    kw = {"mesh": live} if len(live) > 1 else {}
+    if pm is None:
+        dev = resolve_device(device)
+        live = [(a, s) for a, s in _mesh_of(mesh) if s > 1]
+        n = math.prod(s for _, s in live)
+        # the ranks this process runs, and the leading size of its
+        # tensors: every rank's row of the local mesh
+        ranks, lead, where = range(n), (n,), {}
+        # one live axis: (n, ...) rows as they are; several: the mesh
+        kw = {"mesh": live} if len(live) > 1 else {}
+    else:
+        dev, n = pm.device, pm.size
+        live = [(a, s) for a, s in pm.axes if s > 1]
+        # this rank's own shards, flat
+        ranks, lead, where = [pm.rank], (), {"rank": pm.rank}
+        kw = {"mesh": pm}
+
+    def row(t: torch.Tensor, r: int) -> torch.Tensor:
+        """Rank r's row of one of this process's tensors."""
+        return t if pm is not None else t[r]
+
     specs = tree_items(api.params_spec(param_dtype))
     paths = [p for p, _ in specs]
     numels = [math.prod(t.shape) for _, t in specs]
@@ -531,8 +592,209 @@ def make_manual_train_step(api: ModelAPI, mesh,
     ep_axis, ep_n = live[0] if live else (None, 1)
     use_ep = (cfg.n_experts > 1 and ep_n > 1
               and cfg.n_experts % ep_n == 0)
+    if use_ep and pm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: expert-parallel dispatch over a process mesh is "
+            "ROADMAP §1 item 8")
     ep_sched = (_ep_schedule(ep_axis, ep_n, sync, total_bytes)
                 if use_ep and sync.strategy == "plan" else None)
+    bplan, plans = _sync_setup(api, live, n, sync, param_dtype)
+    wires = {pl.schedule.wire.name for pl in plans
+             if pl.schedule is not None and pl.schedule.wire is not None}
+    # under a lossy wire each rank's gathered copy differs from the
+    # others': the local mesh keeps the (n, ...) rows; a process holds
+    # its own copy alone
+    lossy = bool(wires) and pm is None
+    gather_buckets = scatter_buckets = []
+    if bplan is not None:
+        k = plans[0].schedule.blocks_per_shard
+        gather_buckets = zero3_layout(numels, dtypes, itemsizes, max(
+            1, bplan.bucket_bytes // n), n, k, by_shard=True)
+        scatter_buckets = zero3_layout(numels, dtypes, itemsizes,
+                                       bplan.bucket_bytes, n, k)
+    slot = {i: (b, j) for b, bk in enumerate(scatter_buckets)
+            for j, i in enumerate(bk.indices)}
+    tracer = default_tracer()
+
+    def mark() -> torch.cuda.Event | None:
+        if dev.type != "cuda":
+            return None
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def gather(shards: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each leaf's one shared copy (a process's own), or under a
+        lossy wire on the local mesh its (n, *shape) rows, row r rank r's
+        copy."""
+        if bplan is not None:
+            return zero3_gather_bucketed(
+                shards, [(shape, s.dtype) for shape, s in zip(shapes,
+                                                              shards)],
+                plans[0], bplan.bucket_bytes, n, shared=not lossy,
+                mesh=pm)
+        out = []
+        for s, numel, shape, path in zip(shards, numels, shapes, paths):
+            full = _gather_leaf(s, numel, plans, **kw)
+            if pm is not None:
+                out.append(full.reshape(shape))
+                continue
+            if lossy:
+                out.append(full.reshape(n, *shape))
+                continue
+            if not full.is_meta and not torch.equal(
+                    full[1:], full[:1].expand(n - 1, -1)):
+                raise RuntimeError(f"leaf {'/'.join(path)}: the gathered "
+                                   "rows of the ranks differ")
+            out.append(full[0].reshape(shape).clone())
+            del full
+        return out
+
+    def grad_buffers(shards: list[torch.Tensor]) -> tuple[list, Callable]:
+        """The tensors this process's gradients land in, and the function
+        that writes rank r's gradient of leaf i there (of its elements
+        [off, off + len) alone where `off` is given)."""
+        if bplan is None:
+            bufs = [torch.empty((*lead, m), dtype=s.dtype, device=s.device)
+                    for m, s in zip(numels, shards)]
+
+            def put(r, i, g, off=0):
+                g = g.reshape(-1)
+                row(bufs[i], r)[off:off + g.numel()].copy_(g)
+            return bufs, put
+        bufs = [bk.matrix(n, shards[0].device) if pm is None
+                else bk.matrix(n, shards[0].device, rows=1)[0]
+                for bk in scatter_buckets]
+
+        def put(r, i, g, off=0):
+            if i in slot:                 # an empty leaf is in no bucket
+                b, j = slot[i]
+                scatter_buckets[b].write(row(bufs[b], r), j, g.reshape(-1),
+                                         off)
+        return bufs, put
+
+    def reduce_scatter(bufs: list) -> list[torch.Tensor]:
+        if bplan is None:
+            out = []
+            for i in range(len(bufs)):
+                out.append(_scatter_leaf(bufs[i], plans, **kw))
+                bufs[i] = None
+            return out
+        out: list = [torch.zeros((*lead, 0), dtype=param_dtype, device=dev)
+                     ] * len(numels)
+        order = range(len(scatter_buckets))
+        for b in (reversed(order) if sync.backward_overlap else order):
+            bk = scatter_buckets[b]
+            for i, s in zip(bk.indices, zero3_scatter_bucket(
+                    bufs[b], bk, plans[0], mesh=pm)):
+                out[i] = s
+            bufs[b] = None
+        return out
+
+    def mean(xs: list[torch.Tensor]) -> torch.Tensor:
+        """The mean over every rank of the mesh (the reference's pmean)
+        of this process's ranks' values."""
+        x = torch.stack(xs)
+        return (x if pm is None else all_gather_rows(
+            pm, pm.line(pm.axis_names), x[0])).mean()
+
+    def step(state: dict, batch: dict) -> tuple[dict, dict]:
+        shards, opt = state["params"], state["opt"]
+        if [tuple(s.shape) for s in shards] != [(*lead, m) for m in
+                                                shard_sizes]:
+            raise ValueError(f"state shards {[tuple(s.shape) for s in shards]}"
+                             f" are not {cfg.name}'s {(*lead, 'shard')} "
+                             f"leaves" + (f" of rank {pm.rank} of {n}"
+                                          if pm is not None else ""))
+        if bplan is not None and [s.dtype for s in shards] != dtypes:
+            raise ValueError(f"the bucket plan is priced for "
+                             f"{sorted({str(d) for d in dtypes})} shards; "
+                             f"the state holds "
+                             f"{sorted({str(s.dtype) for s in shards})}")
+        metrics = {}
+        events = [mark()]
+        with tracer.span("train/gather", leaves=len(shards), **where):
+            full = gather(shards)
+        if step.digest:
+            metrics["digest"] = params_digest(full)
+        events.append(mark())
+        bufs, put = grad_buffers(shards)
+        exchanges = None
+        with tracer.span("train/forward_backward", ranks=len(ranks),
+                         ep=use_ep, **where):
+            if use_ep:
+                with expert_parallel(ep_axis, ep_n, ep_sched):
+                    losses, exchanges = ep_loss_and_grads(
+                        api, full, batch, live, put, lossy=lossy)
+            else:
+                losses = rank_loss_and_grads(
+                    api, full, batch, n, put, lossy=lossy,
+                    ranks=None if pm is None else ranks)
+        del full
+        events.append(mark())
+        with torch.no_grad():
+            with tracer.span("train/reduce_scatter", leaves=len(shards),
+                             **where):
+                # a reduce-scattered shard may be a view of its leaf's
+                # whole working buffer: none outlives its division
+                g_shards = [g / n for g in reduce_scatter(bufs)]
+            del bufs
+            for i, g in enumerate(g_shards):
+                if g.shape != (*lead, shard_sizes[i]):
+                    raise RuntimeError(
+                        f"leaf {'/'.join(paths[i])}: reduce-scattered "
+                        f"to {tuple(g.shape)}, its shards are "
+                        f"{(*lead, shard_sizes[i])}")
+            events.append(mark())
+            with tracer.span("train/adamw", ranks=len(ranks), **where):
+                gnorms = []
+                for r in ranks:
+                    rows = [[row(t, r) for t in ts] for ts in
+                            (shards, g_shards, opt["m"], opt["v"])]
+                    new_p, new_o, gn = adamw_update(
+                        rows[0], rows[1], {"m": rows[2], "v": rows[3],
+                                           "step": opt["step"]}, opt_cfg)
+                    for dst, src in zip(rows[0] + rows[2] + rows[3],
+                                        new_p + new_o["m"] + new_o["v"]):
+                        dst.copy_(src)
+                    gnorms.append(gn)
+                opt["step"] = new_o["step"]
+            events.append(mark())
+            metrics["loss"] = mean(losses)
+            metrics["gnorm"] = mean(gnorms)
+            # the two means are the reference's pmeans over the ranks
+            for m in (metrics["loss"], metrics["gnorm"]):
+                analysis.note_collective("all-reduce", m.element_size(), n)
+        if dev.type == "cuda":
+            metrics["events"] = events
+        if exchanges is not None:
+            metrics["ep_exchanges"] = exchanges
+        return state, metrics
+
+    step.plans = plans
+    step.mesh = live
+    step.wire = next(iter(wires)) if wires else None
+    step.bucket_plan = bplan
+    step.gather_buckets = gather_buckets
+    step.scatter_buckets = scatter_buckets
+    step.ep = (ep_axis, ep_n) if use_ep else None
+    step.ep_schedule = ep_sched
+    step.digest = False
+    return step
+
+
+def _sync_setup(api: ModelAPI, live, n: int, sync: SyncConfig,
+                param_dtype: torch.dtype):
+    """The bucket plan (or None, logged where the reference falls back to
+    the per-leaf path) and the axis plans of a ZeRO-3 step over the live
+    (axis, size) pairs of n ranks, the plans' shards checked against the
+    parameter shards."""
+    specs = tree_items(api.params_spec(param_dtype))
+    paths = [p for p, _ in specs]
+    numels = [math.prod(t.shape) for _, t in specs]
+    shard_sizes = [-(-m // n) for m in numels]
+    total_bytes = sum(m * t.element_size() for m, (_, t) in
+                      zip(numels, specs))
     bplan = None
     if sync.strategy == "plan" and sync.bucket_bytes != 0:
         if len(live) == 1:
@@ -560,161 +822,28 @@ def make_manual_train_step(api: ModelAPI, mesh,
                     f"leaf {'/'.join(path)}: the plan's reduce-scatter "
                     f"shards hold {got} elements, its parameter "
                     f"shards {size} ({what})")
-    wires = {pl.schedule.wire.name for pl in plans
-             if pl.schedule is not None and pl.schedule.wire is not None}
-    # under a lossy wire each rank's gathered copy differs from the others'
-    lossy = bool(wires)
-    gather_buckets = scatter_buckets = []
-    if bplan is not None:
-        k = plans[0].schedule.blocks_per_shard
-        gather_buckets = zero3_layout(numels, dtypes, itemsizes, max(
-            1, bplan.bucket_bytes // n), n, k, by_shard=True)
-        scatter_buckets = zero3_layout(numels, dtypes, itemsizes,
-                                       bplan.bucket_bytes, n, k)
-    slot = {i: (b, j) for b, bk in enumerate(scatter_buckets)
-            for j, i in enumerate(bk.indices)}
-    tracer = default_tracer()
+    return bplan, plans
 
-    def mark() -> torch.cuda.Event | None:
-        if dev.type != "cuda":
-            return None
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
 
-    def gather(shards: list[torch.Tensor]) -> list[torch.Tensor]:
-        """Each leaf's one shared copy, or under a lossy wire its (n,
-        *shape) rows, row r rank r's copy."""
-        if bplan is not None:
-            return zero3_gather_bucketed(
-                shards, [(shape, s.dtype) for shape, s in zip(shapes,
-                                                              shards)],
-                plans[0], bplan.bucket_bytes, n, shared=not lossy)
-        out = []
-        for s, numel, shape, path in zip(shards, numels, shapes, paths):
-            full = _gather_leaf(s, numel, plans, **kw)
-            if lossy:
-                out.append(full.reshape(n, *shape))
-                continue
-            if not full.is_meta and not torch.equal(
-                    full[1:], full[:1].expand(n - 1, -1)):
-                raise RuntimeError(f"leaf {'/'.join(path)}: the gathered "
-                                   "rows of the ranks differ")
-            out.append(full[0].reshape(shape).clone())
-            del full
-        return out
-
-    def grad_buffers(shards: list[torch.Tensor]) -> tuple[list, Callable]:
-        """The tensors rank r's gradients land in, and the function that
-        writes rank r's gradient of leaf i there (of its elements [off,
-        off + len) alone where `off` is given)."""
-        if bplan is None:
-            bufs = [torch.empty((n, m), dtype=s.dtype, device=s.device)
-                    for m, s in zip(numels, shards)]
-
-            def put(r, i, g, off=0):
-                g = g.reshape(-1)
-                bufs[i][r, off:off + g.numel()].copy_(g)
-            return bufs, put
-        bufs = [bk.matrix(n, shards[0].device) for bk in scatter_buckets]
-
-        def put(r, i, g, off=0):
-            if i in slot:                 # an empty leaf is in no bucket
-                b, j = slot[i]
-                scatter_buckets[b].write(bufs[b][r], j, g.reshape(-1), off)
-        return bufs, put
-
-    def reduce_scatter(bufs: list) -> list[torch.Tensor]:
-        if bplan is None:
-            out = []
-            for i in range(len(bufs)):
-                out.append(_scatter_leaf(bufs[i], plans, **kw))
-                bufs[i] = None
-            return out
-        out: list = [torch.zeros((n, 0), dtype=param_dtype, device=dev)
-                     ] * len(numels)
-        order = range(len(scatter_buckets))
-        for b in (reversed(order) if sync.backward_overlap else order):
-            bk = scatter_buckets[b]
-            for i, s in zip(bk.indices,
-                            zero3_scatter_bucket(bufs[b], bk, plans[0])):
-                out[i] = s
-            bufs[b] = None
-        return out
-
-    def step(state: dict, batch: dict) -> tuple[dict, dict]:
-        shards, opt = state["params"], state["opt"]
-        if [tuple(s.shape) for s in shards] != [(n, m) for m in
-                                                shard_sizes]:
-            raise ValueError(f"state shards {[tuple(s.shape) for s in shards]}"
-                             f" are not {cfg.name}'s (n, shard) leaves")
-        if bplan is not None and [s.dtype for s in shards] != dtypes:
-            raise ValueError(f"the bucket plan is priced for "
-                             f"{sorted({str(d) for d in dtypes})} shards; "
-                             f"the state holds "
-                             f"{sorted({str(s.dtype) for s in shards})}")
-        events = [mark()]
-        with tracer.span("train/gather", leaves=len(shards)):
-            full = gather(shards)
-        events.append(mark())
-        bufs, put = grad_buffers(shards)
-        exchanges = None
-        with tracer.span("train/forward_backward", ranks=n, ep=use_ep):
-            if use_ep:
-                with expert_parallel(ep_axis, ep_n, ep_sched):
-                    losses, exchanges = ep_loss_and_grads(
-                        api, full, batch, live, put, lossy=lossy)
-            else:
-                losses = rank_loss_and_grads(api, full, batch, n, put,
-                                             lossy=lossy)
-        del full
-        events.append(mark())
-        with torch.no_grad():
-            g_shards = []
-            with tracer.span("train/reduce_scatter", leaves=len(shards)):
-                for i, g in enumerate(reduce_scatter(bufs)):
-                    if g.shape != (n, shard_sizes[i]):
-                        raise RuntimeError(
-                            f"leaf {'/'.join(paths[i])}: reduce-scattered "
-                            f"to {tuple(g.shape)}, its shards are "
-                            f"{(n, shard_sizes[i])}")
-                    g_shards.append(g / n)
-            del bufs
-            events.append(mark())
-            with tracer.span("train/adamw", ranks=n):
-                gnorms = []
-                for r in range(n):
-                    rows = [[t[r] for t in ts] for ts in
-                            (shards, g_shards, opt["m"], opt["v"])]
-                    new_p, new_o, gn = adamw_update(
-                        rows[0], rows[1], {"m": rows[2], "v": rows[3],
-                                           "step": opt["step"]}, opt_cfg)
-                    for dst, src in zip(rows[0] + rows[2] + rows[3],
-                                        new_p + new_o["m"] + new_o["v"]):
-                        dst.copy_(src)
-                    gnorms.append(gn)
-                opt["step"] = new_o["step"]
-            events.append(mark())
-            metrics = {"loss": torch.stack(losses).mean(),
-                       "gnorm": torch.stack(gnorms).mean()}
-            # the two means are the reference's pmeans over the ranks
-            for m in (metrics["loss"], metrics["gnorm"]):
-                analysis.note_collective("all-reduce", m.element_size(), n)
-        if dev.type == "cuda":
-            metrics["events"] = events
-        if exchanges is not None:
-            metrics["ep_exchanges"] = exchanges
-        return state, metrics
-
-    step.plans = plans
-    step.mesh = live
-    step.wire = next(iter(wires)) if wires else None
-    step.bucket_plan = bplan
-    step.gather_buckets = gather_buckets
-    step.scatter_buckets = scatter_buckets
-    step.ep = (ep_axis, ep_n) if use_ep else None
-    step.ep_schedule = ep_sched
-    return step
+def params_digest(tensors: Sequence[torch.Tensor]) -> int:
+    """A checksum of the tensors' bytes in order: their 32-bit words (the
+    bytes zero-padded to a multiple of 4), each weighted by its position
+    modulo 65521 plus 1, summed in int64 and taken modulo 2^61 − 1."""
+    total, pos = 0, 0
+    step = 1 << 24
+    for t in tensors:
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        pad = (-b.numel()) % 4
+        if pad:
+            b = torch.cat([b, b.new_zeros(pad)])
+        w = b.view(torch.int32)
+        for off in range(0, w.numel(), step):
+            c = w[off:off + step].to(torch.int64)
+            idx = torch.arange(pos + off, pos + off + c.numel(),
+                               device=c.device) % 65521 + 1
+            total = (total + int((c * idx).sum())) % ((1 << 61) - 1)
+        pos += w.numel()
+    return total
 
 
 def phase_ms(metrics: dict) -> dict[str, float] | None:
@@ -728,14 +857,74 @@ def phase_ms(metrics: dict) -> dict[str, float] | None:
             for i, name in enumerate(PHASES)}
 
 
-def observe_sync_probe(*args, **kw):
-    """The reference times each axis's schedule alone on its mesh and
-    feeds the planner. On the local mesh such a time measures one
-    device's launches, not the axis's links: the probe waits for the
-    multi-process executor."""
-    raise NotImplementedError(
-        "observe_sync_probe: timing an axis's schedule needs one device "
-        "a rank, the multi-process executor (ROADMAP §1 item 8)")
+def observe_sync_probe(svc, mesh, axes=None, size_floats=None, on_log=print,
+                       *, repeats: int = 3) -> list[dict]:
+    """Time each live axis's compiled schedule alone on a process mesh
+    and feed the planner's online loop (the reference's probe): for the
+    live (axis, size) pairs `axes` (default the mesh's live axes), at
+    `size_floats` and at a quarter of it, the axis's executable
+    (`get_axis_executable` at `axis_level` of its position) runs its
+    `allreduce` on a probe of ones over the rank's process group: one
+    warm-up, then `repeats` runs, each started together (a small
+    exchange over the mesh) and timed on the host clock to a
+    synchronize. The slowest rank's median is the measurement, the same
+    on every rank, so every rank's planner takes the same observation
+    (`svc.observe`, default `default_service()`) and replans alike. The
+    gloo transport through the host (`ProcessMesh.transport`) measures
+    host staging, not links: its times are observed as
+    `source="host_staged"` (tracked apart, never fitted). Returns the
+    observations; unlike the reference's no error is swallowed.
+
+    On the local mesh (`mesh` not a `ProcessMesh`) a time measures one
+    device's launches, not the axis's links, so the probe raises."""
+    from repro_torch.core.sync import axis_level
+    from repro_torch.core.transport import all_gather_rows
+    from repro_torch.planner.service import default_service
+
+    if not collectives.is_process_mesh(mesh):
+        raise NotImplementedError(
+            "observe_sync_probe: timing an axis's schedule needs one "
+            "process a rank (a core.transport.ProcessMesh), not the local "
+            "mesh (ROADMAP §1 item 8)")
+    svc = svc or default_service()
+    axes = [(a, s) for a, s in (mesh.axes if axes is None else axes)
+            if int(s) > 1]
+    everyone = mesh.line(mesh.axis_names)
+    dev = mesh.device
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    staged = mesh.transport != mesh.backend
+    source = "host_staged" if staged else "mesh"
+    big = max(float(size_floats or 65536.0), 4.0)
+    out = []
+    for i, (a, n) in enumerate(axes):
+        for size in (big, big / 4.0):
+            resp = svc.get_axis_executable(a, int(n), size,
+                                           level=axis_level(i))
+            sched = resp.schedule
+            probe = torch.ones(max(int(size), 1), dtype=torch.float32,
+                               device=dev)
+            sched.allreduce(probe, a, mesh)
+            sync()
+            ts = []
+            for _ in range(repeats):
+                all_gather_rows(mesh, everyone, probe[:1])
+                t0 = time.perf_counter()
+                sched.allreduce(probe, a, mesh)
+                sync()
+                ts.append(time.perf_counter() - t0)
+            mine = torch.tensor(sorted(ts)[len(ts) // 2],
+                                dtype=torch.float64, device=dev)
+            measured = float(all_gather_rows(mesh, everyone, mine).max())
+            obs = svc.observe(axis_level(i), int(n), size, measured,
+                              key=resp.key, source=source)
+            out.append(obs)
+            on_log(f"planner: axis {a} sync probe ({int(size)} floats, "
+                   f"{mesh.transport}) {measured * 1e3:.3f} ms (predicted "
+                   f"{obs['predicted'] * 1e3:.3f} ms, drift "
+                   f"{obs['drift']:.2f}" + (", refit" if obs["refit"]
+                                            else "") + ")")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -760,8 +949,9 @@ class TrainConfig:
     seed: int = 0
     log_every: int = 10
     # the reference probes the schedule after training and feeds the
-    # planner; on the local mesh that is item 8, so it is off here and
-    # True raises
+    # planner; on a process mesh the probe runs (observe_sync_probe), on
+    # the local mesh a time measures one card, so it is off here and True
+    # raises
     observe_sync: bool = False
     # export a Chrome trace of the run's spans / the metrics registry
     trace_path: str | None = None
@@ -782,18 +972,23 @@ class TrainConfig:
     bucket_bytes: int | None = None
 
 
-def _check_train_scope(tc: TrainConfig) -> None:
+def _check_train_scope(tc: TrainConfig, mesh=None) -> None:
     if tc.engine != "manual":
         raise NotImplementedError(
             f"engine={tc.engine!r}: the single-program sharded engine needs "
-            "the multi-process executor and DTensor placements (ROADMAP §1 "
-            "item 8); the port runs engine='manual'")
+            "DTensor placements over the process mesh (ROADMAP §1 item 8); "
+            "the port runs engine='manual'")
     from repro_torch.core.sync import SYNC_STRATEGIES
     if tc.sync not in SYNC_STRATEGIES:
         raise ValueError(f"unknown sync strategy {tc.sync!r}; one of "
                          f"{SYNC_STRATEGIES}")
-    if tc.observe_sync:
-        observe_sync_probe()
+    pm = collectives.is_process_mesh(mesh)
+    if pm and (tc.ckpt_dir or tc.fault_plan):
+        raise NotImplementedError(
+            "checkpoints and the fault-tolerant loop over a process mesh "
+            "(ckpt_dir, fault_plan) are ROADMAP §1 item 8")
+    if tc.observe_sync and not pm:
+        observe_sync_probe(None, mesh)
 
 
 def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
@@ -802,7 +997,10 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
     to `tc.n_layers` when set) from random bf16 weights for `tc.steps`
     steps on the local mesh `mesh` on `tc.device` (the reference's
     `mesh=`: (axis, size) pairs such as [("pod", 2), ("data", 4)], or an
-    int; None is one axis of `tc.local_ranks` ranks), with the
+    int; None is one axis of `tc.local_ranks` ranks; or this rank's
+    `core.transport.ProcessMesh`, one process a rank, on the mesh's device,
+    its state this rank's shards, without checkpoints and with
+    `tc.observe_sync` probing each axis after training), with the
     reference's sync, `SyncConfig(strategy=tc.sync, bucket_bytes=
     tc.bucket_bytes, backward_overlap=tc.backward_overlap)`: for "plan"
     bucketed on one live axis, GenModel picking the bucket unless
@@ -834,8 +1032,9 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
     from repro_torch.models.registry import build
     from repro_torch.runtime.metrics import default_metrics
 
-    _check_train_scope(tc)
-    dev = resolve_device(tc.device)
+    _check_train_scope(tc, mesh)
+    pm = collectives.is_process_mesh(mesh)
+    dev = mesh.device if pm else resolve_device(tc.device)
     cfg = get_config(tc.arch)
     if smoke:
         cfg = smoke_config(cfg)
@@ -935,6 +1134,10 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
                 state = one_step(state, s)
     if injector is not None:
         on_log(f"chaos: injector fired {injector.stats()['fired']}")
+    if pm and tc.observe_sync and tc.sync == "plan" and step_fn.mesh:
+        observe_sync_probe(default_service(), mesh, step_fn.mesh, min(
+            sum(float(x.numel()) for x in state["params"]) or 1.0,
+            65536.0), on_log)
 
     st = default_service().stats()
     cs = st["cache"]
@@ -993,14 +1196,43 @@ def main():
     ap.add_argument("--smoke", action="store_true",
                     help="train the smoke-size config (the reference's "
                     "run_training default)")
+    ap.add_argument("--nproc", type=int, default=None,
+                    help="train with one process a rank over this many "
+                    "ranks (a process mesh, axis 'data') instead of the "
+                    "local mesh")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="the process mesh's backend: nccl (one card a "
+                    "rank), or gloo (on the CPU, or every rank on one "
+                    "card, its rounds staged through the host)")
     args = ap.parse_args()
-    out = run_training(TrainConfig(
+    tc = TrainConfig(
         arch=args.arch, steps=args.steps, engine=args.engine,
         sync=args.sync, seq_len=args.seq_len, global_batch=args.batch,
         ckpt_dir=args.ckpt_dir, trace_path=args.trace,
         metrics_path=args.metrics, fault_plan=args.faults,
-        device=args.device), smoke=args.smoke)
-    print(f"final loss: {out['losses'][-1]:.4f}")
+        device=args.device)
+    if args.nproc is not None:
+        from repro_torch.launch.mesh import launch
+        print(f"process mesh: {args.nproc} processes, backend "
+              f"{args.backend}, device {args.device}", flush=True)
+        losses = launch(_train_rank, [("data", args.nproc)],
+                        backend=args.backend, device=args.device,
+                        timeout_s=CLI_MESH_TIMEOUT_S,
+                        args=(tc, args.smoke))[0]
+    else:
+        losses = run_training(tc, smoke=args.smoke)["losses"]
+    print(f"final loss: {losses[-1]:.4f}")
+
+
+def _train_rank(mesh, tc: TrainConfig, smoke: bool) -> list[float]:
+    """One rank of `main`'s process mesh: `run_training` on it, rank 0
+    logging; returns the losses."""
+    def quiet(_msg):
+        pass
+    out = run_training(tc, smoke=smoke, mesh=mesh,
+                       on_log=(lambda m: print(m, flush=True))
+                       if mesh.rank == 0 else quiet)
+    return out["losses"]
 
 
 if __name__ == "__main__":

@@ -395,15 +395,24 @@ class TorchProvider(MeasurementProvider):
     and the device cannot tell level classes apart, so every level gets
     the same curves. `device` defaults to the card; without one the
     constructor raises (no fallback): the CPU runs only when asked for
-    (`device="cpu"`)."""
+    (`device="cpu"`).
+
+    Handed a process mesh (`mesh`, a `core.transport.ProcessMesh`: one
+    process a rank, on the mesh's device), `cps_curve` times the flat
+    CPS AllReduce over process groups instead (`measure_dist_cps`), the
+    counterpart of the reference's `measure_lax_cps`."""
 
     name = "torch"
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", mesh=None):
         from repro_torch.runtime.device import resolve_device
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
 
     def cps_curve(self, level, source, cfg):
+        if self.mesh is not None:
+            return measure_dist_cps(cfg.ns, cfg.sizes, self.mesh)
         return measure_local_cps(cfg.ns, cfg.sizes, device=self.device)
 
     def fig4_curve(self, level, source, cfg):
@@ -510,6 +519,72 @@ def measure_local_cps(ns, sizes, device="cuda", repeats: int = 3):
             out_sizes.append(float(s))
             out_times.append(sorted(ts)[len(ts) // 2])
             del x
+    return np.array(out_ns), np.array(out_sizes), np.array(out_times)
+
+
+def measure_dist_cps(ns, sizes, mesh, repeats: int = 3):
+    """Time the flat CPS AllReduce over process groups of a process mesh
+    (`core.transport.ProcessMesh`, one process a rank), the counterpart of
+    the reference's `measure_lax_cps`: for each n of `ns` up to the
+    mesh's size, the group of ranks 0..n−1 (every process creates it, in
+    the order of `ns`) runs the CPS reduce-scatter and all-gather
+    programs of `core.collectives` on S f32 ones a rank for each S of
+    `sizes`, one warm-up and then `repeats` runs, each started together
+    (a small exchange) and timed on the host clock to a synchronize.
+    The slowest rank's median is the time, so every rank returns the
+    same (ns, sizes, times) triple, the synthetic backends' form. On
+    the gloo transport through the host (every rank on one card) the
+    times measure host staging, not links. Raises RuntimeError where no
+    n of `ns` fits (n of 2 or more, at most the mesh's size)."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives
+    from repro_torch.core.transport import Line, all_gather_rows
+
+    dev = mesh.device
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    everyone = mesh.line(mesh.axis_names)
+    out_ns, out_sizes, out_times = [], [], []
+    for n in ns:
+        n = int(n)
+        if not 2 <= n <= mesh.size:
+            continue
+        ranks = tuple(range(n))
+        group = (everyone.group if n == mesh.size
+                 else dist.new_group(list(ranks)))
+        line = Line(group, ranks, mesh.rank) if mesh.rank < n else None
+        rs = collectives.flat_program("cps", "reduce_scatter", (n,), (0,))
+        ag = collectives.flat_program("cps", "all_gather", (n,), (0,))
+        for s in sizes:
+            ts = [0.0]
+            if line is not None:
+                x = torch.ones(int(s) + (-int(s)) % n, dtype=torch.float32,
+                               device=dev)
+
+                def run():
+                    ag.run_dist(rs.run_dist(x, mesh, line), mesh, line)
+                    sync()
+                run()
+                ts = []
+                for _ in range(repeats):
+                    all_gather_rows(mesh, line, x[:1])
+                    t0 = time.perf_counter()
+                    run()
+                    ts.append(time.perf_counter() - t0)
+                del x
+            mine = torch.tensor(sorted(ts)[len(ts) // 2],
+                                dtype=torch.float64, device=dev)
+            out_ns.append(float(n))
+            out_sizes.append(float(s))
+            out_times.append(float(all_gather_rows(mesh, everyone,
+                                                   mine).max()))
+    if not out_ns:
+        raise RuntimeError(f"measure_dist_cps needs an n of 2 to "
+                           f"{mesh.size} ranks in {list(ns)}")
     return np.array(out_ns), np.array(out_sizes), np.array(out_times)
 
 

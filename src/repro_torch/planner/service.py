@@ -416,10 +416,14 @@ class PlannerService:
         launches, not the level's links, so it is tracked for monitoring
         under `level/<level>@local_mesh` (its drift is that tracker's)
         and never feeds a sample, the ledger or a refit.
+        `source="host_staged"` marks a time taken on a process mesh whose
+        rounds are staged through the host (gloo with every rank on one
+        card): it measures host staging, not links, and is tracked the
+        same way under `level/<level>@host_staged`.
 
         Returns {"level", "rel_residual", "drift", "samples", "refit"}.
         """
-        if source not in ("mesh", "local_mesh"):
+        if source not in ("mesh", "local_mesh", "host_staged"):
             raise ValueError(f"unknown observation source {source!r}")
         override = params is not None
         # version read BEFORE the params: a concurrent swap after this
@@ -460,8 +464,8 @@ class PlannerService:
             self._obs_handles[level] = handles
         ring, tracker = handles
         ring.add(measured)
-        if source == "local_mesh":
-            local = self.telemetry.residuals(f"level/{level}@local_mesh")
+        if source in ("local_mesh", "host_staged"):
+            local = self.telemetry.residuals(f"level/{level}@{source}")
             rel = local.record(predicted, measured)
             return {"level": level, "predicted": float(predicted),
                     "measured": measured, "rel_residual": rel,
