@@ -403,6 +403,9 @@ SERVE_ARCHS = ("stablelm-12b", "rwkv6-1.6b", "hymba-1.5b", "gemma2-27b",
 # drawing one (8, 6144, 16384) expert leaf holds it in f32 (3.22 GB) as
 # well: 14 layers reckon at 66.05 GiB held, ≈ 69.1 GiB at peak
 SERVE_LAYERS = {"mixtral-8x22b": 14}
+# the tokens each SERVE request served in phase 4, by arch (phase mp's
+# server on processes must serve them again)
+SERVED_TOKENS: dict = {}
 # one long request after the batch: its prompt is longer than gemma2-27b's
 # 4096 window, so the local layers mask in prefill and decode
 LONG = dict(arch="gemma2-27b", batch=1, prompt_len=4352, max_new=8,
@@ -494,6 +497,42 @@ MP_TRAIN_GAP = 1e-5
 MP_PROBE_FLOATS = 1 << 20
 MP_CPS = dict(ns=(2, 4, 8), sizes=(1 << 16, 1 << 20, 1 << 22))
 MP_TIMEOUT_S = 600.0
+# (a') on the 8 executor processes, at MP_SIZES: `allreduce_planned`'s
+# routes (label, kwargs; "bucketing" the default BucketConfig), then the
+# int8 CPS AllReduce and sync_gradients(compress="int8") on cps
+MP_PLANNED = (("plan f32", {}), ("plan bf16 wire", {"precision": "bf16"}),
+              ("plan fp8 wire", {"precision": "fp8"}),
+              ("bucketed", {"bucketing": True}))
+# (e) the server on MP_SERVE_PROCS processes (axis "model"): SERVE's
+# request of stablelm-12b at full size, served by rank 0; each rank runs
+# the decode schedule SERVE_SCHEDULE_RUNS times (the self-check, then
+# three timed runs: `launch.serve`)
+MP_SERVE_ARCH = "stablelm-12b"
+MP_SERVE_PROCS = 4
+SERVE_SCHEDULE_RUNS = 4
+# (f) deepseek-moe-16b at full width, depth 2 of 28, on the 4 trainer
+# processes, EP over ("data", 4) (16 routed experts a rank), "plan" per
+# leaf
+MP_MOE = dict(arch="deepseek-moe-16b", layers=2, steps=3, lr=1e-4,
+              seq_len=128, global_batch=8)
+# (g) the fault loop on the 4 trainer processes: MP_TRAIN's per-leaf run
+# through `run_training`, MP_FT["steps"] steps with a checkpoint every 2
+# (under build/, removed after); at step 4 `file_corrupt` clobbers rank
+# 0's member of step 4, then a device loss: every rank restores step 2
+# (the newest step every rank verifies) and replays; the step calls that
+# complete; held against (b)'s fault-free per-leaf run of the same
+# weights and batches, which runs MP_FT["steps"] steps for it
+MP_FT = dict(steps=5, ckpt_every=2, restored=2,
+             calls=[0, 1, 2, 3, 2, 3, 4],
+             events=(("file_corrupt", 4, "checkpoint", 0.0),
+                     ("device_loss", 4, "", 0.0)))
+
+
+def mp_train_cfg(label: str) -> dict:
+    """MP_TRAIN for (b)'s run `label`: the per-leaf run takes MP_FT's
+    steps, (g)'s fault-free twin."""
+    return {**MP_TRAIN, "steps": MP_FT["steps"]} if label == "per-leaf" \
+        else MP_TRAIN
 # phase census: the smoke-size models whose decode step's kernel work the
 # card and the CPU must count alike; the dry run's output directory and
 # the most it may take from its start (it runs beside every earlier
@@ -2446,6 +2485,9 @@ def phase_serve(dev, recorder, sc: dict) -> dict:
     if toks.shape != want or toks.min() < 0 or toks.max() >= cfg.vocab:
         fail(f"serving {arch} produced tokens of shape {toks.shape} in "
              f"[{toks.min()}, {toks.max()}]")
+    if all(sc.get(k) == v for k, v in SERVE.items()) \
+            and sc.get("n_layers") is None:
+        SERVED_TOKENS[arch] = toks
     del res
     torch.cuda.empty_cache()
     return {**counts, **by_kernel}
@@ -4358,6 +4400,7 @@ def mp_exec_worker(pm) -> dict:
             del prev, got
         del x
         torch.cuda.empty_cache()
+    out["planned"] = mp_planned_worker(pm, everyone)
     lines = []
     out["probe"] = observe_sync_probe(default_service(), pm, None,
                                       MP_PROBE_FLOATS, lines.append)
@@ -4367,6 +4410,244 @@ def mp_exec_worker(pm) -> dict:
     out["totals"] = dict(ops.LAUNCHES)
     out["transport"] = pm.transport
     return out
+
+
+MP_PLANNED_LABELS = tuple(label for label, _ in MP_PLANNED) + (
+    "int8 cps", "sync int8 cps")
+
+
+def mp_planned_run(label: str, x, ax: str, mesh, svc):
+    """One call of phase mp (a'): `allreduce_planned`'s route `label` on
+    the service `svc`, the int8 CPS AllReduce, or `sync_gradients` with
+    `compress="int8"` on cps; x is the local mesh's (n, size) rows
+    (`mesh` None) or this rank's (size,). Returns (result, stats)."""
+    from repro_torch.core import collectives as C
+    from repro_torch.core.bucketing import BucketConfig
+    from repro_torch.core.sync import (SyncConfig, allreduce_int8_cps,
+                                       sync_gradients)
+
+    if label == "int8 cps":
+        return allreduce_int8_cps(x, ax, mesh=mesh), {}
+    if label == "sync int8 cps":
+        n = x.shape[0] if mesh is None else mesh.axis_size(ax)
+        return sync_gradients({"g": x}, [(ax, n)], SyncConfig(
+            strategy="cps", compress="int8"), mesh=mesh)["g"], {}
+    kw = dict(dict(MP_PLANNED)[label])
+    if kw.pop("bucketing", False):
+        kw["bucketing"] = BucketConfig()
+    st = {}
+    got = C.allreduce_planned(x, ax, service=svc, stats=st, mesh=mesh,
+                              **kw)
+    return got, st
+
+
+def mp_planned_expected(label: str, st: dict, size: int, ax: str, pm,
+                        svc) -> dict:
+    """The kernel launches one rank of `pm` makes in an (a') call: one
+    fused_reduce for the int8 CPS fold (its gather is copies); the
+    schedule's `dist_launches` for the plan (at its wire), a bucket's
+    reduce-scatter and all-gather (or its AllReduce without canonical
+    halves) for each bucket."""
+    from repro_torch.core.bucketing import BucketConfig
+    from repro_torch.core.cost_model import PRECISIONS
+
+    if label in ("int8 cps", "sync int8 cps"):
+        return {"fused_reduce": 1}
+    m, n = pm.index(ax), pm.axis_size(ax)
+    out: dict = {}
+
+    def add(cs, entry, times=1):
+        for k, v in cs.dist_launches(entry, m).items():
+            out[k] = out.get(k, 0) + v * times
+    if st["mode"] == "bucketed":
+        cs = svc.get_bucket_plan([(ax, n)], float(size), dtype="float32",
+                                 config=BucketConfig()).axis_plans[0] \
+            .schedule
+        for entry in (("reduce_scatter", "all_gather") if st["halves"]
+                      else ("allreduce",)):
+            add(cs, entry, st["num_buckets"])
+        return out
+    cs = svc.get_axis_executable(ax, n, float(size)).schedule
+    if st["precision"] != "f32":
+        cs = cs.with_wire(PRECISIONS[st["precision"]])
+    add(cs, "allreduce")
+    return out
+
+
+def mp_planned_worker(pm, everyone) -> dict:
+    """Phase mp (a') as one rank: every MP_PLANNED_LABELS call at
+    MP_SIZES (a service of its own, the parent's twin), its result digest,
+    stats and launches beside the expected; at the gradient size the call
+    again, timed (the slowest rank's host ms, started together)."""
+    import torch
+    from repro_torch.core.transport import all_gather_rows
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import params_digest
+    from repro_torch.planner.service import PlannerService
+
+    ax = pm.axis_names[0]
+    svc = PlannerService()
+    out = {}
+    for si, (size, slabel) in enumerate(MP_SIZES):
+        x = mp_row(size, 100 + si, pm.rank, pm.device)
+        for label in MP_PLANNED_LABELS:
+            before = dict(ops.LAUNCHES)
+            got, st = mp_planned_run(label, x, ax, pm, svc)
+            torch.cuda.synchronize()
+            rec = {"digest": params_digest([got]), "stats": st,
+                   "launches": {k: ops.LAUNCHES[k] - before[k]
+                                for k in EXECUTOR_KERNELS},
+                   "expected": mp_planned_expected(label, st, size, ax, pm,
+                                                   svc)}
+            del got
+            if size >= 1 << 24:
+                all_gather_rows(pm, everyone, x[:1])
+                t0 = time.perf_counter()
+                mp_planned_run(label, x, ax, pm, svc)
+                torch.cuda.synchronize()
+                mine = torch.tensor(time.perf_counter() - t0,
+                                    dtype=torch.float64, device=pm.device)
+                rec["ms"] = 1e3 * float(all_gather_rows(pm, everyone,
+                                                        mine).max())
+            out[(label, slabel)] = rec
+        del x
+    return out
+
+
+def mp_planned_want(dev, n: int) -> dict:
+    """Phase mp (a')'s answers on the n-rank local mesh on this card:
+    each call's row digests by (label, size label, rank) and its stats,
+    on a service of this process's own; each result within the wire's
+    budget (f32 1e-6) of the exact column sum."""
+    import torch
+    from repro_torch.core.cost_model import PRECISIONS
+    from repro_torch.launch.train import params_digest
+    from repro_torch.planner.service import PlannerService
+
+    svc = PlannerService()
+    want = {}
+    for si, (size, slabel) in enumerate(MP_SIZES):
+        X = torch.stack([mp_row(size, 100 + si, r, dev) for r in range(n)])
+        exact = X.double().sum(dim=0)
+        scale = float(exact.abs().max())
+        for label in MP_PLANNED_LABELS:
+            got, st = mp_planned_run(label, X, "data", None, svc)
+            prec = ("int8" if "int8" in label
+                    else st.get("precision", "f32"))
+            err = float((got.double() - exact).abs().max()) / scale
+            budget = (1e-6 if prec == "f32"
+                      else PRECISIONS[prec].error_budget)
+            if not err <= budget:
+                fail(f"mp (a') {label} {slabel}: the local mesh's rel err "
+                     f"{err:.3e} over {budget}")
+            want[(label, slabel)] = {
+                "stats": st, "err": err,
+                "digests": [params_digest([got[r]]) for r in range(n)]}
+            del got
+        del X, exact
+    torch.cuda.empty_cache()
+    return want
+
+
+def mp_check_planned(ranks: list, want: dict) -> None:
+    """Phase mp (a')'s checks and lines (the ranks' launches are in the
+    executor's totals already)."""
+    for key, w in want.items():
+        for r, res in enumerate(ranks):
+            got = res["planned"][key]
+            if got["digest"] != w["digests"][r]:
+                fail(f"mp (a') {key} rank {r}: the result differs from the "
+                     "local mesh's row")
+            if got["stats"] != w["stats"]:
+                fail(f"mp (a') {key} rank {r}: stats {got['stats']}, the "
+                     f"local mesh's {w['stats']}")
+            exp = {k: got["expected"].get(k, 0) for k in got["launches"]}
+            if got["launches"] != exp or not any(got["launches"].values()):
+                fail(f"mp (a') {key} rank {r}: launches {got['launches']}, "
+                     f"expected {exp}")
+        res0 = ranks[0]["planned"][key]
+        log(f"mp (a') {key[0]} {key[1]}: {len(ranks)} ranks equal the "
+            f"local mesh's rows bit for bit; stats {json.dumps(w['stats'])};"
+            f" rel err {w['err']:.2e}; launches a rank "
+            f"{json.dumps({k: v for k, v in res0['launches'].items() if v})}"
+            + (f"; {res0['ms']:.3f} ms ({ranks[0]['transport']}: host "
+               "staging, not links)" if "ms" in res0 else ""))
+
+
+def mp_serve_worker(pm, sc: dict) -> dict:
+    """Phase mp (e) as one rank of the ("model", n) process mesh: `serve`
+    on it (rank 0 serves), its launches beside the expected (each rank
+    the decode schedule's `dist_launches` SERVE_SCHEDULE_RUNS times, rank
+    0 the model kernels its forwards run), the peak."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServeConfig, serve
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    lines = []
+    t0 = time.perf_counter()
+    res = serve(ServeConfig(**sc, device=str(pm.device)), smoke=False,
+                mesh=pm, on_log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sched = res["tp_schedule"]
+    exp = {k: v * SERVE_SCHEDULE_RUNS for k, v in
+           sched.dist_launches("allreduce", pm.index("model")).items()}
+    if pm.rank == 0:
+        exp.update(expected_launches(res["config"], sc["max_new"]))
+    return {"tokens": res["tokens"], "err": res["self_check_err"],
+            "timings": res["timings"], "lines": lines,
+            "launches": dict(ops.LAUNCHES),
+            "attention": dict(ops.ATTENTION_LAUNCHES),
+            "attention_expected": attention_launches(res["config"],
+                                                     sc["max_new"]),
+            "expected": exp, "peak": torch.cuda.max_memory_allocated(),
+            "wall": wall, "failures": sched.stats["failures"]
+            + sched.demotions, "transport": pm.transport}
+
+
+def mp_check_serve(ranks: list, want_tokens, totals: dict) -> None:
+    """Phase mp (e)'s checks and lines; adds the ranks' launches."""
+    arch = MP_SERVE_ARCH
+    for r, res in enumerate(ranks):
+        if not (res["err"] is not None and res["err"] < 1e-5):
+            fail(f"mp serve rank {r}: self-check rel err {res['err']}")
+        if res["failures"]:
+            fail(f"mp serve rank {r}: the decode schedule failed or was "
+                 "demoted")
+        exp = {k: res["expected"].get(k, 0) for k in res["launches"]}
+        if res["launches"] != exp:
+            fail(f"mp serve rank {r}: launches {res['launches']}, expected "
+                 f"{exp}")
+        for k, v in res["launches"].items():
+            totals[k] += v
+        if r and res["tokens"] is not None:
+            fail(f"mp serve rank {r} served tokens; rank 0 alone serves")
+    r0 = ranks[0]
+    if r0["attention"] != r0["attention_expected"]:
+        fail(f"mp serve: rank 0 ran attention kernels {r0['attention']}, "
+             f"expected {r0['attention_expected']}")
+    import numpy as np
+    if r0["tokens"] is None or not np.array_equal(r0["tokens"],
+                                                  want_tokens):
+        fail(f"mp serve: rank 0's tokens differ from the local-mesh "
+             f"server's")
+    for line in r0["lines"]:
+        log(f"mp serve [{arch}, {r0['transport']}]: {line}")
+    tm = r0["timings"]
+    errs = ", ".join(f"{res['err']:.2e}" for res in ranks)
+    log(f"mp serve [{arch}, {r0['transport']}]: {len(ranks)} processes, "
+        f"self-check rel err by rank {errs}; "
+        f"the decode AllReduce {tm['allreduce_s'] * 1e3:.3f} ms (the "
+        f"slowest rank's median, observed as host_staged: host staging, "
+        f"not links); rank 0's {r0['tokens'].shape[1]} tokens a row equal "
+        f"the local-mesh server's; prefill {tm['prefill_s'] * 1e3:.1f} ms, "
+        f"decode median {tm['decode_median_s'] * 1e3:.1f} ms; peaks GiB "
+        f"{[round(res['peak'] / 2**30, 2) for res in ranks]}; launches "
+        f"rank 0 {json.dumps({k: v for k, v in r0['launches'].items() if v})}"
+        f"; wall {r0['wall']:.1f} s")
 
 
 def mp_train_run(mesh, layers_cfg: dict, sync_kw: dict, dev,
@@ -4424,33 +4705,107 @@ def mp_train_launches(step, pm, steps: int, leaves: int) -> dict:
     return out
 
 
-def mp_train_worker(pm, runs) -> list:
+def _state_digest(state: dict) -> int:
+    """`params_digest` of a ZeRO-3 state's shards and moments."""
+    from repro_torch.launch.train import params_digest
+    return params_digest(state["params"] + state["opt"]["m"]
+                         + state["opt"]["v"])
+
+
+def mp_run_record(label: str, r: dict, mesh, layers_cfg: dict) -> dict:
+    """The CPU record of one `mp_train_run` on a process mesh: losses,
+    gnorms, step times and parts, digests, launches beside the expected
+    (an EP run's exchanges' fold phases added), peak, plans."""
+    step = r["step"]
+    expected = mp_train_launches(step, mesh, layers_cfg["steps"],
+                                 len(r["state"]["params"]))
+    ex = [e for e in r["ep_exchanges"] if e]
+    if step.ep is not None:
+        per = step.ep_schedule.dist_launches("all_to_all",
+                                             mesh.index(step.ep[0]))
+        for k, v in per.items():
+            expected[k] += v * sum(sum(e.values()) for e in ex)
+    return {"label": label, "losses": r["losses"], "expected": expected,
+            "gnorms": r["gnorms"], "step_s": r["step_s"],
+            "phase_ms": r["phase_ms"], "digest": r["digest"],
+            "final": _state_digest(r["state"]), "ex": ex,
+            "launches": r["launches"], "peak": r["peak"],
+            "wall_s": r["wall_s"],
+            "plans": [pl.schedule.describe() if pl.schedule is not None
+                      else pl.strategy for pl in r["plans"]],
+            "buckets": len(step.scatter_buckets)}
+
+
+def mp_ft_run(pm, ckpt_dir: str) -> dict:
+    """Phase mp (g) as one rank: MP_TRAIN's per-leaf run through
+    `run_training` with a checkpoint every MP_FT["ckpt_every"] step in
+    `ckpt_dir` under MP_FT's faults: the step calls, losses, the final
+    state's digest, what fired, the restores, the checkpoint's bytes and
+    times (the last save's, the restore's), the launches beside the
+    expected (each step call's gathers and reduce-scatters; the lost
+    attempt runs none), the peak."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import TrainConfig, run_training
+    from repro_torch.runtime.faults import (FaultEvent, FaultInjector,
+                                            FaultPlan)
+
+    tr = MP_TRAIN
+    tc = TrainConfig(arch=tr["arch"], steps=MP_FT["steps"],
+                     seq_len=tr["seq_len"], global_batch=tr["global_batch"],
+                     lr=tr["lr"], engine="manual", sync="plan",
+                     bucket_bytes=0, n_layers=tr["layers"],
+                     ckpt_dir=ckpt_dir, ckpt_every=MP_FT["ckpt_every"],
+                     log_every=1, device=str(pm.device))
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with FaultInjector(FaultPlan(seed=7, events=tuple(
+            FaultEvent(*e) for e in MP_FT["events"]))) as inj:
+        out = run_training(tc, smoke=False, mesh=pm, on_log=lines.append)
+    torch.cuda.synchronize()
+    mgr = out["ckpt"]
+    return {"steps": out["steps"], "losses": out["losses"],
+            "final": _state_digest(out["state"]),
+            "fired": inj.stats()["fired"], "restarts": out["loop"].restarts,
+            "resumes": [ln for ln in lines if ln.startswith("ft: resume")],
+            "lines": lines, "save": dict(mgr.last_save),
+            "restore": dict(mgr.last_restore),
+            "launches": dict(ops.LAUNCHES),
+            "expected": mp_train_launches(out["step"], pm,
+                                          len(out["steps"]),
+                                          len(out["state"]["params"])),
+            "peak": torch.cuda.max_memory_allocated(),
+            "wall_s": time.perf_counter() - t0}
+
+
+def mp_train_worker(pm, runs, ckpt_dir: str | None = None) -> dict:
     """Phase mp (b) as one rank of the 4-process mesh: the MP_TRAIN runs
     `runs` (label, axes, sync), one on other axes than the mesh's on a
-    second process mesh over the same processes. Returns each run's
-    losses, gnorms, step times, step-1 digest, launches, peak and plans,
-    CPU objects only."""
+    second process mesh over the same processes; with `ckpt_dir`, (f)
+    the MoE run and (g) the fault loop after them, each run's state freed
+    before the next. CPU objects only."""
     import torch
     from repro_torch.launch.mesh import init_process_mesh
 
-    out = []
+    out = {"runs": []}
     for label, axes, sync_kw in runs:
         mesh = pm if tuple(axes) == pm.axes else init_process_mesh(
             axes, pm.backend, pm.device)
-        r = mp_train_run(mesh, MP_TRAIN, sync_kw, pm.device, digest=True)
-        out.append({"label": label, "losses": r["losses"],
-                    "expected": mp_train_launches(
-                        r["step"], mesh, MP_TRAIN["steps"],
-                        len(r["state"]["params"])),
-                    "gnorms": r["gnorms"], "step_s": r["step_s"],
-                    "phase_ms": r["phase_ms"], "digest": r["digest"],
-                    "launches": r["launches"], "peak": r["peak"],
-                    "wall_s": r["wall_s"],
-                    "plans": [pl.schedule.describe() if pl.schedule
-                              is not None else pl.strategy
-                              for pl in r["plans"]],
-                    "buckets": len(r["step"].scatter_buckets)})
+        r = mp_train_run(mesh, mp_train_cfg(label), sync_kw, pm.device,
+                         digest=True)
+        out["runs"].append(mp_run_record(label, r, mesh,
+                                         mp_train_cfg(label)))
         del r
+        torch.cuda.empty_cache()
+    if ckpt_dir is not None:
+        r = mp_train_run(pm, MP_MOE, {"bucket_bytes": 0}, pm.device)
+        out["moe"] = mp_run_record("MoE, EP plan", r, pm, MP_MOE)
+        del r
+        torch.cuda.empty_cache()
+        out["ft"] = mp_ft_run(pm, ckpt_dir)
         torch.cuda.empty_cache()
     return out
 
@@ -4584,24 +4939,99 @@ def mp_check_exec(ranks: list, want: dict, t0: float,
         for n, s, t in zip(ns, sizes, times)))
 
 
+def mp_check_moe(ranks: list, want: dict) -> None:
+    """Phase mp (f)'s checks beyond `mp_check_train`'s: each rank counts
+    the local mesh's exchanges, 6 a MoE layer a step."""
+    layers = MP_MOE["layers"]
+    per_step = {"forward": 2 * layers, "recompute": 2 * layers,
+                "backward": 2 * layers}
+    if want["ex"] != [per_step] * MP_MOE["steps"]:
+        fail(f"mp train [MoE]: the local mesh ran exchanges {want['ex']}, "
+             f"expected {per_step} a step")
+    for r, res in enumerate(ranks):
+        if res["ex"] != want["ex"]:
+            fail(f"mp train [MoE] rank {r}: exchanges {res['ex']}, the "
+                 f"local mesh's {want['ex']}")
+    log(f"mp train [MoE, EP plan]: each rank's exchanges a step "
+        f"{json.dumps(per_step)}, the local mesh's (6 a MoE layer)")
+
+
+def mp_check_ft(ranks: list, base: list, transport: str,
+                totals: dict) -> None:
+    """Phase mp (g)'s checks against (b)'s fault-free per-leaf run
+    `base` (a record a rank), and its lines; adds the launches."""
+    want_resume = [f"ft: resume {{'step': {MP_FT['restored']}}}"]
+    for r, (res, b) in enumerate(zip(ranks, base)):
+        if res["steps"] != MP_FT["calls"]:
+            fail(f"mp ft rank {r}: step calls {res['steps']}, expected "
+                 f"{MP_FT['calls']}")
+        if res["resumes"] != want_resume or res["restarts"] != 1:
+            fail(f"mp ft rank {r}: restores {res['resumes']}, restarts "
+                 f"{res['restarts']}; expected {want_resume}, 1")
+        if res["fired"] != {"file_corrupt": 1, "device_loss": 1}:
+            fail(f"mp ft rank {r}: fired {res['fired']}")
+        if any(loss != b["losses"][s]
+               for s, loss in zip(res["steps"], res["losses"])):
+            fail(f"mp ft rank {r}: losses by step {res['losses']} differ "
+                 f"from the fault-free run's {b['losses']}")
+        if res["final"] != b["final"]:
+            fail(f"mp ft rank {r}: the final shards and moments differ from "
+                 "the fault-free run's")
+        exp = {k: res["expected"].get(k, 0) for k in res["launches"]}
+        if res["launches"] != exp or not res["launches"]["fused_reduce"]:
+            fail(f"mp ft rank {r}: launches {res['launches']}, expected "
+                 f"{exp}")
+        for k, v in res["launches"].items():
+            totals[k] += v
+    for line in ranks[0]["lines"]:
+        if line.startswith(("ft:", "checkpoint:", "chaos:")):
+            log(f"mp ft [rank 0, {transport}]: {line}")
+    saves = [res["save"] for res in ranks]
+    rest = [res["restore"] for res in ranks]
+    log(f"mp ft [{transport}]: step calls {ranks[0]['steps']}, losses "
+        f"{ranks[0]['losses']}; every rank restored step "
+        f"{MP_FT['restored']} (rank 0's member of step "
+        f"{MP_FT['events'][0][1]} corrupted) and "
+        "ends on the fault-free state (shards and moments) bit for bit; "
+        "checkpoint a rank: "
+        + "; ".join(f"rank {r} {sv['bytes'] / 1e9:.3f} GB, snapshot "
+                    f"{sv['snapshot_s']:.3f} s, write + CRC "
+                    f"{_gbps(sv.get('file_bytes', sv['bytes']), sv.get('write_s', 0.0))}"
+                    f", commit {sv.get('commit_s', 0.0):.3f} s, restore "
+                    f"checksums {rs.get('verify_s', 0.0):.3f} s, read "
+                    f"{_gbps(rs.get('bytes', 0), rs.get('read_s', 0.0))}, to "
+                    f"the card {rs.get('copy_s', 0.0):.3f} s"
+                    for r, (sv, rs) in enumerate(zip(saves, rest)))
+        + f"; peaks GiB {[round(res['peak'] / 2**30, 2) for res in ranks]}; "
+        f"wall {ranks[0]['wall_s']:.1f} s")
+
+
 def phase_mp(dev) -> dict:
-    """Phase mp: the process mesh, one process a rank. (b) MP_TRAIN_RUNS
-    on 4 processes and (a) + (c) on 8, every process on this card with
-    the gloo backend (each round's bytes staged through pinned host
-    memory: times of host staging, not links); then (d), on a machine of
-    two cards or more, (a) + (c) over NCCL on as many ranks as cards (up
-    to MP_RANKS), one card a rank, and with 4 cards or more the per-leaf
-    run of (b) over NCCL too; with one card a line saying why not. Frees the parent's cached card memory
-    first; the ranks load the kernels phase 1 built. Checks: every
-    trainer run against the same run on the 4-rank local mesh in this
-    process (losses and gnorms equal to every digit, or within
-    MP_TRAIN_GAP, printed; the ranks' step-1 gathered copies equal; the
-    loss falling; each rank's launches `dist_launches`'; the peaks,
-    summed under TRAIN_PEAK_GIB); every executor call's result on every
-    rank equal to `run_local`'s row on this card (digests), `run_local`
-    within the wire's budget, each rank's launches `dist_launches`'.
-    Returns the launches of every process, summed."""
+    """Phase mp: the process mesh, one process a rank. (b) MP_TRAIN_RUNS,
+    (f) MP_MOE and (g) MP_FT on 4 processes, (a) + (a') + (c) on 8, (e)
+    the server on MP_SERVE_PROCS, every process on this card with the
+    gloo backend (each round's bytes staged through pinned host memory:
+    times of host staging, not links); then (d), on a machine of two
+    cards or more, (a) + (c) over NCCL on as many ranks as cards (up to
+    MP_RANKS), one card a rank, and with 4 cards or more the per-leaf
+    run of (b) over NCCL too; with one card a line saying why not. Frees
+    the parent's cached card memory first; the ranks load the kernels
+    phase 1 built. Checks: every trainer run against the same run on
+    the 4-rank local mesh in this process (losses and gnorms equal to
+    every digit, or within MP_TRAIN_GAP, printed; the ranks' step-1
+    gathered copies equal; the loss falling; each rank's launches
+    `dist_launches`'; the peaks, summed under TRAIN_PEAK_GIB; the MoE
+    run's exchanges the local mesh's); the fault loop's final state and
+    losses equal to (b)'s per-leaf run's; every executor call's result
+    on every rank equal to `run_local`'s (or the local mesh's) row on
+    this card (digests), each rank's launches `dist_launches`'; the
+    server's self-check on every rank and rank 0's tokens the local-mesh
+    server's. Returns the launches of every process, summed."""
+    import dataclasses
+    import shutil
+
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import launch
 
     t_phase = time.perf_counter()
@@ -4610,35 +5040,66 @@ def phase_mp(dev) -> dict:
     procs = MP_TRAIN["procs"]
     nccl_runs = list(MP_TRAIN_RUNS[:1]) if cards >= procs else []
     local = {}
-    for label, axes, sync_kw in MP_TRAIN_RUNS:
+    for label, cfg_, axes, sync_kw in (
+            [(label, mp_train_cfg(label), axes, kw)
+             for label, axes, kw in MP_TRAIN_RUNS]
+            + [("MoE, EP plan", MP_MOE, (("data", procs),),
+                {"bucket_bytes": 0})]):
         mesh = procs if len(axes) == 1 else [tuple(a) for a in axes]
-        r = mp_train_run(mesh, MP_TRAIN, sync_kw, dev)
+        r = mp_train_run(mesh, cfg_, sync_kw, dev)
         local[label] = {"losses": r["losses"], "gnorms": r["gnorms"],
                         "step_s": r["step_s"], "peak": r["peak"],
-                        "launches": r["launches"]}
+                        "launches": r["launches"],
+                        "ex": [e for e in r["ep_exchanges"] if e]}
         for k, v in r["launches"].items():
             totals[k] += v
         del r
         torch.cuda.empty_cache()
-    for backend, runs in (("gloo", MP_TRAIN_RUNS), ("nccl", nccl_runs)):
-        if not runs:
-            continue
-        torch.cuda.empty_cache()
-        log(f"mp: parent before spawning: "
-            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
-            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-        t0 = time.perf_counter()
-        ranks = launch(mp_train_worker, [("data", procs)], backend=backend,
-                       device=dev if backend == "gloo" else "cuda",
-                       timeout_s=MP_TIMEOUT_S, args=(runs,))
-        transport = ("gloo through the host" if backend == "gloo"
-                     else "nccl")
-        log(f"mp train: {procs} processes, {transport}, wall "
-            f"{time.perf_counter() - t0:.1f} s")
-        for i, (label, _, _) in enumerate(runs):
-            mp_check_train(label, [r[i] for r in ranks], local[label],
-                           transport, totals)
-        del ranks
+    log(f"mp: local-mesh runs done at {time.perf_counter() - t_phase:.1f} s")
+    ckpt = ROOT / "build" / "mp_ft"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    need = 3 * _state_bytes(dataclasses.replace(get_config(
+        MP_TRAIN["arch"]), n_layers=MP_TRAIN["layers"]), procs)
+    free = shutil.disk_usage(ckpt).free
+    log(f"mp ft: a checkpoint {need / 3e9:.3f} GB over {procs} ranks, up to "
+        f"3 on disk need {need / 1e9:.1f} GB, {free / 1e9:.1f} GB free")
+    if free < need:
+        fail(f"phase mp: {free / 1e9:.1f} GB free in {ckpt}, the fault "
+             f"loop's checkpoints need {need / 1e9:.1f}")
+    try:
+        for backend, runs in (("gloo", MP_TRAIN_RUNS), ("nccl", nccl_runs)):
+            if not runs:
+                continue
+            torch.cuda.empty_cache()
+            log(f"mp: parent before spawning: "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+                f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+            t0 = time.perf_counter()
+            ranks = launch(mp_train_worker, [("data", procs)],
+                           backend=backend,
+                           device=dev if backend == "gloo" else "cuda",
+                           timeout_s=MP_TIMEOUT_S, args=(
+                               runs, str(ckpt) if backend == "gloo"
+                               else None))
+            transport = ("gloo through the host" if backend == "gloo"
+                         else "nccl")
+            log(f"mp train: {procs} processes, {transport}, wall "
+                f"{time.perf_counter() - t0:.1f} s")
+            for i, (label, _, _) in enumerate(runs):
+                mp_check_train(label, [r["runs"][i] for r in ranks],
+                               local[label], transport, totals)
+            if backend == "gloo":
+                moe = [r["moe"] for r in ranks]
+                mp_check_train("MoE, EP plan", moe, local["MoE, EP plan"],
+                               transport, totals)
+                mp_check_moe(moe, local["MoE, EP plan"])
+                mp_check_ft([r["ft"] for r in ranks],
+                            [r["runs"][0] for r in ranks], transport,
+                            totals)
+            del ranks
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     if not nccl_runs:
         log(f"mp (d): the trainer over NCCL not run: this machine has "
             f"{cards} card(s), NCCL needs one a rank ({procs})")
@@ -4652,12 +5113,28 @@ def phase_mp(dev) -> dict:
             f"{cards} card(s), NCCL needs one a rank (2 or more)")
     for backend, n in execs:
         want = mp_exec_digests(dev, n)
+        planned = mp_planned_want(dev, n)
         t0 = time.perf_counter()
         ranks = launch(mp_exec_worker, [("data", n)], backend=backend,
                        device=dev if backend == "gloo" else "cuda",
                        timeout_s=MP_TIMEOUT_S)
         mp_check_exec(ranks, want, t0, totals)
-        del ranks, want
+        mp_check_planned(ranks, planned)
+        del ranks, want, planned
+    log(f"mp: executors done at {time.perf_counter() - t_phase:.1f} s")
+
+    sc = {**SERVE, "arch": MP_SERVE_ARCH}
+    tokens = SERVED_TOKENS.get(MP_SERVE_ARCH)
+    if tokens is None:
+        from repro_torch.launch.serve import ServeConfig, serve
+        tokens = serve(ServeConfig(**sc, device=str(dev)), smoke=False,
+                       on_log=lambda _m: None)["tokens"]
+        torch.cuda.empty_cache()
+    ranks = launch(mp_serve_worker, [("model", MP_SERVE_PROCS)],
+                   backend="gloo", device=dev, timeout_s=MP_TIMEOUT_S,
+                   args=(sc,))
+    mp_check_serve(ranks, tokens, totals)
+    del ranks
     log(f"mp: launches of every process {json.dumps(totals)}")
     log(f"phase mp wall {time.perf_counter() - t_phase:.1f} s")
     return totals

@@ -34,6 +34,21 @@ state on the device. It checks each leaf's shape against that tree and
 raises `ValueError` on a mismatch: a checkpoint of an 8-rank local mesh
 is not silently loaded into a 4-rank trainer (the reference checks the
 leaf count only).
+
+On a process mesh (`CheckpointManager(mesh=)`, one process a rank) a
+step is one directory of one member a rank, each in the layout above:
+
+    <dir>/step_<k:08d>/rank_<r:05d>/arrays.npz, tree.json, checksums.json
+
+Each rank writes its own shards and AdamW state (the local mesh's row of
+that rank, byte for byte) into `.tmp_step_<k>/rank_<r>`; once every
+rank's write and CRC have landed (a barrier through the mesh's
+transport), rank 0 renames the step into place, writes LATEST and
+collects the old steps, and a second barrier lets every rank go on. A
+restore takes the newest step whose member every rank verifies (the
+ranks gather their lists of intact steps), so all restore the same one.
+Re-sharding a checkpoint onto another rank count is not done (nor by
+the reference's manual engine).
 """
 from __future__ import annotations
 
@@ -290,15 +305,31 @@ class CheckpointManager:
     pass, read, copy to the device)."""
 
     def __init__(self, directory: str, keep: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, mesh=None):
         self.dir = directory
         self.keep = keep
         self.async_save = async_save
+        # a process mesh: this process writes its rank's member of each
+        # step, and `wait` commits a written step with the other ranks
+        self.mesh = mesh
+        self._pending: int | None = None
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
         self.last_save: dict = {}
         self.last_restore: dict = {}
         os.makedirs(directory, exist_ok=True)
+
+    def _member(self, step: int, root: str | None = None) -> str:
+        """The directory of step `step` this process reads and writes:
+        the step's, or on a process mesh this rank's member of it."""
+        path = os.path.join(self.dir, root or f"step_{step:08d}")
+        if self.mesh is None:
+            return path
+        return os.path.join(path, f"rank_{self.mesh.rank:05d}")
+
+    def arrays_path(self, step: int) -> str:
+        """This process's arrays.npz of step `step`."""
+        return os.path.join(self._member(step), "arrays.npz")
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Tree) -> None:
@@ -310,12 +341,16 @@ class CheckpointManager:
             host = HostTree(tree)
         self.last_save = {"step": step, "bytes": host.nbytes,
                           "snapshot_s": time.perf_counter() - t0}
+        if self.mesh is not None:
+            self._pending = step
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write_caught, args=(step, host), daemon=True)
             self._thread.start()
         else:
             self._write(step, host)
+            if self.mesh is not None:
+                self.wait()            # commits it with the other ranks
 
     def _write_caught(self, step: int, host: HostTree) -> None:
         try:
@@ -326,12 +361,17 @@ class CheckpointManager:
     def _write(self, step: int, host: HostTree) -> None:
         from repro_torch.runtime.trace import default_tracer
         tag = f"step_{step:08d}"
-        tmp = os.path.join(self.dir, f".tmp_{tag}")
+        tmp = self._member(step, f".tmp_{tag}")
         final = os.path.join(self.dir, tag)
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         with default_tracer().span("ckpt/write", step=step):
             written = save_pytree(host, tmp)
+        if self.mesh is not None:
+            # the other ranks' members land too before `wait` commits
+            self.last_save.update(file_bytes=written["bytes"],
+                                  write_s=written["seconds"])
+            return
         if os.path.exists(final):
             shutil.rmtree(final)
         os.replace(tmp, final)
@@ -345,13 +385,61 @@ class CheckpointManager:
         self._gc()
 
     def wait(self) -> None:
-        """Join the in-flight writer; raise the error it stopped on."""
+        """Join the in-flight writer; raise the error it stopped on. On a
+        process mesh every rank calls it at the same points (it is a
+        collective): a step written since the last call is committed
+        here, once every rank's member has landed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self._pending is not None:
+            step, self._pending = self._pending, None
+            try:
+                self._commit(step, err is None)
+            except RuntimeError as e:
+                raise e from err
+        if err is not None:
             raise RuntimeError("checkpoint write failed") from err
+
+    def _gather(self, row: list[int]) -> list[list[int]]:
+        """Every rank's `row` (int64, one length on every rank) through
+        the mesh's transport, in rank order."""
+        from repro_torch.core.transport import all_gather_rows
+        pm = self.mesh
+        got = all_gather_rows(pm, pm.line(pm.axis_names), torch.tensor(
+            row, dtype=torch.int64, device=pm.device))
+        return got.cpu().tolist()
+
+    def _commit(self, step: int, ok: bool) -> None:
+        """Rank 0 renames step `step` into place, names it in LATEST and
+        collects the old steps once every rank's member has landed; a
+        second barrier holds every rank until it has."""
+        from repro_torch.runtime.trace import default_tracer
+        t0 = time.perf_counter()
+        with default_tracer().span("ckpt/commit", step=step):
+            oks = [r[0] for r in self._gather([int(ok)])]
+            if not all(oks):
+                raise RuntimeError(
+                    f"checkpoint step {step}: the write failed on rank(s) "
+                    f"{[r for r, v in enumerate(oks) if not v]}")
+            if self.mesh.rank == 0:
+                tag = f"step_{step:08d}"
+                tmp = os.path.join(self.dir, f".tmp_{tag}")
+                members = {f"rank_{r:05d}" for r in range(self.mesh.size)}
+                for d in set(os.listdir(tmp)) - members:
+                    shutil.rmtree(os.path.join(tmp, d), ignore_errors=True)
+                final = os.path.join(self.dir, tag)
+                if os.path.exists(final):
+                    shutil.rmtree(final)
+                os.replace(tmp, final)
+                latest = os.path.join(self.dir, "LATEST")
+                with open(latest + ".tmp", "w") as f:
+                    f.write(tag)
+                os.replace(latest + ".tmp", latest)
+                self._gc()
+            self._gather([step])
+        self.last_save["commit_s"] = time.perf_counter() - t0
 
     def _gc(self) -> None:
         steps = sorted(d for d in os.listdir(self.dir)
@@ -386,9 +474,9 @@ class CheckpointManager:
         return sorted(steps, reverse=True)
 
     def verify(self, step: int) -> bool:
-        """Checksum-verify one checkpoint dir (see `verify_checksums`)."""
-        return verify_checksums(
-            os.path.join(self.dir, f"step_{step:08d}"))
+        """Checksum-verify one checkpoint dir (see `verify_checksums`);
+        on a process mesh this rank's member of it."""
+        return verify_checksums(self._member(step))
 
     def _load(self, path: str, like: Tree, step: int) -> Tree:
         stats: dict = {}
@@ -412,9 +500,10 @@ class CheckpointManager:
         from repro_torch.runtime.trace import default_tracer
         self.wait()
         if step is not None:
-            path = os.path.join(self.dir, f"step_{step:08d}")
             self.last_restore = {}
-            return self._load(path, like, step), step
+            return self._load(self._member(step), like, step), step
+        if self.mesh is not None:
+            return self._restore_agreed(like)
         candidates = self.available_steps()
         if not candidates:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -440,3 +529,57 @@ class CheckpointManager:
                     "corrupt checkpoints skipped during restore").inc()
         raise FileNotFoundError(
             f"no intact checkpoint in {self.dir}; tried {errors}")
+
+    # the most steps a rank reports intact to the others
+    AGREE_STEPS = 64
+
+    def _restore_agreed(self, like: Tree) -> tuple[Tree, int]:
+        """`restore` on a process mesh: every rank checksums its member of
+        each step on disk, the ranks gather their lists of intact steps,
+        and all load the newest step in every list; a step whose load
+        fails on any rank is dropped on every rank and the next one
+        tried. A leaf mismatch on any rank raises `LeafMismatch` on
+        every rank."""
+        from repro_torch.runtime.metrics import default_metrics
+        from repro_torch.runtime.trace import default_tracer
+        t0 = time.perf_counter()
+        candidates = self.available_steps()[:self.AGREE_STEPS]
+        mine = [c for c in candidates if verify_checksums(self._member(c))]
+        rows = self._gather(mine + [-1] * (self.AGREE_STEPS - len(mine)))
+        agreed = sorted(set.intersection(*(set(r) - {-1} for r in rows)),
+                        reverse=True)
+        skipped = sorted(set(candidates) - set(agreed), reverse=True)
+        for _ in skipped:
+            default_metrics().counter(
+                "ckpt_restore_fallbacks_total",
+                "corrupt checkpoints skipped during restore").inc()
+        errors = [(c, "a rank's member fails its checksum") for c in skipped]
+        verify_s = time.perf_counter() - t0
+        for cand in agreed:
+            code, out, err = 0, None, None
+            try:
+                with default_tracer().span("ckpt/restore", step=cand):
+                    self.last_restore = {"verify_s": verify_s}
+                    out = self._load(self._member(cand), like, cand)
+            except LeafMismatch as e:
+                code, err = 2, e
+            except (OSError, ValueError, KeyError, EOFError,
+                    zipfile.BadZipFile, zlib.error) as e:
+                code, err = 1, e
+            codes = [r[0] for r in self._gather([code])]
+            if 2 in codes:
+                if err is not None and code == 2:
+                    raise err
+                raise LeafMismatch(f"step {cand}: rank(s) "
+                                   f"{[r for r, c in enumerate(codes) if c == 2]}"
+                                   " hold other leaf shapes")
+            if not any(codes):
+                return out, cand
+            errors.append((cand, repr(err) if err is not None else
+                           f"the load failed on rank(s) "
+                           f"{[r for r, c in enumerate(codes) if c]}"))
+            default_metrics().counter(
+                "ckpt_restore_fallbacks_total",
+                "corrupt checkpoints skipped during restore").inc()
+        raise FileNotFoundError(
+            f"no step in {self.dir} intact on every rank; tried {errors}")

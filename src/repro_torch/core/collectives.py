@@ -187,12 +187,14 @@ class FlatOp:
         key = str(device)
         t = self._dev.get(key)
         if t is None:
-            if self.kind == "fold":
-                from repro_torch.kernels import ops as kops
-                t = kops.row_table(self.rows, self.out, self.own, device)
-            else:
-                t = (torch.from_numpy(self.rows).to(device),
-                     torch.from_numpy(self.out).to(device))
+            with analysis.constants():
+                if self.kind == "fold":
+                    from repro_torch.kernels import ops as kops
+                    t = kops.row_table(self.rows, self.out, self.own,
+                                       device)
+                else:
+                    t = (torch.from_numpy(self.rows).to(device),
+                         torch.from_numpy(self.out).to(device))
             self._dev[key] = t
         return t
 
@@ -341,9 +343,10 @@ class DistOp:
                 arrs.update(local_dst=self.local_dst,
                             remote_stage=self.remote_stage,
                             remote_dst=self.remote_dst)
-            t = self._dev[key] = {k: torch.as_tensor(v, dtype=torch.int64,
-                                                     device=device)
-                                  for k, v in arrs.items()}
+            with analysis.constants():
+                t = self._dev[key] = {
+                    k: torch.as_tensor(v, dtype=torch.int64, device=device)
+                    for k, v in arrs.items()}
         return t
 
     def table(self, device: torch.device):
@@ -351,8 +354,9 @@ class DistOp:
         t = self._dev.get(key)
         if t is None:
             from repro_torch.kernels import ops as kops
-            t = self._dev[key] = kops.row_table(self.rows, self.out_local,
-                                                self.own_local, device)
+            with analysis.constants():
+                t = self._dev[key] = kops.row_table(
+                    self.rows, self.out_local, self.own_local, device)
         return t
 
 
@@ -1148,20 +1152,30 @@ def allreduce_planned(x: torch.Tensor, axis_name: str, *, service=None,
     any compression, warns once per process, and records its reason in
     `stats` (`{"mode", "fallback_reason", "bucketing_ignored", ...}`).
     Its flat collectives still fold through the kernel; no kernel or
-    launch error is caught."""
+    launch error is caught.
+
+    On a process mesh (`core.transport.ProcessMesh`) x is this rank's
+    tensor, the service is priced at its `numel()`, and every branch runs
+    over the axis's process group: the plan (and its wire) through the
+    schedule's process-mesh `allreduce`, the buckets through
+    `execute_buckets(mesh=)`, the fallback through the flat programs.
+    Every rank prices alike, so every rank takes the same branch and
+    fills the same `stats`; each result equals the local mesh's row of
+    that rank bit for bit (on a mesh of several axes, the local mesh run
+    a group of the other axes at a time)."""
     from repro_torch.core.lower import LoweringError
     from repro_torch.planner.service import default_service
-    if is_process_mesh(mesh):
-        raise NotImplementedError(
-            "allreduce_planned over a process mesh: the serving path over "
-            "processes is ROADMAP §1 item 8")
     svc = service or default_service()
     if stats is None:
         stats = {}
     else:
         stats.clear()   # a reused dict must not mix keys across calls
-    sizes, dim, n, R = _axis(x, axis_name, mesh)
-    size = x.numel() // R
+    pm = is_process_mesh(mesh)
+    if pm:
+        n, size = mesh.axis_size(axis_name), x.numel()
+    else:
+        sizes, dim, n, R = _axis(x, axis_name, mesh)
+        size = x.numel() // R
     if n < 2:
         stats["mode"] = "noop"
         return x
@@ -1186,15 +1200,19 @@ def allreduce_planned(x: torch.Tensor, axis_name: str, *, service=None,
             # one array has no leaf boundaries: chunk it into bucket-sized
             # pieces, each its own bucket
             bf = max(1, int(bplan.bucket_floats))
-            Q = axis_rows(sizes, (dim,))
-            rows = _to_axis(_flat(x, R)[0], Q)
+            if pm:
+                rows = _flat1(x)[0].reshape(1, -1)
+            else:
+                Q = axis_rows(sizes, (dim,))
+                rows = _to_axis(_flat(x, R)[0], Q)
             pieces = [rows[:, off:off + bf]
                       for off in range(0, max(rows.shape[1], 1), bf)]
             buckets = [Bucket(indices=(i,), sizes=(p.shape[1],),
                               dtype=p.dtype)
                        for i, p in enumerate(pieces) if p.shape[1]]
             out = execute_buckets(pieces, buckets, bplan.axis_plans,
-                                  pipeline=bucketing.pipeline)
+                                  pipeline=bucketing.pipeline,
+                                  mesh=mesh if pm else None)
             halved = supports_halves(bplan.axis_plans)
             stats.update(mode="bucketed", bucket_floats=bf,
                          num_buckets=len(buckets), halves=halved,
@@ -1202,7 +1220,7 @@ def allreduce_planned(x: torch.Tensor, axis_name: str, *, service=None,
                          pipeline=bool(bucketing.pipeline and halved
                                        and len(buckets) > 1))
             got = out[0] if len(out) == 1 else torch.cat(out, dim=1)
-            return _from_axis(got, Q).reshape(x.shape)
+            return (got if pm else _from_axis(got, Q)).reshape(x.shape)
         resp = svc.get_axis_executable(axis_name, int(n), float(size))
     except LoweringError as e:
         reason = f"plan could not be lowered: {e}"

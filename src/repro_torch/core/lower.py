@@ -113,7 +113,8 @@ def _device_tables(obj, device: torch.device, build, kind: str = ""):
     key = (kind, str(device))
     t = cache.get(key)
     if t is None:
-        t = cache[key] = build(device)
+        with analysis.constants():
+            t = cache[key] = build(device)
     return t
 
 

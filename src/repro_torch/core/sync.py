@@ -234,11 +234,22 @@ class EPContext:
     # lowered family="all_to_all" CompiledSchedule (possibly guarded);
     # None ⇒ collectives.all_to_all's one copy
     schedule: object | None = None
+    # the process mesh this process is one rank of (each rank runs its
+    # own MoE layers and exchanges over the axis's process group); None:
+    # the local mesh, every rank at once (`layers.moe_ep`)
+    mesh: object | None = None
 
-    def index(self, mesh: Sequence[tuple[str, int]], r: int) -> int:
+    def index(self, mesh, r: int) -> int:
         """The index along this axis of rank r, the row-major index on
         the local mesh's (axis, size) pairs `mesh`: the expert group it
-        owns."""
+        owns. On a process mesh r is its own rank, and the index its
+        coordinate on the axis."""
+        if collectives.is_process_mesh(mesh):
+            if mesh.axis_size(self.axis) != self.size or r != mesh.rank:
+                raise ValueError(f"the EP axis ({self.axis!r}, {self.size})"
+                                 f" and rank {r} on the process mesh "
+                                 f"{list(mesh.axes)} of rank {mesh.rank}")
+            return mesh.index(self.axis)
         names = [a for a, _ in mesh]
         sizes = [int(s) for _, s in mesh]
         if self.axis not in names or sizes[names.index(self.axis)] \
@@ -258,10 +269,11 @@ def ep_context() -> EPContext | None:
 
 
 class expert_parallel:
-    """Context manager installing an EPContext for the enclosed calls."""
+    """Context manager installing an EPContext for the enclosed calls
+    (`mesh`: the process mesh this process is a rank of, or None)."""
 
-    def __init__(self, axis: str, size: int, schedule=None):
-        self._ctx = EPContext(axis, int(size), schedule)
+    def __init__(self, axis: str, size: int, schedule=None, mesh=None):
+        self._ctx = EPContext(axis, int(size), schedule, mesh)
         self._prev = None
 
     def __enter__(self) -> EPContext:
@@ -350,10 +362,20 @@ def allreduce_int8_cps(x: torch.Tensor, axis_name: str, *, mesh=None
     is decoded (q·scale) and summed by ONE n-ary `fused_reduce` launch over
     all ranks, the shard is quantized again and gathered, and every rank
     decodes it. 4× less β/ε cost per the paper's model, at one extra γ/δ
-    quantize pass. Returns x's shape and dtype."""
+    quantize pass. Returns x's shape and dtype.
+
+    On a process mesh x is this rank's tensor: it quantizes its own row,
+    exchanges its int8 chunks and its f32 scale over the axis's process
+    group (`core.transport.exchange`, the bytes as they are), decodes
+    each received chunk with its sender's scale, folds the n chunks in
+    rank order with ONE `fused_reduce` launch, and gathers the
+    re-quantized shard with the "cps" flat program: the local mesh's row
+    of this rank, bit for bit."""
     import numpy as np
 
     from repro_torch.kernels import ops as kops
+    if collectives.is_process_mesh(mesh):
+        return _dist_int8_cps(x, axis_name, mesh)
     sizes, dim, n, R = collectives._axis(x, axis_name, mesh)
     if n == 1:
         return x
@@ -382,6 +404,42 @@ def allreduce_int8_cps(x: torch.Tensor, axis_name: str, *, mesh=None
         mesh=mesh).reshape(R, -1)
     if pad:
         full = full[:, :-pad]
+    return full.reshape(x.shape).to(x.dtype)
+
+
+def _dist_int8_cps(x: torch.Tensor, axis_name: str, mesh) -> torch.Tensor:
+    """`allreduce_int8_cps` as this rank of the process mesh `mesh`."""
+    from repro_torch.kernels import ops as kops
+    from .transport import exchange
+
+    n = mesh.axis_size(axis_name)
+    if n == 1:
+        return x
+    line = mesh.line(axis_name)
+    me = line.index
+    flat, pad, _ = collectives._flat1(x.float(), n)
+    c = flat.numel() // n
+    q, scale = _quantize_int8(flat.reshape(1, -1))
+    chunks = q.view(n, c)
+    got_q = torch.empty_like(chunks)
+    got_s = torch.empty(n, dtype=scale.dtype, device=x.device)
+    got_q[me] = chunks[me]
+    got_s[me] = scale[0]
+    peers = [p for p in range(n) if p != me]
+    # to each peer its chunk and this rank's scale; from each its chunk
+    # of this rank's shard and its scale, in the same order
+    exchange(mesh, line,
+             [s for p in peers for s in ((p, chunks[p]), (p, scale))],
+             [r for p in peers for r in ((p, got_q[p]),
+                                         (p, got_s[p:p + 1]))])
+    deq = got_q.float() * got_s[:, None]
+    shard = kops.fused_reduce(deq[None])                        # (1, c)
+    del deq
+    qs, sc = _quantize_int8(shard)
+    full = collectives.all_gather((qs.float() * sc[:, None]).reshape(c),
+                                  axis_name, "cps", mesh=mesh)
+    if pad:
+        full = full[:-pad]
     return full.reshape(x.shape).to(x.dtype)
 
 
@@ -455,17 +513,14 @@ def sync_gradients(grads, axes: Sequence[tuple[str, int]], cfg: SyncConfig,
     in the order to reduce them (leaf-first, as above), each priced at
     `axis_level` of its position there, and every sum runs over this
     rank's process group of the axis. The results equal the local
-    mesh's rows bit for bit. `compress` raises there (item 8)."""
+    mesh's rows bit for bit, `compress="int8"` included
+    (`allreduce_int8_cps` over the axis's process group)."""
     if collectives.is_process_mesh(mesh):
         pm = dict(mesh.axes)
         for a, n in axes:
             if pm.get(a) != int(n):
                 raise ValueError(f"axis ({a!r}, {n}) is not an axis of the "
                                  f"process mesh {list(mesh.axes)}")
-        if cfg.compress is not None:
-            raise NotImplementedError(
-                f"compress={cfg.compress!r} over a process mesh: the int8 "
-                "CPS AllReduce over processes is ROADMAP §1 item 8")
         R = 1
     else:
         mesh = list(axes) if mesh is None else list(mesh)

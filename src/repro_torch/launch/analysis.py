@@ -278,6 +278,7 @@ class Census:
         self.peak_bytes = 0
         self._storages: dict[int, int] = {}
         self._suspend = 0
+        self._constants = 0
         self._rep = 1
 
     # ---- results -----------------------------------------------------------
@@ -433,7 +434,7 @@ class _CensusMode(TorchDispatchMode):
         if out is None:
             out = func(*args, **kwargs)
         c = self.c
-        if kind in ("new", "alloc"):
+        if kind in ("new", "alloc") and not c._constants:
             c._track(out)
         if not c._suspend and kind not in ("free", "alloc"):
             c._count_op(func, args, kwargs, out, kind)
@@ -474,6 +475,25 @@ def repeated(k: int):
         yield
     finally:
         c._rep //= k
+
+
+@contextlib.contextmanager
+def constants():
+    """What runs inside builds a cache's constants (a schedule's index
+    tables on a device, made at its first run and kept): it is neither
+    counted nor tracked, so a census of a step counts the same whether
+    or not an earlier run built them."""
+    c = _ACTIVE
+    if c is None:
+        yield
+        return
+    c._suspend += 1
+    c._constants += 1
+    try:
+        yield
+    finally:
+        c._suspend -= 1
+        c._constants -= 1
 
 
 def collective(kind: str | None, measure):

@@ -56,7 +56,7 @@ NEEDS_AUTO_ENGINE = ("zero1", "seqpar")
 def apply_variants(cfg, variants):
     """The reference's dry-run knobs on `cfg`: kvblock=N (the KV-block
     attention scan), moegroups=N, moelocal. zero1 and seqpar raise:
-    they need the auto engine (ROADMAP §1 item 8)."""
+    they need the auto engine (ROADMAP §1 item 8d)."""
     for v in variants:
         if v.startswith("kvblock="):
             cfg = dataclasses.replace(cfg, attn_kv_block=int(v.split("=")[1]))
@@ -67,7 +67,7 @@ def apply_variants(cfg, variants):
         elif v in NEEDS_AUTO_ENGINE:
             raise NotImplementedError(
                 f"variant {v!r} needs the single-program sharded engine "
-                "(ROADMAP §1 item 8)")
+                "(ROADMAP §1 item 8d)")
         elif v:
             raise ValueError(f"unknown variant {v!r}")
     return cfg

@@ -31,6 +31,14 @@ prompt). The prompt batches are the reference server's
 builds the full-size model with random weights on the card; `--n-layers`
 cuts its (decoder) depth, as mixtral-8x22b's 56 layers need on one card;
 `--smoke` shrinks it, `--device cpu` runs on the CPU.
+
+    python -m repro_torch.launch.serve --smoke --device cpu --nproc 4 \
+        --backend gloo
+
+runs the decode AllReduce's self-check with one process a rank (a
+process mesh over the axis "model", `launch.mesh`), every rank checking
+its row of the planned schedule against the plain sum; rank 0 then
+serves. `--backend nccl` (the default) needs a card a rank.
 """
 from __future__ import annotations
 
@@ -66,6 +74,9 @@ class ServeConfig:
 
 
 AUDIO_FRAMES = 32    # the reference server's frames of stub audio
+# the CLI's process mesh: the seconds its processes may run (and a
+# collective may wait) before they are killed
+CLI_MESH_TIMEOUT_S = 3600.0
 
 
 def prompt_batch(cfg, batch: int, prompt_len: int, gen: torch.Generator
@@ -107,11 +118,24 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(sc: ServeConfig, smoke: bool = False, on_log=print) -> dict:
+def serve(sc: ServeConfig, smoke: bool = False, on_log=print,
+          mesh=None) -> dict:
     """Serve one batch of prompts; returns the generated tokens, the
     decode plan and its guarded schedule, the self-check's relative error
-    and host-clock timings (each ending in a device synchronize)."""
-    dev = resolve_device(sc.device)
+    and host-clock timings (each ending in a device synchronize).
+
+    With `mesh` a `core.transport.ProcessMesh` (one process a rank, axis
+    "model"; the CLI's `--nproc N`) every rank prices, lowers and guards
+    the same decode plan, draws the same seeded probe and runs its own
+    row through the schedule's process-mesh `allreduce`, checks it
+    against the plain column sum and times it (the slowest rank's
+    median, observed alike on every rank: as `source="host_staged"`
+    over gloo, never fitted). Then rank 0 alone builds the model and
+    serves, as the reference's single-host decode loop does; the other
+    ranks return after the self-check (their "tokens" None)."""
+    from repro_torch.core.transport import is_process_mesh
+    pm = mesh if is_process_mesh(mesh) else None
+    dev = pm.device if pm is not None else resolve_device(sc.device)
     cfg = get_config(sc.arch)
     if smoke:
         cfg = smoke_config(cfg)
@@ -122,7 +146,7 @@ def serve(sc: ServeConfig, smoke: bool = False, on_log=print) -> dict:
 
     from repro_torch.core.lower import guard_schedule
     from repro_torch.planner.service import default_service
-    n = int(sc.local_ranks)
+    n = int(sc.local_ranks) if pm is None else pm.axis_size("model")
     size = sc.batch * cfg.d_model
     tp_exec = sched = None
     err = None
@@ -132,13 +156,23 @@ def serve(sc: ServeConfig, smoke: bool = False, on_log=print) -> dict:
         # guarded execution (DESIGN.md §12); `sched.demotions` tells the
         # caller whether the planned schedule ever gave way
         sched = guard_schedule(tp_exec.schedule, telemetry=svc.telemetry)
+        where = (f"{n} local ranks ({dev})" if pm is None else
+                 f"{n} processes ({pm.transport}, {dev})")
         on_log(f"planner: decode AllReduce executes {tp_exec.algo} plan "
-               f"({sched.describe()}) on {n} local ranks ({dev})")
+               f"({sched.describe()}) on {where}")
         gen = torch.Generator(device=dev).manual_seed(2)
         probe = torch.randn((n, size), generator=gen, device=dev)
+        if pm is None:
+            def run():
+                return sched.run_local(probe)
+        else:
+            row = probe[pm.index("model")].clone()
+
+            def run():
+                return sched.allreduce(row, "model", pm)
         with default_tracer().span("serve/self_check", n=n,
                                    algo=tp_exec.algo):
-            got = sched.run_local(probe)
+            got = run()
             _sync(dev)
         want = probe.double().sum(dim=0)
         err = float((got.double() - want).abs().max()
@@ -148,26 +182,26 @@ def serve(sc: ServeConfig, smoke: bool = False, on_log=print) -> dict:
             raise RuntimeError(f"executed TP schedule disagrees with the "
                                f"plain sum: rel err {err:.2e}")
         # time the executed plan and feed it to the planner's online loop
-        ts = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            sched.run_local(probe)
-            _sync(dev)
-            ts.append(time.perf_counter() - t0)
-        measured = sorted(ts)[len(ts) // 2]
+        measured = _time_schedule(run, dev, pm)
         timings["allreduce_s"] = measured
         # no predicted= override: observe re-prices at the exact executed
-        # size, so the residual carries no cache-bucket bias. The time is
-        # one device's rounds and launches, not a switch's links, so it is
-        # monitored only and never refits the root_sw params.
+        # size, so the residual carries no cache-bucket bias. On the local
+        # mesh the time is one device's rounds and launches, over gloo
+        # the host's staging, not a switch's links: either is monitored
+        # only and never refits the root_sw params.
+        source = ("local_mesh" if pm is None else
+                  "host_staged" if pm.backend == "gloo" else "mesh")
         obs = svc.observe("root_sw", n, float(size), measured,
-                          key=tp_exec.key, source="local_mesh")
+                          key=tp_exec.key, source=source)
         on_log(f"planner: observed decode plan {measured * 1e3:.3f} ms "
                f"(predicted {obs['predicted'] * 1e3:.3f} ms, drift "
                f"{obs['drift']:.2f}" + (", refit" if obs["refit"] else "")
-               + ")")
+               + f"; {source})")
     else:
         on_log("planner: single rank, no decode collective needed")
+    if pm is not None and pm.rank != 0:
+        return {"tokens": None, "tp_exec": tp_exec, "tp_schedule": sched,
+                "self_check_err": err, "timings": timings, "config": cfg}
 
     gen = torch.Generator(device=dev).manual_seed(sc.seed)
     t0 = time.perf_counter()
@@ -213,6 +247,39 @@ def serve(sc: ServeConfig, smoke: bool = False, on_log=print) -> dict:
             "self_check_err": err, "timings": timings, "config": cfg}
 
 
+def _time_schedule(run, dev: torch.device, pm, repeats: int = 3) -> float:
+    """The median host time of `repeats` runs of `run`, each to a device
+    synchronize; on a process mesh each run started together (a small
+    exchange over the mesh) and the slowest rank's median taken, the
+    same on every rank."""
+    from repro_torch.core.transport import all_gather_rows
+    everyone = pm.line(pm.axis_names) if pm is not None else None
+    ts = []
+    for _ in range(repeats):
+        if everyone is not None:
+            all_gather_rows(pm, everyone, torch.zeros(1, device=dev))
+        t0 = time.perf_counter()
+        run()
+        _sync(dev)
+        ts.append(time.perf_counter() - t0)
+    mine = sorted(ts)[len(ts) // 2]
+    if everyone is None:
+        return mine
+    return float(all_gather_rows(pm, everyone, torch.tensor(
+        mine, dtype=torch.float64, device=dev)).max())
+
+
+def _serve_rank(mesh, sc: ServeConfig, smoke: bool) -> dict:
+    """One rank of `main`'s process mesh: `serve` on it, rank 0 logging;
+    returns its tokens (rank 0's; None elsewhere) and its self-check's
+    error and timings."""
+    out = serve(sc, smoke=smoke, mesh=mesh,
+                on_log=(lambda m: print(m, flush=True)) if mesh.rank == 0
+                else (lambda _m: None))
+    return {"tokens": out["tokens"], "self_check_err": out["self_check_err"],
+            "timings": out["timings"]}
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser()
@@ -229,11 +296,29 @@ def main():
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the (decoder) depth to this many layers, "
                     "e.g. 14 of mixtral-8x22b's 56 on one card")
+    ap.add_argument("--nproc", type=int, default=None,
+                    help="run the decode AllReduce's self-check with one "
+                    "process a rank over this many ranks (a process mesh, "
+                    "axis 'model'); rank 0 serves")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="the process mesh's backend: nccl (one card a "
+                    "rank), or gloo (on the CPU, or every rank on one "
+                    "card, its rounds staged through the host)")
     args = ap.parse_args()
-    serve(ServeConfig(arch=args.arch, batch=args.batch,
-                      max_new=args.max_new, local_ranks=args.local_ranks,
-                      device=args.device, n_layers=args.n_layers),
-          smoke=args.smoke)
+    sc = ServeConfig(arch=args.arch, batch=args.batch, max_new=args.max_new,
+                     local_ranks=args.local_ranks, device=args.device,
+                     n_layers=args.n_layers)
+    if args.nproc is None:
+        serve(sc, smoke=args.smoke)
+        return
+    from repro_torch.launch.mesh import launch
+    print(f"process mesh: {args.nproc} processes, backend {args.backend}, "
+          f"device {args.device}", flush=True)
+    ranks = launch(_serve_rank, [("model", args.nproc)],
+                   backend=args.backend, device=args.device,
+                   timeout_s=CLI_MESH_TIMEOUT_S, args=(sc, args.smoke))
+    print("self-check rel err by rank: "
+          + ", ".join(f"{r['self_check_err']:.2e}" for r in ranks))
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ several axes; the flat labels psum, ring, rhd, cps and hcps, "gentree"
 (the planner's label for each axis) and "auto" (psum) per leaf, through
 `core.collectives`; a wire the plan binds (bf16, fp8, int8). These raise
 `NotImplementedError` and are never replaced by another path: the
-`auto` (pjit) engine (ROADMAP §1 item 8); `compress` in the trainer
+`auto` (pjit) engine (ROADMAP §1 item 8d); `compress` in the trainer
 (item 9); on the local mesh, the schedule probe `observe_sync_probe`.
 
 The same step runs with one process a rank on a process mesh
@@ -35,8 +35,9 @@ such a mesh, `run_training(tc, mesh=...)`, or the CLI's `--nproc N
 state and runs its own rank, the collectives go over its process
 groups, and its losses, gnorms and shards equal the local mesh's row
 of that rank bit for bit. There `observe_sync_probe` times each axis's
-schedule and feeds the planner; expert-parallel MoE, checkpoints and
-the fault loop raise (item 8).
+schedule and feeds the planner; expert-parallel MoE exchanges over the
+EP axis's process group; each rank writes its own member of every
+checkpoint, and the fault loop restores the step every rank verifies.
 
 With a checkpoint directory the run goes through the reference's
 `FaultTolerantLoop` (`runtime.ft`): a checkpoint every `ckpt_every`
@@ -58,6 +59,9 @@ checkpoints and corrupted collective payloads.
         --arch qwen2-vl-7b         # or whisper-large-v3, mixtral-8x22b
     python -m repro_torch.launch.train --engine manual --sync plan --smoke \
         --nproc 4 --backend gloo --device cpu   # one process a rank
+    python -m repro_torch.launch.train --engine manual --sync plan --smoke \
+        --nproc 4 --backend gloo --device cpu --steps 30 --ckpt-dir ckpt \
+        --faults seed=7,steps=30,device_loss=0.05
 
 train smoke-size models (stablelm-12b by default) on the card;
 `--device cpu` runs them on the CPU. Without `--smoke` the model is the
@@ -334,15 +338,27 @@ def ep_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
     zero (the transpose of the reference's `dynamic_slice`), and so is
     a part the loss does not reach (the reference's `value_and_grad`
     gives it zeros). Returns the ranks' detached losses and the exchanges
-    this call ran: {"forward", "recompute", "backward"}."""
+    this call ran: {"forward", "recompute", "backward"}.
+
+    On a process mesh (`mesh` a `ProcessMesh`, the context's `mesh`) the
+    same for this rank alone: its own leaves and experts, its own
+    `api.loss_fn(moe_dispatch="ep")` (each layer checkpointed with early
+    stop off), each exchange over the EP axis's process group, so every
+    rank issues its exchanges in the same order (forward, recompute,
+    backward) and lands its gradients in its own buffers."""
     from repro_torch.core import sync
 
     cfg = api.cfg
     ctx = sync.ep_context()
     if ctx is None:
         raise ValueError("ep_loss_and_grads runs under expert_parallel")
-    pairs = _mesh_of(mesh)
-    n = math.prod(s for _, s in pairs)
+    pm = collectives.is_process_mesh(mesh)
+    if pm:
+        pairs, n, ranks = mesh, mesh.size, [mesh.rank]
+    else:
+        pairs = _mesh_of(mesh)
+        n = math.prod(s for _, s in pairs)
+        ranks = range(n)
     E, L = cfg.n_experts, cfg.n_layers
     el = E // ctx.size
     paths = [p for p, _ in tree_items(api.params_spec())]
@@ -362,7 +378,7 @@ def ep_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
         return t
 
     params, leaves = [], []
-    for r in range(n):
+    for r in ranks:
         e0 = ctx.index(pairs, r) * el
         top, per_layer = [], [[] for _ in range(L)]
         for i, (path, f) in enumerate(zip(paths, full)):
@@ -385,10 +401,14 @@ def ep_loss_and_grads(api: ModelAPI, full: Sequence[torch.Tensor],
                                          for _, t in items]
         params.append({**tree_from_items(top), "layers": [
             tree_from_items(items) for items in per_layer]})
-    batches = [_rank_batch(batch, r, n) for r in range(n)]
+    batches = [_rank_batch(batch, r, n) for r in ranks]
     ex = sync.EP_EXCHANGES
     f0, b0 = ex["forward"], ex["backward"]
-    losses = api.loss_fn_ep(params, batches, mesh=pairs, remat=True)
+    if pm:
+        losses = [api.loss_fn(params[0], batches[0], remat=True,
+                              moe_dispatch="ep")]
+    else:
+        losses = api.loss_fn_ep(params, batches, mesh=pairs, remat=True)
     f1 = ex["forward"]
     torch.autograd.backward(torch.stack(losses).sum(), inputs=leaves)
     for (r, i, off), numel in pending.items():
@@ -539,9 +559,10 @@ def make_manual_train_step(api: ModelAPI, mesh,
     run over its process groups in the same orders, it runs its own
     forward and backward, its copy is its own under any wire, and
     "loss" and "gnorm" are the means of the ranks' values in rank order,
-    gathered through the transport. Refused there, naming ROADMAP item
-    8: a MoE model whose experts split over the first live axis
-    (expert-parallel dispatch over processes).
+    gathered through the transport. A MoE model whose experts split over
+    the first live axis runs its own rank's expert-parallel forward and
+    backward (`ep_loss_and_grads` on the process mesh), each exchange
+    over that axis's process group.
 
     With `step.digest` set, metrics "digest" is `params_digest` of the
     gathered copy, for comparing the ranks' copies."""
@@ -592,10 +613,6 @@ def make_manual_train_step(api: ModelAPI, mesh,
     ep_axis, ep_n = live[0] if live else (None, 1)
     use_ep = (cfg.n_experts > 1 and ep_n > 1
               and cfg.n_experts % ep_n == 0)
-    if use_ep and pm is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: expert-parallel dispatch over a process mesh is "
-            "ROADMAP §1 item 8")
     ep_sched = (_ep_schedule(ep_axis, ep_n, sync, total_bytes)
                 if use_ep and sync.strategy == "plan" else None)
     bplan, plans = _sync_setup(api, live, n, sync, param_dtype)
@@ -723,9 +740,10 @@ def make_manual_train_step(api: ModelAPI, mesh,
         with tracer.span("train/forward_backward", ranks=len(ranks),
                          ep=use_ep, **where):
             if use_ep:
-                with expert_parallel(ep_axis, ep_n, ep_sched):
+                with expert_parallel(ep_axis, ep_n, ep_sched, mesh=pm):
                     losses, exchanges = ep_loss_and_grads(
-                        api, full, batch, live, put, lossy=lossy)
+                        api, full, batch, live if pm is None else pm, put,
+                        lossy=lossy)
             else:
                 losses = rank_loss_and_grads(
                     api, full, batch, n, put, lossy=lossy,
@@ -884,8 +902,9 @@ def observe_sync_probe(svc, mesh, axes=None, size_floats=None, on_log=print,
     if not collectives.is_process_mesh(mesh):
         raise NotImplementedError(
             "observe_sync_probe: timing an axis's schedule needs one "
-            "process a rank (a core.transport.ProcessMesh), not the local "
-            "mesh (ROADMAP §1 item 8)")
+            "process a rank (a core.transport.ProcessMesh, the process "
+            "mesh of ROADMAP §1 item 8), not the local mesh, whose time "
+            "measures one device's launches")
     svc = svc or default_service()
     axes = [(a, s) for a, s in (mesh.axes if axes is None else axes)
             if int(s) > 1]
@@ -936,7 +955,7 @@ class TrainConfig:
     steps: int = 50
     seq_len: int = 128
     global_batch: int = 8
-    engine: str = "auto"            # auto (ROADMAP §1 item 8) | manual
+    engine: str = "auto"            # auto (ROADMAP §1 item 8d) | manual
     sync: str = "auto"         # auto|psum|ring|rhd|cps|hcps|gentree|plan
     # backward-overlapped bucket issuance (DESIGN.md §15): the gradient
     # buckets reduce last first; False keeps forward order
@@ -976,17 +995,13 @@ def _check_train_scope(tc: TrainConfig, mesh=None) -> None:
     if tc.engine != "manual":
         raise NotImplementedError(
             f"engine={tc.engine!r}: the single-program sharded engine needs "
-            "DTensor placements over the process mesh (ROADMAP §1 item 8); "
+            "DTensor placements over the process mesh (ROADMAP §1 item 8d); "
             "the port runs engine='manual'")
     from repro_torch.core.sync import SYNC_STRATEGIES
     if tc.sync not in SYNC_STRATEGIES:
         raise ValueError(f"unknown sync strategy {tc.sync!r}; one of "
                          f"{SYNC_STRATEGIES}")
     pm = collectives.is_process_mesh(mesh)
-    if pm and (tc.ckpt_dir or tc.fault_plan):
-        raise NotImplementedError(
-            "checkpoints and the fault-tolerant loop over a process mesh "
-            "(ckpt_dir, fault_plan) are ROADMAP §1 item 8")
     if tc.observe_sync and not pm:
         observe_sync_probe(None, mesh)
 
@@ -999,8 +1014,8 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
     `mesh=`: (axis, size) pairs such as [("pod", 2), ("data", 4)], or an
     int; None is one axis of `tc.local_ranks` ranks; or this rank's
     `core.transport.ProcessMesh`, one process a rank, on the mesh's device,
-    its state this rank's shards, without checkpoints and with
-    `tc.observe_sync` probing each axis after training), with the
+    its state this rank's shards, each checkpoint one member a rank and
+    with `tc.observe_sync` probing each axis after training), with the
     reference's sync, `SyncConfig(strategy=tc.sync, bucket_bytes=
     tc.bucket_bytes, backward_overlap=tc.backward_overlap)`: for "plan"
     bucketed on one live axis, GenModel picking the bucket unless
@@ -1119,7 +1134,8 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
                         "restore", "budget_reset"):
                 on_log(f"ft: {kind} {info}")
 
-        mgr = CheckpointManager(tc.ckpt_dir, keep=2)
+        mgr = CheckpointManager(tc.ckpt_dir, keep=2,
+                                mesh=mesh if pm else None)
         # the planner takes the injected link faults into its health map
         loop = FaultTolerantLoop(
             one_step, state, mgr, ckpt_every=tc.ckpt_every,

@@ -596,6 +596,28 @@ def moe_ep(ps: Sequence[Params], xs: Sequence[torch.Tensor],
     return res
 
 
+def _moe_ep_rank(p: Params, xt: torch.Tensor, topi: torch.Tensor,
+                 topv: torch.Tensor, ctx, E: int,
+                 capacity_factor: float) -> torch.Tensor:
+    """`_moe_ep_block` as this rank of the process mesh `ctx.mesh`: its
+    (n, D) tokens, its slice of the experts (the full (E, ...) gathered
+    copy sliced, or that slice already), the exchanges over the EP
+    axis's process group. Returns the (n, D) f32 output."""
+    from repro_torch.core import sync
+
+    pm = ctx.mesh
+    el = E // ctx.size
+    e0 = ctx.index(pm, pm.rank) * el
+    w = {k: p[k] if p[k].shape[0] == el else p[k][e0:e0 + el]
+         for k in ("wi", "wg", "wo")}
+
+    def exchange(t: torch.Tensor) -> torch.Tensor:
+        return sync.ep_exchange(t.reshape(-1), ctx.axis,
+                                mesh=pm).reshape(t.shape)
+    return _moe_ep_block([xt], [topi], [topv], [w], ctx.size, E,
+                         capacity_factor, exchange)[0]
+
+
 def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         dispatch: str = "sorted", capacity_factor: float = 1.25
         ) -> torch.Tensor:
@@ -612,7 +634,11 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     GSPMD mesh context, each runs `_moe_sorted_block`: one block, no
     `moe_groups`. The port has no GSPMD engine, so on one rank that is
     their function in every context but the trainer's EP context with
-    experts split over its axis, where one rank alone cannot exchange:
+    experts split over its axis. There, on a process mesh (the
+    context's `mesh`), "ep" runs `_moe_ep_block` on this rank's tokens
+    alone and its experts [i·E/size, (i+1)·E/size) (i its coordinate on
+    the axis), the exchanges `core.sync.ep_exchange` over the axis's
+    process group; on the local mesh one rank alone cannot exchange:
     the trainer runs every rank at once through `moe_ep`, and this
     raises. Neither is a fallback from a device or a kernel: neither
     dispatch has a kernel."""
@@ -621,17 +647,22 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     B, T, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n = B * T
+    ctx = None
     if dispatch == "ep":
         from repro_torch.core import sync
         ctx = sync.ep_context()
-        if ctx is not None and ctx.size > 1 and E % ctx.size == 0:
+        if ctx is None or ctx.size <= 1 or E % ctx.size:
+            ctx = None
+        elif ctx.mesh is None:
             raise ValueError(
                 f"{cfg.name}: dispatch 'ep' under an EP context of "
                 f"{ctx.size} ranks exchanges between ranks; run every rank "
                 "at once with layers.moe_ep")
     xt = x.reshape(n, D)
     _, topv, topi = moe_route(p, xt, k)
-    if dispatch == "dense":
+    if ctx is not None:
+        out = _moe_ep_rank(p, xt, topi, topv, ctx, E, capacity_factor)
+    elif dispatch == "dense":
         gate = torch.zeros((n, E), dtype=torch.float32, device=x.device)
         gate.scatter_(1, topi, topv)
         xe = xt.expand(E, n, D)

@@ -29,6 +29,7 @@ through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -151,16 +152,22 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor | None,
     is scaled by √d_model in the dense family, as the reference's
     `forward` does (its `prefill` and `decode_step` do not). A MoE layer
     dispatches by `moe_dispatch` ("sorted", "dense", "ep", "local"; see
-    `layers.moe`: on one rank "ep" is the sorted block without groups)."""
+    `layers.moe`: on one rank "ep" is the sorted block without groups;
+    one rank of a process mesh exchanges under the trainer's EP
+    context). With `remat` each layer is checkpointed; under "ep" with
+    early stop off, as `forward_ep`'s, so the backward recomputes a
+    layer's exchanges in full on every rank alike."""
     _check_served(cfg)
     x = _embed_in(params, cfg, tokens) if embeds is None else embeds
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i, lp in enumerate(params["layers"]):
         w = cfg.window_for_layer(i)
         if remat:
-            x = checkpoint(_train_block, cfg, lp, x, w, positions,
-                           mrope_positions, moe_dispatch,
-                           use_reentrant=False)
+            with (set_checkpoint_early_stop(False) if moe_dispatch == "ep"
+                  else contextlib.nullcontext()):
+                x = checkpoint(_train_block, cfg, lp, x, w, positions,
+                               mrope_positions, moe_dispatch,
+                               use_reentrant=False)
         else:
             x = _train_block(cfg, lp, x, w, positions, mrope_positions,
                              moe_dispatch)

@@ -10,7 +10,13 @@ store, planner service and telemetry:
   pipeline is pure-in-step, so replay is exact. The loop owns the state
   it is given: a restore overwrites the live state's tensors in place
   (`CheckpointManager.restore`), so it needs no second copy of the state
-  on the device.
+  on the device. With a manager on a process mesh (`mesh=`, one process
+  a rank) every rank runs the loop alike: the seeded step events fire
+  on every rank at the same step, injected payload corruptions fail the
+  same guarded call everywhere, `file_corrupt` clobbers rank 0's member
+  of the newest step, and every rank restores the step that every rank
+  verifies. A failure that is not injected is one rank's own: it is
+  raised, never replayed, and the launcher ends the run.
 * StragglerWatchdog — per-step timing over the shared telemetry ring
   (`runtime.telemetry`); a step slower than `threshold ×` the ring's EWMA
   is flagged.
@@ -28,7 +34,6 @@ the event describe hardware that no longer exists.
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from collections import deque
 from typing import Any, Callable
@@ -194,8 +199,11 @@ class FaultTolerantLoop:
             steps = self.ckpt.available_steps()
             if steps:
                 tag = f"step_{steps[0]:08d}"
-                inj.corrupt_file(os.path.join(self.ckpt.dir, tag,
-                                              "arrays.npz"))
+                # on a process mesh rank 0's member alone: the agreed
+                # restore then skips the step on every rank
+                pm = self.ckpt.mesh
+                if pm is None or pm.rank == 0:
+                    inj.corrupt_file(self.ckpt.arrays_path(steps[0]))
                 self.on_event("ckpt_corrupt", {"step": step,
                                                "target": tag})
 
@@ -221,6 +229,11 @@ class FaultTolerantLoop:
                     self.restarts = 0
                     self._progress = 0
             except Exception as e:   # device loss, a failed launch: replay
+                if self.ckpt.mesh is not None and not _mesh_wide(e):
+                    # one rank's own failure: the others wait in a
+                    # collective of the step, so nothing is agreed on;
+                    # raised, the launcher ends every rank
+                    raise
                 self._progress = 0
                 self.restarts += 1
                 default_tracer().instant("ft/failure", step=step,
@@ -256,6 +269,16 @@ class FaultTolerantLoop:
         self.ckpt.save(step, self.state)
         self.ckpt.wait()
         return self.state
+
+
+def _mesh_wide(err: BaseException) -> bool:
+    """Whether every rank of a process mesh fails alike with `err`: an
+    injected fault, which fires at the same step (a step event) or the
+    same guarded call (a payload corruption, before any round of it is
+    posted) on every rank, since every rank parses the same seeded plan
+    and makes the same guarded calls."""
+    from .faults import InjectedFault
+    return isinstance(err, InjectedFault)
 
 
 def elastic_remesh(state: Any, device: str | torch.device, *,

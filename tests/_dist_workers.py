@@ -59,6 +59,7 @@ class Spies:
 
     def __enter__(self):
         for name, key in (("fused_reduce_into", "fused_reduce"),
+                          ("fused_reduce", "fused_reduce"),
                           ("quantize", "quantize"),
                           ("quant_reduce_into", "quant_reduce"),
                           ("dequantize_into", "dequantize")):
@@ -325,3 +326,316 @@ def train_worker(mesh, npz: str) -> dict:
                        seq_len=16, log_every=1, observe_sync=True)
     out["run_training"] = T._train_rank(mesh, tc, True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dist_ep.py
+# ---------------------------------------------------------------------------
+EP_ARCHS = ("deepseek-moe-16b", "mixtral-8x22b")
+EP_DATA = dict(seq_len=32, global_batch=8, seed=0)
+# (label, SyncConfig kwargs): the planned exchange per leaf, the flat copy
+# program under a flat label
+EP_SYNC = {"plan": dict(strategy="plan", bucket_bytes=0),
+           "ring": dict(strategy="ring")}
+
+
+def ep_train_steps(mesh, arch: str, label: str, inputs: dict | None = None,
+                   steps: int = STEPS) -> dict:
+    """`steps` f32 steps of the smoke `arch`'s ZeRO-3 step on `mesh` (a
+    local mesh or a process mesh) from seeded weights (or the
+    reference's f32 init in `inputs`) and `SyntheticLM` batches, sync
+    EP_SYNC[label] at Table 5: losses, gnorms, the exchanges a step, the
+    final shards."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import PAPER_TABLE5
+    from repro_torch.core.sync import SyncConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as T
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    api = build(smoke_config(get_config(arch)))
+    params = (init_params(inputs, "float32") if inputs is not None else
+              api.init_params(torch.Generator().manual_seed(0),
+                              torch.float32))
+    shards = T.shard_params_zero3(params, mesh)
+    state = {"params": shards, "opt": adamw_init(shards)}
+    step = T.make_manual_train_step(
+        api, mesh, AdamWConfig(lr=LR),
+        sync=SyncConfig(params=PAPER_TABLE5, **EP_SYNC[label]),
+        device="cpu", param_dtype=torch.float32)
+    data = SyntheticLM(T.data_config(api.cfg, **EP_DATA))
+    out = {"losses": [], "gnorms": [], "ex": [], "ep": step.ep,
+           "planned": step.ep_schedule is not None}
+    for s in range(steps):
+        state, m = step(state, T.batch_tensors(data.batch_at(s), "cpu"))
+        out["losses"].append(float(m["loss"]))
+        out["gnorms"].append(float(m["gnorm"]))
+        out["ex"].append(m.get("ep_exchanges"))
+    out["shards"] = [t.clone() for t in state["params"]]
+    return out
+
+
+EP_MESHES = {"data4": (("data", 4),),
+             "pod2xdata2": (("pod", 2), ("data", 2))}
+
+
+def ep_worker(mesh, cases, npz: str) -> dict:
+    """Each (arch, label, from the reference's init, mesh key) of `cases`
+    as this rank (the init read from `npz`; a mesh of other axes over
+    the same processes)."""
+    from repro_torch.launch.mesh import init_process_mesh
+    inputs = dict(np.load(npz))
+    meshes = {mesh.axes: mesh}
+    out = {}
+    for arch, label, ref, key in cases:
+        axes = EP_MESHES[key]
+        if axes not in meshes:
+            meshes[axes] = init_process_mesh(axes, mesh.backend, mesh.device)
+        out[(arch, label, key)] = ep_train_steps(
+            meshes[axes], arch, label, inputs if ref else None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dist_ft.py
+# ---------------------------------------------------------------------------
+# the checkpointed trainer's soak (tests/test_torch_train_ft.py's, at
+# smoke size, bf16, the bucket pinned to 32 KiB) on 4 ranks: the fault
+# plan's events (kind, at, target, magnitude), a payload corruption in
+# the gather of bucket FT_PAYLOAD[1] of the first run of step 8, after
+# FT_PAYLOAD[0] completed step calls
+FT_RUN = dict(arch="stablelm-12b", steps=12, seq_len=32, global_batch=8,
+              lr=1e-3, engine="manual", sync="plan", device="cpu",
+              ckpt_every=3, log_every=1000, bucket_bytes=32768)
+FT_EVENTS = [("delay", 2, "", 0.02), ("device_loss", 4, "", 0.0),
+             ("link_degrade", 7, "root_sw", 0.5),
+             ("link_restore", 9, "root_sw", 0.0),
+             ("file_corrupt", 10, "checkpoint", 0.0),
+             ("device_loss", 11, "", 0.0)]
+FT_PAYLOAD = (9, 5)
+FT_COUNTERS = ("ft_restarts_total", "ckpt_restore_fallbacks_total",
+               "guarded_failures_total", "faults_files_corrupted_total")
+
+
+def ft_config(ckpt_dir, **kw):
+    from repro_torch.launch import train as T
+    return T.TrainConfig(**{**FT_RUN, "ckpt_dir": str(ckpt_dir), **kw})
+
+
+def ft_plan(payload_ordinal=None):
+    from repro_torch.runtime.faults import FaultEvent, FaultPlan
+    extra = () if payload_ordinal is None else (
+        FaultEvent("payload_corrupt", payload_ordinal),)
+    return FaultPlan(seed=7, events=tuple(FaultEvent(*e) for e in FT_EVENTS)
+                     + extra)
+
+
+def ft_run(mesh, ckpt_dir, plan, **kw) -> dict:
+    """`run_training` with a checkpoint directory under `plan` (an empty
+    plan masks any ambient one): its step calls, losses, final state
+    (CPU copies), the resumes it logged, the injector's guarded-launch
+    count and fired events, and the fault counters it moved."""
+    from repro_torch.checkpoint import tree_flatten, tree_unflatten
+    from repro_torch.launch import train as T
+    from repro_torch.runtime.faults import FaultInjector
+    from repro_torch.runtime.metrics import default_metrics
+
+    lines = []
+    before = {k: default_metrics().counter(k).value for k in FT_COUNTERS}
+    with FaultInjector(plan) as inj:
+        out = T.run_training(ft_config(ckpt_dir, **kw), mesh=mesh,
+                             on_log=lines.append)
+    leaves, _ = tree_flatten(out["state"])
+    step = out["step"]
+    return {"steps": out["steps"], "losses": out["losses"],
+            "state": tree_unflatten(out["state"], [
+                x.detach().clone() if isinstance(x, torch.Tensor) else x
+                for x in leaves]),
+            "resumes": [ln for ln in lines if ln.startswith("ft: resume")],
+            "launches": inj.stats()["launches"],
+            "fired": inj.stats()["fired"],
+            "delta": {k: default_metrics().counter(k).value - before[k]
+                      for k in FT_COUNTERS},
+            "buckets": (len(step.gather_buckets), len(step.scatter_buckets)),
+            "restarts": out["loop"].restarts,
+            "demotions": sum(pl.schedule.demotions for pl in out["plans"])}
+
+
+def ft_worker(mesh, root: str, part_steps) -> dict:
+    """As this rank: the fault-free soak, then the faulted one (its
+    payload ordinal from the fault-free run's buckets); with
+    `part_steps` a run of that many steps into root/part, which a fresh
+    launch resumes (`ft_resume_worker`)."""
+    import os
+    from repro_torch.runtime.faults import FaultPlan
+
+    out = {"clean": ft_run(mesh, os.path.join(root, "clean"), FaultPlan())}
+    ag, rs = out["clean"]["buckets"]
+    after, bucket = FT_PAYLOAD
+    out["chaos"] = ft_run(mesh, os.path.join(root, "chaos"),
+                          ft_plan(after * (ag + rs) + bucket))
+    if part_steps:
+        out["part"] = ft_run(mesh, os.path.join(root, "part"), FaultPlan(),
+                             steps=part_steps)
+    return out
+
+
+def ft_resume_worker(mesh, root: str) -> dict:
+    """A fresh launch's rank resuming root/part to FT_RUN's steps."""
+    import os
+    from repro_torch.runtime.faults import FaultPlan
+    return ft_run(mesh, os.path.join(root, "part"), FaultPlan())
+
+
+def ft_one_rank_fails_worker(mesh, root: str) -> None:
+    """The fault loop where rank 1 alone fails a real (not injected)
+    launch at its 40th fold: the run must end with that error."""
+    import os
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.faults import FaultPlan
+
+    if mesh.rank == 1:
+        real, calls = ops.fused_reduce_into, [0]
+
+        def failing(*a, **kw):
+            calls[0] += 1
+            if calls[0] == 40:
+                raise RuntimeError("rank 1's launch failed (simulated)")
+            return real(*a, **kw)
+        ops.fused_reduce_into = failing
+    ft_run(mesh, os.path.join(root, "fails"), FaultPlan(), steps=4)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dist_serve.py
+# ---------------------------------------------------------------------------
+SERVE = dict(arch="stablelm-12b", batch=2, prompt_len=8, max_new=4,
+             cache_len=32, device="cpu")
+
+
+def serve_worker(mesh) -> dict:
+    """The smoke server as this rank of a ("model", n) process mesh: its
+    tokens (rank 0's), self-check error, timings and the planner's
+    observation of the decode plan."""
+    from repro_torch.launch.serve import ServeConfig, serve
+    from repro_torch.planner.service import default_service
+    lines = []
+    out = serve(ServeConfig(**SERVE), smoke=True, mesh=mesh,
+                on_log=lines.append)
+    return {"tokens": out["tokens"], "err": out["self_check_err"],
+            "timings": out["timings"], "lines": lines,
+            "algo": out["tp_exec"].algo,
+            "stats": dict(out["tp_schedule"].stats),
+            "observed": [ln for ln in lines if "observed decode" in ln]}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_dist_planned.py
+# ---------------------------------------------------------------------------
+PLANNED_MESHES = {"data4": (("data", 4),),
+                  "pod2xdata2": (("pod", 2), ("data", 2))}
+PLANNED_SIZE = 1003                    # a rank: every route pads
+# (route, allreduce_planned kwargs beside the service): the plan, the plan
+# at two wires, the tolerance-priced wire, the bucket executor at a
+# pinned 1 KiB bucket and at a bf16 wire, the flat-label fallback
+PLANNED_ROUTES = {
+    "plan": {}, "bf16-wire": {"precision": "bf16"},
+    "fp8-wire": {"precision": "fp8"}, "tolerance": {"tolerance": 1e-2},
+    "bucketed": {"bucketing": ("bucket", 1024)},
+    "bucketed-bf16": {"bucketing": ("bucket", 1024), "precision": "bf16"},
+    "fallback": {}}
+INT8_SYNC = {"cps": dict(strategy="cps", compress="int8"),
+             "hcps": dict(strategy="hcps", compress="int8")}
+
+
+def planned_inputs(R: int) -> np.ndarray:
+    return np.random.default_rng(23).standard_normal(
+        (R, PLANNED_SIZE)).astype(np.float32)
+
+
+def planned_service(route: str, n: int, size: int):
+    """A fresh service at Table 5; for "fallback" one whose plan for the
+    (n, size) axis carries no block annotations, so it cannot lower."""
+    from repro_torch.core.cost_model import PAPER_TABLE5
+    from repro_torch.core.sync import level_switch_topo
+    from repro_torch.planner.service import PlannerService
+    svc = PlannerService(params=PAPER_TABLE5)
+    if route == "fallback":
+        eff = svc._effective_axis_params()
+        svc.get_plan(level_switch_topo(n, eff, "root_sw"), size * 4.0,
+                     params=eff).plan.num_blocks = None
+    return svc
+
+
+def planned_kwargs(route: str) -> dict:
+    from repro_torch.core.bucketing import BucketConfig
+    kw = dict(PLANNED_ROUTES[route])
+    if "bucketing" in kw:
+        kw["bucketing"] = BucketConfig(bucket_bytes=kw["bucketing"][1])
+    return kw
+
+
+def _planned_case(mesh, key: str) -> dict:
+    import warnings
+
+    from repro_torch.core import collectives as C
+    from repro_torch.core.sync import (SyncConfig, allreduce_int8_cps,
+                                       sync_gradients)
+
+    R, r = mesh.size, mesh.rank
+    X = planned_inputs(R)
+    out = {}
+    with Spies() as spies:
+        for ax in mesh.axis_names:
+            n = mesh.axis_size(ax)
+            for route in PLANNED_ROUTES:
+                svc = planned_service(route, n, PLANNED_SIZE)
+                st = {}
+                x = torch.from_numpy(X[r])
+                spies.take()
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    got = C.allreduce_planned(x, ax, service=svc, stats=st,
+                                              mesh=mesh,
+                                              **planned_kwargs(route))
+                out[(key, "planned", ax, route)] = (got, st, spies.take())
+            x = torch.from_numpy(X[r])
+            spies.take()
+            out[(key, "int8", ax)] = (allreduce_int8_cps(x, ax, mesh=mesh),
+                                      spies.take())
+        for label, kw in INT8_SYNC.items():
+            grads = {f"g{j}": torch.from_numpy(a[r])
+                     for j, a in enumerate(sync_inputs(R))}
+            out[(key, "sync-int8", label)] = sync_gradients(
+                grads, sync_axes(mesh.axes), SyncConfig(**kw), mesh=mesh)
+    return out
+
+
+def planned_worker(mesh, keys, serve_too: bool) -> dict:
+    """Every case of `_planned_case` on each mesh of `keys` over these
+    processes; with `serve_too` the smoke server on ("model", n) too."""
+    from repro_torch.launch.mesh import init_process_mesh
+    out = {}
+    for key in keys:
+        m = mesh if PLANNED_MESHES[key] == mesh.axes else init_process_mesh(
+            PLANNED_MESHES[key], mesh.backend, mesh.device)
+        out.update(_planned_case(m, key))
+    if serve_too:
+        out["serve"] = serve_worker(init_process_mesh(
+            (("model", mesh.size),), mesh.backend, mesh.device))
+    return out
+
+
+def ckpt_mismatch_worker(mesh, root: str):
+    """A checkpoint of one leaf shape, restored on a process mesh into a
+    tree of another: the class and message each rank raised."""
+    from repro_torch.checkpoint import CheckpointManager, LeafMismatch
+    mgr = CheckpointManager(root, keep=2, async_save=False, mesh=mesh)
+    mgr.save(1, {"a": torch.full((4,), float(mesh.rank))})
+    try:
+        mgr.restore({"a": torch.zeros(5)})
+    except LeafMismatch as e:
+        return type(e).__name__, str(e)
+    return None

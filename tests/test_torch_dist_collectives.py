@@ -165,10 +165,29 @@ def test_merged_issuance_runs_on_one_axis(ranks):
 
 
 def test_compress_over_a_process_mesh_raises():
+    """Item 8a lifted the refusals of `compress` and `allreduce_planned`
+    on a process mesh (tests/test_torch_dist_planned.py runs them over
+    processes); what stays refused is `compress` in the ZeRO-3 trainer
+    (item 9). On a one-rank axis, which moves nothing, both run without
+    a process group and return the input."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_manual_train_step
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+    one = ProcessMesh(axes=(("data", 1),), rank=0, coords=(0,),
+                      backend="gloo", device=torch.device("cpu"))
+    g = torch.arange(8.0)
+    got = sync_gradients({"g": g}, [("data", 1)],
+                         SyncConfig(strategy="cps", compress="int8"),
+                         mesh=one)
+    assert torch.equal(got["g"], g)
+    st = {}
+    assert torch.equal(C.allreduce_planned(g, "data", stats=st, mesh=one),
+                       g)
+    assert st == {"mode": "noop"}
     pm = ProcessMesh(axes=(("data", 4),), rank=0, coords=(0,),
                      backend="gloo", device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sync_gradients({"g": torch.ones(8)}, [("data", 4)],
-                       SyncConfig(strategy="cps", compress="int8"), mesh=pm)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        C.allreduce_planned(torch.ones(8), "data", mesh=pm)
+    api = build(smoke_config(get_config("stablelm-12b")))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        make_manual_train_step(api, pm, sync=SyncConfig(
+            strategy="cps", compress="int8"), device="cpu")

@@ -243,25 +243,38 @@ def _fake_mesh(axes=(("data", 4),)):
 
 
 def test_moe_expert_parallel_over_a_process_mesh_raises():
+    """Item 8b lifted this refusal: the step builds on a process mesh,
+    its experts split over the first live axis and its exchange the
+    planned all-to-all (tests/test_torch_dist_ep.py trains it over
+    processes)."""
     from repro_torch.configs import get_config
     from repro_torch.models.config import smoke_config
     from repro_torch.models.registry import build
     api = build(smoke_config(get_config("deepseek-moe-16b")))
     assert api.cfg.n_experts % 4 == 0
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train.make_manual_train_step(api, _fake_mesh())
+    step = train.make_manual_train_step(api, _fake_mesh(), device="cpu")
+    assert step.ep == ("data", 4)
+    assert step.ep_schedule is not None
+    assert step.ep_schedule.inner.family == "all_to_all"
 
 
 @pytest.mark.parametrize("field,value", [("ckpt_dir", "ckpt"),
                                          ("fault_plan", "seed=7,steps=2"),
                                          ("engine", "auto")])
 def test_out_of_scope_on_a_process_mesh_raises(field, value, tmp_path):
+    """The auto engine stays refused on a process mesh (item 8d); item 8c
+    brought checkpoints and fault plans into scope there
+    (tests/test_torch_dist_ft.py runs them over processes)."""
     import dataclasses
     tc = dataclasses.replace(train.TrainConfig(
         steps=1, engine="manual", sync="plan", device="cpu"),
         **{field: str(tmp_path / value) if field == "ckpt_dir" else value})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train.run_training(tc, mesh=_fake_mesh(), on_log=lambda *_: None)
+    if field == "engine":
+        with pytest.raises(NotImplementedError, match="item 8d"):
+            train.run_training(tc, mesh=_fake_mesh(),
+                               on_log=lambda *_: None)
+    else:
+        assert train._check_train_scope(tc, _fake_mesh()) is None
 
 
 def test_nccl_with_two_ranks_on_one_device_raises():
