@@ -12,15 +12,17 @@
     python3 chip_smoke.py --family-train
     python3 chip_smoke.py --census
     python3 chip_smoke.py --mp
+    python3 chip_smoke.py --auto
 
 The second and third forms build the kernels and run the attention rows
 or the recurrence rows of phase 2 alone (of another source tree with
 --src: two commits timed on one card in turn), the fourth the planner
 phase (3c) alone, the fifth the flat collectives phase (3b2) alone, the
-sixth phase 5's per-leaf run at the first of TRAIN_FALL_LRS and phase
+sixth phase 5r and phase
 ft, the seventh phase 5m alone, the eighth phase 5r alone, the ninth
 phase 5f alone, the tenth phase census alone (the dry run beside it),
-the eleventh phase mp alone;
+the eleventh phase mp alone, the twelfth phase 5's per-leaf run at the
+first of TRAIN_FALL_LRS, phase auto and phase mp (h);
 none prints a result line. The full run and --census start the dry run
 (`python -m repro_torch.launch.dryrun --all` on the meta device, no card
 visible) in a process of its own at the start, beside the card's
@@ -228,8 +230,9 @@ any error:
                 the CPU);
   5r. recurrent train — the recurrent families' training
                 (`phase_train_recurrent`): rwkv6-1.6b, then hymba-1.5b,
-                through the ZeRO-3 trainer at full width and full depth
-                (24 and 32 layers; TRAIN_RECURRENT), random bf16 weights,
+                through the ZeRO-3 trainer at full width, rwkv6-1.6b at
+                8 of 24 layers and hymba-1.5b at 4 of 32
+                (TRAIN_RECURRENT), random bf16 weights,
                 8 local ranks, seq 128, global batch 8, 3 steps at lr
                 1e-4 (the loss must fall), per leaf with
                 `SyncConfig(strategy="plan", bucket_bytes=0)`; their
@@ -249,8 +252,8 @@ any error:
                 width, its depth cut to 3 of 28 layers, on 8 local ranks
                 (its stub embeddings in f32 and three M-RoPE streams, as
                 the trainer's pipeline gives them); whisper-large-v3
-                uncut (32 encoder and 32 decoder layers, 32 stub frames)
-                on 8 ranks; mixtral-8x22b at full width, its depth cut to
+                at 8 of 32 encoder and 8 of 32 decoder layers (32 stub
+                frames) on 8 ranks; mixtral-8x22b at full width, its depth cut to
                 1 of 56, on 4 ranks (8 experts top 2, window 4096;
                 expert-parallel over the 4, two experts a rank, the
                 exchange the guarded planned all-to-all), each from
@@ -269,13 +272,27 @@ any error:
                 its smoke window, EP over 8) in f32 on the card against
                 the CPU: per-step loss and gnorm within 1e-4, the same
                 slots dropped, exact launches (none on the CPU);
+  auto     — the auto engine (`launch.train.make_train_step`: no
+                planner; DTensor placements and torch.distributed's
+                collectives over processes; `phase_auto`). (a) the
+                smoke stablelm-12b (vocab 4,096, so that its embedding
+                and head shard over processes) in f32 on the card
+                against the CPU, 3 steps: losses and gnorms within 1e-4,
+                no kernel launched (`ops.LAUNCHES` unchanged); (b)
+                stablelm-12b at full width, depth 2 of 40, bf16, seq
+                128, global batch 8, 3 steps at lr 1e-4 on the card:
+                the loss falling, no kernel launched, the step (host
+                clock), forward + backward and AdamW (CUDA events)
+                beside `rank_bounds` and AdamW's 22 bytes a parameter,
+                the peak, and phase 5's per-leaf manual step from the
+                same run on the same line;
   mp       — the process mesh, one process a rank over
                 torch.distributed, every rank on this card with the gloo
                 backend (each round's bytes staged through pinned host
                 memory: its times are host staging, not links;
                 `phase_mp`). The parent frees its cached card memory,
                 and the ranks load the kernels phase 1 built. (b) the
-                trainer: stablelm-12b at full width, depth 2 of 40, 4
+                trainer: stablelm-12b at full width, depth 1 of 40, 4
                 processes, sync plan per leaf, bucketed, and per leaf on
                 (pod 2, data 2), 3 steps at lr 1e-4, global batch 8, seq
                 128, each run first on the 4-rank local mesh in this
@@ -295,17 +312,28 @@ any error:
                 observed) and `measure_dist_cps` on the same 8
                 processes; (d) with two cards or more, (a) and (c) again
                 over NCCL, one card a rank, else a line saying why not;
+                (h) the auto engine on the 4 trainer processes
+                (`phase_mp_auto`): AUTO_SMOKE with FSDP and ZeRO-1,
+                each rank's losses and gnorms within 1e-5 of phase auto
+                (a)'s card run and its local tensors its slice of (a)'s
+                state within 1e-4 of each leaf's largest |value|, no
+                kernel launched; AUTO_FULL at (b)'s depth with FSDP,
+                each process's
+                step, its parts and its peak beside (b)'s per-leaf
+                manual step (gloo through the host: host staging, not
+                links); over NCCL too with a card a rank, else a line
+                saying why not;
   ft       — checkpoints and fault tolerance: `run_training` with a
                 checkpoint directory (FaultTolerantLoop; checkpoints
-                under build/, removed after). (a) phase 5's per-leaf run
-                at the first of TRAIN_FALL_LRS (the same weights and
+                under build/, removed after). (a) phase 5r's hymba-1.5b
+                run (FT_ARCH at full width, depth 4; the same weights and
                 batches) for 4 steps, a checkpoint every 2, against the
                 same run without faults: a device loss at step 3 and a
                 corrupted payload in a reduce-scatter of step 3's
                 second attempt, each a step past the checkpoint of step
                 2, each restored in place and replayed; its losses by
                 step equal the fault-free run's, whose first 3 equal
-                phase 5's, to every digit, and its fused_reduce
+                phase 5r's, to every digit, and its fused_reduce
                 launches the step calls' and the failed attempt's
                 (`phase_ft`); the
                 checkpoint's bytes, host snapshot, write + CRC, restore
@@ -336,6 +364,7 @@ any error:
                 wall time.
 
 The main path is phases 3, 3b, 3c, 4, 5, 5m, 5r, 5f, mp, ft and census
+(phase auto and mp (h) launch no kernel, checked)
 (phase mp's launches those of every process, summed): every
 launch count is zeroed just before the executor, the families, the
 planner, each served run, each full-width training run (the MoE,
@@ -455,14 +484,26 @@ TRAIN_FALL_LRS = (1e-4,)
 # TrainConfig's sequence and global batch, lr 1e-4
 TRAIN_MOE = dict(arch="deepseek-moe-16b", layers=2, steps=3, seq_len=128,
                  global_batch=8, lr=1e-4, local_ranks=8)
-# recurrent training (phase 5r): rwkv6-1.6b, then hymba-1.5b, at full width
-# and full depth (24 and 32 layers; "layers" None keeps the configuration's),
-# the trainer's shapes, lr 1e-4, per leaf
-TRAIN_RECURRENT = dict(archs=("rwkv6-1.6b", "hymba-1.5b"), layers=None,
+# recurrent training (phase 5r): (arch, depth or None for the
+# configuration's) at full width, their depth cut for the script's time
+# (the step is host dispatch, ≈ 40 µs a kernel: at full depth rwkv6-1.6b's
+# 24 layers took 20-27 s of it and hymba-1.5b's 32 took 59 s): rwkv6-1.6b
+# at 8 of 24, hymba-1.5b at 4 of 32; the trainer's shapes, lr 1e-4, per
+# leaf. Phase ft (a) and phase mp (g) run the hymba-1.5b configuration
+# through their checkpoints
+TRAIN_RECURRENT = dict(runs=(("rwkv6-1.6b", 8), ("hymba-1.5b", 4)),
                        steps=3, seq_len=128, global_batch=8, lr=1e-4,
                        local_ranks=8)
+# the checkpointed runs' model (phase ft (a), phase mp (g)): hymba-1.5b at
+# full width and phase 5r's depth, 2.95 GB of state (bf16 weights and f32
+# moments). stablelm-12b's depth-2 state is 15.83 GB, two thirds of it the
+# embedding and head of its 100,352-token vocabulary, which no depth cut
+# shrinks; its checkpoints and restores took 150-200 s of the disk in
+# each of the two phases
+FT_ARCH = "hymba-1.5b"
 # the last three configurations' training (phase 5f), per leaf at lr
-# 1e-4: (arch, depth or None for the configuration's, local ranks). The
+# 1e-4: (arch, depth or None for the configuration's, local ranks; an
+# encoder-decoder's encoder cut to the same depth). The
 # reckoning (`family_reckon_bytes`): the ZeRO-3 state (10 B a parameter),
 # the ranks' bf16 gradient rows (2n B) and one gathered copy (2 B), with
 # ≈ 11-12 GiB above that at peak (phases 5 and 5m). qwen2-vl-7b at depth 3
@@ -470,24 +511,28 @@ TRAIN_RECURRENT = dict(archs=("rwkv6-1.6b", "hymba-1.5b"), layers=None,
 # the run peaked at 69.05 GiB with expandable segments, and under the
 # default allocator failed the first 545 M leaf's 7.11 GiB reduce-scatter
 # stage with 60.94 GiB allocated and 15.79 GiB reserved in fragments);
-# whisper-large-v3 uncut: 2.020 G, 52.7 GiB; mixtral-8x22b at depth 1 of
+# whisper-large-v3 at 8 + 8 of 32 + 32 layers (uncut, 2.020 G and 52.7
+# GiB, its host-bound step took 36 s of the script's time for 3 steps);
+# mixtral-8x22b at depth 1 of
 # 56 (2.907 G) does not fit on 8 ranks (75.8 GiB before any temporary),
 # on 4 it reckons 54.1 GiB, EP over the 4 with two experts a rank
-TRAIN_FAMILY = dict(runs=(("qwen2-vl-7b", 3, 8), ("whisper-large-v3", None, 8),
+TRAIN_FAMILY = dict(runs=(("qwen2-vl-7b", 3, 8), ("whisper-large-v3", 8, 8),
                           ("mixtral-8x22b", 1, 4)),
                     steps=3, seq_len=128, global_batch=8, lr=1e-4)
 TRAIN_PEAK_GIB = 70.0  # full-width training (5m, 5r, 5f) peaks under this
 # phase mp, the process mesh (one process a rank, gloo through the host
 # on this card): (a) the executor's ranks, plans and sizes a rank; (b)
-# the trainer (stablelm-12b at full width, depth cut to 2 of 40; 4
-# processes: ≈ 13.6 GB each), its runs (label, mesh axes, sync) and the
+# the trainer (stablelm-12b at full width, depth cut to 1 of 40, where
+# phase 5 runs 2: each step's gather and reduce-scatter go through the
+# host, and a layer is 0.28 G of its 1.31 G parameters; 4 processes), its
+# runs (label, mesh axes, sync) and the
 # largest relative gap allowed from the local mesh's losses and gnorms
 # should they not be equal; (c) the probe's size and the CPS curve; the
 # deadline of each spawn
 MP_RANKS = 8
 MP_SIZES = ((4 * 5120, "decode 4x5120"), (1 << 24, "gradient 2^24"))
 MP_PLANS = ("gentree", "cps", "ring")
-MP_TRAIN = dict(arch="stablelm-12b", layers=2, procs=4, steps=3, lr=1e-4,
+MP_TRAIN = dict(arch="stablelm-12b", layers=1, procs=4, steps=3, lr=1e-4,
                 seq_len=128, global_batch=8)
 MP_TRAIN_RUNS = (("per-leaf", (("data", 4),), {"bucket_bytes": 0}),
                  ("bucketed", (("data", 4),), {"bucket_bytes": None}),
@@ -515,24 +560,46 @@ SERVE_SCHEDULE_RUNS = 4
 # leaf
 MP_MOE = dict(arch="deepseek-moe-16b", layers=2, steps=3, lr=1e-4,
               seq_len=128, global_batch=8)
-# (g) the fault loop on the 4 trainer processes: MP_TRAIN's per-leaf run
-# through `run_training`, MP_FT["steps"] steps with a checkpoint every 2
-# (under build/, removed after); at step 4 `file_corrupt` clobbers rank
-# 0's member of step 4, then a device loss: every rank restores step 2
-# (the newest step every rank verifies) and replays; the step calls that
-# complete; held against (b)'s fault-free per-leaf run of the same
-# weights and batches, which runs MP_FT["steps"] steps for it
-MP_FT = dict(steps=5, ckpt_every=2, restored=2,
+# (g) the fault loop on the 4 trainer processes: FT_ARCH at full width
+# and phase 5r's depth (MP_FT["model"]: a quarter of its 2.95 GB state a
+# rank), per leaf, through `run_training`, its 5 steps with a
+# checkpoint every 2 (under build/, removed after); at step 4
+# `file_corrupt` clobbers rank 0's member of step 4, then a device loss:
+# every rank restores step 2 (the newest step every rank verifies) and
+# replays; the step calls that complete; held against the same run
+# without faults on the same processes (the same weights and batches)
+MP_FT = dict(model=dict(arch=FT_ARCH,
+                        layers=dict(TRAIN_RECURRENT["runs"])[FT_ARCH],
+                        steps=5, lr=1e-4, seq_len=128, global_batch=8),
+             ckpt_every=2, restored=2,
              calls=[0, 1, 2, 3, 2, 3, 4],
              events=(("file_corrupt", 4, "checkpoint", 0.0),
                      ("device_loss", 4, "", 0.0)))
 
 
-def mp_train_cfg(label: str) -> dict:
-    """MP_TRAIN for (b)'s run `label`: the per-leaf run takes MP_FT's
-    steps, (g)'s fault-free twin."""
-    return {**MP_TRAIN, "steps": MP_FT["steps"]} if label == "per-leaf" \
-        else MP_TRAIN
+# phase auto, the auto engine (`launch.train.make_train_step`, no planner,
+# torch.distributed's own collectives): (a) the smoke stablelm-12b in f32,
+# its vocabulary widened to 4,096 so that its embedding and head (64 x
+# 4,096) reach sharding.REPLICATE_BELOW and shard over processes (every
+# smoke leaf replicates otherwise), seq 32, global batch 8, on one card
+# against the CPU; (b) stablelm-12b at full width, depth cut from 40 to 2
+# (phase 5's cut), bf16, the trainer's seq and global batch, lr 1e-4, one
+# card. Phase mp (h) runs (a) on 4 processes (FSDP and ZeRO-1) and (b)
+# at MP_TRAIN's depth (1, as the manual step beside it) on 4 processes
+# (FSDP), each over gloo through the host
+AUTO_SMOKE = dict(arch="stablelm-12b", overrides={"vocab": 4096}, steps=3,
+                  seq_len=32, global_batch=8, lr=1e-3)
+AUTO_FULL = dict(arch="stablelm-12b", layers=2, steps=3, seq_len=128,
+                 global_batch=8, lr=1e-4)
+AUTO_CPU_TOL = 1e-4      # (a) card against CPU, losses and gnorms
+AUTO_MP_TOL = 1e-5       # (h) each rank against (a)'s card run
+# (h) each rank's final local tensors against its slice of (a)'s, of each
+# leaf's largest |value|: AdamW divides each gradient element by its own
+# running RMS, so an element whose gradient is near zero (an embedding
+# row of a rare token) turns a summation-order difference of 1e-7 into
+# a part of its step, lr 1e-3 (2.5e-5 measured on the CPU, one element
+# of 32,768: tests/test_torch_dist_auto.py's PARAM_TOL)
+AUTO_MP_PARAM_TOL = 1e-4
 # phase census: the smoke-size models whose decode step's kernel work the
 # card and the CPU must count alike; the dry run's output directory and
 # the most it may take from its start (it runs beside every earlier
@@ -2859,6 +2926,19 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
         scatter = sum(schedule_bytes(cs, int(t.numel()), dtype,
                                      family_steps(cs, "reduce_scatter"))
                       for t in shards)
+    rank = rank_bounds(cfg, P, elem, n, seq_len, batch)
+    return {"gather": bound_ms(gather),
+            "forward_backward": n * max(rank["rank_bytes_ms"],
+                                        rank["rank_flops_ms"]),
+            "reduce_scatter": bound_ms(scatter), "adamw": bound_ms(22 * P),
+            **rank}
+
+
+def rank_bounds(cfg, P: int, elem: int, n: int, seq_len: int,
+                batch: int) -> dict:
+    """One rank's forward and backward over its batch // n rows (of P
+    parameters of `elem` bytes; `train_bounds`' terms): its bytes'
+    bound in ms, its products' bound in ms, and the products."""
     active = cfg.active_params_count() if cfg.n_experts else P
     matmul = active - cfg.vocab * cfg.d_model - (2 * cfg.n_layers + 1) \
         * cfg.d_model                            # no embed, no norms
@@ -2874,10 +2954,7 @@ def train_bounds(cfg, cs, shards, n: int, seq_len: int, batch: int,
         flops, f32_flops = encdec_flops(cfg, tokens, seq_len, batch // n)
     fb_bytes = 2 * P * elem
     flops_ms = (flops / BF16_FLOPS + f32_flops / F32_FLOPS) * 1e3
-    rank = max(bound_ms(fb_bytes), flops_ms)
-    return {"gather": bound_ms(gather), "forward_backward": n * rank,
-            "reduce_scatter": bound_ms(scatter), "adamw": bound_ms(22 * P),
-            "rank_bytes_ms": bound_ms(fb_bytes), "rank_flops_ms": flops_ms,
+    return {"rank_bytes_ms": bound_ms(fb_bytes), "rank_flops_ms": flops_ms,
             "rank_flops": flops + f32_flops}
 
 
@@ -3535,8 +3612,8 @@ def phase_train_all(dev) -> tuple[dict, dict]:
     leaf over TRAIN_MESH and bucketed on the fp8 wire. Returns the launch
     counts of the
     full-width runs and of run (c), summed, and the per-leaf run at the
-    first of TRAIN_FALL_LRS (its losses and fused_reduce launches: phase
-    ft's baseline)."""
+    first of TRAIN_FALL_LRS (its step time, parts and peak: phase auto's
+    baseline)."""
     import torch
     from repro_torch.core.sync import SyncConfig
     from repro_torch.runtime.trace import Tracer
@@ -3547,8 +3624,8 @@ def phase_train_all(dev) -> tuple[dict, dict]:
     for lr in TRAIN_FALL_LRS:
         r = phase_train(dev, lr, True)
         per_leaf[lr] = r["losses"]
-        baseline.setdefault("losses", r["losses"])
-        baseline.setdefault("fused_reduce", r["counts"]["fused_reduce"])
+        for k in ("step_ms", "parts", "peak"):
+            baseline.setdefault(k, r[k])
         for name, n in r["counts"].items():
             counts[name] += n
         del r
@@ -3839,11 +3916,13 @@ def phase_train_moe(dev) -> dict:
 MODEL_KERNELS = ("wkv", "ssm_scan", "rmsnorm", "flash_attention")
 
 
-def phase_train_recurrent(dev) -> dict:
+def phase_train_recurrent(dev) -> tuple[dict, dict]:
     """Phase 5r: each of TRAIN_RECURRENT's models through the ZeRO-3
     trainer at full width (`train_full_width`), one rank's pass profiled,
     then its smoke-size trainer on the card against the CPU (module
-    docstring). Returns the full-width runs' kernel launches, summed."""
+    docstring). Returns the full-width runs' kernel launches, summed, and
+    FT_ARCH's run (its depth, losses and fused_reduce launches: phase
+    ft's baseline)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3852,19 +3931,26 @@ def phase_train_recurrent(dev) -> dict:
     t_phase = time.perf_counter()
     tr = TRAIN_RECURRENT
     total: dict = {}
-    for arch in tr["archs"]:
+    baseline: dict = {}
+    for arch, layers in tr["runs"]:
         full_cfg = get_config(arch)
-        cfg = (full_cfg if tr["layers"] is None
-               else dataclasses.replace(full_cfg, n_layers=tr["layers"]))
+        cfg = (full_cfg if layers is None
+               else dataclasses.replace(full_cfg, n_layers=layers))
+
+        def keep(res, _ex, arch=arch, layers=cfg.n_layers):
+            if arch == FT_ARCH:
+                baseline.update(layers=layers, losses=list(res["losses"]))
         counts = train_full_width(dev, cfg, full_cfg.n_layers,
                                   tr["local_ranks"], tr,
-                                  f"train [recurrent, {arch}]")
+                                  f"train [recurrent, {arch}]", then=keep)
+        if arch == FT_ARCH:
+            baseline["fused_reduce"] = counts["fused_reduce"]
         for k, c in counts.items():
             total[k] = total.get(k, 0) + c
         recurrent_profile(dev, build(cfg), tr["seq_len"])
         phase_train_smoke_reference(dev, arch, f"recurrent smoke, {arch}")
     log(f"phase recurrent train: wall {time.perf_counter() - t_phase:.1f} s")
-    return total
+    return total, baseline
 
 
 def recurrent_profile(dev, api, seq_len: int) -> None:
@@ -4108,8 +4194,9 @@ def phase_train_family(dev) -> dict:
     total: dict = {}
     for arch, layers, n in tr["runs"]:
         full_cfg = get_config(arch)
-        cfg = (full_cfg if layers is None
-               else dataclasses.replace(full_cfg, n_layers=layers))
+        cfg = (full_cfg if layers is None else dataclasses.replace(
+            full_cfg, n_layers=layers,
+            n_encoder_layers=min(layers, full_cfg.n_encoder_layers)))
         counts = train_full_width(dev, cfg, full_cfg.n_layers, n, tr,
                                   f"train [family, {arch}]")
         for k, c in counts.items():
@@ -4276,14 +4363,16 @@ def _gbps(nbytes: float, seconds: float) -> str:
 
 
 def _state_bytes(cfg, n: int) -> int:
-    """The bytes of the trainer's ZeRO-3 state of `cfg` on n ranks: bf16
-    shards and f32 m and v, each leaf padded to a multiple of n."""
+    """The bytes of the trainer's ZeRO-3 state of `cfg` on n ranks:
+    shards in each leaf's dtype (bf16, or f32 where the model keeps it so:
+    hymba-1.5b's SSM decay, skip and step leaves) and f32 m and v, each
+    leaf padded to a multiple of n."""
     import torch
     from repro_torch.models.registry import build
     from repro_torch.models.tree import tree_items
-    padded = sum(-(-math.prod(t.shape) // n) * n for _, t in tree_items(
-        build(cfg).params_spec(torch.bfloat16)))
-    return padded * (2 + 4 + 4) + 4
+    return sum(-(-math.prod(t.shape) // n) * n * (t.dtype.itemsize + 4 + 4)
+               for _, t in tree_items(build(cfg).params_spec(
+                   torch.bfloat16))) + 4
 
 
 # ---------------------------------------------------------------------------
@@ -4737,7 +4826,7 @@ def mp_run_record(label: str, r: dict, mesh, layers_cfg: dict) -> dict:
 
 
 def mp_ft_run(pm, ckpt_dir: str) -> dict:
-    """Phase mp (g) as one rank: MP_TRAIN's per-leaf run through
+    """Phase mp (g) as one rank: MP_FT["model"]'s per-leaf run through
     `run_training` with a checkpoint every MP_FT["ckpt_every"] step in
     `ckpt_dir` under MP_FT's faults: the step calls, losses, the final
     state's digest, what fired, the restores, the checkpoint's bytes and
@@ -4750,8 +4839,8 @@ def mp_ft_run(pm, ckpt_dir: str) -> dict:
     from repro_torch.runtime.faults import (FaultEvent, FaultInjector,
                                             FaultPlan)
 
-    tr = MP_TRAIN
-    tc = TrainConfig(arch=tr["arch"], steps=MP_FT["steps"],
+    tr = MP_FT["model"]
+    tc = TrainConfig(arch=tr["arch"], steps=tr["steps"],
                      seq_len=tr["seq_len"], global_batch=tr["global_batch"],
                      lr=tr["lr"], engine="manual", sync="plan",
                      bucket_bytes=0, n_layers=tr["layers"],
@@ -4785,8 +4874,8 @@ def mp_train_worker(pm, runs, ckpt_dir: str | None = None) -> dict:
     """Phase mp (b) as one rank of the 4-process mesh: the MP_TRAIN runs
     `runs` (label, axes, sync), one on other axes than the mesh's on a
     second process mesh over the same processes; with `ckpt_dir`, (f)
-    the MoE run and (g) the fault loop after them, each run's state freed
-    before the next. CPU objects only."""
+    the MoE run, then (g)'s fault-free run and its fault loop, each run's
+    state freed before the next. CPU objects only."""
     import torch
     from repro_torch.launch.mesh import init_process_mesh
 
@@ -4794,15 +4883,17 @@ def mp_train_worker(pm, runs, ckpt_dir: str | None = None) -> dict:
     for label, axes, sync_kw in runs:
         mesh = pm if tuple(axes) == pm.axes else init_process_mesh(
             axes, pm.backend, pm.device)
-        r = mp_train_run(mesh, mp_train_cfg(label), sync_kw, pm.device,
-                         digest=True)
-        out["runs"].append(mp_run_record(label, r, mesh,
-                                         mp_train_cfg(label)))
+        r = mp_train_run(mesh, MP_TRAIN, sync_kw, pm.device, digest=True)
+        out["runs"].append(mp_run_record(label, r, mesh, MP_TRAIN))
         del r
         torch.cuda.empty_cache()
     if ckpt_dir is not None:
         r = mp_train_run(pm, MP_MOE, {"bucket_bytes": 0}, pm.device)
         out["moe"] = mp_run_record("MoE, EP plan", r, pm, MP_MOE)
+        del r
+        torch.cuda.empty_cache()
+        r = mp_train_run(pm, MP_FT["model"], {"bucket_bytes": 0}, pm.device)
+        out["ft_base"] = mp_run_record("fault-free", r, pm, MP_FT["model"])
         del r
         torch.cuda.empty_cache()
         out["ft"] = mp_ft_run(pm, ckpt_dir)
@@ -4958,8 +5049,9 @@ def mp_check_moe(ranks: list, want: dict) -> None:
 
 def mp_check_ft(ranks: list, base: list, transport: str,
                 totals: dict) -> None:
-    """Phase mp (g)'s checks against (b)'s fault-free per-leaf run
-    `base` (a record a rank), and its lines; adds the launches."""
+    """Phase mp (g)'s checks against its fault-free run on the same
+    processes `base` (a record a rank), and its lines; adds both runs'
+    launches."""
     want_resume = [f"ft: resume {{'step': {MP_FT['restored']}}}"]
     for r, (res, b) in enumerate(zip(ranks, base)):
         if res["steps"] != MP_FT["calls"]:
@@ -4977,19 +5069,23 @@ def mp_check_ft(ranks: list, base: list, transport: str,
         if res["final"] != b["final"]:
             fail(f"mp ft rank {r}: the final shards and moments differ from "
                  "the fault-free run's")
-        exp = {k: res["expected"].get(k, 0) for k in res["launches"]}
-        if res["launches"] != exp or not res["launches"]["fused_reduce"]:
-            fail(f"mp ft rank {r}: launches {res['launches']}, expected "
-                 f"{exp}")
-        for k, v in res["launches"].items():
-            totals[k] += v
+        for run in (res, b):
+            exp = {k: run["expected"].get(k, 0) for k in run["launches"]}
+            if run["launches"] != exp or not run["launches"]["fused_reduce"]:
+                fail(f"mp ft rank {r}: launches {run['launches']}, expected "
+                     f"{exp}")
+            for k, v in run["launches"].items():
+                totals[k] += v
     for line in ranks[0]["lines"]:
         if line.startswith(("ft:", "checkpoint:", "chaos:")):
             log(f"mp ft [rank 0, {transport}]: {line}")
     saves = [res["save"] for res in ranks]
     rest = [res["restore"] for res in ranks]
-    log(f"mp ft [{transport}]: step calls {ranks[0]['steps']}, losses "
-        f"{ranks[0]['losses']}; every rank restored step "
+    m = MP_FT["model"]
+    log(f"mp ft [{transport}]: {m['arch']} at depth {m['layers']}, per "
+        f"leaf; step calls {ranks[0]['steps']}, losses "
+        f"{ranks[0]['losses']} (fault-free {base[0]['losses']}, wall "
+        f"{base[0]['wall_s']:.1f} s); every rank restored step "
         f"{MP_FT['restored']} (rank 0's member of step "
         f"{MP_FT['events'][0][1]} corrupted) and "
         "ends on the fault-free state (shards and moments) bit for bit; "
@@ -5006,7 +5102,7 @@ def mp_check_ft(ranks: list, base: list, transport: str,
         f"wall {ranks[0]['wall_s']:.1f} s")
 
 
-def phase_mp(dev) -> dict:
+def phase_mp(dev, auto_ref: dict | None = None) -> dict:
     """Phase mp: the process mesh, one process a rank. (b) MP_TRAIN_RUNS,
     (f) MP_MOE and (g) MP_FT on 4 processes, (a) + (a') + (c) on 8, (e)
     the server on MP_SERVE_PROCS, every process on this card with the
@@ -5026,7 +5122,9 @@ def phase_mp(dev) -> dict:
     on every rank equal to `run_local`'s (or the local mesh's) row on
     this card (digests), each rank's launches `dist_launches`'; the
     server's self-check on every rank and rank 0's tokens the local-mesh
-    server's. Returns the launches of every process, summed."""
+    server's; (h) the auto engine on the 4 processes (`phase_mp_auto`,
+    against phase auto (a)'s card run `auto_ref`). Returns the launches
+    of every process, summed."""
     import dataclasses
     import shutil
 
@@ -5039,9 +5137,9 @@ def phase_mp(dev) -> dict:
     cards = torch.cuda.device_count()
     procs = MP_TRAIN["procs"]
     nccl_runs = list(MP_TRAIN_RUNS[:1]) if cards >= procs else []
-    local = {}
+    local, manual = {}, None
     for label, cfg_, axes, sync_kw in (
-            [(label, mp_train_cfg(label), axes, kw)
+            [(label, MP_TRAIN, axes, kw)
              for label, axes, kw in MP_TRAIN_RUNS]
             + [("MoE, EP plan", MP_MOE, (("data", procs),),
                 {"bucket_bytes": 0})]):
@@ -5060,7 +5158,7 @@ def phase_mp(dev) -> dict:
     shutil.rmtree(ckpt, ignore_errors=True)
     ckpt.mkdir(parents=True)
     need = 3 * _state_bytes(dataclasses.replace(get_config(
-        MP_TRAIN["arch"]), n_layers=MP_TRAIN["layers"]), procs)
+        MP_FT["model"]["arch"]), n_layers=MP_FT["model"]["layers"]), procs)
     free = shutil.disk_usage(ckpt).free
     log(f"mp ft: a checkpoint {need / 3e9:.3f} GB over {procs} ranks, up to "
         f"3 on disk need {need / 1e9:.1f} GB, {free / 1e9:.1f} GB free")
@@ -5090,12 +5188,13 @@ def phase_mp(dev) -> dict:
                 mp_check_train(label, [r["runs"][i] for r in ranks],
                                local[label], transport, totals)
             if backend == "gloo":
+                manual = ranks[0]["runs"][0]
                 moe = [r["moe"] for r in ranks]
                 mp_check_train("MoE, EP plan", moe, local["MoE, EP plan"],
                                transport, totals)
                 mp_check_moe(moe, local["MoE, EP plan"])
                 mp_check_ft([r["ft"] for r in ranks],
-                            [r["runs"][0] for r in ranks], transport,
+                            [r["ft_base"] for r in ranks], transport,
                             totals)
             del ranks
     finally:
@@ -5104,6 +5203,10 @@ def phase_mp(dev) -> dict:
         log(f"mp (d): the trainer over NCCL not run: this machine has "
             f"{cards} card(s), NCCL needs one a rank ({procs})")
     log(f"mp: trainers done at {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    phase_mp_auto(dev, auto_ref, manual)
+    del manual
+    log(f"mp: auto engine done at {time.perf_counter() - t_phase:.1f} s")
 
     execs = [("gloo", MP_RANKS)]
     if cards >= 2:
@@ -5140,13 +5243,315 @@ def phase_mp(dev) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase auto: the auto engine (and phase mp (h), its process mesh)
+# ---------------------------------------------------------------------------
+def auto_smoke_run(mesh, dev, fsdp: bool = True) -> dict:
+    """AUTO_SMOKE's run of the auto engine on `mesh` (None: one device,
+    `dev`; or a process mesh, on its device) from the seeded f32 init
+    drawn on the CPU: losses, gnorms, the kernel launches of its steps,
+    the final parameters' local tensors and their placements (on the
+    CPU)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import (batch_tensors, data_config,
+                                          make_train_step, place_state)
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import _local
+
+    a = AUTO_SMOKE
+    cfg = dataclasses.replace(smoke_config(get_config(a["arch"])),
+                              **a["overrides"])
+    api = build(cfg)
+    params = _to(api.init_params(torch.Generator().manual_seed(0),
+                                 torch.float32, "cpu"), dev)
+    step, _, _ = make_train_step(api, mesh, AdamWConfig(lr=a["lr"]),
+                                 fsdp=fsdp, device=dev)
+    state = place_state(params, mesh, step.placements)
+    del params
+    data = SyntheticLM(data_config(cfg, a["seq_len"], a["global_batch"]))
+    out = {"losses": [], "gnorms": []}
+    ops.reset_launches()
+    for s in range(a["steps"]):
+        _, m = step(state, batch_tensors(data.batch_at(s), dev))
+        out["losses"].append(float(m["loss"]))
+        out["gnorms"].append(float(m["gnorm"]))
+    out["launches"] = dict(ops.LAUNCHES)
+    out["params"] = [_local(p).detach().cpu() for p in state["params"]]
+    out["placements"] = [tuple(repr(q) for q in pl)
+                         for pl in step.placements["params"]]
+    return out
+
+
+def auto_full_run(mesh, dev, layers: int = AUTO_FULL["layers"]) -> dict:
+    """AUTO_FULL's run at depth `layers` of the auto engine on `mesh`
+    (None: one device, `dev`; or a process mesh) from seeded bf16 weights
+    drawn on the
+    device, the peak reset before the draw: losses, gnorms, host-clock
+    step times (each ending in the loss's copy to the host), the parts
+    of each step (CUDA events, `PHASES`), the peak, the launches, the
+    parameters (their count) and the leaves a process holds sharded."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import (batch_tensors, data_config,
+                                          make_train_step, phase_ms,
+                                          place_state)
+    from repro_torch.models.registry import build
+    from repro_torch.optim import AdamWConfig
+
+    a = AUTO_FULL
+    cfg = dataclasses.replace(get_config(a["arch"]), n_layers=layers)
+    api = build(cfg)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step, _, _ = make_train_step(api, mesh, AdamWConfig(lr=a["lr"]),
+                                 device=dev)
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             torch.bfloat16, dev)
+    state = place_state(params, mesh, step.placements)
+    del params
+    data = SyntheticLM(data_config(cfg, a["seq_len"], a["global_batch"]))
+    out = {"losses": [], "gnorms": [], "step_s": [], "phase_ms": []}
+    ops.reset_launches()
+    for s in range(a["steps"]):
+        t0 = time.perf_counter()
+        _, m = step(state, batch_tensors(data.batch_at(s), dev))
+        out["losses"].append(float(m["loss"]))
+        out["step_s"].append(time.perf_counter() - t0)
+        out["gnorms"].append(float(m["gnorm"]))
+        out["phase_ms"].append(phase_ms(m))
+    torch.cuda.synchronize(dev)
+    out["launches"] = dict(ops.LAUNCHES)
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["params"] = sum(math.prod(t.shape) for t in state["params"])
+    out["sharded"] = sum(any(q.startswith("Shard") for q in
+                             (repr(x) for x in pl))
+                         for pl in step.placements["params"])
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def auto_parts(r: dict) -> dict:
+    """The medians over steps 2.. of a run's step time (ms) and parts."""
+    from repro_torch.launch.train import PHASES
+    return {"step": statistics.median(r["step_s"][1:]) * 1e3,
+            **{k: statistics.median(p[k] for p in r["phase_ms"][1:])
+               for k in PHASES}}
+
+
+def phase_auto(dev, baseline: dict) -> dict:
+    """Phase auto: the auto engine on one card. (a) AUTO_SMOKE in f32 on
+    the card and on the CPU: losses and gnorms within AUTO_CPU_TOL, no
+    kernel wrapper launched (`ops.LAUNCHES` unchanged across the steps).
+    (b) AUTO_FULL: its losses (finite, falling), the step on the host
+    clock, its forward + backward and AdamW by CUDA events beside
+    `train_bounds`' terms (`rank_bounds` over the whole batch; AdamW's 22
+    bytes a parameter), its peak, and on the same line phase 5's per-leaf
+    manual step from this run (`baseline`). Returns (a)'s card run, which
+    phase mp (h) holds its ranks against."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    card = auto_smoke_run(None, dev)
+    cpu = auto_smoke_run(None, torch.device("cpu"))
+    gap = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+        card["losses"] + card["gnorms"], cpu["losses"] + cpu["gnorms"]))
+    log(f"auto (a): smoke {AUTO_SMOKE['arch']} {AUTO_SMOKE['overrides']} "
+        f"f32, one card: losses {card['losses']} gnorms {card['gnorms']}; "
+        f"CPU losses {cpu['losses']} gnorms {cpu['gnorms']}; largest "
+        f"relative gap {gap:.3e} (bar {AUTO_CPU_TOL}); launches "
+        f"{json.dumps(card['launches'])}")
+    if not gap <= AUTO_CPU_TOL:
+        fail(f"auto (a): the card's losses and gnorms differ from the "
+             f"CPU's by {gap:.3e}, over {AUTO_CPU_TOL}")
+    if any(card["launches"].values()):
+        fail(f"auto (a): the auto steps launched kernels {card['launches']}")
+    if not card["losses"][-1] < card["losses"][0]:
+        fail(f"auto (a): the loss did not fall: {card['losses']}")
+    r = auto_full_run(None, dev)
+    a = AUTO_FULL
+    cfg = dataclasses.replace(get_config(a["arch"]), n_layers=a["layers"])
+    rank = rank_bounds(cfg, r["params"], 2, 1, a["seq_len"],
+                       a["global_batch"])
+    fb_bound = max(rank["rank_bytes_ms"], rank["rank_flops_ms"])
+    adamw_bound = bound_ms(22 * r["params"])
+    parts = auto_parts(r)
+    log(f"auto (b): {cfg.name} layers={cfg.n_layers} (cut from "
+        f"{get_config(a['arch']).n_layers}) bf16, {r['params'] / 1e6:.1f} M "
+        f"parameters, one card, seq {a['seq_len']}, global batch "
+        f"{a['global_batch']}, lr {a['lr']}: losses {r['losses']} gnorms "
+        f"{r['gnorms']}; step (host clock, median of steps 2-{a['steps']}) "
+        f"{parts['step']:.1f} ms (steps "
+        f"{[round(x * 1e3, 1) for x in r['step_s']]}); forward + backward "
+        f"{parts['forward_backward']:.2f} ms (bound {fb_bound:.2f}: bytes "
+        f"{rank['rank_bytes_ms']:.3f}, products {rank['rank_flops_ms']:.3f})"
+        f", AdamW {parts['adamw']:.2f} ms (bound {adamw_bound:.2f}), gather "
+        f"{parts['gather']:.3f} ms and reduce-scatter "
+        f"{parts['reduce_scatter']:.3f} ms (one device: none); peak "
+        f"{r['peak'] / 2**30:.2f} GiB; launches {json.dumps(r['launches'])}"
+        f" | phase 5's per-leaf manual step, 8 local ranks, same run: "
+        f"{baseline['step_ms']:.1f} ms, parts "
+        + ", ".join(f"{k} {v:.2f}" for k, v in baseline["parts"].items())
+        + f" ms, peak {baseline['peak'] / 2**30:.2f} GiB")
+    if not all(math.isfinite(x) for x in r["losses"] + r["gnorms"]):
+        fail(f"auto (b): non-finite loss or gnorm {r['losses']} "
+             f"{r['gnorms']}")
+    if not r["losses"][-1] < r["losses"][0]:
+        fail(f"auto (b): the loss did not fall: {r['losses']}")
+    if any(r["launches"].values()):
+        fail(f"auto (b): the auto steps launched kernels {r['launches']}")
+    log(f"phase auto wall {time.perf_counter() - t0:.1f} s")
+    return card
+
+
+def mp_auto_worker(pm) -> dict:
+    """Phase mp (h) as one rank: AUTO_SMOKE with FSDP and with ZeRO-1,
+    then AUTO_FULL at MP_TRAIN's depth with FSDP. CPU objects only."""
+    import torch
+    out = {label: auto_smoke_run(pm, pm.device, fsdp=fsdp)
+           for label, fsdp in (("FSDP", True), ("ZeRO-1", False))}
+    torch.cuda.empty_cache()
+    out["full"] = auto_full_run(pm, pm.device, MP_TRAIN["layers"])
+    return out
+
+
+def _auto_slice(w, placements, coords, sizes):
+    """A rank's slice of the whole leaf `w` at its placements (reprs)."""
+    for c, n, pl in zip(coords, sizes, placements):
+        if pl.startswith("Shard"):
+            dim = int(pl[pl.index("dim=") + 4:].rstrip(")"))
+            size = w.shape[dim] // n
+            w = w.narrow(dim, c * size, size)
+    return w
+
+
+def phase_mp_auto(dev, ref: dict | None, manual: dict | None) -> None:
+    """Phase mp (h): the auto engine on MP_TRAIN["procs"] processes over
+    gloo through the host (`mp_auto_worker`), then over NCCL with one
+    card a rank where the machine has two cards or more (as many ranks
+    as cards, up to MP_TRAIN["procs"]; else a line saying why not).
+    Checks: each rank's AUTO_SMOKE losses and gnorms within AUTO_MP_TOL
+    of (a)'s card run `ref` (run here when None), its final local
+    tensors its slice of (a)'s within AUTO_MP_PARAM_TOL, with FSDP and
+    ZeRO-1; no kernel launched; AUTO_FULL's losses finite and falling,
+    equal on every rank. Prints each process's AUTO_FULL step,
+    its parts and its peak, beside (b)'s per-leaf manual step on the
+    same processes (`manual`: rank 0's step times, parts and peak)."""
+    import torch
+    from repro_torch.launch.mesh import coords_of, launch
+
+    t0 = time.perf_counter()
+    procs = MP_TRAIN["procs"]
+    if ref is None:
+        ref = auto_smoke_run(None, dev)
+    cards = torch.cuda.device_count()
+    backends = [("gloo", dev, procs)] + (
+        [("nccl", "cuda", min(cards, procs))] if cards >= 2 else [])
+    for backend, where, procs in backends:
+        t1 = time.perf_counter()
+        ranks = launch(mp_auto_worker, [("data", procs)], backend=backend,
+                       device=where, timeout_s=MP_TIMEOUT_S)
+        transport = ("gloo through the host" if backend == "gloo"
+                     else "nccl")
+        log(f"mp auto (h): {procs} processes, {transport}, wall "
+            f"{time.perf_counter() - t1:.1f} s")
+        for label in ("FSDP", "ZeRO-1"):
+            runs = [r[label] for r in ranks]
+            gap = max(abs(a - b) / max(abs(b), 1e-30)
+                      for r in runs for a, b in zip(
+                          r["losses"] + r["gnorms"],
+                          ref["losses"] + ref["gnorms"]))
+            pgap = 0.0
+            for rank, r in enumerate(runs):
+                coords = coords_of(rank, [procs])
+                for p, w, pl in zip(r["params"], ref["params"],
+                                    r["placements"]):
+                    w = _auto_slice(w, pl, coords, [procs])
+                    if p.shape != w.shape:
+                        fail(f"mp auto (h) [{label}] rank {rank}: a local "
+                             f"tensor {tuple(p.shape)}, its slice "
+                             f"{tuple(w.shape)}")
+                    pgap = max(pgap, float((p - w).abs().max()
+                                           / w.abs().max()))
+            sharded = sum(any(q.startswith("Shard") for q in pl)
+                          for pl in runs[0]["placements"])
+            log(f"mp auto (h) [smoke {label}, {transport}]: rank 0 losses "
+                f"{runs[0]['losses']} gnorms {runs[0]['gnorms']}; one card "
+                f"(a) losses {ref['losses']} gnorms {ref['gnorms']}; largest "
+                f"relative gap over the ranks {gap:.3e} (bar {AUTO_MP_TOL}); "
+                f"{sharded} of {len(runs[0]['placements'])} parameter leaves "
+                f"sharded; the ranks' local tensors against their slices "
+                f"of (a)'s {pgap:.3e} of the largest |value| (bar "
+                f"{AUTO_MP_PARAM_TOL})")
+            if not gap <= AUTO_MP_TOL:
+                fail(f"mp auto (h) [{label}]: the ranks' losses and gnorms "
+                     f"differ from (a)'s by {gap:.3e}, over {AUTO_MP_TOL}")
+            if not pgap <= AUTO_MP_PARAM_TOL:
+                fail(f"mp auto (h) [{label}]: the ranks' parameters differ "
+                     f"from their slices of (a)'s by {pgap:.3e}")
+            if any(v for r in runs for v in r["launches"].values()):
+                fail(f"mp auto (h) [{label}]: kernels launched "
+                     f"{[r['launches'] for r in runs]}")
+        full = [r["full"] for r in ranks]
+        if any(f["losses"] != full[0]["losses"] for f in full) \
+                or not all(math.isfinite(x) for x in full[0]["losses"]) \
+                or not full[0]["losses"][-1] < full[0]["losses"][0]:
+            fail(f"mp auto (h) [full]: losses {[f['losses'] for f in full]}")
+        if any(v for f in full for v in f["launches"].values()):
+            fail(f"mp auto (h) [full]: kernels launched "
+                 f"{[f['launches'] for f in full]}")
+        man = ""
+        if manual is not None and backend == "gloo":
+            mp_ = {k: v for k, v in manual["phase_ms"][-1].items()}
+            man = (f" | (b)'s per-leaf manual step on the same processes "
+                   f"({transport}: host staging, not links): step "
+                   f"{statistics.median(manual['step_s'][1:]) * 1e3:.1f} "
+                   f"ms, parts of its last step "
+                   + ", ".join(f"{k} {v:.1f}" for k, v in mp_.items())
+                   + f" ms, peak {manual['peak'] / 2**30:.2f} GiB")
+        for rank, f in enumerate(full):
+            parts = auto_parts(f)
+            log(f"mp auto (h) [full {AUTO_FULL['arch']} depth "
+                f"{MP_TRAIN['layers']}, FSDP, {transport}"
+                + (": host staging, not links" if backend == "gloo" else "")
+                + f"] rank {rank}: {f['sharded']} leaves sharded; losses "
+                f"{f['losses']}; step {parts['step']:.1f} ms (steps "
+                f"{[round(x * 1e3, 1) for x in f['step_s']]}); gather "
+                f"{parts['gather']:.1f} ms, forward + backward "
+                f"{parts['forward_backward']:.1f} ms, reduce-scatter "
+                f"{parts['reduce_scatter']:.1f} ms, AdamW "
+                f"{parts['adamw']:.1f} ms; peak {f['peak'] / 2**30:.2f} GiB"
+                + (man if rank == 0 else ""))
+        del ranks
+    if cards < 2:
+        log(f"mp auto (h): the auto engine over NCCL not run: this machine "
+            f"has {cards} card(s), NCCL needs one a rank (2 or more)")
+    log(f"mp auto (h) wall {time.perf_counter() - t0:.1f} s")
+
+
 def phase_ft(dev, baseline: dict) -> dict:
     """Phase ft: `run_training` with a checkpoint directory (the
     FaultTolerantLoop over the ZeRO-3 step; checkpoints under the ignored
     build/ of this checkout, removed after).
 
-    (a) TRAIN per leaf at the first of TRAIN_FALL_LRS, the weights and
-    batches of phase 5's run at that lr, FT_FULL["steps"] steps, first
+    (a) FT_ARCH at full width and phase 5r's depth, per leaf at
+    TRAIN_RECURRENT's lr, the weights and batches of phase 5r's run of
+    it, FT_FULL["steps"] steps, first
     without faults, then with a checkpoint every FT_FULL["ckpt_every"]
     under two faults, each a step past the newest checkpoint: a device
     loss at the start of step FT_FULL["loss_at"] (before its first
@@ -5155,11 +5560,11 @@ def phase_ft(dev, baseline: dict) -> dict:
     the step stops part-way through its reduce-scatters, restored and
     replayed again. The step calls must be FT_FULL["calls"]; each call's
     loss must equal the fault-free run's of its step index, and that
-    run's first steps phase 5's (`baseline`), to every digit;
+    run's first steps phase 5r's (`baseline`), to every digit;
     fused_reduce must launch exactly the step calls' launches plus the
     launches of the attempt cut off (its gathers and the scatters before
     the corrupted one), and the fault-free run the step calls' alone (as
-    many a step as phase 5's run). Prints the
+    many a step as phase 5r's run). Prints the
     checkpoint's bytes, the host snapshot (what blocks the step), the
     write with its CRC, the restore's checksum pass, read and copy to the
     device (each with its GB/s), the device memory before and the peak
@@ -5190,7 +5595,7 @@ def phase_ft(dev, baseline: dict) -> dict:
 
     t_phase = time.perf_counter()
     tr = TRAIN
-    lr = TRAIN_FALL_LRS[0]
+    ft = TRAIN_RECURRENT
     counts = dict.fromkeys(ops.LAUNCHES, 0)
     root = ROOT / "build"
     root.mkdir(exist_ok=True)
@@ -5214,13 +5619,15 @@ def phase_ft(dev, baseline: dict) -> dict:
 
     try:
         # (a) full width
-        cfg = dataclasses.replace(get_config(tr["arch"]),
-                                  n_layers=tr["layers"])
-        need = _state_bytes(cfg, tr["local_ranks"])
+        cfg = dataclasses.replace(get_config(FT_ARCH),
+                                  n_layers=baseline["layers"])
+        need = _state_bytes(cfg, ft["local_ranks"])
         free = shutil.disk_usage(work).free
         with open("/proc/meminfo") as f:
             mem = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in f}
-        log(f"ft [full width]: checkpoint of {need / 1e9:.3f} GB; up to 3 on"
+        log(f"ft [full width]: {FT_ARCH} at depth {cfg.n_layers} of "
+            f"{get_config(FT_ARCH).n_layers}, phase 5r's run; checkpoint of "
+            f"{need / 1e9:.3f} GB; up to 3 on"
             f" disk (keep=2 and a .tmp_ dir) need {3 * need / 1e9:.1f} GB, "
             f"{free / 1e9:.1f} GB free in {work}; host memory "
             f"{mem.get('MemAvailable', 0) / 2**30:.1f} GiB available of "
@@ -5229,10 +5636,10 @@ def phase_ft(dev, baseline: dict) -> dict:
             fail(f"phase ft: {free / 1e9:.1f} GB free in {work}, the "
                  f"full-width checkpoints need {3 * need / 1e9:.1f}")
         tc = TrainConfig(
-            arch=tr["arch"], steps=FT_FULL["steps"], seq_len=tr["seq_len"],
-            global_batch=tr["global_batch"], lr=lr, engine="manual",
-            sync="plan", bucket_bytes=0, n_layers=tr["layers"],
-            local_ranks=tr["local_ranks"], log_every=1)
+            arch=FT_ARCH, steps=FT_FULL["steps"], seq_len=ft["seq_len"],
+            global_batch=ft["global_batch"], lr=ft["lr"], engine="manual",
+            sync="plan", bucket_bytes=0, n_layers=baseline["layers"],
+            local_ranks=ft["local_ranks"], log_every=1)
         clean, _, _, got_clean = run(tc, [], "full width, fault-free")
         per_call, per_gather, per_scatter = ft_launches(clean)
         n_leaves = len(clean["state"]["params"])
@@ -5261,7 +5668,7 @@ def phase_ft(dev, baseline: dict) -> dict:
         (plan,) = out["plans"]
         log(f"ft [full width]: step calls {out['steps']}, losses "
             f"{out['losses']}; the fault-free run's by step {want_loss}; "
-            f"phase 5's per-leaf lr {lr} run {baseline['losses']}; fired "
+            f"phase 5r's {FT_ARCH} run {baseline['losses']}; fired "
             f"{fired} (the payload at guarded launch {ordinal}: "
             f"reduce-scatter {FT_FULL['scatter']} of {n_leaves}); restarts "
             f"{out['loop'].restarts}; guard {plan.schedule.stats}, "
@@ -5273,8 +5680,8 @@ def phase_ft(dev, baseline: dict) -> dict:
             f"{FT_FULL['scatter']} scatters x {per_scatter}; the device "
             f"loss fires before its step's first launch); fault-free "
             f"{got_clean['fused_reduce']}, expected {FT_FULL['steps']} x "
-            f"{per_call} = {want_clean} (phase 5's {baseline['fused_reduce']}"
-            f" for {tr['steps']} steps); launches {json.dumps(got)}")
+            f"{per_call} = {want_clean} (phase 5r's {baseline['fused_reduce']}"
+            f" for {ft['steps']} steps); launches {json.dumps(got)}")
         if out["steps"] != FT_FULL["calls"] \
                 or fired != {"device_loss": 1, "payload_corrupt": 1} \
                 or out["loop"].restarts != 2 or plan.schedule.demotions:
@@ -5293,11 +5700,11 @@ def phase_ft(dev, baseline: dict) -> dict:
                 != baseline["losses"]:
             fail(f"phase ft [full width]: losses {out['losses']} at steps "
                  f"{out['steps']} are not the fault-free {want_loss}, or "
-                 f"those not phase 5's {baseline['losses']}, to every digit")
+                 f"those not phase 5r's {baseline['losses']}, to every digit")
         if got["fused_reduce"] != want or any(
                 c for k, c in got.items() if k != "fused_reduce") \
                 or got_clean["fused_reduce"] != want_clean \
-                or tr["steps"] * per_call != baseline["fused_reduce"]:
+                or ft["steps"] * per_call != baseline["fused_reduce"]:
             fail(f"phase ft [full width]: launches {got} / fault-free "
                  f"{got_clean}, expected {want} / {want_clean} fused_reduce "
                  f"and no other kernel")
@@ -5787,8 +6194,8 @@ def main() -> int:
                     "phase 2 (FLASH_GRID, the rmsnorm rows) and phase 4 "
                     "alone, then stop: no result line")
     ap.add_argument("--ft", action="store_true",
-                    help="build the kernels, run phase 5's per-leaf run at "
-                    "the first of TRAIN_FALL_LRS and phase ft, then stop: "
+                    help="build the kernels, run phase 5r (whose FT_ARCH "
+                    "run phase ft (a) replays) and phase ft, then stop: "
                     "no result line")
     ap.add_argument("--moe-train", action="store_true",
                     help="build the kernels and run phase 5m (MoE training "
@@ -5809,6 +6216,10 @@ def main() -> int:
                     "through the host; over NCCL too, one card a rank, "
                     "where there are two cards or more) alone, then stop: "
                     "no result line")
+    ap.add_argument("--auto", action="store_true",
+                    help="build the kernels, run phase 5's per-leaf run at "
+                    "the first of TRAIN_FALL_LRS, phase auto and phase mp "
+                    "(h) alone, then stop: no result line")
     ap.add_argument("--census", action="store_true",
                     help="build the kernels and run phase census alone "
                     "(the dry run beside it), then stop: no result line")
@@ -5838,7 +6249,8 @@ def main() -> int:
     t0 = time.perf_counter()
     quick = (args.attention or args.recurrence or args.planner or args.flat
              or args.serve or args.ft or args.moe_train
-             or args.recurrent_train or args.family_train or args.mp)
+             or args.recurrent_train or args.family_train or args.mp
+             or args.auto)
     dryrun = None if quick else start_dryrun(src)
     phase_build()
     log(f"phase build done at {time.perf_counter() - t0:.1f} s")
@@ -5886,10 +6298,17 @@ def main() -> int:
         phase_mp(dev)
         log(f"phase mp done at {time.perf_counter() - t0:.1f} s")
         return 0
-    if args.ft:
+    if args.auto:
         r = phase_train(dev, TRAIN_FALL_LRS[0], True)
-        phase_ft(dev, {"losses": r["losses"],
-                       "fused_reduce": r["counts"]["fused_reduce"]})
+        auto_ref = phase_auto(dev, {k: r[k] for k in ("step_ms", "parts",
+                                                       "peak")})
+        del r
+        log(f"phase auto done at {time.perf_counter() - t0:.1f} s")
+        phase_mp_auto(dev, auto_ref, None)
+        log(f"phase mp (h) done at {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.ft:
+        phase_ft(dev, phase_train_recurrent(dev)[1])
         log(f"phase ft done at {time.perf_counter() - t0:.1f} s")
         return 0
     unlaunched = phase_kernels(dev)
@@ -5910,19 +6329,22 @@ def main() -> int:
     log(f"phase serve done at {time.perf_counter() - t0:.1f} s")
     trained, baseline = phase_train_all(dev)
     log(f"phase train done at {time.perf_counter() - t0:.1f} s")
+    auto_ref = phase_auto(dev, baseline)
+    log(f"phase auto done at {time.perf_counter() - t0:.1f} s")
     for name, n in phase_train_moe(dev).items():
         trained[name] += n
     log(f"phase moe train done at {time.perf_counter() - t0:.1f} s")
-    for name, n in phase_train_recurrent(dev).items():
+    recurrent, ft_baseline = phase_train_recurrent(dev)
+    for name, n in recurrent.items():
         trained[name] += n
     log(f"phase recurrent train done at {time.perf_counter() - t0:.1f} s")
     for name, n in phase_train_family(dev).items():
         trained[name] += n
     log(f"phase family train done at {time.perf_counter() - t0:.1f} s")
-    for name, n in phase_mp(dev).items():
+    for name, n in phase_mp(dev, auto_ref).items():
         trained[name] += n
     log(f"phase mp done at {time.perf_counter() - t0:.1f} s")
-    for name, n in phase_ft(dev, baseline).items():
+    for name, n in phase_ft(dev, ft_baseline).items():
         trained[name] += n
     log(f"phase ft done at {time.perf_counter() - t0:.1f} s")
     for name, n in phase_census(dev, dryrun).items():

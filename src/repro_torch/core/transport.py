@@ -183,6 +183,35 @@ def all_gather_rows(mesh: ProcessMesh, line: Line,
     return out
 
 
+class _GatherRows(torch.autograd.Function):
+    """`all_gather_rows` whose backward is its transpose: each rank's
+    cotangent of its own rows, summed over the line in line order (a
+    reduce-scatter through `exchange`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, line):
+        ctx.mesh, ctx.line = mesh, line
+        return all_gather_rows(mesh, line, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, line = ctx.mesh, ctx.line
+        g = g.contiguous()
+        got = g.new_empty(g.shape)
+        got[line.index] = g[line.index]
+        peers = [p for p in range(line.size) if p != line.index]
+        exchange(mesh, line, [(p, g[p]) for p in peers],
+                 [(p, got[p]) for p in peers])
+        return got.sum(0), None, None
+
+
+def all_gather_rows_diff(mesh: ProcessMesh, line: Line,
+                         x: torch.Tensor) -> torch.Tensor:
+    """`all_gather_rows`, differentiable: every rank of `line` calls it
+    alike, in the forward and (through autograd) in the backward."""
+    return _GatherRows.apply(x.contiguous(), mesh, line)
+
+
 def is_process_mesh(mesh) -> bool:
     """Whether `mesh` is a `ProcessMesh` (one process a rank), not the
     local mesh's (axis, size) pairs."""

@@ -49,14 +49,16 @@ from repro_torch.models.config import SHAPES
 from repro_torch.models.registry import build
 
 # the knobs of the reference's `lower_cell` that need its single-program
-# sharded engine, which the port does not have yet
+# sharded engine on the dry run's train cells, which run the manual
+# engine on the meta device here
 NEEDS_AUTO_ENGINE = ("zero1", "seqpar")
 
 
 def apply_variants(cfg, variants):
     """The reference's dry-run knobs on `cfg`: kvblock=N (the KV-block
     attention scan), moegroups=N, moelocal. zero1 and seqpar raise:
-    they need the auto engine (ROADMAP §1 item 8d)."""
+    they need the auto engine's train cells on the meta device (ROADMAP
+    §1 item 8f)."""
     for v in variants:
         if v.startswith("kvblock="):
             cfg = dataclasses.replace(cfg, attn_kv_block=int(v.split("=")[1]))
@@ -66,8 +68,9 @@ def apply_variants(cfg, variants):
             cfg = dataclasses.replace(cfg, moe_local=True)
         elif v in NEEDS_AUTO_ENGINE:
             raise NotImplementedError(
-                f"variant {v!r} needs the single-program sharded engine "
-                "(ROADMAP §1 item 8d)")
+                f"variant {v!r} needs the auto engine's train cells on the "
+                "meta device, where the dry run runs the manual engine "
+                "(ROADMAP §1 item 8f)")
         elif v:
             raise ValueError(f"unknown variant {v!r}")
     return cfg

@@ -71,6 +71,15 @@ def dp_axes(mesh) -> tuple[str, ...]:
     return tuple(a for a in axis_sizes(mesh) if a != "model")
 
 
+def make_production_mesh(multi_pod: bool = False
+                         ) -> tuple[tuple[str, int], ...]:
+    """The axes of the reference's production mesh: 16 × 16 as ("data",
+    "model"), or 2 × 16 × 16 as ("pod", "data", "model")."""
+    if multi_pod:
+        return (("pod", 2), ("data", 16), ("model", 16))
+    return (("data", 16), ("model", 16))
+
+
 def make_host_mesh(data: int = 1, model: int = 1
                    ) -> tuple[tuple[str, int], ...]:
     """The axes of a small (data, model) mesh, as the reference's
@@ -150,6 +159,21 @@ def init_process_mesh(axes, backend: str, device) -> ProcessMesh:
                             group=lines[key].group)
         torch.cuda.synchronize(pm.device)
     return pm
+
+
+def device_mesh(pm: ProcessMesh):
+    """The `torch.distributed` `DeviceMesh` of a `ProcessMesh`: its axes as
+    the mesh dimensions, same names, same order, on the mesh's device
+    type, over the process groups `init_process_mesh` created (this
+    rank's line of each axis). It creates no group, so every process
+    may build it at any point."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sizes = [s for _, s in pm.axes]
+    return DeviceMesh.from_group(
+        [pm.line(a).group for a in pm.axis_names], pm.device.type,
+        mesh=torch.arange(pm.size).reshape(sizes),
+        mesh_dim_names=pm.axis_names)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,16 @@
-"""Training entry point: the manual ZeRO-3 engine on a local mesh.
+"""Training entry point: the auto engine and the manual ZeRO-3 engine.
+
+Two engines, as the reference's:
+
+* **auto** (the default; `make_train_step`): the baseline. On one device
+  the plain step; over a process mesh (`--nproc N`) every parameter and
+  AdamW moment is a DTensor at the reference's FSDP × TP placements
+  (`launch/sharding.py`; ZeRO-1 with `fsdp=False`), and the all-gathers,
+  reduce-scatters and all-reduces a change of placement needs are
+  torch.distributed's own, as XLA SPMD inserts them in the reference. It
+  never calls the planner, GenTree or `core.lower`. A "model" axis above
+  1 (tensor parallelism) raises (ROADMAP §1 item 8f).
+* **manual**: GenTree's plans as the step's collectives, below.
 
 The reference's manual engine (`launch/train.py`) shards every parameter
 leaf over the data-parallel ranks (ZeRO-3: flat per-rank shards),
@@ -24,9 +36,9 @@ the bucket, `core.bucketing`), per leaf with `bucket_bytes=0` or on
 several axes; the flat labels psum, ring, rhd, cps and hcps, "gentree"
 (the planner's label for each axis) and "auto" (psum) per leaf, through
 `core.collectives`; a wire the plan binds (bf16, fp8, int8). These raise
-`NotImplementedError` and are never replaced by another path: the
-`auto` (pjit) engine (ROADMAP §1 item 8d); `compress` in the trainer
-(item 9); on the local mesh, the schedule probe `observe_sync_probe`.
+`NotImplementedError` and are never replaced by another path:
+`compress` in the trainer (item 9); on the local mesh, the schedule
+probe `observe_sync_probe`.
 
 The same step runs with one process a rank on a process mesh
 (`core.transport.ProcessMesh`; `make_manual_train_step(api, mesh)` with
@@ -47,6 +59,9 @@ run resumes from the directory's newest checkpoint. A fault plan
 (`runtime.faults`) injects device losses, link sags, delays, corrupted
 checkpoints and corrupted collective payloads.
 
+    python -m repro_torch.launch.train --smoke          # the auto engine
+    python -m repro_torch.launch.train --smoke --nproc 4 --backend gloo \
+        --device cpu                                  # auto, DTensors
     python -m repro_torch.launch.train --engine manual --sync plan --smoke
     python -m repro_torch.launch.train --engine manual --sync ring --smoke
     python -m repro_torch.launch.train --engine manual --sync plan --smoke \
@@ -245,6 +260,339 @@ def batch_tensors(batch: dict, device) -> dict:
         t = torch.as_tensor(np.asarray(v), device=device)
         out[k] = t if t.is_floating_point() else t.long()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the auto engine
+# ---------------------------------------------------------------------------
+def _auto_mesh(mesh):
+    """The auto engine's mesh: None (one device) or a `ProcessMesh` whose
+    "model" axis, if any, is 1."""
+    if mesh is None:
+        return None
+    if not collectives.is_process_mesh(mesh):
+        raise ValueError(
+            f"the auto engine runs on one device (mesh=None) or with one "
+            f"process a rank (a core.transport.ProcessMesh); the local mesh "
+            f"{mesh!r} holds its ranks as rows of one device's tensors, "
+            f"which is the manual engine's layout")
+    if dict(mesh.axes).get("model", 1) > 1:
+        raise NotImplementedError(
+            f"the auto engine on {list(mesh.axes)}: tensor-parallel compute "
+            "on a 'model' axis above 1 runs the layers on sharded DTensors "
+            "(ROADMAP §1 item 8f)")
+    return mesh
+
+
+def place_state(params: dict, mesh, placements: dict) -> dict:
+    """The auto engine's state from the whole parameters (the port's tree,
+    the same on every rank; its per-layer lists stacked here):
+    {"params": [...], "opt": {"m", "v": f32 zeros, "step"}} in the
+    reference's leaf order. On one device (`mesh` None) the leaves as
+    they are; on a `ProcessMesh` each leaf and moment a DTensor at
+    `placements` (`make_train_step`'s `state_placements`) holding this
+    rank's slice, cut locally, with no collective."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if any(isinstance(params.get(k), list) for k in LAYER_KEYS):
+        params = stack_layers(params)
+    params = [x for _, x in tree_items(params)]
+    if mesh is None:
+        leaves = list(params)
+        return {"params": leaves, "opt": adamw_init(leaves)}
+    from repro_torch.launch.mesh import device_mesh
+    dmesh = device_mesh(mesh)
+    sizes = [s for _, s in mesh.axes]
+
+    def local(x: torch.Tensor, pl) -> torch.Tensor:
+        for p, n, c in zip(pl, sizes, mesh.coords):
+            if isinstance(p, Shard):
+                size = x.shape[p.dim] // n
+                x = x.narrow(p.dim, c * size, size)
+        return x
+
+    def place(xs, pls, zeros: bool = False) -> list:
+        out = []
+        for x, pl in zip(xs, pls):
+            t = local(x, pl)
+            t = (torch.zeros(t.shape, dtype=torch.float32, device=x.device)
+                 if zeros else t.clone())
+            out.append(DTensor.from_local(
+                t, dmesh, pl, run_check=False, shape=x.shape,
+                stride=torch.empty(x.shape, device="meta").stride()))
+        return out
+
+    return {"params": place(params, placements["params"]), "opt": {
+        "m": place(params, placements["opt"]["m"], zeros=True),
+        "v": place(params, placements["opt"]["v"], zeros=True),
+        "step": torch.zeros((), dtype=torch.int32, device=mesh.device)}}
+
+
+def local_state(state: dict) -> dict:
+    """The auto engine's state with each DTensor replaced by its local
+    tensor, which shares its storage: what a rank checkpoints, and what a
+    restore overwrites in place."""
+    from repro_torch.optim.adamw import _local
+    opt = state["opt"]
+    return {"params": [_local(p) for p in state["params"]],
+            "opt": {"m": [_local(t) for t in opt["m"]],
+                    "v": [_local(t) for t in opt["v"]],
+                    "step": opt["step"]}}
+
+
+def gather_c10d(p, mesh) -> torch.Tensor:
+    """The whole value of the DTensor `p` on this rank of the process mesh
+    `mesh`: for each mesh dimension on which `p` is `Shard(d)`, innermost
+    first, `torch.distributed.all_gather_into_tensor` over that axis's
+    process group and a concatenation along d.
+
+    Why it exists: DTensor's own Shard → Replicate issues the functional
+    collective (`_c10d_functional.all_gather_into_tensor`), which killed
+    the process (SIGSEGV) on a gloo group with CUDA tensors, every rank
+    on one H100 (torch 2.11); the c10d collective on the same group and
+    tensors ran. So the auto engine's gather on "gloo through the host"
+    issues that one; over NCCL and on the CPU the redistribution is
+    DTensor's own. Its reduce-scatter and all-reduce ran through
+    DTensor there and stay DTensor's."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    x = p.to_local()
+    for i in reversed(range(len(mesh.axes))):
+        pl = p.placements[i]
+        if not isinstance(pl, Shard):
+            continue
+        line = mesh.line(mesh.axes[i][0])
+        x = x.contiguous()
+        out = x.new_empty((line.size * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=line.group)
+        x = torch.cat(out.chunk(line.size), dim=pl.dim)
+    return x
+
+
+def make_train_step(api: ModelAPI, mesh=None,
+                    opt_cfg: AdamWConfig = AdamWConfig(), *,
+                    fsdp: bool = True, act_hook: Callable | None = None,
+                    device: str | torch.device | None = None):
+    """The auto engine, the reference's `make_train_step`: returns (step,
+    state_placements, batch_placements). It is the baseline: no planner,
+    no GenTree, no `core.lower` schedule; the collectives a change of
+    placement needs are issued by `torch.distributed` itself (DTensor's
+    redistributions), as XLA SPMD inserts them in the reference.
+
+    `mesh` None is one device (`device`, default the card): every
+    placement there is `Replicate`, so the step is the plain step, the
+    reference's on a one-device mesh. `mesh` a `core.transport.
+    ProcessMesh` (one process a rank, on its device; a "model" axis above
+    1 raises, ROADMAP §1 item 8f; the local mesh raises ValueError) holds
+    every parameter and AdamW moment as a DTensor over `launch.mesh.
+    device_mesh(mesh)` at the reference's placements
+    (`launch.sharding`: the FSDP spec of each stacked leaf, or with
+    `fsdp=False` ZeRO-1, parameters `Replicate` over the DP axes and the
+    moments sharded). `state_placements(leaves)` gives {"params", "opt":
+    {"m", "v", "step"}} of the reference-ordered leaves,
+    `batch_placements(batch)` the batch's; `place_state` builds the
+    state.
+
+    `step(state, batch) -> (state, metrics)` updates `state` in place.
+    `batch` is the global batch (`batch_tensors`). Per step:
+
+      1. each parameter goes from its placement to `Replicate` (the FSDP
+         all-gather; a no-op for a replicated leaf);
+      2. the model's training loss (`api.loss_fn(remat=True)`) runs on
+         the rank's rows of the batch (`_rank_batch` at its index on the
+         DP axes, the reference's `batch_specs` split) as local tensors,
+         under the activation check `actsharding.batch_dp_hook` (or
+         `act_hook`) and the mesh context the MoE layer reads. The loss
+         is the reference's global masked mean: the rank's masked sum
+         over the global mask count (all-reduced over the DP ranks), so
+         the ranks' losses and gradients sum to the one-device ones; the
+         gathered copies are released after the backward;
+      3. each gradient is marked `Partial("sum")` over the DP axes and
+         redistributed to its moments' placement (the leaf's under FSDP):
+         a reduce-scatter for a sharded leaf, an all-reduce for a
+         replicated one;
+      4. AdamW runs on the local shards, clipped by the global norm of
+         the whole tree (`optim.adamw.global_norm` over DTensors, each
+         element counted once). Under ZeRO-1 a replicated parameter is
+         updated on its moments' shard and gathered back (within the
+         "adamw" part of `PHASES`).
+
+    metrics: "loss" (the global masked mean), "gnorm" (the global
+    norm), and on a card "events", CUDA events at the bounds of `PHASES`
+    (`phase_ms`). The step launches no kernel wrapper: the training
+    forward runs `layers.train_rmsnorm` / `train_attention` and the
+    recurrences' torch ops."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.core.transport import all_gather_rows
+    from repro_torch.launch import sharding as shr
+    from repro_torch.models import actsharding
+    from repro_torch.optim.adamw import (_local, clip_by_global_norm,
+                                         global_norm)
+
+    pm = _auto_mesh(mesh)
+    if pm is None:
+        dev = resolve_device("cuda" if device is None else device)
+        axes = (("data", 1), ("model", 1))
+        dmesh = line = None
+        dpn = 1
+    else:
+        from repro_torch.launch.mesh import device_mesh
+        dev = pm.device
+        axes = pm.axes
+        dmesh = device_mesh(pm)
+        dp = shr._dp_axes(axes)
+        dpn = shr._dp_size(axes)
+        line = pm.line(dp)
+    specs = tree_items(api.params_spec())
+    paths = [p for p, _ in specs]
+    tracer = default_tracer()
+
+    def state_placements(leaves: Sequence[torch.Tensor]) -> dict:
+        p_spec = shr.params_specs(list(leaves), axes, fsdp=fsdp)
+        return shr.to_placements(
+            {"params": p_spec,
+             "opt": shr.opt_specs({"m": list(leaves)}, p_spec, axes)},
+            axes)
+
+    def batch_placements(batch: dict) -> dict:
+        return shr.to_placements(shr.batch_specs(batch, axes), axes)
+
+    placements = state_placements([t for _, t in specs])
+    # the update of one leaf's local shard, its gradient clipped already
+    leaf_cfg = dataclasses.replace(opt_cfg, grad_clip=0.0)
+    grad_from = (None if dmesh is None else
+                 [Partial() if a != "model" else Replicate()
+                  for a, _ in axes])
+    everywhere = None if dmesh is None else [Replicate()] * dmesh.ndim
+
+    def mark() -> torch.cuda.Event | None:
+        if dev.type != "cuda":
+            return None
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def whole(p: torch.Tensor) -> torch.Tensor:
+        """The leaf's whole value on this rank (the FSDP all-gather)."""
+        if dmesh is None:
+            return p
+        if pm.transport == "gloo through the host":
+            return gather_c10d(p, pm)
+        return p.redistribute(dmesh, everywhere).to_local()
+
+    def moved(x: torch.Tensor, pl) -> torch.Tensor:
+        """The DTensor `x` at `pl` (ZeRO-1: a parameter's shard at its
+        moments' placement, a local slice; the updated shard back to the
+        parameter's placement, an all-gather)."""
+        if dmesh is None or tuple(x.placements) == tuple(pl):
+            return x
+        if all(isinstance(q, Replicate) for q in pl):
+            return DTensor.from_local(whole(x), dmesh, pl, run_check=False,
+                                      shape=x.shape, stride=x.stride())
+        return x.redistribute(dmesh, pl)
+
+    def reduce(g: torch.Tensor, pl) -> torch.Tensor:
+        """The rank's gradient summed over the DP ranks, at `pl`."""
+        if dmesh is None:
+            return g
+        return DTensor.from_local(g, dmesh, grad_from,
+                                  run_check=False).redistribute(dmesh, pl)
+
+    def dp_sum(x: torch.Tensor) -> torch.Tensor:
+        """The sum over the DP ranks, in rank order, on every rank."""
+        if line is None or dpn == 1:
+            return x
+        return all_gather_rows(pm, line, x.reshape(1)).sum()
+
+    def step(state: dict, batch: dict) -> tuple[dict, dict]:
+        params, opt = state["params"], state["opt"]
+        if len(params) != len(paths):
+            raise ValueError(f"the state holds {len(params)} leaves, "
+                             f"{api.cfg.name} has {len(paths)}")
+        B = batch["labels"].shape[0]
+        split = dpn > 1
+        if split and (B % dpn or B == 1):
+            raise ValueError(f"the auto engine over processes splits the "
+                             f"batch's {B} rows over its {dpn} "
+                             "data-parallel ranks")
+        rows = _rank_batch(batch, line.index, dpn) if split else batch
+        metrics = {}
+        events = [mark()]
+        with torch.no_grad(), tracer.span("train/gather",
+                                          leaves=len(params)):
+            full = [whole(p) for p in params]
+        events.append(mark())
+        with tracer.span("train/forward_backward", rows=B // dpn):
+            mask = rows.get("mask")
+            count = (mask.float().sum() if mask is not None else
+                     torch.tensor(float(rows["labels"].numel()),
+                                  device=dev))
+            total = dp_sum(count)
+            leaves = [f.detach().requires_grad_(True) for f in full]
+            del full
+            tree = unstack_layers(tree_from_items(zip(paths, leaves)))
+            actsharding.set_hook(
+                act_hook or (actsharding.batch_dp_hook(axes, B)
+                             if split else None), pm if split else None)
+            try:
+                loss = api.loss_fn(tree, rows, remat=True)
+                if split:
+                    loss = loss * (torch.clamp(count, min=1.0)
+                                   / torch.clamp(total, min=1.0))
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            finally:
+                actsharding.set_hook(None)
+            grads = [t.new_zeros(t.shape) if g is None else g
+                     for t, g in zip(leaves, grads)]
+            del tree, leaves
+        events.append(mark())
+        with torch.no_grad():
+            with tracer.span("train/reduce_scatter", leaves=len(grads)):
+                # to the moments' placement: the parameters' under FSDP,
+                # sharded under ZeRO-1 too
+                grads = [reduce(g, pl) for g, pl in
+                         zip(grads, placements["opt"]["m"])]
+            events.append(mark())
+            with tracer.span("train/adamw", leaves=len(grads)):
+                if opt_cfg.grad_clip > 0:
+                    grads, gnorm = clip_by_global_norm(grads,
+                                                       opt_cfg.grad_clip)
+                else:
+                    gnorm = global_norm(grads)
+                # then leaf by leaf on the local shards (elementwise), so
+                # that one leaf's new moments are live at a time
+                for i, (g, mpl, ppl) in enumerate(zip(
+                        grads, placements["opt"]["m"],
+                        placements["params"])):
+                    p = moved(params[i], mpl)
+                    new_p, new_o, _ = adamw_update(
+                        [_local(p)], [_local(g)],
+                        {"m": [_local(opt["m"][i])],
+                         "v": [_local(opt["v"][i])], "step": opt["step"]},
+                        leaf_cfg)
+                    _local(opt["m"][i]).copy_(new_o["m"][0])
+                    _local(opt["v"][i]).copy_(new_o["v"][0])
+                    if p is not params[i]:            # ZeRO-1
+                        new_p = [_local(moved(DTensor.from_local(
+                            new_p[0], dmesh, mpl, run_check=False,
+                            shape=p.shape, stride=p.stride()), ppl))]
+                    _local(params[i]).copy_(new_p[0])
+                    grads[i] = None
+                    del new_p, new_o
+                opt["step"].copy_(opt["step"] + 1)
+                del grads
+            events.append(mark())
+            metrics["loss"] = dp_sum(loss.detach())
+            metrics["gnorm"] = gnorm
+        if dev.type == "cuda":
+            metrics["events"] = events
+        return state, metrics
+
+    step.placements = placements
+    step.device = dev
+    return step, state_placements, batch_placements
 
 
 # ---------------------------------------------------------------------------
@@ -955,7 +1303,7 @@ class TrainConfig:
     steps: int = 50
     seq_len: int = 128
     global_batch: int = 8
-    engine: str = "auto"            # auto (ROADMAP §1 item 8d) | manual
+    engine: str = "auto"            # auto (the reference's default) | manual
     sync: str = "auto"         # auto|psum|ring|rhd|cps|hcps|gentree|plan
     # backward-overlapped bucket issuance (DESIGN.md §15): the gradient
     # buckets reduce last first; False keeps forward order
@@ -991,16 +1339,20 @@ class TrainConfig:
     bucket_bytes: int | None = None
 
 
+ENGINES = ("auto", "manual")
+
+
 def _check_train_scope(tc: TrainConfig, mesh=None) -> None:
-    if tc.engine != "manual":
-        raise NotImplementedError(
-            f"engine={tc.engine!r}: the single-program sharded engine needs "
-            "DTensor placements over the process mesh (ROADMAP §1 item 8d); "
-            "the port runs engine='manual'")
+    if tc.engine not in ENGINES:
+        raise ValueError(f"unknown engine {tc.engine!r}; one of {ENGINES}")
     from repro_torch.core.sync import SYNC_STRATEGIES
     if tc.sync not in SYNC_STRATEGIES:
         raise ValueError(f"unknown sync strategy {tc.sync!r}; one of "
                          f"{SYNC_STRATEGIES}")
+    if tc.engine == "auto":
+        # the auto engine syncs by torch.distributed alone: no probe
+        _auto_mesh(mesh)
+        return
     pm = collectives.is_process_mesh(mesh)
     if tc.observe_sync and not pm:
         observe_sync_probe(None, mesh)
@@ -1010,13 +1362,21 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
                  mesh=None) -> dict:
     """Train `tc.arch` (smoke-shrunk unless `smoke` is False; its depth cut
     to `tc.n_layers` when set) from random bf16 weights for `tc.steps`
-    steps on the local mesh `mesh` on `tc.device` (the reference's
-    `mesh=`: (axis, size) pairs such as [("pod", 2), ("data", 4)], or an
-    int; None is one axis of `tc.local_ranks` ranks; or this rank's
-    `core.transport.ProcessMesh`, one process a rank, on the mesh's device,
-    its state this rank's shards, each checkpoint one member a rank and
-    with `tc.observe_sync` probing each axis after training), with the
-    reference's sync, `SyncConfig(strategy=tc.sync, bucket_bytes=
+    steps with the engine `tc.engine`.
+
+    "auto" (the reference's default): `make_train_step` on one device,
+    `tc.device`, where `mesh` is None; or with `mesh` this rank's
+    `core.transport.ProcessMesh` (one process a rank, on the mesh's
+    device), its parameters and moments DTensors at the reference's
+    FSDP placements. A local mesh (an int or (axis, size) pairs) raises
+    ValueError: the auto engine's ranks are processes.
+
+    "manual": the ZeRO-3 engine on the local mesh `mesh` on `tc.device`
+    (the reference's `mesh=`: (axis, size) pairs such as [("pod", 2),
+    ("data", 4)], or an int; None is one axis of `tc.local_ranks`
+    ranks; or this rank's `ProcessMesh`, its state this rank's shards
+    and with `tc.observe_sync` probing each axis after training), with
+    the reference's sync, `SyncConfig(strategy=tc.sync, bucket_bytes=
     tc.bucket_bytes, backward_overlap=tc.backward_overlap)`: for "plan"
     bucketed on one live axis, GenModel picking the bucket unless
     `tc.bucket_bytes` is set, per leaf on several; per leaf for the
@@ -1025,7 +1385,9 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
     With `tc.ckpt_dir` the steps run in a `FaultTolerantLoop` (the
     reference's `run_training`): a checkpoint (`keep=2`) every
     `tc.ckpt_every` steps and at the end, restore-and-replay on a failed
-    step, resumption from the directory's newest checkpoint. The restore
+    step, resumption from the directory's newest checkpoint. On a
+    process mesh each rank writes its own member of every checkpoint
+    (the auto engine's: its DTensors' local tensors). The restore
     overwrites the state's tensors in place, so it allocates no second
     state on the device. `tc.fault_plan` arms a `FaultInjector` over the
     run (else an injector the caller entered, or $REPRO_FAULT_PLAN, is
@@ -1035,10 +1397,11 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
     Returns the state; per `one_step` call, replays included (the
     reference's meaning), the loss, gnorm, host-clock step time (ending
     in the loss's copy to the host), device times of `PHASES` on a card,
-    and the step index it ran (`steps`); the axis plans, the bucket plan,
-    the step function, the model config, and with a checkpoint directory
-    the loop and its `CheckpointManager` (`ckpt`: `last_save` /
-    `last_restore`; else both None)."""
+    and the step index it ran (`steps`); the axis plans and the bucket
+    plan (the manual engine's; none under "auto"), the step function,
+    the model config, and with a checkpoint directory the loop and its
+    `CheckpointManager` (`ckpt`: `last_save` / `last_restore`; else both
+    None)."""
     import contextlib
 
     from repro_torch.configs import get_config
@@ -1056,36 +1419,25 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
     if tc.n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=int(tc.n_layers))
     api = build(cfg)
-    mesh = int(tc.local_ranks) if mesh is None else mesh
-    step_fn = make_manual_train_step(
-        api, mesh, AdamWConfig(lr=tc.lr),
-        sync=SyncConfig(strategy=tc.sync, bucket_bytes=tc.bucket_bytes,
-                        backward_overlap=tc.backward_overlap), device=dev)
-    bp = step_fn.bucket_plan
-    if bp is not None:
-        on_log(f"planner: bucket plan {bp.bucket_bytes} bytes, "
-               f"{len(step_fn.scatter_buckets)} gradient bucket(s), "
-               f"{bp.overlap.get('mode', 'sequential')} issuance, "
-               f"{bp.precision}, predicted {bp.predicted_contended * 1e3:.3f}"
-               f" ms; {bp.axis_plans[0].schedule.describe()}")
+    auto = tc.engine == "auto"
+    gen = torch.Generator(device=dev).manual_seed(tc.seed)
+    if auto:
+        step_fn, _, _ = make_train_step(api, mesh, AdamWConfig(lr=tc.lr),
+                                        device=dev)
+        on_log(_auto_line(step_fn, mesh))
+        state = place_state(api.init_params(gen, torch.bfloat16, dev), mesh,
+                            step_fn.placements)
     else:
-        on_log("planner: per-leaf sync, " + "; ".join(
-            pl.schedule.describe() if pl.strategy == "plan"
-            else f"axis {pl.axis} {pl.strategy}"
-            + (f" factors {pl.factors}" if pl.factors else "")
-            for pl in step_fn.plans))
-    if step_fn.ep is not None:
-        cs = step_fn.ep_schedule
-        on_log(f"planner: expert-parallel over axis {step_fn.ep[0]} "
-               f"({step_fn.ep[1]} ranks, {cfg.n_experts // step_fn.ep[1]} "
-               "routed experts a rank), exchange "
-               + (cs.describe() if cs is not None else "flat copy"))
+        mesh = int(tc.local_ranks) if mesh is None else mesh
+        step_fn = _manual_step(tc, api, mesh, dev, on_log)
+        shards = shard_params_zero3(api.init_params(gen, torch.bfloat16,
+                                                    dev), mesh)
+        state = {"params": shards, "opt": adamw_init(shards)}
+    # what the loop steps, checkpoints and restores in place: over
+    # processes the auto engine's DTensors' local tensors
+    loop_state = local_state(state) if auto and pm else state
     data = SyntheticLM(data_config(cfg, tc.seq_len, tc.global_batch,
                                    tc.seed))
-    gen = torch.Generator(device=dev).manual_seed(tc.seed)
-    shards = shard_params_zero3(api.init_params(gen, torch.bfloat16, dev),
-                                mesh)
-    state = {"params": shards, "opt": adamw_init(shards)}
 
     tracer = default_tracer()
     if tc.trace_path:
@@ -1096,11 +1448,13 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
 
     losses, gnorms, step_s, phases, steps = [], [], [], [], []
 
-    def one_step(state: dict, s: int) -> dict:
+    def one_step(st: dict, s: int) -> dict:
         t0 = time.perf_counter()
         with tracer.span("train/step", step=s):
-            state, metrics = step_fn(state,
-                                     batch_tensors(data.batch_at(s), dev))
+            # the auto engine steps `state`, whose tensors `st` holds
+            # (over processes its DTensors' local tensors)
+            _, metrics = step_fn(state if auto else st,
+                                 batch_tensors(data.batch_at(s), dev))
             loss, gnorm = float(metrics["loss"]), float(metrics["gnorm"])
         dt = time.perf_counter() - t0
         step_hist.observe(dt)
@@ -1111,7 +1465,7 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
         steps.append(s)
         if s % tc.log_every == 0:
             on_log(f"step {s:5d}  loss {loss:.4f}  gnorm {gnorm:.3f}")
-        return state
+        return st
 
     injector = None
     inj_scope = contextlib.nullcontext()
@@ -1138,29 +1492,34 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
                                 mesh=mesh if pm else None)
         # the planner takes the injected link faults into its health map
         loop = FaultTolerantLoop(
-            one_step, state, mgr, ckpt_every=tc.ckpt_every,
-            planner=default_service() if tc.sync in ("gentree", "plan")
-            else None, injector=injector, on_event=on_event)
+            one_step, loop_state, mgr, ckpt_every=tc.ckpt_every,
+            planner=default_service() if not auto
+            and tc.sync in ("gentree", "plan") else None,
+            injector=injector, on_event=on_event)
         with inj_scope:
-            state = loop.run(tc.steps)
+            final = loop.run(tc.steps)
+        if not (auto and pm):
+            # a restore gives the loop a new tree of the same tensors
+            # (the manual step replaces its "step" leaf each step)
+            state = final
         on_log(f"checkpoint: {_ckpt_line(mgr)}")
     else:
         with inj_scope:
             for s in range(tc.steps):
-                state = one_step(state, s)
+                one_step(loop_state, s)
     if injector is not None:
         on_log(f"chaos: injector fired {injector.stats()['fired']}")
-    if pm and tc.observe_sync and tc.sync == "plan" and step_fn.mesh:
-        observe_sync_probe(default_service(), mesh, step_fn.mesh, min(
-            sum(float(x.numel()) for x in state["params"]) or 1.0,
-            65536.0), on_log)
-
-    st = default_service().stats()
-    cs = st["cache"]
-    on_log(f"planner cache: {st['entries']} entries, {cs['hits']} hits / "
-           f"{cs['misses']} misses"
-           + (f", {cs['disk_loads']} loaded from disk"
-              if cs["disk_loads"] else ""))
+    if not auto:
+        if pm and tc.observe_sync and tc.sync == "plan" and step_fn.mesh:
+            observe_sync_probe(default_service(), mesh, step_fn.mesh, min(
+                sum(float(x.numel()) for x in state["params"]) or 1.0,
+                65536.0), on_log)
+        st = default_service().stats()
+        cs = st["cache"]
+        on_log(f"planner cache: {st['entries']} entries, {cs['hits']} hits"
+               f" / {cs['misses']} misses"
+               + (f", {cs['disk_loads']} loaded from disk"
+                  if cs["disk_loads"] else ""))
     if tc.trace_path:
         tracer.export_chrome(tc.trace_path)
         on_log(f"trace: {len(tracer.spans)} spans -> {tc.trace_path}")
@@ -1169,8 +1528,55 @@ def run_training(tc: TrainConfig, smoke: bool = True, on_log=print,
         on_log(f"metrics -> {tc.metrics_path}")
     return {"state": state, "losses": losses, "gnorms": gnorms,
             "step_s": step_s, "phase_ms": phases, "steps": steps,
-            "plans": step_fn.plans, "bucket_plan": step_fn.bucket_plan,
+            "plans": [] if auto else step_fn.plans,
+            "bucket_plan": None if auto else step_fn.bucket_plan,
             "step": step_fn, "config": cfg, "loop": loop, "ckpt": mgr}
+
+
+def _manual_step(tc: TrainConfig, api: ModelAPI, mesh, dev, on_log):
+    """The manual engine's step of `run_training`, its plans logged."""
+    step_fn = make_manual_train_step(
+        api, mesh, AdamWConfig(lr=tc.lr),
+        sync=SyncConfig(strategy=tc.sync, bucket_bytes=tc.bucket_bytes,
+                        backward_overlap=tc.backward_overlap), device=dev)
+    bp = step_fn.bucket_plan
+    if bp is not None:
+        on_log(f"planner: bucket plan {bp.bucket_bytes} bytes, "
+               f"{len(step_fn.scatter_buckets)} gradient bucket(s), "
+               f"{bp.overlap.get('mode', 'sequential')} issuance, "
+               f"{bp.precision}, predicted {bp.predicted_contended * 1e3:.3f}"
+               f" ms; {bp.axis_plans[0].schedule.describe()}")
+    else:
+        on_log("planner: per-leaf sync, " + "; ".join(
+            pl.schedule.describe() if pl.strategy == "plan"
+            else f"axis {pl.axis} {pl.strategy}"
+            + (f" factors {pl.factors}" if pl.factors else "")
+            for pl in step_fn.plans))
+    if step_fn.ep is not None:
+        cs = step_fn.ep_schedule
+        on_log(f"planner: expert-parallel over axis {step_fn.ep[0]} "
+               f"({step_fn.ep[1]} ranks, "
+               f"{api.cfg.n_experts // step_fn.ep[1]} "
+               "routed experts a rank), exchange "
+               + (cs.describe() if cs is not None else "flat copy"))
+    return step_fn
+
+
+def _auto_line(step_fn, mesh) -> str:
+    """The log line of the auto engine's layout."""
+    from torch.distributed.tensor import Shard
+    if mesh is None:
+        return (f"auto engine: one device ({step_fn.device}), every "
+                "placement Replicate")
+    pls = step_fn.placements
+    sharded = sum(any(isinstance(p, Shard) for p in pl)
+                  for pl in pls["params"])
+    moments = sum(any(isinstance(p, Shard) for p in pl)
+                  for pl in pls["opt"]["m"])
+    return (f"auto engine: DTensor placements over {list(mesh.axes)} "
+            f"({mesh.transport}): {sharded} of {len(pls['params'])} "
+            f"parameter leaves and {moments} moment leaves sharded; "
+            "collectives by torch.distributed")
 
 
 def _ckpt_line(mgr) -> str:
@@ -1192,7 +1598,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-12b")
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--engine", default="auto")
+    ap.add_argument("--engine", default="auto", choices=ENGINES)
     ap.add_argument("--sync", default="auto",
                     choices=["auto", "psum", "ring", "rhd", "cps", "hcps",
                              "gentree", "plan"])

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .actsharding import constrain
 from .config import ModelConfig
 from .layers import (Params, _attend, _qkv, attention, attention_decode,
                      dense_init, embed, init_attention, init_mlp, matmul,
@@ -98,7 +99,7 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
     for lp in params["encoder"]:
         x = x + attention(lp["attn"], rmsnorm(x, lp["ln1"]), cfg,
                           causal=False, positions=positions)
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"]))
+        x = constrain(x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"])))
     return rmsnorm(x, params["ln_enc"])
 
 
@@ -137,7 +138,7 @@ def _train_enc_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                      positions: torch.Tensor) -> torch.Tensor:
     x = x + train_attention(lp["attn"], train_rmsnorm(x, lp["ln1"]), cfg,
                             causal=False, positions=positions)
-    return x + mlp(lp["mlp"], train_rmsnorm(x, lp["ln2"]))
+    return constrain(x + mlp(lp["mlp"], train_rmsnorm(x, lp["ln2"])))
 
 
 def _train_dec_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
@@ -148,7 +149,7 @@ def _train_dec_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     xk, xv = _cross_kv(lp["xattn"], enc, cfg)
     x = x + _cross_attend(lp["xattn"], train_rmsnorm(x, lp["ln_x"]), xk, xv,
                           cfg)
-    return x + mlp(lp["mlp"], train_rmsnorm(x, lp["ln2"]))
+    return constrain(x + mlp(lp["mlp"], train_rmsnorm(x, lp["ln2"])))
 
 
 def _run(block, cfg: ModelConfig, layers: list, x: torch.Tensor,
@@ -239,7 +240,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         xvs.append(xv)
         x = x + _cross_attend(lp["xattn"], rmsnorm(x, lp["ln_x"]), xk, xv,
                               cfg)
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"]))
+        x = constrain(x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"])))
     cache["xk"] = torch.stack(xks)
     cache["xv"] = torch.stack(xvs)
     cache["pos"].fill_(T)
@@ -260,7 +261,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: dict,
                                  cache["v"][i], pos, cfg, kv_len=kv_len)
         x = x + _cross_attend(lp["xattn"], rmsnorm(x, lp["ln_x"]),
                               cache["xk"][i], cache["xv"][i], cfg)
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"]))
+        x = constrain(x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"])))
     cache["pos"] = kv_len
     x = rmsnorm(x, params["ln_f"])
     return x @ params["lm_head"], cache

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .actsharding import constrain
 from .config import ModelConfig
 from .layers import (Params, _attend, _qkv, attention_decode, dense_init,
                      embed, init_attention, init_mlp, mlp, rmsnorm,
@@ -81,7 +82,7 @@ def _train_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int,
                         positions=positions)
     s, _ = train_mamba_ssm(lp["ssm"], z, cfg, chunk=ssm_chunk)
     x = x + _combine(lp, a, s, norm=train_rmsnorm)
-    return x + mlp(lp["mlp"], train_rmsnorm(x, lp["ln2"]))
+    return constrain(x + mlp(lp["mlp"], train_rmsnorm(x, lp["ln2"])))
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -130,7 +131,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             @ lp["attn"]["wo"]
         s, cache["ssm"][i] = mamba_ssm(lp["ssm"], z, cfg)
         x = x + _combine(lp, a, s)
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"]))
+        x = constrain(x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"])))
     cache["pos"].fill_(T)
     x = rmsnorm(x[:, -1:], params["ln_f"])
     return x @ params["lm_head"], cache
@@ -151,7 +152,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: dict,
         s, cache["ssm"][i] = mamba_ssm(lp["ssm"], z, cfg,
                                        state=cache["ssm"][i])
         x = x + _combine(lp, a, s)
-        x = x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"]))
+        x = constrain(x + mlp(lp["mlp"], rmsnorm(x, lp["ln2"])))
     cache["pos"] = kv_len
     x = rmsnorm(x, params["ln_f"])
     return x @ params["lm_head"], cache

@@ -618,6 +618,69 @@ def _moe_ep_rank(p: Params, xt: torch.Tensor, topi: torch.Tensor,
                          capacity_factor, exchange)[0]
 
 
+def _auto_dp_line():
+    """(mesh, line) of the auto engine's mesh context
+    (`actsharding.mesh_ctx`) where its data-parallel line holds more
+    than one rank, else None."""
+    from . import actsharding
+    c = actsharding.mesh_ctx()
+    if c is None or not c[1]:
+        return None
+    mesh, dp = c
+    line = mesh.line(dp)
+    return (mesh, line) if line.size > 1 else None
+
+
+def _moe_auto(p: Params, xt: torch.Tensor, topi: torch.Tensor,
+              topv: torch.Tensor, cfg: ModelConfig, one_block: bool,
+              capacity_factor: float, mesh, line) -> torch.Tensor:
+    """The reference's global sorted dispatch (what GSPMD computes on its
+    sharded tokens) from one rank of the auto engine's data-parallel
+    `line`, whose (n, D) tokens `xt` are rows [i·n, (i+1)·n) of the
+    global n·dpn (i its index on the line). Returns its (n, D) f32 rows.
+
+      * one block (`dispatch="local"`, `cfg.moe_local`): the reference's
+        `_moe_local_shardmap` sorts each DP shard's tokens alone, so the
+        rank dispatches its own n as one block (one token a rank is its
+        global one block);
+      * "sorted": capacity and the stable sort are the global token
+        count's, in `moe_blocks(cfg, n·dpn)` blocks of contiguous
+        tokens. Where dpn divides that count G, the rank's tokens are
+        exactly G/dpn of the blocks, and it dispatches them alone;
+        otherwise it gathers every rank's tokens and routing over the
+        line (differentiable: `core.transport.all_gather_rows_diff`),
+        dispatches them all, and keeps its rows. A rank-local blocking
+        (`moe_blocks(cfg, n)`) would take another capacity, and so
+        compute another function wherever capacity binds."""
+    from repro_torch.core.transport import (all_gather_rows,
+                                            all_gather_rows_diff)
+
+    n, D = xt.shape
+    k = topi.shape[-1]
+    E = cfg.n_experts
+    dpn = line.size
+    n_all = n * dpn
+    G = 1
+    if one_block:
+        if n > 1:
+            return _moe_sorted(p, xt[None], topi[None], topv[None], E,
+                               capacity_factor)[0]
+    else:
+        G = moe_blocks(cfg, n_all)
+        if G > 1 and G % dpn == 0:
+            g = G // dpn
+            return _moe_sorted(p, xt.reshape(g, n // g, D),
+                               topi.reshape(g, n // g, k),
+                               topv.reshape(g, n // g, k), E,
+                               capacity_factor).reshape(n, D)
+    xa = all_gather_rows_diff(mesh, line, xt).reshape(G, n_all // G, D)
+    va = all_gather_rows_diff(mesh, line, topv).reshape(G, n_all // G, k)
+    ia = all_gather_rows(mesh, line, topi.contiguous()).reshape(
+        G, n_all // G, k)
+    out = _moe_sorted(p, xa, ia, va, E, capacity_factor).reshape(n_all, D)
+    return out[line.index * n:(line.index + 1) * n]
+
+
 def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         dispatch: str = "sorted", capacity_factor: float = 1.25
         ) -> torch.Tensor:
@@ -641,13 +704,26 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     process group; on the local mesh one rank alone cannot exchange:
     the trainer runs every rank at once through `moe_ep`, and this
     raises. Neither is a fallback from a device or a kernel: neither
-    dispatch has a kernel."""
+    dispatch has a kernel.
+
+    Under the auto engine's mesh context (`actsharding.mesh_ctx`, a
+    data-parallel line of more than one process) x is this rank's rows
+    of the batch and "sorted", "local" and `cfg.moe_local` compute the
+    reference's global function on them (`_moe_auto`); "ep" there is
+    the reference's expert-parallel region under GSPMD, which raises
+    (ROADMAP §1 item 8f)."""
     if dispatch not in ("sorted", "dense", "ep", "local"):
         raise ValueError(f"unknown MoE dispatch {dispatch!r}")
     B, T, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     n = B * T
     ctx = None
+    auto = _auto_dp_line()
+    if dispatch == "ep" and auto is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: dispatch 'ep' under the auto engine's mesh "
+            "context (the reference's expert-parallel shard_map region "
+            "under GSPMD) is ROADMAP §1 item 8f")
     if dispatch == "ep":
         from repro_torch.core import sync
         ctx = sync.ep_context()
@@ -668,6 +744,10 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         xe = xt.expand(E, n, D)
         y = _experts(p, xe)                                 # (E, n, D)
         out = torch.einsum("end,ne->nd", y.float(), gate)
+    elif auto is not None:
+        out = _moe_auto(p, xt, topi, topv, cfg,
+                        dispatch == "local" or cfg.moe_local,
+                        capacity_factor, *auto)
     else:
         one_block = dispatch in ("ep", "local") or cfg.moe_local
         G = 1 if one_block else moe_blocks(cfg, n)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .actsharding import constrain
 from .config import ModelConfig
 from .layers import Params, dense_init, embed, rmsnorm, train_rmsnorm
 from .recurrence import (init_rwkv, rwkv_channel_mix, rwkv_time_mix,
@@ -70,7 +71,8 @@ def _train_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, chunk: int
     h, s_new = train_rwkv_time_mix(lp, z, cfg, chunk=chunk)
     x = x + h
     z2 = train_rmsnorm(x, lp["ln2"])
-    return x + rwkv_channel_mix(lp, z2), s_new, z[:, -1:], z2[:, -1:]
+    return (constrain(x + rwkv_channel_mix(lp, z2)), s_new, z[:, -1:],
+            z2[:, -1:])
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,

@@ -35,6 +35,7 @@ from typing import Sequence
 import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+from .actsharding import constrain
 from .config import ModelConfig
 from .layers import (Params, _attend, _qkv, attention_decode, dense_init,
                      embed, init_attention, init_mlp, init_moe, matmul, mlp,
@@ -117,7 +118,8 @@ def _train_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, window: int,
                  mrope_positions: torch.Tensor | None = None,
                  moe_dispatch: str = "sorted") -> torch.Tensor:
     x = _train_attn(cfg, lp, x, window, positions, mrope_positions)
-    return x + _ffn(lp, cfg, train_rmsnorm(x, lp["ln2"]), moe_dispatch)
+    return constrain(x + _ffn(lp, cfg, train_rmsnorm(x, lp["ln2"]),
+                              moe_dispatch))
 
 
 def _train_block_ep(cfg: ModelConfig, lps: Sequence[Params],
@@ -283,7 +285,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor | None,
         cache["v"][i, :, :, :T] = v
         h = _attend(q, k, v, cfg, window=cfg.window_for_layer(i))
         x = x + h @ lp["attn"]["wo"]
-        x = x + _ffn(lp, cfg, rmsnorm(x, lp["ln2"]), moe_dispatch)
+        x = constrain(x + _ffn(lp, cfg, rmsnorm(x, lp["ln2"]),
+                               moe_dispatch))
     cache["pos"].fill_(T)
     return _logits(params, cfg, x[:, -1:]), cache
 
@@ -303,6 +306,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: dict,
                                  cache["v"][i], pos, cfg,
                                  window=cfg.window_for_layer(i),
                                  kv_len=kv_len)
-        x = x + _ffn(lp, cfg, rmsnorm(x, lp["ln2"]), moe_dispatch)
+        x = constrain(x + _ffn(lp, cfg, rmsnorm(x, lp["ln2"]),
+                               moe_dispatch))
     cache["pos"] = kv_len
     return _logits(params, cfg, x), cache

@@ -6,6 +6,7 @@ Each worker builds its cases from the same seeds as the test file that
 launches it, runs them as its rank and returns plain CPU results; the
 test file holds them against the local mesh and the reference."""
 import functools
+import itertools
 
 import numpy as np
 import torch
@@ -639,3 +640,198 @@ def ckpt_mismatch_worker(mesh, root: str):
     except LeafMismatch as e:
         return type(e).__name__, str(e)
     return None
+
+
+# ---------------------------------------------------------------------------
+# the auto engine (tests/test_torch_dist_auto.py)
+# ---------------------------------------------------------------------------
+AUTO_SEQ, AUTO_BATCH = 32, 8
+AUTO_LR = 1e-3
+AUTO_STEPS = 3
+# the smoke stablelm-12b's vocabulary widened so that its embedding and
+# head (64 × 4,096) reach REPLICATE_BELOW and shard (every smoke leaf
+# replicates otherwise)
+WIDE = {"vocab": 4096}
+# (label, arch, dtype, mesh, fsdp, config overrides, batch): the mesh
+# "4x1" is ("data", 4), "2x2x1" ("pod", 2) × ("data", 2); the batch
+# "masked" is the dense one with rank 0's rows mostly masked out
+AUTO_RUNS = [
+    ("dense-fsdp", "stablelm-12b", "float32", "4x1", True, WIDE, "dense"),
+    ("dense-zero1", "stablelm-12b", "float32", "4x1", False, WIDE, "dense"),
+    ("dense-bf16", "stablelm-12b", "bfloat16", "4x1", True, WIDE, "dense"),
+    ("dense-pod", "stablelm-12b", "float32", "2x2x1", True, WIDE, "dense"),
+    ("dense-mask", "stablelm-12b", "float32", "4x1", True, WIDE, "masked"),
+    ("moe-groups", "deepseek-moe-16b", "float32", "4x1", True, {}, "moe"),
+    ("moe-global", "deepseek-moe-16b", "float32", "4x1", True,
+     {"moe_groups": 0}, "moe"),
+    ("moe-local", "deepseek-moe-16b", "float32", "4x1", True,
+     {"moe_local": True}, "moe"),
+]
+AUTO_AXES = {"4x1": (("data", 4),), "2x2x1": (("pod", 2), ("data", 2))}
+# the reference's test_manual_engines_match_auto, over 4 processes
+AUTO_VS_MANUAL = dict(arch="rwkv6-1.6b", steps=8, seq_len=32,
+                      global_batch=8, lr=1e-3, log_every=1000,
+                      device="cpu")
+AUTO_CKPT = dict(arch="stablelm-12b", steps=4, seq_len=32, global_batch=8,
+                 lr=1e-3, ckpt_every=2, log_every=1000, device="cpu")
+
+
+def auto_api(arch: str, overrides: dict):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import smoke_config
+    from repro_torch.models.registry import build
+    return build(dataclasses.replace(smoke_config(get_config(arch)),
+                                     **overrides))
+
+
+def auto_init(inputs: dict, label: str, dtype: str, api=None) -> dict:
+    """The reference's init of run `label` as the port's tree, each leaf
+    in the dtype the port's own init in `dtype` gives it (a MoE router
+    and the SSM's f32 leaves stay f32; bf16 crossed as f32, exactly).
+    `api` is the run's model (default its `AUTO_RUNS` entry's)."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models.tree import tree_from_items
+    if api is None:
+        run = {r[0]: r for r in AUTO_RUNS}.get(label)
+        api = auto_api(run[1] if run else label.split("/")[0],
+                       run[5] if run else {})
+    prefix = f"init/{label}/"
+    tree = tree_from_items((tuple(k[len(prefix):].split("/")), v)
+                           for k, v in sorted(inputs.items())
+                           if k.startswith(prefix))
+
+    def cast(t, like):
+        if isinstance(t, list):
+            return [cast(x, y) for x, y in zip(t, like, strict=True)]
+        if isinstance(t, dict):
+            return {k: cast(v, like[k]) for k, v in t.items()}
+        return t.to(like.dtype)
+    return cast(params_from_jax(tree), api.meta_params(getattr(torch, dtype)))
+
+
+def auto_batch(inputs: dict, bkey: str, s: int) -> dict:
+    from repro_torch.launch import train as T
+    pre = f"batch/{bkey}/{s}/"
+    return T.batch_tensors({k[len(pre):]: v for k, v in inputs.items()
+                            if k.startswith(pre)}, "cpu")
+
+
+def auto_steps(mesh, inputs: dict, label: str, arch: str, dtype: str,
+               fsdp: bool, overrides: dict, bkey: str,
+               steps: int = AUTO_STEPS) -> dict:
+    """`steps` steps of the auto engine on `mesh` (None: one device, the
+    CPU; or a process mesh) from the reference's init of `label`: losses,
+    gnorms, the final parameters' local tensors."""
+    from repro_torch.launch import train as T
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import _local
+
+    api = auto_api(arch, overrides)
+    step, _, _ = T.make_train_step(api, mesh, AdamWConfig(lr=AUTO_LR),
+                                   fsdp=fsdp, device="cpu")
+    state = T.place_state(auto_init(inputs, label, dtype, api), mesh,
+                          step.placements)
+    out = {"losses": [], "gnorms": []}
+    for s in range(steps):
+        _, m = step(state, auto_batch(inputs, bkey, s))
+        out["losses"].append(float(m["loss"]))
+        out["gnorms"].append(float(m["gnorm"]))
+    out["params"] = [_local(p).clone() for p in state["params"]]
+    out["placements"] = [tuple(repr(p) for p in pl)
+                         for pl in step.placements["params"]]
+    out["moment_placements"] = [tuple(repr(p) for p in pl)
+                                for pl in step.placements["opt"]["m"]]
+    return out
+
+
+def auto_local_dispatch_loss(mesh, inputs: dict, label: str, arch: str,
+                             overrides: dict, bkey: str) -> float:
+    """The first step's loss as a rank-local dispatch would give it (no
+    mesh context: each rank blocks its own tokens), summed over the
+    ranks as the auto step sums its losses."""
+    from repro_torch.core.transport import all_gather_rows
+    from repro_torch.launch import train as T
+
+    api = auto_api(arch, overrides)
+    batch = auto_batch(inputs, bkey, 0)
+    line = mesh.line(mesh.axis_names)
+    rows = T._rank_batch(batch, line.index, line.size)
+    with torch.no_grad():
+        loss = api.loss_fn(auto_init(inputs, label, "float32", api), rows)
+    part = loss * rows["labels"].numel() / batch["labels"].numel()
+    return float(all_gather_rows(mesh, line, part.reshape(1)).sum())
+
+
+def gather_c10d_cases(meshes: dict) -> list:
+    """`train.gather_c10d` against DTensor's own Shard → Replicate, for a
+    (6, 8, 4) leaf at every placement of one or two sharded dims that
+    split it evenly on both meshes: (mesh, placements, equal)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as T
+    x = torch.arange(6 * 8 * 4, dtype=torch.float32).reshape(6, 8, 4)
+    out = []
+    for name, pm in meshes.items():
+        dm = M.device_mesh(pm)
+        options = [Replicate(), Shard(1), Shard(2)] + (
+            [Shard(0)] if pm.axes[0][1] == 2 else [])
+        for pls in itertools.product(options, repeat=dm.ndim):
+            ways = [1, 1, 1]
+            for q, (_, n) in zip(pls, pm.axes):
+                if isinstance(q, Shard):
+                    ways[q.dim] *= n
+            if all(isinstance(q, Replicate) for q in pls) or any(
+                    x.shape[i] % w for i, w in enumerate(ways)):
+                continue
+            whole = DTensor.from_local(x, dm, [Replicate()] * dm.ndim,
+                                       run_check=False)
+            d = whole.redistribute(dm, list(pls))
+            got = T.gather_c10d(d, pm)
+            want = d.redistribute(dm, [Replicate()] * dm.ndim).to_local()
+            out.append((name, repr(pls), torch.equal(got, want)
+                        and torch.equal(got, x)))
+    return out
+
+
+def auto_worker(mesh, npz_init: str, npz_batches: str, root: str) -> dict:
+    """AUTO_RUNS as this rank (the (pod, data) run on a second process
+    mesh over the same processes); the rank-local dispatch's loss of the
+    capacity-bound MoE run; the device mesh's names and shape; the
+    reference's manual-against-auto comparison; a checkpoint restart."""
+    import os
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import train as T
+
+    inputs = {**dict(np.load(npz_init)), **dict(np.load(npz_batches))}
+    meshes = {"4x1": mesh, "2x2x1": M.init_process_mesh(
+        AUTO_AXES["2x2x1"], mesh.backend, mesh.device)}
+    res = {}
+    for label, arch, dtype, mname, fsdp, overrides, bkey in AUTO_RUNS:
+        res[label] = auto_steps(meshes[mname], inputs, label, arch, dtype,
+                                fsdp, overrides, bkey)
+    res["moe-global-local-dispatch"] = auto_local_dispatch_loss(
+        mesh, inputs, "moe-global", "deepseek-moe-16b", {"moe_groups": 0},
+        "moe")
+    dm = M.device_mesh(meshes["2x2x1"])
+    res["device_mesh"] = (tuple(dm.mesh_dim_names), tuple(dm.shape),
+                          tuple(dm.get_coordinate()))
+    res["gather_c10d"] = gather_c10d_cases(meshes)
+
+    def quiet(_msg):
+        pass
+    res["engines"] = {engine: T.run_training(T.TrainConfig(
+        **AUTO_VS_MANUAL, engine=engine, sync="plan", bucket_bytes=0),
+        mesh=mesh, on_log=quiet)["losses"] for engine in ("auto", "manual")}
+    ck = {}
+    for name, steps in (("full", 4), ("part", 2), ("resumed", 4)):
+        out = T.run_training(T.TrainConfig(
+            **{**AUTO_CKPT, "steps": steps}, engine="auto",
+            ckpt_dir=os.path.join(root, "part" if name == "resumed"
+                                  else name)), mesh=mesh, on_log=quiet)
+        ck[name] = (out["losses"], out["steps"])
+    res["ckpt"] = ck
+    return res

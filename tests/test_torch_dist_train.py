@@ -262,19 +262,21 @@ def test_moe_expert_parallel_over_a_process_mesh_raises():
                                          ("fault_plan", "seed=7,steps=2"),
                                          ("engine", "auto")])
 def test_out_of_scope_on_a_process_mesh_raises(field, value, tmp_path):
-    """The auto engine stays refused on a process mesh (item 8d); item 8c
+    """Nothing of these is refused on a process mesh any more: item 8c
     brought checkpoints and fault plans into scope there
-    (tests/test_torch_dist_ft.py runs them over processes)."""
+    (tests/test_torch_dist_ft.py runs them over processes), item 8d the
+    auto engine (tests/test_torch_dist_auto.py trains it over
+    processes), whose scope check passes there and refuses a "model"
+    axis above 1 (item 8f)."""
     import dataclasses
     tc = dataclasses.replace(train.TrainConfig(
         steps=1, engine="manual", sync="plan", device="cpu"),
         **{field: str(tmp_path / value) if field == "ckpt_dir" else value})
+    assert train._check_train_scope(tc, _fake_mesh()) is None
     if field == "engine":
-        with pytest.raises(NotImplementedError, match="item 8d"):
-            train.run_training(tc, mesh=_fake_mesh(),
-                               on_log=lambda *_: None)
-    else:
-        assert train._check_train_scope(tc, _fake_mesh()) is None
+        with pytest.raises(NotImplementedError, match="item 8f"):
+            train._check_train_scope(tc, _fake_mesh((("data", 2),
+                                                     ("model", 2))))
 
 
 def test_nccl_with_two_ranks_on_one_device_raises():

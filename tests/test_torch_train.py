@@ -807,10 +807,21 @@ def test_out_of_scope_train_config_raises(field, value, item, tmp_path,
     check, and an unknown label raises ValueError. `ckpt_dir` and
     `fault_plan` raised (item 5) until checkpoints and the fault loop
     were ported: now the run trains and writes LATEST, or arms its plan
-    and reports what fired."""
+    and reports what fired. `engine` "auto" raised (item 8d) until the
+    auto engine was ported: now it trains one step on the CPU, and an
+    unknown engine raises ValueError."""
     tc = dataclasses.replace(train.TrainConfig(
         steps=1, engine="manual", sync="plan", device="cpu", seq_len=16),
         **{field: value})
+    if field == "engine":
+        logs = []
+        out = train.run_training(tc, on_log=logs.append)
+        assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+        assert out["plans"] == [] and out["bucket_plan"] is None
+        assert logs[0].startswith("auto engine: one device (cpu)")
+        with pytest.raises(ValueError, match="unknown engine"):
+            train._check_train_scope(dataclasses.replace(tc, engine="pjit"))
+        return
     if field == "sync":
         assert train._check_train_scope(tc) is None
         with pytest.raises(ValueError, match="unknown sync strategy"):
