@@ -13,6 +13,7 @@
     python3 chip_smoke.py --census
     python3 chip_smoke.py --mp
     python3 chip_smoke.py --auto
+    python3 chip_smoke.py --tp
 
 The second and third forms build the kernels and run the attention rows
 or the recurrence rows of phase 2 alone (of another source tree with
@@ -22,8 +23,9 @@ sixth phase 5r and phase
 ft, the seventh phase 5m alone, the eighth phase 5r alone, the ninth
 phase 5f alone, the tenth phase census alone (the dry run beside it),
 the eleventh phase mp alone, the twelfth phase 5's per-leaf run at the
-first of TRAIN_FALL_LRS, phase auto and phase mp (h);
-none prints a result line. The full run and --census start the dry run
+first of TRAIN_FALL_LRS, phase auto and phase mp (h), the thirteenth
+phase tp alone; none prints a result line. The full run and --census
+start the dry run
 (`python -m repro_torch.launch.dryrun --all` on the meta device, no card
 visible) in a process of its own at the start, beside the card's
 phases.
@@ -323,6 +325,24 @@ any error:
                 manual step (gloo through the host: host staging, not
                 links); over NCCL too with a card a rank, else a line
                 saying why not;
+  tp       — tensor parallelism on the auto engine's "model" axis
+                (`phase_tp`): 4 processes on this card over gloo
+                through the host, each rank multiplying its slice of
+                every weight "model" shards, the partial products and
+                cotangents exchanged over its model line. (a) TP_SMOKE,
+                the smoke stablelm-12b widened (vocab 4,096, d_ff 2,048:
+                its embedding, head, gate, up and down products shard on
+                "model") in f32, 3 steps, on (data 2, model 2) and on
+                (data 1, model 4): each rank's losses and gnorms within
+                TP_TOL (1e-5) of the same model on one card, no kernel
+                launched; (b) stablelm-12b at full width, depth 1 of 40
+                (mp (h)'s), bf16, seq 128, global batch 8, 2 steps on
+                (data 2, model 2): losses finite and equal on every
+                rank, no kernel launched, each process's step, its
+                parts, the bytes it sent over its model line a step and
+                its peak beside mp (h)'s FSDP run's (and under it);
+                over NCCL too with a card a rank, else a line saying
+                why not;
   ft       — checkpoints and fault tolerance: `run_training` with a
                 checkpoint directory (FaultTolerantLoop; checkpoints
                 under build/, removed after). (a) phase 5r's hymba-1.5b
@@ -364,7 +384,7 @@ any error:
                 wall time.
 
 The main path is phases 3, 3b, 3c, 4, 5, 5m, 5r, 5f, mp, ft and census
-(phase auto and mp (h) launch no kernel, checked)
+(phases auto, mp (h) and tp launch no kernel, checked)
 (phase mp's launches those of every process, summed): every
 launch count is zeroed just before the executor, the families, the
 planner, each served run, each full-width training run (the MoE,
@@ -600,6 +620,22 @@ AUTO_MP_TOL = 1e-5       # (h) each rank against (a)'s card run
 # a part of its step, lr 1e-3 (2.5e-5 measured on the CPU, one element
 # of 32,768: tests/test_torch_dist_auto.py's PARAM_TOL)
 AUTO_MP_PARAM_TOL = 1e-4
+# phase tp, tensor parallelism on the auto engine's "model" axis
+# (`phase_tp`; 4 processes on this card over gloo through the host): (a)
+# TP_SMOKE, the smoke stablelm-12b widened (vocab 4,096 and d_ff 2,048, so
+# that its gate, up and down products, its embedding and its head shard
+# on "model"; AUTO_SMOKE's model replicates its layers), in f32 on each of
+# TP_MESHES, each rank's losses and gnorms within TP_TOL of a one-card run
+# of the same model made in the phase; (b) AUTO_FULL at full width, its
+# depth cut to MP_TRAIN's 1 of 40 (mp (h)'s), bf16, TP_FULL_STEPS steps
+# on the first of TP_MESHES
+TP_SMOKE = dict(AUTO_SMOKE, overrides={"vocab": 4096, "d_ff": 2048})
+TP_MESHES = ((("data", 2), ("model", 2)), (("data", 1), ("model", 4)))
+TP_FULL_STEPS = 2
+TP_TOL = 1e-5
+# each process's peak in mp (h)'s FSDP run at full width over gloo (the
+# same depth as phase tp (b)'s), which phase tp prints beside its own
+MP_AUTO_PEAKS: list = []
 # phase census: the smoke-size models whose decode step's kernel work the
 # card and the CPU must count alike; the dry run's output directory and
 # the most it may take from its start (it runs beside every earlier
@@ -5246,12 +5282,13 @@ def phase_mp(dev, auto_ref: dict | None = None) -> dict:
 # ---------------------------------------------------------------------------
 # Phase auto: the auto engine (and phase mp (h), its process mesh)
 # ---------------------------------------------------------------------------
-def auto_smoke_run(mesh, dev, fsdp: bool = True) -> dict:
-    """AUTO_SMOKE's run of the auto engine on `mesh` (None: one device,
-    `dev`; or a process mesh, on its device) from the seeded f32 init
-    drawn on the CPU: losses, gnorms, the kernel launches of its steps,
-    the final parameters' local tensors and their placements (on the
-    CPU)."""
+def auto_smoke_run(mesh, dev, fsdp: bool = True, run: dict = AUTO_SMOKE
+                   ) -> dict:
+    """`run`'s (AUTO_SMOKE's) run of the auto engine on `mesh` (None: one
+    device, `dev`; or a process mesh, on its device) from the seeded f32
+    init drawn on the CPU: losses, gnorms, the kernel launches of its
+    steps, the final parameters' local tensors and their placements (on
+    the CPU)."""
     import dataclasses
 
     import torch
@@ -5265,7 +5302,7 @@ def auto_smoke_run(mesh, dev, fsdp: bool = True) -> dict:
     from repro_torch.optim import AdamWConfig
     from repro_torch.optim.adamw import _local
 
-    a = AUTO_SMOKE
+    a = run
     cfg = dataclasses.replace(smoke_config(get_config(a["arch"])),
                               **a["overrides"])
     api = build(cfg)
@@ -5289,14 +5326,17 @@ def auto_smoke_run(mesh, dev, fsdp: bool = True) -> dict:
     return out
 
 
-def auto_full_run(mesh, dev, layers: int = AUTO_FULL["layers"]) -> dict:
-    """AUTO_FULL's run at depth `layers` of the auto engine on `mesh`
-    (None: one device, `dev`; or a process mesh) from seeded bf16 weights
-    drawn on the
-    device, the peak reset before the draw: losses, gnorms, host-clock
-    step times (each ending in the loss's copy to the host), the parts
-    of each step (CUDA events, `PHASES`), the peak, the launches, the
-    parameters (their count) and the leaves a process holds sharded."""
+def auto_full_run(mesh, dev, layers: int = AUTO_FULL["layers"],
+                  steps: int = AUTO_FULL["steps"]) -> dict:
+    """AUTO_FULL's run at depth `layers` for `steps` steps of the auto
+    engine on `mesh` (None: one device, `dev`; or a process mesh) from
+    seeded bf16 weights drawn on the device, the peak reset before the
+    draw: losses, gnorms, host-clock step times (each ending in the
+    loss's copy to the host), the parts of each step (CUDA events,
+    `PHASES`), the peak, the launches, the parameters (their count), the
+    leaves a process holds sharded, and on a "model" axis above 1 the
+    bytes this process sent over its model line each step
+    (`core.transport.Line.sent`)."""
     import dataclasses
 
     import torch
@@ -5322,15 +5362,20 @@ def auto_full_run(mesh, dev, layers: int = AUTO_FULL["layers"]) -> dict:
     state = place_state(params, mesh, step.placements)
     del params
     data = SyntheticLM(data_config(cfg, a["seq_len"], a["global_batch"]))
-    out = {"losses": [], "gnorms": [], "step_s": [], "phase_ms": []}
+    out = {"losses": [], "gnorms": [], "step_s": [], "phase_ms": [],
+           "model_bytes": []}
+    line = (mesh.line("model") if mesh is not None
+            and dict(mesh.axes).get("model", 1) > 1 else None)
     ops.reset_launches()
-    for s in range(a["steps"]):
+    for s in range(steps):
         t0 = time.perf_counter()
+        sent = 0 if line is None else line.sent
         _, m = step(state, batch_tensors(data.batch_at(s), dev))
         out["losses"].append(float(m["loss"]))
         out["step_s"].append(time.perf_counter() - t0)
         out["gnorms"].append(float(m["gnorm"]))
         out["phase_ms"].append(phase_ms(m))
+        out["model_bytes"].append(0 if line is None else line.sent - sent)
     torch.cuda.synchronize(dev)
     out["launches"] = dict(ops.LAUNCHES)
     out["peak"] = torch.cuda.max_memory_allocated(dev)
@@ -5508,6 +5553,8 @@ def phase_mp_auto(dev, ref: dict | None, manual: dict | None) -> None:
                 fail(f"mp auto (h) [{label}]: kernels launched "
                      f"{[r['launches'] for r in runs]}")
         full = [r["full"] for r in ranks]
+        if backend == "gloo":
+            MP_AUTO_PEAKS[:] = [f["peak"] for f in full]
         if any(f["losses"] != full[0]["losses"] for f in full) \
                 or not all(math.isfinite(x) for x in full[0]["losses"]) \
                 or not full[0]["losses"][-1] < full[0]["losses"][0]:
@@ -5542,6 +5589,123 @@ def phase_mp_auto(dev, ref: dict | None, manual: dict | None) -> None:
         log(f"mp auto (h): the auto engine over NCCL not run: this machine "
             f"has {cards} card(s), NCCL needs one a rank (2 or more)")
     log(f"mp auto (h) wall {time.perf_counter() - t0:.1f} s")
+
+
+def tp_worker(pm) -> dict:
+    """Phase tp as one rank of the first of TP_MESHES: TP_SMOKE on each of
+    TP_MESHES (the others on process meshes of their own over the same
+    processes), then AUTO_FULL at MP_TRAIN's depth for TP_FULL_STEPS
+    steps. CPU objects only."""
+    import torch
+    from repro_torch.launch.mesh import init_process_mesh
+    out = {}
+    for axes in TP_MESHES:
+        mesh = pm if tuple(axes) == pm.axes else init_process_mesh(
+            axes, pm.backend, pm.device)
+        out[axes] = auto_smoke_run(mesh, pm.device, run=TP_SMOKE)
+    torch.cuda.empty_cache()
+    out["full"] = auto_full_run(pm, pm.device, MP_TRAIN["layers"],
+                                TP_FULL_STEPS)
+    return out
+
+
+def phase_tp(dev) -> None:
+    """Phase tp: tensor parallelism on the auto engine's "model" axis
+    (`make_train_step` on a (data, model) process mesh: each rank
+    multiplies its slice of each "model"-sharded weight, its partial
+    products summed over its model line through `core.transport`), 4
+    processes on this card over gloo through the host (`tp_worker`),
+    then over NCCL with one card a rank where the machine has four cards
+    or more (else a line saying why not). Checks: (a) each rank's
+    TP_SMOKE losses and gnorms within TP_TOL of the same model's run on
+    one card, on each of TP_MESHES, and "model" sharding some leaves; (b)
+    the full-width step's losses finite and equal on every rank, its
+    peak under each process's of mp (h)'s FSDP run (MP_AUTO_PEAKS) where
+    that ran; no kernel launched. Prints each process's (b) step, its
+    parts, its peak beside mp (h)'s and the bytes it sent over its model
+    line a step."""
+    import torch
+    from repro_torch.launch.mesh import launch
+
+    t0 = time.perf_counter()
+    ref = auto_smoke_run(None, dev, run=TP_SMOKE)
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    procs = math.prod(s for _, s in TP_MESHES[0])
+    backends = [("gloo", dev)] + ([("nccl", "cuda")] if cards >= procs
+                                  else [])
+    for backend, where in backends:
+        t1 = time.perf_counter()
+        ranks = launch(tp_worker, TP_MESHES[0], backend=backend,
+                       device=where, timeout_s=MP_TIMEOUT_S)
+        transport = ("gloo through the host" if backend == "gloo"
+                     else "nccl")
+        log(f"tp: {procs} processes, {transport}, wall "
+            f"{time.perf_counter() - t1:.1f} s")
+        for axes in TP_MESHES:
+            runs = [r[axes] for r in ranks]
+            gap = max(abs(a - b) / max(abs(b), 1e-30)
+                      for r in runs for a, b in zip(
+                          r["losses"] + r["gnorms"],
+                          ref["losses"] + ref["gnorms"]))
+            at = [a for a, _ in axes].index("model")
+            tp = sum(pl[at].startswith("Shard")
+                     for pl in runs[0]["placements"])
+            log(f"tp (a) [smoke {TP_SMOKE['arch']} {TP_SMOKE['overrides']} "
+                f"f32 on {list(axes)}, {transport}]: rank 0 losses "
+                f"{runs[0]['losses']} gnorms {runs[0]['gnorms']}; one card "
+                f"losses {ref['losses']} gnorms {ref['gnorms']}; largest "
+                f"relative gap over the ranks {gap:.3e} (bar {TP_TOL}); "
+                f"{tp} of {len(runs[0]['placements'])} parameter leaves "
+                f"sharded on 'model'; launches "
+                f"{json.dumps(runs[0]['launches'])}")
+            if not gap <= TP_TOL:
+                fail(f"tp (a) on {list(axes)}: the ranks' losses and gnorms "
+                     f"differ from the one-card run's by {gap:.3e}, over "
+                     f"{TP_TOL}")
+            if not tp:
+                fail(f"tp (a) on {list(axes)}: no leaf sharded on 'model'")
+            if any(v for r in runs for v in r["launches"].values()):
+                fail(f"tp (a) on {list(axes)}: kernels launched "
+                     f"{[r['launches'] for r in runs]}")
+        full = [r["full"] for r in ranks]
+        if any(f["losses"] != full[0]["losses"] for f in full) \
+                or not all(math.isfinite(x) for x in full[0]["losses"]
+                           + full[0]["gnorms"]):
+            fail(f"tp (b): losses {[f['losses'] for f in full]} gnorms "
+                 f"{[f['gnorms'] for f in full]}")
+        if any(v for f in full for v in f["launches"].values()):
+            fail(f"tp (b): kernels launched {[f['launches'] for f in full]}")
+        for rank, f in enumerate(full):
+            parts = auto_parts(f)
+            fsdp = (f"{MP_AUTO_PEAKS[rank] / 2**30:.2f} GiB"
+                    if backend == "gloo" and MP_AUTO_PEAKS else "not run")
+            log(f"tp (b) [full {AUTO_FULL['arch']} depth "
+                f"{MP_TRAIN['layers']} of {AUTO_FULL['arch']}'s 40, bf16, "
+                f"seq {AUTO_FULL['seq_len']}, batch "
+                f"{AUTO_FULL['global_batch']}, {list(TP_MESHES[0])}, "
+                f"{transport}"
+                + (": host staging, not links" if backend == "gloo" else "")
+                + f"] rank {rank}: {f['sharded']} leaves sharded; losses "
+                f"{f['losses']} gnorms {f['gnorms']}; step "
+                f"{parts['step']:.1f} ms (steps "
+                f"{[round(x * 1e3, 1) for x in f['step_s']]}); gather "
+                f"{parts['gather']:.1f} ms, forward + backward "
+                f"{parts['forward_backward']:.1f} ms, reduce-scatter "
+                f"{parts['reduce_scatter']:.1f} ms, AdamW "
+                f"{parts['adamw']:.1f} ms; peak {f['peak'] / 2**30:.2f} GiB "
+                f"(mp (h)'s FSDP on ('data', 4), same depth: {fsdp}); "
+                f"sent over the model line {f['model_bytes']} bytes a step")
+            if backend == "gloo" and MP_AUTO_PEAKS \
+                    and not f["peak"] < MP_AUTO_PEAKS[rank]:
+                fail(f"tp (b) rank {rank}: peak {f['peak'] / 2**30:.2f} GiB"
+                     f", not under mp (h)'s FSDP "
+                     f"{MP_AUTO_PEAKS[rank] / 2**30:.2f} GiB")
+        del ranks
+    if cards < procs:
+        log(f"tp: the tensor-parallel step over NCCL not run: this machine "
+            f"has {cards} card(s), NCCL needs one a rank ({procs})")
+    log(f"phase tp wall {time.perf_counter() - t0:.1f} s")
 
 
 def phase_ft(dev, baseline: dict) -> dict:
@@ -6220,6 +6384,11 @@ def main() -> int:
                     help="build the kernels, run phase 5's per-leaf run at "
                     "the first of TRAIN_FALL_LRS, phase auto and phase mp "
                     "(h) alone, then stop: no result line")
+    ap.add_argument("--tp", action="store_true",
+                    help="build the kernels and run phase tp (tensor "
+                    "parallelism on the auto engine's 'model' axis, 4 "
+                    "processes on this card over gloo) alone, then stop: "
+                    "no result line")
     ap.add_argument("--census", action="store_true",
                     help="build the kernels and run phase census alone "
                     "(the dry run beside it), then stop: no result line")
@@ -6250,7 +6419,7 @@ def main() -> int:
     quick = (args.attention or args.recurrence or args.planner or args.flat
              or args.serve or args.ft or args.moe_train
              or args.recurrent_train or args.family_train or args.mp
-             or args.auto)
+             or args.auto or args.tp)
     dryrun = None if quick else start_dryrun(src)
     phase_build()
     log(f"phase build done at {time.perf_counter() - t0:.1f} s")
@@ -6307,6 +6476,10 @@ def main() -> int:
         phase_mp_auto(dev, auto_ref, None)
         log(f"phase mp (h) done at {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.tp:
+        phase_tp(dev)
+        log(f"phase tp done at {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.ft:
         phase_ft(dev, phase_train_recurrent(dev)[1])
         log(f"phase ft done at {time.perf_counter() - t0:.1f} s")
@@ -6344,6 +6517,8 @@ def main() -> int:
     for name, n in phase_mp(dev, auto_ref).items():
         trained[name] += n
     log(f"phase mp done at {time.perf_counter() - t0:.1f} s")
+    phase_tp(dev)
+    log(f"phase tp done at {time.perf_counter() - t0:.1f} s")
     for name, n in phase_ft(dev, ft_baseline).items():
         trained[name] += n
     log(f"phase ft done at {time.perf_counter() - t0:.1f} s")

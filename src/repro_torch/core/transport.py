@@ -23,6 +23,15 @@ another:
     and a round's bytes cross through the host. Its times measure host
     staging, not links (`ProcessMesh.transport`).
 
+The four tensor-parallel operators (`copy_to_line`, `reduce_over_line`,
+`gather_over_line`, `slice_for_line`) are differentiable, each the
+other's transpose in pairs, over one line (the auto engine's "model"
+line, `models.actsharding.TPContext`): a product whose weight the line
+shards runs on each rank's slice, and the activations between products
+are the same bits on every rank of the line. A sum over the line is
+taken in line order from every rank's rows (`line_sum`), so every rank
+computes it alike.
+
 Importing this module starts no process group.
 """
 from __future__ import annotations
@@ -42,6 +51,8 @@ class Line:
     group: object
     ranks: tuple[int, ...]
     index: int
+    # the payload bytes this rank has sent over the line (`exchange`)
+    sent: int = 0
 
     @property
     def size(self) -> int:
@@ -134,6 +145,7 @@ def exchange(mesh: ProcessMesh, line: Line,
     recvs = [(p, _bytes(t)) for p, t in recvs if t.numel()]
     if not sends and not recvs:
         return
+    line.sent += sum(t.numel() for _, t in sends)
     for p, _ in list(sends) + list(recvs):
         if not 0 <= p < line.size or p == line.index:
             raise ValueError(f"peer {p} of a line of {line.size} (this "
@@ -210,6 +222,114 @@ def all_gather_rows_diff(mesh: ProcessMesh, line: Line,
     """`all_gather_rows`, differentiable: every rank of `line` calls it
     alike, in the forward and (through autograd) in the backward."""
     return _GatherRows.apply(x.contiguous(), mesh, line)
+
+
+def line_sum(mesh: ProcessMesh, line: Line, x: torch.Tensor
+             ) -> torch.Tensor:
+    """Every rank's `x` in `line` summed in line order, the same bits on
+    every rank; a half-precision `x` is summed in f32 and rounded once."""
+    rows = all_gather_rows(mesh, line, x)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        rows = rows.float()
+    out = rows[0]
+    for r in rows[1:]:
+        out = out + r
+    return out.to(x.dtype)
+
+
+def _gather_along(mesh: ProcessMesh, line: Line, x: torch.Tensor,
+                  dim: int) -> torch.Tensor:
+    """Every rank's `x` in `line`, concatenated along `dim` in line order."""
+    return torch.cat(all_gather_rows(mesh, line, x.contiguous()).unbind(0),
+                     dim=dim)
+
+
+def _slice_along(line: Line, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's 1/line.size of `x` along `dim`, a contiguous copy."""
+    n = x.shape[dim] // line.size
+    return x.narrow(dim, line.index * n, n).contiguous()
+
+
+class _CopyToLine(torch.autograd.Function):
+    """Identity forward; the cotangents summed over the line backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, line):
+        ctx.mesh, ctx.line = mesh, line
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return line_sum(ctx.mesh, ctx.line, g.contiguous()), None, None
+
+
+class _ReduceOverLine(torch.autograd.Function):
+    """The sum over the line forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, line):
+        return line_sum(mesh, line, x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherOverLine(torch.autograd.Function):
+    """Every rank's slice concatenated along `dim` forward; this rank's
+    slice of the cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, line, dim):
+        ctx.line, ctx.dim = line, dim
+        return _gather_along(mesh, line, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice_along(ctx.line, g, ctx.dim), None, None, None
+
+
+class _SliceForLine(torch.autograd.Function):
+    """This rank's slice along `dim` forward; the ranks' cotangents
+    concatenated backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, line, dim):
+        ctx.mesh, ctx.line, ctx.dim = mesh, line, dim
+        return _slice_along(line, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_along(ctx.mesh, ctx.line, g, ctx.dim), None, None, \
+            None
+
+
+def copy_to_line(mesh: ProcessMesh, line: Line, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """`x` as it is; backward, its cotangent summed over `line`: the input
+    of products on this rank's slice of a weight."""
+    return _CopyToLine.apply(x, mesh, line)
+
+
+def reduce_over_line(mesh: ProcessMesh, line: Line, x: torch.Tensor
+                     ) -> torch.Tensor:
+    """The ranks' partial `x` summed over `line` (`line_sum`); backward,
+    the cotangent as it is on every rank."""
+    return _ReduceOverLine.apply(x, mesh, line)
+
+
+def gather_over_line(mesh: ProcessMesh, line: Line, x: torch.Tensor,
+                     dim: int = -1) -> torch.Tensor:
+    """The ranks' slices of a tensor concatenated along `dim`, in line
+    order; backward, this rank's slice of the cotangent."""
+    return _GatherOverLine.apply(x, mesh, line, dim)
+
+
+def slice_for_line(mesh: ProcessMesh, line: Line, x: torch.Tensor,
+                   dim: int = -1) -> torch.Tensor:
+    """This rank's 1/line.size of `x` along `dim`; backward, the ranks'
+    cotangents concatenated (`x`'s dim must divide evenly)."""
+    return _SliceForLine.apply(x, mesh, line, dim)
 
 
 def is_process_mesh(mesh) -> bool:

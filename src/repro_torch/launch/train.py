@@ -8,8 +8,10 @@ Two engines, as the reference's:
   (`launch/sharding.py`; ZeRO-1 with `fsdp=False`), and the all-gathers,
   reduce-scatters and all-reduces a change of placement needs are
   torch.distributed's own, as XLA SPMD inserts them in the reference. It
-  never calls the planner, GenTree or `core.lower`. A "model" axis above
-  1 (tensor parallelism) raises (ROADMAP §1 item 8f).
+  never calls the planner, GenTree or `core.lower`. On a "model" axis
+  above 1 each rank multiplies its slice of every weight the axis
+  shards (tensor parallelism, the Megatron operators of
+  `core.transport` over its model line).
 * **manual**: GenTree's plans as the step's collectives, below.
 
 The reference's manual engine (`launch/train.py`) shards every parameter
@@ -109,6 +111,9 @@ from repro_torch.runtime.trace import default_tracer
 
 # the step's parts, timed by CUDA events on a card (`phase_ms`)
 PHASES = ("gather", "forward_backward", "reduce_scatter", "adamw")
+# the auto step's AdamW: the elements of a leaf's local tensor updated at
+# once (`_adamw_sliced`)
+ADAMW_SLICE = 1 << 24
 # the audio stub's frames a row, as the reference's `run_training` draws
 AUDIO_FRAMES = 32
 # the CLI's process mesh: the seconds its processes may run (and a
@@ -266,8 +271,8 @@ def batch_tensors(batch: dict, device) -> dict:
 # the auto engine
 # ---------------------------------------------------------------------------
 def _auto_mesh(mesh):
-    """The auto engine's mesh: None (one device) or a `ProcessMesh` whose
-    "model" axis, if any, is 1."""
+    """The auto engine's mesh: None (one device) or a `ProcessMesh`, whose
+    "model" axis, if any, may be above 1 (tensor parallelism)."""
     if mesh is None:
         return None
     if not collectives.is_process_mesh(mesh):
@@ -276,11 +281,6 @@ def _auto_mesh(mesh):
             f"process a rank (a core.transport.ProcessMesh); the local mesh "
             f"{mesh!r} holds its ranks as rows of one device's tensors, "
             f"which is the manual engine's layout")
-    if dict(mesh.axes).get("model", 1) > 1:
-        raise NotImplementedError(
-            f"the auto engine on {list(mesh.axes)}: tensor-parallel compute "
-            "on a 'model' axis above 1 runs the layers on sharded DTensors "
-            "(ROADMAP §1 item 8f)")
     return mesh
 
 
@@ -340,11 +340,13 @@ def local_state(state: dict) -> dict:
                     "step": opt["step"]}}
 
 
-def gather_c10d(p, mesh) -> torch.Tensor:
+def gather_c10d(p, mesh, axes=None) -> torch.Tensor:
     """The whole value of the DTensor `p` on this rank of the process mesh
     `mesh`: for each mesh dimension on which `p` is `Shard(d)`, innermost
     first, `torch.distributed.all_gather_into_tensor` over that axis's
-    process group and a concatenation along d.
+    process group and a concatenation along d. With `axes` (names) only
+    over those: the local tensor of `p` at `Replicate` there (the auto
+    engine gathers over the data-parallel axes, never "model").
 
     Why it exists: DTensor's own Shard → Replicate issues the functional
     collective (`_c10d_functional.all_gather_into_tensor`), which killed
@@ -360,7 +362,8 @@ def gather_c10d(p, mesh) -> torch.Tensor:
     x = p.to_local()
     for i in reversed(range(len(mesh.axes))):
         pl = p.placements[i]
-        if not isinstance(pl, Shard):
+        if not isinstance(pl, Shard) or (
+                axes is not None and mesh.axes[i][0] not in axes):
             continue
         line = mesh.line(mesh.axes[i][0])
         x = x.contiguous()
@@ -368,6 +371,27 @@ def gather_c10d(p, mesh) -> torch.Tensor:
         dist.all_gather_into_tensor(out, x, group=line.group)
         x = torch.cat(out.chunk(line.size), dim=pl.dim)
     return x
+
+
+def _adamw_sliced(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                  v: torch.Tensor, step: torch.Tensor, out: torch.Tensor,
+                  cfg: AdamWConfig) -> None:
+    """`adamw_update` of one leaf's local tensors (`cfg` without clipping)
+    in slices of ADAMW_SLICE elements: the moments `m` and `v` updated
+    in place, the new parameters written to `out` (which may be `p`).
+    The update is elementwise, so each slice's result is the whole
+    leaf's, bit for bit, and its f32 temporaries are a slice's, not a
+    leaf's (a 257 M-element local embedding takes ≈ 8 GB of them whole)."""
+    src, grad = p.reshape(-1), g.reshape(-1)
+    mf, vf, dst = m.view(-1), v.view(-1), out.view(-1)
+    for a in range(0, src.numel(), ADAMW_SLICE):
+        s = slice(a, a + ADAMW_SLICE)
+        new_p, new_o, _ = adamw_update(
+            [src[s]], [grad[s]], {"m": [mf[s]], "v": [vf[s]], "step": step},
+            cfg)
+        mf[s].copy_(new_o["m"][0])
+        vf[s].copy_(new_o["v"][0])
+        dst[s].copy_(new_p[0])
 
 
 def make_train_step(api: ModelAPI, mesh=None,
@@ -383,9 +407,9 @@ def make_train_step(api: ModelAPI, mesh=None,
     `mesh` None is one device (`device`, default the card): every
     placement there is `Replicate`, so the step is the plain step, the
     reference's on a one-device mesh. `mesh` a `core.transport.
-    ProcessMesh` (one process a rank, on its device; a "model" axis above
-    1 raises, ROADMAP §1 item 8f; the local mesh raises ValueError) holds
-    every parameter and AdamW moment as a DTensor over `launch.mesh.
+    ProcessMesh` (one process a rank, on its device; the local mesh
+    raises ValueError) holds every parameter and AdamW moment as a
+    DTensor over `launch.mesh.
     device_mesh(mesh)` at the reference's placements
     (`launch.sharding`: the FSDP spec of each stacked leaf, or with
     `fsdp=False` ZeRO-1, parameters `Replicate` over the DP axes and the
@@ -397,19 +421,34 @@ def make_train_step(api: ModelAPI, mesh=None,
     `step(state, batch) -> (state, metrics)` updates `state` in place.
     `batch` is the global batch (`batch_tensors`). Per step:
 
-      1. each parameter goes from its placement to `Replicate` (the FSDP
-         all-gather; a no-op for a replicated leaf);
+      1. each parameter goes from its placement to `Replicate` over the
+         DP axes (the FSDP all-gather; a no-op for a replicated leaf),
+         never over "model": a leaf the "model" axis shards stays this
+         rank's slice of it;
       2. the model's training loss (`api.loss_fn(remat=True)`) runs on
          the rank's rows of the batch (`_rank_batch` at its index on the
-         DP axes, the reference's `batch_specs` split) as local tensors,
-         under the activation check `actsharding.batch_dp_hook` (or
-         `act_hook`) and the mesh context the MoE layer reads. The loss
+         DP axes, the reference's `batch_specs` split; the ranks of a
+         model line share them) as local tensors, under the activation
+         check `actsharding.batch_dp_hook` (or `act_hook`) and the mesh
+         context the MoE layer reads. On a "model" axis above 1 it runs
+         under `actsharding.TPContext` (`TPContext.for_tree`): each
+         product whose weight the axis shards runs on this rank's slice
+         (`layers.tp_dot` / `tp_ffn`: column and row products, the
+         Megatron MLP; the embedding's local columns; the logits'
+         vocabulary slice and a vocabulary-parallel loss), through the
+         four operators of `core.transport` over the model line, and a
+         leaf used outside a product (a norm's weight, an SSM's decays)
+         is gathered over the line where it is used. Every activation
+         between products is the same bits on every rank of the line
+         (partials summed in line order). The loss
          is the reference's global masked mean: the rank's masked sum
          over the global mask count (all-reduced over the DP ranks), so
          the ranks' losses and gradients sum to the one-device ones; the
          gathered copies are released after the backward;
-      3. each gradient is marked `Partial("sum")` over the DP axes and
-         redistributed to its moments' placement (the leaf's under FSDP):
+      3. each gradient is marked `Partial("sum")` over the DP axes and,
+         on "model", at its leaf's placement (`Shard(d)`: the gradient
+         of this rank's slice; `Replicate`), and redistributed to its
+         moments' placement (the leaf's under FSDP):
          a reduce-scatter for a sharded leaf, an all-reduce for a
          replicated one;
       4. AdamW runs on the local shards, clipped by the global norm of
@@ -423,7 +462,7 @@ def make_train_step(api: ModelAPI, mesh=None,
     (`phase_ms`). The step launches no kernel wrapper: the training
     forward runs `layers.train_rmsnorm` / `train_attention` and the
     recurrences' torch ops."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from repro_torch.core.transport import all_gather_rows
     from repro_torch.launch import sharding as shr
@@ -435,7 +474,8 @@ def make_train_step(api: ModelAPI, mesh=None,
     if pm is None:
         dev = resolve_device("cuda" if device is None else device)
         axes = (("data", 1), ("model", 1))
-        dmesh = line = None
+        dmesh = line = tp_line = None
+        dp = ()
         dpn = 1
     else:
         from repro_torch.launch.mesh import device_mesh
@@ -444,7 +484,9 @@ def make_train_step(api: ModelAPI, mesh=None,
         dmesh = device_mesh(pm)
         dp = shr._dp_axes(axes)
         dpn = shr._dp_size(axes)
-        line = pm.line(dp)
+        line = pm.line(dp) if dp else None
+        tp_line = (pm.line("model") if dict(axes).get("model", 1) > 1
+                   else None)
     specs = tree_items(api.params_spec())
     paths = [p for p, _ in specs]
     tracer = default_tracer()
@@ -460,12 +502,20 @@ def make_train_step(api: ModelAPI, mesh=None,
         return shr.to_placements(shr.batch_specs(batch, axes), axes)
 
     placements = state_placements([t for _, t in specs])
+    # each leaf's dim on the "model" axis, or None where it replicates
+    model_dim = [next((q.dim for (a, _), q in zip(axes, pl)
+                       if a == "model" and isinstance(q, Shard)), None)
+                 for pl in placements["params"]]
+    tp_dims = dict(zip(paths, model_dim))
     # the update of one leaf's local shard, its gradient clipped already
     leaf_cfg = dataclasses.replace(opt_cfg, grad_clip=0.0)
-    grad_from = (None if dmesh is None else
-                 [Partial() if a != "model" else Replicate()
-                  for a, _ in axes])
-    everywhere = None if dmesh is None else [Replicate()] * dmesh.ndim
+    # a rank's gradient: a partial sum over the DP ranks, and on "model"
+    # the leaf's own placement (the layers leave each rank the gradient
+    # of its slice, or the whole gradient on every rank of the line)
+    grad_from = [None if dmesh is None else
+                 [Partial() if a != "model" else
+                  Replicate() if d is None else Shard(d) for a, _ in axes]
+                 for d in model_dim]
 
     def mark() -> torch.cuda.Event | None:
         if dev.type != "cuda":
@@ -475,30 +525,38 @@ def make_train_step(api: ModelAPI, mesh=None,
         return e
 
     def whole(p: torch.Tensor) -> torch.Tensor:
-        """The leaf's whole value on this rank (the FSDP all-gather)."""
+        """The leaf gathered over the DP axes on this rank (the FSDP
+        all-gather): its whole value, or where "model" shards it this
+        rank's slice of it, never gathered over "model"."""
         if dmesh is None:
             return p
         if pm.transport == "gloo through the host":
-            return gather_c10d(p, pm)
-        return p.redistribute(dmesh, everywhere).to_local()
+            return gather_c10d(p, pm, dp)
+        return p.redistribute(dmesh, [
+            q if a == "model" else Replicate()
+            for (a, _), q in zip(axes, p.placements)]).to_local()
 
     def moved(x: torch.Tensor, pl) -> torch.Tensor:
         """The DTensor `x` at `pl` (ZeRO-1: a parameter's shard at its
         moments' placement, a local slice; the updated shard back to the
-        parameter's placement, an all-gather)."""
+        parameter's placement, an all-gather over the DP axes)."""
         if dmesh is None or tuple(x.placements) == tuple(pl):
             return x
-        if all(isinstance(q, Replicate) for q in pl):
+        if all(isinstance(q, Replicate) or a == "model"
+               for (a, _), q in zip(axes, pl)):
             return DTensor.from_local(whole(x), dmesh, pl, run_check=False,
                                       shape=x.shape, stride=x.stride())
         return x.redistribute(dmesh, pl)
 
-    def reduce(g: torch.Tensor, pl) -> torch.Tensor:
-        """The rank's gradient summed over the DP ranks, at `pl`."""
+    def reduce(g: torch.Tensor, leaf: torch.Tensor, src, pl
+               ) -> torch.Tensor:
+        """This rank's gradient of `leaf`, at `src` (`grad_from`), summed
+        over the DP ranks, at `pl`."""
         if dmesh is None:
             return g
-        return DTensor.from_local(g, dmesh, grad_from,
-                                  run_check=False).redistribute(dmesh, pl)
+        return DTensor.from_local(
+            g, dmesh, src, run_check=False, shape=leaf.shape,
+            stride=leaf.stride()).redistribute(dmesh, pl)
 
     def dp_sum(x: torch.Tensor) -> torch.Tensor:
         """The sum over the DP ranks, in rank order, on every rank."""
@@ -536,6 +594,9 @@ def make_train_step(api: ModelAPI, mesh=None,
             actsharding.set_hook(
                 act_hook or (actsharding.batch_dp_hook(axes, B)
                              if split else None), pm if split else None)
+            if tp_line is not None:
+                actsharding.set_tp(actsharding.TPContext.for_tree(
+                    pm, tp_line, api.cfg.vocab, tree, tp_dims))
             try:
                 loss = api.loss_fn(tree, rows, remat=True)
                 if split:
@@ -544,6 +605,7 @@ def make_train_step(api: ModelAPI, mesh=None,
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             finally:
                 actsharding.set_hook(None)
+                actsharding.set_tp(None)
             grads = [t.new_zeros(t.shape) if g is None else g
                      for t, g in zip(leaves, grads)]
             del tree, leaves
@@ -552,8 +614,9 @@ def make_train_step(api: ModelAPI, mesh=None,
             with tracer.span("train/reduce_scatter", leaves=len(grads)):
                 # to the moments' placement: the parameters' under FSDP,
                 # sharded under ZeRO-1 too
-                grads = [reduce(g, pl) for g, pl in
-                         zip(grads, placements["opt"]["m"])]
+                grads = [reduce(g, p, src, pl) for g, p, src, pl in
+                         zip(grads, params, grad_from,
+                             placements["opt"]["m"])]
             events.append(mark())
             with tracer.span("train/adamw", leaves=len(grads)):
                 if opt_cfg.grad_clip > 0:
@@ -561,26 +624,24 @@ def make_train_step(api: ModelAPI, mesh=None,
                                                        opt_cfg.grad_clip)
                 else:
                     gnorm = global_norm(grads)
-                # then leaf by leaf on the local shards (elementwise), so
-                # that one leaf's new moments are live at a time
+                # then leaf by leaf on the local shards (elementwise), a
+                # slice of a leaf at a time (`_adamw_sliced`)
                 for i, (g, mpl, ppl) in enumerate(zip(
                         grads, placements["opt"]["m"],
                         placements["params"])):
                     p = moved(params[i], mpl)
-                    new_p, new_o, _ = adamw_update(
-                        [_local(p)], [_local(g)],
-                        {"m": [_local(opt["m"][i])],
-                         "v": [_local(opt["v"][i])], "step": opt["step"]},
-                        leaf_cfg)
-                    _local(opt["m"][i]).copy_(new_o["m"][0])
-                    _local(opt["v"][i]).copy_(new_o["v"][0])
+                    new = (_local(p) if p is params[i]
+                           else torch.empty_like(_local(p)))
+                    _adamw_sliced(_local(p), _local(g),
+                                  _local(opt["m"][i]), _local(opt["v"][i]),
+                                  opt["step"], new, leaf_cfg)
                     if p is not params[i]:            # ZeRO-1
-                        new_p = [_local(moved(DTensor.from_local(
-                            new_p[0], dmesh, mpl, run_check=False,
-                            shape=p.shape, stride=p.stride()), ppl))]
-                    _local(params[i]).copy_(new_p[0])
+                        _local(params[i]).copy_(_local(moved(
+                            DTensor.from_local(
+                                new, dmesh, mpl, run_check=False,
+                                shape=p.shape, stride=p.stride()), ppl)))
                     grads[i] = None
-                    del new_p, new_o
+                    del new
                 opt["step"].copy_(opt["step"] + 1)
                 del grads
             events.append(mark())
@@ -1573,10 +1634,17 @@ def _auto_line(step_fn, mesh) -> str:
                   for pl in pls["params"])
     moments = sum(any(isinstance(p, Shard) for p in pl)
                   for pl in pls["opt"]["m"])
-    return (f"auto engine: DTensor placements over {list(mesh.axes)} "
+    line = (f"auto engine: DTensor placements over {list(mesh.axes)} "
             f"({mesh.transport}): {sharded} of {len(pls['params'])} "
             f"parameter leaves and {moments} moment leaves sharded; "
             "collectives by torch.distributed")
+    names = [a for a, _ in mesh.axes]
+    if dict(mesh.axes).get("model", 1) > 1:
+        tp = sum(isinstance(pl[names.index("model")], Shard)
+                 for pl in pls["params"])
+        line += (f"; {tp} leaves tensor-parallel on 'model', its line's "
+                 "exchanges by core.transport")
+    return line
 
 
 def _ckpt_line(mgr) -> str:

@@ -15,15 +15,26 @@ activation whose leading dim is the global batch raises. With no hook
 installed `constrain` is the identity, so the manual engine and serving
 run as they did. The mesh of `mesh_ctx` is the engine's
 `core.transport.ProcessMesh`.
+
+On a "model" axis above 1 the engine also installs a `TPContext`
+(`set_tp`): this rank's line of the "model" axis and, for every
+parameter leaf the forward takes, the dim that line shards (the leaf a
+local tensor of 1/m of it there) or None. The layers' products read it
+(`layers.tp_dot`): a product whose weight is sharded runs on the local
+slice through the operators of `core.transport`, and a leaf used outside
+a product is gathered over the line where it is used (`TPContext.whole`).
+With no context the layers run as they did.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
 
 _HOOK: Optional[Callable] = None
 _MESH = None          # the mesh of layer-level regions (MoE)
+_TP: Optional["TPContext"] = None
 
 
 def set_hook(fn: Optional[Callable], mesh=None) -> None:
@@ -69,3 +80,99 @@ def batch_dp_hook(mesh, global_batch: int) -> Callable:
         return x
 
     return hook
+
+
+@dataclass(eq=False)
+class TPContext:
+    """Tensor parallelism on one "model" line of a process mesh: `mesh`
+    (the `ProcessMesh`), `line` (this rank's line of "model"), `vocab`
+    (the model's whole vocabulary: logits narrower than it are this
+    rank's slice, `vocab_slice`), and `dims`, id of each parameter leaf
+    the forward takes → the dim the line shards, or None. `leaves` keeps
+    those tensors alive, so that no id is reused while it is installed;
+    `paths` names them (id → the leaf's path, "/"-joined)."""
+    mesh: object
+    line: object
+    vocab: int
+    dims: dict
+    leaves: list = field(default_factory=list, repr=False)
+    paths: dict = field(default_factory=dict, repr=False)
+
+    @classmethod
+    def for_tree(cls, mesh, line, vocab: int, tree: dict,
+                 dims: dict) -> "TPContext":
+        """The context of the port's parameter tree `tree` (per-layer
+        views of the stacked leaves, as the auto step's forward takes
+        them): `dims` maps each stacked leaf's path to the dim the line
+        shards, or None; a layer view's dim is its stacked leaf's less
+        one."""
+        from .tree import LAYER_KEYS, tree_items
+
+        ids, keep, names = {}, [], {}
+        for k, v in tree.items():
+            if k in LAYER_KEYS:
+                items = [((k,) + path, t, 1) for lp in v
+                         for path, t in tree_items(lp)]
+            else:
+                items = [(path, t, 0) for path, t in tree_items(v, (k,))]
+            for path, t, skip in items:
+                d = dims[path]
+                ids[id(t)] = None if d is None else d - skip
+                keep.append(t)
+                names[id(t)] = "/".join(path)
+        return cls(mesh, line, vocab, ids, keep, names)
+
+    def dim(self, w: torch.Tensor) -> Optional[int]:
+        """The dim of the leaf `w` the line shards, or None (replicated,
+        or not a parameter leaf)."""
+        return self.dims.get(id(w))
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.core import transport
+        return transport.copy_to_line(self.mesh, self.line, x)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        from repro_torch.core import transport
+        return transport.reduce_over_line(self.mesh, self.line, x)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        from repro_torch.core import transport
+        return transport.gather_over_line(self.mesh, self.line, x, dim)
+
+    def slice(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        from repro_torch.core import transport
+        return transport.slice_for_line(self.mesh, self.line, x, dim)
+
+    def whole(self, w: torch.Tensor) -> torch.Tensor:
+        """The whole leaf `w` where the line shards it (a leaf the forward
+        uses outside a product: gathered over the line, its cotangent
+        sliced back), else `w`."""
+        d = self.dim(w)
+        return w if d is None else self.gather(w, d)
+
+    def vocab_slice(self, logits: torch.Tensor) -> Optional[int]:
+        """The first vocabulary entry of `logits` where they are this
+        rank's slice of the vocabulary, else None."""
+        n = logits.shape[-1]
+        if n == self.vocab:
+            return None
+        if n * self.line.size != self.vocab:
+            raise ValueError(f"logits of {n} entries on a line of "
+                             f"{self.line.size} over a vocabulary of "
+                             f"{self.vocab}")
+        return self.line.index * n
+
+
+def set_tp(ctx: Optional[TPContext]) -> None:
+    global _TP
+    _TP = ctx
+
+
+def tp_context() -> Optional[TPContext]:
+    """The installed `TPContext`, or None."""
+    return _TP
+
+
+def whole(w: torch.Tensor) -> torch.Tensor:
+    """`TPContext.whole` under the installed context; `w` with none."""
+    return w if _TP is None else _TP.whole(w)

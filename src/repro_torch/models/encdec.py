@@ -179,7 +179,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x = _run(_train_dec_block, cfg, params["decoder"], x, enc, positions,
              remat=remat)
-    return matmul(train_rmsnorm(x, params["ln_f"]), params["lm_head"])
+    return matmul(train_rmsnorm(x, params["ln_f"]), params["lm_head"],
+                  gather=False)
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict, **kw

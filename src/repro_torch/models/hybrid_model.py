@@ -24,7 +24,7 @@ from .actsharding import constrain
 from .config import ModelConfig
 from .layers import (Params, _attend, _qkv, attention_decode, dense_init,
                      embed, init_attention, init_mlp, mlp, rmsnorm,
-                     train_attention, train_rmsnorm)
+                     tp_dot, train_attention, train_rmsnorm)
 from .recurrence import init_mamba, mamba_ssm, train_mamba_ssm
 from .transformer import _nll
 
@@ -99,7 +99,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         else:
             x = _train_layer(cfg, lp, x, w, positions, ssm_chunk)
     x = train_rmsnorm(x, params["ln_f"])
-    return x @ params["lm_head"]
+    return tp_dot(x, params["lm_head"], gather=False)
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,

@@ -32,6 +32,13 @@ torch ops, f32 where the reference is f32. `transformer.forward` and
 The products take the reference's type promotion (`matmul`): f32
 activations against bf16 weights (a vlm's embeddings, whisper's frames
 and encoder states) widen the weights to f32, as jnp's `@` does.
+
+Every training product goes through `tp_dot` (or `tp_ffn`, a gated MLP's
+three): with no `actsharding.TPContext` installed it is the product as
+it was; under the auto engine's context on a "model" axis above 1 a
+product whose weight the axis shards runs on this rank's slice of it
+(column, row or batch-sharded), and the gate, up and down products of an
+MLP sharded Megatron's way keep their intermediate sharded.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from . import actsharding
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -63,13 +71,64 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...],
     return x.mul_(scale).to(dtype)
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w in the promoted dtype of the two, as jnp's `@` on mixed
-    dtypes: an f32 input against bf16 weights takes the weights widened."""
+def _promoted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype != w.dtype:
         t = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(t), w.to(t)
     return x @ w
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, gather: bool = True
+           ) -> torch.Tensor:
+    """x @ w in the promoted dtype of the two, as jnp's `@` on mixed
+    dtypes: an f32 input against bf16 weights takes the weights widened.
+    Tensor-parallel under the auto engine's context (`tp_dot`, which
+    reads `gather`)."""
+    return tp_dot(x, w, _promoted, gather)
+
+
+def tp_dot(x: torch.Tensor, w: torch.Tensor,
+           fn: Callable = torch.matmul, gather: bool = True) -> torch.Tensor:
+    """fn(x, w): a product contracting x's last dim with w's dim -2 into
+    w's last (a 3-D w's dim 0 a batch dim, as `torch.bmm`'s), with no
+    other use of the weight. With no `actsharding.TPContext`, or a `w`
+    its line does not shard, fn(x, w) as it is. Where the line shards
+    the parameter leaf `w`, fn runs on this rank's slice of it:
+      * its output dim (column): on x as it is (`TPContext.copy`: the
+        cotangent of x summed over the line), the result gathered along
+        its last dim, unless `gather` is False (the logits, which the
+        loss takes sliced: `actsharding.TPContext.vocab_slice`);
+      * its contraction dim (row): on this rank's slice of x's last dim,
+        the partial results summed over the line;
+      * a batch dim: on this rank's slice of x's dim 0, the results
+        gathered along dim 0."""
+    ctx = actsharding.tp_context()
+    d = None if ctx is None else ctx.dim(w)
+    if d is None:
+        return fn(x, w)
+    d -= w.dim()
+    if d == -1:
+        y = fn(ctx.copy(x), w)
+        return ctx.gather(y, -1) if gather else y
+    if d == -2:
+        return ctx.reduce(fn(ctx.slice(x, -1), w))
+    return ctx.gather(fn(ctx.slice(x, 0), w), 0)
+
+
+def tp_ffn(x: torch.Tensor, ws_in: Sequence[torch.Tensor],
+           inner: Callable, w_out: torch.Tensor,
+           fn: Callable = torch.matmul) -> torch.Tensor:
+    """fn(inner(fn(x, w) for w in ws_in), w_out), each product through
+    `tp_dot`; where one line shards every w of `ws_in` on its output dim
+    and `w_out` on its contraction dim, the intermediate stays sharded
+    (`inner` is elementwise): x enters each rank's slices as it is, and
+    one sum over the line follows `w_out` (the Megatron MLP)."""
+    ctx = actsharding.tp_context()
+    if ctx is not None and ctx.dim(w_out) == w_out.dim() - 2 and all(
+            ctx.dim(w) == w.dim() - 1 for w in ws_in):
+        xc = ctx.copy(x)
+        return ctx.reduce(fn(inner(*(fn(xc, w) for w in ws_in)), w_out))
+    return tp_dot(inner(*(tp_dot(x, w, fn) for w in ws_in)), w_out, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +144,7 @@ def train_rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
                   ) -> torch.Tensor:
     """The reference's `rmsnorm` in differentiable torch ops, in its
     order (training)."""
+    w = actsharding.whole(w)
     xf = x.float()
     rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * rms * (1.0 + w.float())).to(x.dtype)
@@ -362,16 +422,29 @@ def init_mlp(gen: torch.Generator, d: int, f: int, dtype=torch.bfloat16,
             "wo": dense_init(gen, (f, d), dtype=dtype, device=device)}
 
 
+def _swiglu(g: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    return F.silu(g) * i
+
+
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return matmul(F.silu(matmul(x, p["wg"])) * matmul(x, p["wi"]), p["wo"])
+    return tp_ffn(x, (p["wg"], p["wi"]), _swiglu, p["wo"], _promoted)
 
 
 # ---------------------------------------------------------------------------
 # embedding
 # ---------------------------------------------------------------------------
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, T) → (B, T, D) rows of the (vocab, D) table."""
-    return table[tokens]
+    """tokens (B, T) → (B, T, D) rows of the (vocab, D) table. Where the
+    auto engine's "model" line shards the table on D, the rows of this
+    rank's columns, gathered along D."""
+    ctx = actsharding.tp_context()
+    d = None if ctx is None else ctx.dim(table)
+    if d is None:
+        return table[tokens]
+    if d != table.dim() - 1:
+        raise ValueError(f"an embedding table sharded on dim {d} of "
+                         f"{tuple(table.shape)}; the rule shards its D")
+    return ctx.gather(table[tokens], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +480,7 @@ def moe_route(p: Params, xt: torch.Tensor, k: int
     """Router of the (n, D) tokens in f32: softmax, the top k with ties
     to the lower expert (`lax.top_k`'s order: a stable descending sort),
     renormalised. Returns (probs (n, E), topv (n, k), topi (n, k))."""
-    probs = torch.softmax(xt.float() @ p["router"], dim=-1)
+    probs = torch.softmax(tp_dot(xt.float(), p["router"]), dim=-1)
     topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topv, topi = topv[:, :k], topi[:, :k]
     return probs, topv / (topv.sum(-1, keepdim=True) + 1e-9), topi
@@ -415,8 +488,7 @@ def moe_route(p: Params, xt: torch.Tensor, k: int
 
 def _experts(p: Params, eb: torch.Tensor) -> torch.Tensor:
     """SwiGLU of every expert on its (E, rows, D) buffer rows."""
-    h = F.silu(torch.bmm(eb, p["wg"])) * torch.bmm(eb, p["wi"])
-    return torch.bmm(h, p["wo"])
+    return tp_ffn(eb, (p["wg"], p["wi"]), _swiglu, p["wo"], torch.bmm)
 
 
 def _moe_sorted(p: Params, xg: torch.Tensor, topi: torch.Tensor,

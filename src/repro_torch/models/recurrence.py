@@ -25,8 +25,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from .actsharding import whole
 from .config import ModelConfig
-from .layers import Params, dense_init, rmsnorm, train_rmsnorm
+from .layers import (Params, dense_init, rmsnorm, tp_dot, tp_ffn,
+                     train_rmsnorm)
 
 RWKV_LORA = 64        # rank of the data-dependent decay's low-rank map
 
@@ -69,6 +71,15 @@ def init_rwkv(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
     }
 
 
+def _widened(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with w widened to f32 (the reference's `x @ w.astype(f32)`)."""
+    return x @ w.float()
+
+
+def _relu_sq(k: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(k))
+
+
 def _token_shift(x: torch.Tensor, prev: torch.Tensor | None = None
                  ) -> torch.Tensor:
     """x: (B, T, D) → x shifted right by one (first slot = prev or 0)."""
@@ -90,19 +101,20 @@ def _time_mix_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig,
     B, T, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     xs = _token_shift(x, shift_prev)
-    mu = p["mu"].float()
+    mu = whole(p["mu"]).float()
     xf, xsf = x.float(), xs.float()
 
     def mix(i):
         return (xf + mu[i] * (xsf - xf)).to(x.dtype)
 
-    r = _heads(mix(0) @ p["wr"], B, T, H, hd)
-    k = _heads(mix(1) @ p["wk"], B, T, H, hd)
-    v = _heads(mix(2) @ p["wv"], B, T, H, hd)
-    g = F.silu((mix(3) @ p["wg"]).float())
+    r = _heads(tp_dot(mix(0), p["wr"]), B, T, H, hd)
+    k = _heads(tp_dot(mix(1), p["wk"]), B, T, H, hd)
+    v = _heads(tp_dot(mix(2), p["wv"]), B, T, H, hd)
+    g = F.silu(tp_dot(mix(3), p["wg"]).float())
     # data-dependent decay (RWKV6): w = exp(−exp(w0 + tanh(x A) B))
-    dd = torch.tanh((mix(4) @ p["w_a"]).float()) @ p["w_b"].float()
-    logw = _heads(-torch.exp(p["w0"] + dd), B, T, H, hd)   # ≤ 0
+    dd = tp_dot(torch.tanh(tp_dot(mix(4), p["w_a"]).float()), p["w_b"],
+                _widened)
+    logw = _heads(-torch.exp(whole(p["w0"]) + dd), B, T, H, hd)   # ≤ 0
     return r, k, v, logw, g
 
 
@@ -111,7 +123,7 @@ def _time_mix_out(p: Params, x: torch.Tensor, out: torch.Tensor,
     B, H, T, hd = out.shape
     out = out.transpose(1, 2).reshape(B, T, H * hd)
     out = norm(out, p["ln_x"]) * g
-    return out.to(x.dtype) @ p["wo"]
+    return tp_dot(out.to(x.dtype), p["wo"])
 
 
 def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -186,20 +198,19 @@ def train_rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     r, k, v, logw, g = _time_mix_inputs(p, x, cfg, None)
     B, H, _, hd = r.shape
     s0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
-    out, s_fin = _wkv_chunk(r, k, v, logw, p["u"], s0, chunk)
+    out, s_fin = _wkv_chunk(r, k, v, logw, whole(p["u"]), s0, chunk)
     return _time_mix_out(p, x, out, g, train_rmsnorm), s_fin
 
 
 def rwkv_channel_mix(p: Params, x: torch.Tensor,
                      shift_prev: torch.Tensor | None = None) -> torch.Tensor:
     xs = _token_shift(x, shift_prev)
-    mu = p["cm_mu"].float()
+    mu = whole(p["cm_mu"]).float()
     xf, xsf = x.float(), xs.float()
     xk = (xf + mu[0] * (xsf - xf)).to(x.dtype)
     xr = (xf + mu[1] * (xsf - xf)).to(x.dtype)
-    kk = torch.square(F.relu(xk @ p["cm_k"]))
-    return torch.sigmoid((xr @ p["cm_r"]).float()).to(x.dtype) * \
-        (kk @ p["cm_v"])
+    return torch.sigmoid(tp_dot(xr, p["cm_r"]).float()).to(x.dtype) * \
+        tp_ffn(xk, (p["cm_k"],), _relu_sq, p["cm_v"])
 
 
 # ---------------------------------------------------------------------------
@@ -234,20 +245,20 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
 def _ssm_inputs(p: Params, x: torch.Tensor):
     """The scan's f32 inputs u, dt (B, T, Di) and b, c (B, T, N) of x
     (B, T, D), and the f32 output gate z (B, T, Di)."""
-    di = p["log_a"].shape[0]
-    xb = (x @ p["in_x"]).float()                          # (B, T, Di)
-    z = F.silu((x @ p["in_z"]).float())
+    xb = tp_dot(x, p["in_x"]).float()                     # (B, T, Di)
+    di = xb.shape[-1]
+    z = F.silu(tp_dot(x, p["in_z"]).float())
     # per-channel step size: the rank-1 dt broadcast over channels + bias
-    dt = F.softplus(xb @ p["w_dt"] + p["dt_bias"])        # (B, T, Di)
-    b_t = xb @ p["w_b"].float() / di ** 0.5               # (B, T, N)
-    c_t = xb @ p["w_c"].float() / di ** 0.5
+    dt = F.softplus(tp_dot(xb, p["w_dt"]) + whole(p["dt_bias"]))
+    b_t = tp_dot(xb, p["w_b"], _widened) / di ** 0.5      # (B, T, N)
+    c_t = tp_dot(xb, p["w_c"], _widened) / di ** 0.5
     return F.silu(xb), dt, b_t, c_t, z
 
 
 def _ssm_out(p: Params, x: torch.Tensor, ys: torch.Tensor, u: torch.Tensor,
              z: torch.Tensor) -> torch.Tensor:
-    y = (ys + u * p["d_skip"]) * z
-    return y.to(x.dtype) @ p["out"]
+    y = (ys + u * whole(p["d_skip"])) * z
+    return tp_dot(y.to(x.dtype), p["out"])
 
 
 def mamba_ssm(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -305,8 +316,9 @@ def train_mamba_ssm(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """`mamba_ssm` for training, differentiable: from a zero state through
     `_ssm_scan_chunked`, no kernel."""
     u, dt, b_t, c_t, z = _ssm_inputs(p, x)
-    di, n = p["log_a"].shape
+    log_a = whole(p["log_a"])
+    di, n = log_a.shape
     s0 = torch.zeros((x.shape[0], di, n), dtype=torch.float32,
                      device=x.device)
-    ys, s_fin = _ssm_scan_chunked(u, dt, b_t, c_t, p["log_a"], s0, chunk)
+    ys, s_fin = _ssm_scan_chunked(u, dt, b_t, c_t, log_a, s0, chunk)
     return _ssm_out(p, x, ys, u, z), s_fin

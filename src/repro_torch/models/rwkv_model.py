@@ -21,7 +21,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .actsharding import constrain
 from .config import ModelConfig
-from .layers import Params, dense_init, embed, rmsnorm, train_rmsnorm
+from .layers import (Params, dense_init, embed, rmsnorm, tp_dot,
+                     train_rmsnorm)
 from .recurrence import (init_rwkv, rwkv_channel_mix, rwkv_time_mix,
                          train_rwkv_time_mix)
 from .transformer import _nll
@@ -92,9 +93,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         tms.append(tm)
         cms.append(cm)
     x = train_rmsnorm(x, params["ln_f"])
-    return x @ params["lm_head"], {"wkv": torch.stack(wkv),
-                                   "tm_shift": torch.stack(tms),
-                                   "cm_shift": torch.stack(cms)}
+    return tp_dot(x, params["lm_head"], gather=False), {
+        "wkv": torch.stack(wkv), "tm_shift": torch.stack(tms),
+        "cm_shift": torch.stack(cms)}
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,

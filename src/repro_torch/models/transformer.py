@@ -35,7 +35,7 @@ from typing import Sequence
 import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
-from .actsharding import constrain
+from .actsharding import constrain, tp_context
 from .config import ModelConfig
 from .layers import (Params, _attend, _qkv, attention_decode, dense_init,
                      embed, init_attention, init_mlp, init_moe, matmul, mlp,
@@ -95,7 +95,7 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
             norm=rmsnorm) -> torch.Tensor:
     x = norm(x, params["ln_f"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = matmul(x, head)
+    logits = matmul(x, head, gather=False)
     if cfg.final_softcap > 0:
         logits = (torch.tanh(logits.float() / cfg.final_softcap)
                   * cfg.final_softcap).to(logits.dtype)
@@ -208,13 +208,42 @@ def forward_ep(params: Sequence[Params], cfg: ModelConfig,
 
 
 def _nll(logits: torch.Tensor, batch: dict) -> torch.Tensor:
+    """The masked mean NLL of the f32 log-softmax of `logits` at
+    batch["labels"]. Logits that are this rank's slice of the vocabulary
+    (`actsharding.TPContext.vocab_slice`) take the vocabulary-parallel
+    form: the rows' max and sum of exponentials over the "model" line,
+    each label's logit from the rank that holds it."""
     labels = batch["labels"].long()
-    lp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
+    ctx = tp_context()
+    start = None if ctx is None else ctx.vocab_slice(logits)
+    if start is None:
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
+    else:
+        nll = _nll_vocab_parallel(ctx, logits.float(), labels, start)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(nll)
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _nll_vocab_parallel(ctx, lf: torch.Tensor, labels: torch.Tensor,
+                        start: int) -> torch.Tensor:
+    """−log softmax(logits)[label] of f32 logits `lf` whose last dim is
+    entries [start, start + n) of the vocabulary: max + log Σ exp(l − max)
+    − l[label], the max and the sum over the line's slices, the label's
+    logit summed over the line from the one rank that holds it."""
+    from repro_torch.core.transport import all_gather_rows
+    n = lf.shape[-1]
+    with torch.no_grad():
+        m = all_gather_rows(ctx.mesh, ctx.line,
+                            lf.amax(dim=-1)).amax(dim=0)[..., None]
+    se = ctx.reduce(torch.exp(lf - m).sum(dim=-1))
+    local = labels - start
+    held = (local >= 0) & (local < n)
+    picked = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    picked = ctx.reduce(torch.where(held, picked, 0.0))
+    return torch.log(se) + m[..., 0] - picked
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict, *,

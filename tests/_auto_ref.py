@@ -1,10 +1,13 @@
 """The reference's auto engine in a JAX subprocess, for the auto-engine
-tests (`test_torch_auto_train.py`, `test_torch_dist_auto.py`).
+tests (`test_torch_auto_train.py`, `test_torch_dist_auto.py`,
+`test_torch_dist_tp*.py`).
 
 The child runs the JAX package's `make_train_step` (jit + NamedSharding,
 XLA SPMD inserting every collective) on a plain `jax.sharding.Mesh` of
 forced host devices, never `jax.make_mesh`: a one-device (1, 1) mesh,
-(4, 1) as ("data", "model") or (2, 2, 1) as ("pod", "data", "model").
+(4, 1) as ("data", "model") or (2, 2, 1) as ("pod", "data", "model");
+with tensor parallelism (2, 2) or (1, 4) as ("data", "model") and
+(2, 1, 2) as ("pod", "data", "model").
 Each run starts from the reference's own `init_params(PRNGKey(0),
 dtype)` of the smoke configuration (with the run's config overrides),
 which the child writes first, under "init/<label>/<path>", as f32 (bf16
@@ -43,7 +46,10 @@ inp = dict(np.load(in_path))
 devs = np.array(jax.devices()[:4])
 MESHES = {"1x1": Mesh(devs[:1].reshape(1, 1), ("data", "model")),
           "4x1": Mesh(devs.reshape(4, 1), ("data", "model")),
-          "2x2x1": Mesh(devs.reshape(2, 2, 1), ("pod", "data", "model"))}
+          "2x2x1": Mesh(devs.reshape(2, 2, 1), ("pod", "data", "model")),
+          "2x2": Mesh(devs.reshape(2, 2), ("data", "model")),
+          "1x4": Mesh(devs.reshape(1, 4), ("data", "model")),
+          "2x1x2": Mesh(devs.reshape(2, 1, 2), ("pod", "data", "model"))}
 res = {}
 
 

@@ -5,6 +5,7 @@ imports torch and the port only, never the JAX package).
 Each worker builds its cases from the same seeds as the test file that
 launches it, runs them as its rank and returns plain CPU results; the
 test file holds them against the local mesh and the reference."""
+import contextlib
 import functools
 import itertools
 
@@ -835,3 +836,274 @@ def auto_worker(mesh, npz_init: str, npz_batches: str, root: str) -> dict:
         ck[name] = (out["losses"], out["steps"])
     res["ckpt"] = ck
     return res
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism on the auto engine's "model" axis
+# (tests/test_torch_dist_tp.py, tests/test_torch_dist_tp_rest.py)
+# ---------------------------------------------------------------------------
+# the smoke models widened so that every kind of "model" spec occurs on a
+# line of 2 or 4: the (2, 64, 2048) gate and up products on their output
+# dim (column), the down product on its contraction dim (row), the
+# (4096, 64) embedding on its hidden dim, the (64, 4096) head on its
+# vocabulary; the attention leaves stay under REPLICATE_BELOW
+# (replicated). A MoE model's (2, 8, 64, 256) experts shard as the MLP's
+TP_DENSE = {"vocab": 4096, "d_ff": 2048}
+TP_MOE = {"vocab": 4096, "d_ff_expert": 256}
+TP_AXES = {"2x2": (("data", 2), ("model", 2)),
+           "1x4": (("data", 1), ("model", 4)),
+           "2x1x2": (("pod", 2), ("data", 1), ("model", 2))}
+# (label, arch, dtype, mesh, fsdp, config overrides, batch)
+TP_FAMILY = [(arch, arch, "float32", "2x2", True,
+              TP_MOE if "moe" in arch or "mixtral" in arch else TP_DENSE,
+              arch)
+             for arch in ("stablelm-12b", "gemma2-27b", "qwen3-32b",
+                          "gemma3-4b", "deepseek-moe-16b", "mixtral-8x22b",
+                          "qwen2-vl-7b", "rwkv6-1.6b", "hymba-1.5b",
+                          "whisper-large-v3")]
+TP_RUNS = TP_FAMILY + [
+    ("stablelm-bf16", "stablelm-12b", "bfloat16", "2x2", True, TP_DENSE,
+     "stablelm-12b"),
+    ("stablelm-zero1", "stablelm-12b", "float32", "2x2", False, TP_DENSE,
+     "stablelm-12b"),
+    ("stablelm-1x4", "stablelm-12b", "float32", "1x4", True, TP_DENSE,
+     "stablelm-12b"),
+    ("stablelm-pod", "stablelm-12b", "float32", "2x1x2", True, TP_DENSE,
+     "stablelm-12b"),
+    ("stablelm-mask", "stablelm-12b", "float32", "2x2", True, TP_DENSE,
+     "masked"),
+]
+# the transformer families (test_torch_dist_tp.py) and the rest
+TP_REST = ("rwkv6-1.6b", "hymba-1.5b", "whisper-large-v3")
+# the step whose model-line traffic test_torch_dist_tp_rest.py reads:
+# (label, arch, overrides, REPLICATE_BELOW or None for the rule's own):
+# under a threshold of 64 the "model" line shards nearly every leaf, the
+# norms, RWKV6's mixes, decay and bonus and the SSM's decays too, which
+# the forward gathers where it uses them outside a product
+TP_CENSUS = [("stablelm-12b", "stablelm-12b", TP_DENSE, None),
+             ("qwen3-32b-all", "qwen3-32b", TP_DENSE, 64),
+             ("mixtral-8x22b-all", "mixtral-8x22b", TP_MOE, 64),
+             ("rwkv6-1.6b-all", "rwkv6-1.6b", TP_DENSE, 64),
+             ("hymba-1.5b-all", "hymba-1.5b", TP_DENSE, 64)]
+# a checkpointed run_training on ("data", 2) x ("model", 2): the smoke
+# stablelm-12b, its leaves sharded on "model" under a threshold of 1,024
+TP_CKPT = dict(arch="stablelm-12b", steps=4, seq_len=32, global_batch=8,
+               lr=1e-3, ckpt_every=2, log_every=1000, device="cpu")
+TP_CKPT_BELOW = 1024
+
+
+def tp_meshes(mesh) -> dict:
+    """TP_AXES' process meshes over the 4 processes of `mesh` ("2x2")."""
+    from repro_torch.launch import mesh as M
+    return {name: mesh if name == "2x2" else
+            M.init_process_mesh(axes, mesh.backend, mesh.device)
+            for name, axes in TP_AXES.items()}
+
+
+@contextlib.contextmanager
+def replicate_below(n):
+    """`launch.sharding.REPLICATE_BELOW` at n for the block (None: as it
+    is)."""
+    from repro_torch.launch import sharding as shr
+    old = shr.REPLICATE_BELOW
+    shr.REPLICATE_BELOW = old if n is None else n
+    try:
+        yield
+    finally:
+        shr.REPLICATE_BELOW = old
+
+
+def tp_census(mesh, inputs: dict, arch: str, overrides: dict,
+              below) -> dict:
+    """One auto step on `mesh` from the seeded f32 init, reading the
+    model line: each call of the four operators of `core.transport`
+    (op, the input's shape, the parameter leaf it is, or None), each
+    torch call that takes a model-sharded parameter leaf (function, leaf,
+    its shape, its whole shape), the bytes this rank sent over the line,
+    the loss and gnorm."""
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.core import transport
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as T
+    from repro_torch.models import actsharding
+    from repro_torch.optim import AdamWConfig
+
+    calls, uses = [], []
+
+    def spy(name, fn):
+        def wrapped(mesh_, line, x, *a):
+            ctx = actsharding.tp_context()
+            calls.append((name, tuple(x.shape), ctx.paths.get(id(x))))
+            return fn(mesh_, line, x, *a)
+        return wrapped
+
+    class Uses(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            ctx = actsharding.tp_context()
+            if ctx is not None:
+                for a in args:
+                    if isinstance(a, torch.Tensor) and ctx.dim(a) is not None:
+                        uses.append((getattr(func, "__name__", str(func)),
+                                     ctx.paths[id(a)], tuple(a.shape)))
+            return func(*args, **(kwargs or {}))
+
+    api = auto_api(arch, overrides)
+    cfg = api.cfg
+    real = {k: getattr(transport, k) for k in (
+        "copy_to_line", "reduce_over_line", "gather_over_line",
+        "slice_for_line")}
+    with replicate_below(below):
+        step, _, _ = T.make_train_step(api, mesh, AdamWConfig(lr=AUTO_LR),
+                                       device="cpu")
+        state = T.place_state(api.init_params(
+            torch.Generator().manual_seed(0), torch.float32, "cpu"), mesh,
+            step.placements)
+    batch = T.batch_tensors(SyntheticLM(T.data_config(
+        cfg, AUTO_SEQ, AUTO_BATCH)).batch_at(0), "cpu")
+    line = mesh.line("model")
+    sent = line.sent
+    try:
+        for k, fn in real.items():
+            setattr(transport, k, spy(k, fn))
+        with Uses():
+            _, m = step(state, batch)
+    finally:
+        for k, fn in real.items():
+            setattr(transport, k, fn)
+    names = [a for a, _ in mesh.axes]
+    whole = {}
+    for (path, leaf), pl in zip(tree_items_of(api), step.placements["params"]):
+        q = pl[names.index("model")]
+        if q.is_shard():
+            whole["/".join(path)] = (q.dim, tuple(leaf.shape))
+    return {"calls": calls, "uses": uses, "sent": line.sent - sent,
+            "loss": float(m["loss"]), "gnorm": float(m["gnorm"]),
+            "sharded": whole, "m": line.size}
+
+
+def tree_items_of(api) -> list:
+    from repro_torch.models.tree import tree_items
+    return tree_items(api.params_spec())
+
+
+def tp_worker(mesh, npz_init: str, npz_batches: str, labels, root: str,
+              extras: bool) -> dict:
+    """TP_RUNS named in `labels` as this rank of the ("data", 2) x
+    ("model", 2) launch (the (1, 4) and (pod, data, model) runs on
+    process meshes of their own over the same processes); with `extras`
+    TP_CENSUS (`tp_census`) and TP_CKPT's checkpoint restart."""
+    import os
+
+    from repro_torch.launch import train as T
+
+    inputs = {**dict(np.load(npz_init)), **dict(np.load(npz_batches))}
+    meshes = tp_meshes(mesh)
+    res = {}
+    for label, arch, dtype, mname, fsdp, overrides, bkey in TP_RUNS:
+        if label in labels:
+            res[label] = auto_steps(meshes[mname], inputs, label, arch,
+                                    dtype, fsdp, overrides, bkey)
+    if not extras:
+        return res
+    res["census"] = {label: tp_census(mesh, inputs, arch, ov, below)
+                     for label, arch, ov, below in TP_CENSUS}
+
+    def quiet(_msg):
+        pass
+    ck = {}
+    with replicate_below(TP_CKPT_BELOW):
+        for name, steps in (("full", 4), ("part", 2), ("resumed", 4)):
+            out = T.run_training(T.TrainConfig(
+                **{**TP_CKPT, "steps": steps}, engine="auto",
+                ckpt_dir=os.path.join(root, "part" if name == "resumed"
+                                      else name)), mesh=mesh, on_log=quiet)
+            ck[name] = (out["losses"], out["steps"])
+        ck["tp_leaves"] = sum(
+            pl[-1].is_shard() for pl in out["step"].placements["params"])
+    res["ckpt"] = ck
+    return res
+
+
+# the four operators under `layers.tp_dot` / `tp_ffn`, `embed`,
+# `train_rmsnorm` and the vocabulary-parallel loss, in f64 on ("model", 2):
+# case → the whole tensors' shapes, each weight's sharded dim
+TP_OPS = {
+    "column": ((3, 5, 8), [((8, 6), 1)]),
+    "row": ((3, 5, 8), [((8, 6), 0)]),
+    "batch": ((2, 7, 8), [((2, 8, 6), 0)]),
+    "mlp": ((3, 5, 8), [((8, 12), 1), ((8, 12), 1), ((12, 8), 0)]),
+    "mlp-row-first": ((3, 5, 8), [((8, 12), 0), ((8, 12), 0), ((12, 8), 1)]),
+    "experts": ((2, 7, 8), [((2, 8, 12), 2), ((2, 8, 12), 2),
+                            ((2, 12, 8), 1)]),
+    "embed": ((3, 5), [((10, 8), 1)]),
+    "norm": ((3, 5, 8), [((8,), 0)]),
+    "nll": ((3, 5, 8), [((8, 12), 1)]),
+}
+
+
+def tp_op(case: str, x, ws):
+    """The function of TP_OPS' `case` of x and the weights `ws` (whole, or
+    this rank's slices under a TPContext)."""
+    from repro_torch.models import layers, transformer
+    if case in ("column", "row"):
+        return layers.tp_dot(x, ws[0])
+    if case == "batch":
+        return layers.tp_dot(x, ws[0], torch.bmm)
+    if case in ("mlp", "mlp-row-first"):
+        return layers.mlp(dict(zip(("wg", "wi", "wo"), ws)), x)
+    if case == "experts":
+        return layers._experts(dict(zip(("wg", "wi", "wo"), ws)), x)
+    if case == "embed":
+        return layers.embed(ws[0], x)
+    if case == "norm":
+        return layers.train_rmsnorm(x, ws[0])
+    return transformer._nll(layers.tp_dot(x, ws[0], gather=False),
+                            {"labels": tp_labels(x)})
+
+
+def tp_labels(x) -> torch.Tensor:
+    """The nll case's labels: fixed, from the input's shape."""
+    n = x.shape[0] * x.shape[1]
+    return (torch.arange(n) * 5 % 12).reshape(x.shape[:2])
+
+
+def tp_op_inputs(case: str) -> tuple:
+    """TP_OPS' `case`: x, the whole weights and the output's cotangent,
+    seeded, f64."""
+    xs, wspecs = TP_OPS[case]
+    g = torch.Generator().manual_seed(sorted(TP_OPS).index(case))
+    x = (torch.randint(0, 10, xs, generator=g) if case == "embed" else
+         torch.randn(xs, generator=g, dtype=torch.float64))
+    ws = [torch.randn(s, generator=g, dtype=torch.float64) for s, _ in wspecs]
+    return x, ws, g
+
+
+def tp_ops_worker(mesh) -> dict:
+    """TP_OPS on this rank of ("model", 2): each case's output and the
+    gradients of (output · a seeded cotangent) with respect to x and to
+    this rank's slices of the weights, computed on the slices under a
+    TPContext."""
+    from repro_torch.models import actsharding
+    line = mesh.line("model")
+    out = {}
+    for case, (_, wspecs) in TP_OPS.items():
+        x, ws, g = tp_op_inputs(case)
+        local = []
+        for w, (_, d) in zip(ws, wspecs):
+            n = w.shape[d] // line.size
+            local.append(w.narrow(d, line.index * n, n).clone()
+                         .requires_grad_(True))
+        xg = x if case == "embed" else x.clone().requires_grad_(True)
+        actsharding.set_tp(actsharding.TPContext(
+            mesh, line, 12, {id(w): d for w, (_, d) in zip(local, wspecs)},
+            local))
+        try:
+            y = tp_op(case, xg, local)
+            dy = torch.randn(y.shape, generator=g, dtype=torch.float64)
+            wrt = local if case == "embed" else [xg] + local
+            grads = torch.autograd.grad((y * dy).sum(), wrt)
+        finally:
+            actsharding.set_tp(None)
+        out[case] = (y.detach(), [t.detach() for t in grads])
+    return out

@@ -260,13 +260,18 @@ def _fake_mesh(axes):
 
 
 def test_model_axis_above_one_raises_item_8f():
+    """A "model" axis above 1 trains over a process mesh since item 8f.1
+    (`test_torch_dist_tp.py`); what still raises is the local mesh's
+    (axis, size) pairs under a "model" axis: the auto engine's ranks are
+    processes, and a local mesh holds them as rows of one device's
+    tensors."""
     api = W.auto_api("stablelm-12b", {})
-    with pytest.raises(NotImplementedError, match="item 8f"):
-        train.make_train_step(api, _fake_mesh((("data", 2), ("model", 2))))
+    local = (("data", 2), ("model", 2))
+    with pytest.raises(ValueError, match="local mesh"):
+        train.make_train_step(api, local)
     tc = train.TrainConfig(steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8f"):
-        train.run_training(tc, mesh=_fake_mesh((("data", 2), ("model", 2))),
-                           on_log=lambda *_: None)
+    with pytest.raises(ValueError, match="local mesh"):
+        train.run_training(tc, mesh=local, on_log=lambda *_: None)
 
 
 def test_ep_dispatch_under_the_auto_context_raises_item_8f():

@@ -266,17 +266,19 @@ def test_out_of_scope_on_a_process_mesh_raises(field, value, tmp_path):
     brought checkpoints and fault plans into scope there
     (tests/test_torch_dist_ft.py runs them over processes), item 8d the
     auto engine (tests/test_torch_dist_auto.py trains it over
-    processes), whose scope check passes there and refuses a "model"
-    axis above 1 (item 8f)."""
+    processes), whose scope check passes there, on a "model" axis above
+    1 too since item 8f.1 (tests/test_torch_dist_tp.py); a local mesh
+    under the auto engine raises ValueError."""
     import dataclasses
     tc = dataclasses.replace(train.TrainConfig(
         steps=1, engine="manual", sync="plan", device="cpu"),
         **{field: str(tmp_path / value) if field == "ckpt_dir" else value})
     assert train._check_train_scope(tc, _fake_mesh()) is None
     if field == "engine":
-        with pytest.raises(NotImplementedError, match="item 8f"):
-            train._check_train_scope(tc, _fake_mesh((("data", 2),
-                                                     ("model", 2))))
+        assert train._check_train_scope(tc, _fake_mesh(
+            (("data", 2), ("model", 2)))) is None
+        with pytest.raises(ValueError, match="local mesh"):
+            train._check_train_scope(tc, (("data", 2), ("model", 2)))
 
 
 def test_nccl_with_two_ranks_on_one_device_raises():
